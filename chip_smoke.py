@@ -7,21 +7,40 @@ Phases, each printed on its own lines; any failure exits non-zero:
 
 1. toolchain: the card's name and power limit (nvidia-smi), torch, CUDA
    and nvcc versions; fails without a CUDA device;
-2. builds the geometry kernel (ops/csrc/geometry.cu) from the checkout;
-3. holds the kernel against its plain PyTorch version (geometry_reference)
-   on the global_illumination scene, on rays of the radiance pass (no
-   reflection) and of the 800x800 screen pass (reflection folded in);
+2. builds the kernels (ops/csrc/geometry.cu and march.cu, one nvcc each,
+   started together) from the checkout and prints ptxas's register and
+   spill lines for the geometry kernel;
+3. holds the geometry kernel against its plain PyTorch version
+   (geometry_reference) on the global_illumination scene, on rays of the
+   radiance pass (no reflection) and of the 800x800 screen pass
+   (reflection folded in);
 4. renders global_illumination at 128x128 over 4 frames through
    Renderer(device="cuda") and holds it to the JAX golden
    (tests/goldens/images.npz) under the golden gates;
 5. renders global_illumination at 800x800, checks the image, checks that
    the geometry kernel ran twice per frame, and reports ms/frame (CUDA
    events) and rays/s;
-6. times the kernel against the plain version at both passes' full
-   shapes (36,864 and 640,000 rays) and holds the two outputs against each
-   other there too.
+6. times the geometry kernel against the plain version at both passes'
+   full shapes (36,864 and 640,000 rays) and holds the two outputs
+   against each other there too;
+7. prints ptxas's register and spill lines for the raycast and
+   visibility kernels (march.cu);
+8. holds the raycast kernel against raycast_reference on the 62,500 rays
+   of light_shafts' 800x800 scattering pass, and the visibility kernel
+   against visibility_reference on its 1,000,000 froxel-to-light rays;
+9. renders light_shafts at 128x128 over 2 frames through
+   Renderer(device="cuda") and holds it to the JAX golden;
+10. renders light_shafts at 800x800 (5 timed frames after a warm-up),
+   checks the image and that per frame the geometry kernel ran twice, the
+   raycast kernel once and the visibility kernel once per live light
+   slot, and reports ms/frame, rays/s and the per-pass split;
+11. times the raycast and visibility kernels against their plain
+   versions at those shapes.
 
-It prints a kernels JSON line, then the last line
+Each kernel's bound is the larger of its bytes over 3.35 TB/s and the
+float operations of its scene evaluations (counted on the plain version
+over the same rays) over 67 TFLOP/s, the H100 SXM's published fp32 peak.
+It prints a kernels JSON line, the card line, then the last line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 import json
@@ -29,15 +48,21 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # Kernel vs plain version: discrete outputs (hit, indices, material ids,
-# the best-probe pick) may flip only at near-ties, on at most this share of
-# rays; continuous outputs agree to this absolute error on the other rays.
+# the best-probe pick, visibility) may flip only at near-ties, on at most
+# this share of rays; continuous outputs agree to this absolute error on
+# the other rays.
 DISCRETE_MAX_FRAC = 1e-3
 CONT_ATOL = 1e-4
 CHECK_RAYS = 16384
 SEED = 0
+# H100 SXM published peaks: HBM bandwidth and fp32 outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
 
 
 def fail(msg):
@@ -45,36 +70,69 @@ def fail(msg):
     sys.exit(1)
 
 
-def toolchain(torch):
+def port_modules():
+    """The port's modules this script drives, imported together (a test
+    imports them with JAX blocked)."""
+    from madarch_tpu_torch.core.config import PROBE_SHADE_CONFIG
+    from madarch_tpu_torch.examples import scenes
+    from madarch_tpu_torch.ops import build
+    from madarch_tpu_torch.ops import march
+    from madarch_tpu_torch.render import pipeline
+    from madarch_tpu_torch.render import probes
+    from madarch_tpu_torch.render import volumetrics
+    from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
+    from madarch_tpu_torch.render.context import SceneCtx
+    from madarch_tpu_torch.render.raymarch import SURFACE_OFFSET
+    from madarch_tpu_torch.utils.golden import image_stats
+    from madarch_tpu_torch.utils.profiling import FrameTimer, rays_per_frame
+    return SimpleNamespace(
+        PROBE_SHADE_CONFIG=PROBE_SHADE_CONFIG, S=scenes, build=build,
+        M=march, pipeline=pipeline, probes=probes, vol=volumetrics,
+        camera_rays=camera_rays, pixel_grid=pixel_grid, SceneCtx=SceneCtx,
+        SURFACE_OFFSET=SURFACE_OFFSET, image_stats=image_stats,
+        FrameTimer=FrameTimer, rays_per_frame=rays_per_frame)
+
+
+def toolchain(torch, m):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    from madarch_tpu_torch.ops import build
-    nvcc = subprocess.run([build.nvcc_path(), "--version"],
+    nvcc = subprocess.run([m.build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True)
     print(f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
     return card
 
 
-def gi_rays(torch, r, dev):
-    """(radiance-pass rays, screen-pass rays) of the GI renderer, each a
-    seeded subset of CHECK_RAYS rays."""
-    from madarch_tpu_torch.render import probes as probes_mod
-    from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
-    from madarch_tpu_torch.render.pipeline import _to_blocks
+def build_all(m, names):
+    """Builds every kernel source at once (one nvcc each, in parallel)."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(m.build.load, names))
+    print(f"build: {', '.join(n + '.cu' for n in names)} in "
+          f"{time.perf_counter() - t0:.2f} s")
 
+
+def ptxas_lines(m, name):
+    for line in m.build.build_log(name).splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"ptxas {name}: {line.strip()}")
+
+
+def gi_rays(torch, m, r, dev):
+    """(radiance-pass rays, screen-pass rays) of the GI renderer, each a
+    seeded subset of CHECK_RAYS rays, then both passes' full ray sets."""
     rr = r.probes.radiance_resolution
-    o_rad = probes_mod.probe_world_positions(r.probes, dev).repeat(rr * rr, 1)
-    d_rad = probes_mod.texel_directions(rr, dev).repeat_interleave(
+    o_rad = m.probes.probe_world_positions(r.probes, dev).repeat(rr * rr, 1)
+    d_rad = m.probes.texel_directions(rr, dev).repeat_interleave(
         r.probes.num_probes, dim=0)
     cam = r.camera
-    o_scr, d_scr = camera_rays(pixel_grid(r.width, r.height, dev),
-                               cam.position, cam.orientation)
-    o_scr = _to_blocks(o_scr.reshape(-1, 3), r.height, r.width)
-    d_scr = _to_blocks(d_scr.reshape(-1, 3), r.height, r.width)
+    o_scr, d_scr = m.camera_rays(m.pixel_grid(r.width, r.height, dev),
+                                 cam.position, cam.orientation)
+    o_scr = m.pipeline._to_blocks(o_scr.reshape(-1, 3), r.height, r.width)
+    d_scr = m.pipeline._to_blocks(d_scr.reshape(-1, 3), r.height, r.width)
     g = torch.Generator().manual_seed(SEED)
 
     def subset(o, d):
@@ -124,21 +182,26 @@ def compare(torch, k, ref):
     return shares, errs
 
 
-def check(torch, label, n_rays, k, ref):
+def check(label, n_rays, n_hits, shares, errs):
     """Print the kernel-vs-plain agreement and fail beyond the limits;
     returns the largest continuous difference."""
-    shares, errs = compare(torch, k, ref)
-    print(f"check {label}: {n_rays} rays, {int(ref['hit'].sum())} hits; "
+    print(f"check {label}: {n_rays} rays, {n_hits} hits; "
           f"discrete mismatch {json.dumps(shares)}; "
           f"max abs err {json.dumps(errs)}")
     worst = max(shares.values())
     if worst > DISCRETE_MAX_FRAC:
         fail(f"{label}: discrete outputs differ on {worst:.2e} of rays "
              f"(limit {DISCRETE_MAX_FRAC})")
-    if max(errs.values()) > CONT_ATOL:
-        fail(f"{label}: continuous outputs differ by "
-             f"{max(errs.values()):.2e} (limit {CONT_ATOL})")
-    return max(errs.values())
+    largest = max(errs.values(), default=0.0)
+    if largest > CONT_ATOL:
+        fail(f"{label}: continuous outputs differ by {largest:.2e} "
+             f"(limit {CONT_ATOL})")
+    return largest
+
+
+def check_geometry(torch, label, n_rays, k, ref):
+    shares, errs = compare(torch, k, ref)
+    return check(label, n_rays, int(ref["hit"].sum()), shares, errs)
 
 
 def cuda_ms(torch, fn, iters):
@@ -156,6 +219,111 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def counted(torch, m, fn):
+    """(fn(), float operations of its scene evaluations): fn runs a plain
+    version, whose evaluations ops/march.py counts."""
+    for code in m.M.scene_evals:
+        m.M.scene_evals[code] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, m.M.scene_eval_flops()
+
+
+def bound(flops, n_bytes):
+    """(ms, what bounds it): the least time the card could take."""
+    t_ops = flops / PEAK_FP32_PER_S
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_pair(torch, kernel, plain, iters=10):
+    """Kernel and plain version timed in turns (plain, kernel, kernel,
+    plain): ((kernel ms, kernel ms), (plain ms, plain ms))."""
+    plain1 = cuda_ms(torch, plain, 1)
+    kern1 = cuda_ms(torch, kernel, iters)
+    kern2 = cuda_ms(torch, kernel, iters)
+    plain2 = cuda_ms(torch, plain, 1)
+    return (kern1, kern2), (plain1, plain2)
+
+
+def reset_launches(m):
+    for fn in (m.M.geometry, m.M.raycast, m.M.visibility):
+        fn.launches = 0
+
+
+def ls_rays(torch, m, r):
+    """light_shafts' scattering rays (o, d) and the froxel-to-light rays
+    (pts, ldir, ldist) of its one light, built as the passes build them."""
+    vol = r.volumetrics
+    cam = r.camera
+    dev = r.device
+    sx, sy = vol.scattering_resolution
+    o, d = m.camera_rays(m.pixel_grid(sx, sy, dev), cam.position,
+                         cam.orientation)
+    vx, vy, vz = vol.visibility_resolution
+    fo, fd = m.camera_rays(m.pixel_grid(vx, vy, dev), cam.position,
+                           cam.orientation)
+    depths = torch.arange(vz, dtype=torch.float32, device=dev) \
+        * vol.visibility_step_size
+    pts = (fo[None] + fd[None] * depths[:, None, None, None]).reshape(-1, 3)
+    (ltype, _, n, _), = r.spec.light_bounds()
+    if n != 1:
+        fail(f"light_shafts has {n} live lights, expected 1")
+    params = {k: v[0] for k, v in r.scene_data.lights[ltype.name].items()}
+    _, ldir, ldist = ltype.sample(params, pts, torch.zeros_like(pts))
+    return ((o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()),
+            (pts.contiguous(), ldir.contiguous(), ldist.contiguous()))
+
+
+def pass_split(torch, m, r, frames):
+    """ms per pass of light_shafts' frame (CUDA events), mean over frames:
+    the passes of pipeline.render_frame called one by one, and the
+    composite alone on a frame's scattering map."""
+    P = m.pipeline
+    spec, data, cam, vol, cfg = (r.spec, r.scene_data, r.camera,
+                                 r.volumetrics, r.screen_cfg)
+    state = r.state
+    names = ["radiance", "irradiance", "visibility", "scattering", "screen"]
+    sums = dict.fromkeys(names, 0.0)
+    for _ in range(frames):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        rad = P.radiance_pass(spec, data, r.probes, r.probe_cfg,
+                              state.irradiance, state.radiance)
+        ev[1].record()
+        irr = m.probes.integrate_irradiance(r.probes, rad)
+        ev[2].record()
+        ctx = m.SceneCtx(spec, data)
+        vis = m.vol.visibility_pass(spec, data, vol, ctx, cam.position,
+                                    cam.orientation,
+                                    max_steps=cfg.max_march_steps)
+        ev[3].record()
+        scat = m.vol.scattering_pass(spec, data, vol, ctx, vis,
+                                     cam.position, cam.orientation,
+                                     max_steps=cfg.max_march_steps)
+        ev[4].record()
+        P.screen_pass(spec, data, r.probes, vol, cfg, r.width, r.height,
+                      cam, irr, rad, scat)
+        ev[5].record()
+        ev[5].synchronize()
+        for i, name in enumerate(names):
+            sums[name] += ev[i].elapsed_time(ev[i + 1])
+        state = P.FrameState(radiance=rad, irradiance=irr, scattering=scat)
+    split = {k: v / frames for k, v in sums.items()}
+    # the composite alone, on the last scattering map with seeded colors
+    # and ray lengths (screen above includes it)
+    n = r.width * r.height
+    g = torch.Generator(device=r.device).manual_seed(SEED)
+    color = torch.rand((n, 3), generator=g, device=r.device)
+    ray_len = torch.rand(n, generator=g, device=r.device) * vol.max_depth
+    split["composite"] = cuda_ms(
+        torch, lambda: m.vol.composite(vol, state.scattering, color,
+                                       ray_len, r.width, r.height,
+                                       spec.max_dist), frames)
+    return split
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "madarch_tpu_torch")):
         fail("madarch_tpu_torch/ is not beside this script")
@@ -167,38 +335,27 @@ def main():
         fail("no CUDA device")
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
+    m = port_modules()
+    M, S = m.M, m.S
 
     # ---- 1. toolchain
-    card = toolchain(torch)
+    card = toolchain(torch, m)
 
-    # ---- 2. build
-    from madarch_tpu_torch.ops import build
-    from madarch_tpu_torch.ops import march as M
-    t0 = time.perf_counter()
-    build.load("geometry")
-    print(f"build: geometry.cu in {time.perf_counter() - t0:.2f} s")
-    for line in build.build_log("geometry").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}")
+    # ---- 2. build (both sources at once)
+    build_all(m, ["geometry", "march"])
+    ptxas_lines(m, "geometry")
 
-    # ---- 3. kernel vs plain version on the GI scene
-    from madarch_tpu.core.config import PROBE_SHADE_CONFIG
-    from madarch_tpu_torch.examples import scenes as S
-    from madarch_tpu_torch.render.context import SceneCtx
-    from madarch_tpu_torch.render.raymarch import SURFACE_OFFSET
-    from madarch_tpu_torch.utils.golden import image_stats
-    from madarch_tpu_torch.utils.profiling import FrameTimer, rays_per_frame
-
+    # ---- 3. geometry kernel vs plain version on the GI scene
     r = S.global_illumination(width=800, height=800, device=dev)
-    ctx = SceneCtx(r.spec, r.scene_data)
-    rad_check, scr_check, rad_full, scr_full = gi_rays(torch, r, dev)
-    passes = {"radiance": (PROBE_SHADE_CONFIG, False),
+    ctx = m.SceneCtx(r.spec, r.scene_data)
+    rad_check, scr_check, rad_full, scr_full = gi_rays(torch, m, r, dev)
+    passes = {"radiance": (m.PROBE_SHADE_CONFIG, False),
               "screen": (r.screen_cfg, True)}
 
     def geom_kwargs(cfg, refl):
         return dict(probe_spacing=r.probes.grid_spacing,
                     probe_dims=r.probes.grid_dimensions,
-                    surface_offset=SURFACE_OFFSET,
+                    surface_offset=m.SURFACE_OFFSET,
                     ao_steps=cfg.ambient_occlusion_steps,
                     max_steps=cfg.max_march_steps,
                     mat_rough_vec=ctx.rough_vec if refl else None,
@@ -215,73 +372,194 @@ def main():
         torch.cuda.synchronize()
         ref = run(M.geometry_reference, rays, name)
         torch.cuda.synchronize()
-        max_err = max(max_err, check(torch, name, rays[0].shape[0], k, ref))
+        max_err = max(max_err, check_geometry(torch, name, rays[0].shape[0],
+                                              k, ref))
 
     # ---- 4. GI 128x128, 4 frames, against the JAX golden
-    golden = np.load(os.path.join(REPO, "tests", "goldens",
-                                  "images.npz"))["global_illumination"]
+    goldens = np.load(os.path.join(REPO, "tests", "goldens", "images.npz"))
     small = S.global_illumination(width=128, height=128, device=dev)
     img = small.converge(frames=4).cpu().numpy()
-    stats = image_stats(img, golden)
+    stats = m.image_stats(img, goldens["global_illumination"])
     print(f"golden global_illumination 128x128: {json.dumps(stats)}")
     if stats["breached"]:
         fail(f"golden gates breached: {stats['breached']}")
 
-    # ---- 5. GI 800x800: the main path, counted and timed
+    # ---- 5. GI 800x800: counted and timed
     frames = 5
     r.render()  # warm-up frame
-    timer = FrameTimer(dev)
-    M.geometry.launches = 0
+    timer = m.FrameTimer(dev)
+    reset_launches(m)
     for _ in range(frames):
         with timer.frame():
             img = r.render()
-    launches = M.geometry.launches
+    gi_launches = (M.geometry.launches, M.raycast.launches,
+                   M.visibility.launches)
     img = img.cpu()
-    if launches != 2 * frames:
-        fail(f"geometry kernel launched {launches} times in {frames} "
-             f"frames, expected {2 * frames}")
+    if gi_launches != (2 * frames, 0, 0):
+        fail(f"GI: (geometry, raycast, visibility) launched {gi_launches} "
+             f"times in {frames} frames, expected ({2 * frames}, 0, 0)")
     if not bool(torch.isfinite(img).all()) or float(img.var()) <= 0.0:
-        fail("800x800 image is not finite with nonzero variance")
-    ms = timer.mean * 1e3
-    n_rays = rays_per_frame(r.width, r.height, r.probes,
-                            ctx.n_light_slots, r.screen_cfg, r.volumetrics)
-    print(f"GI 800x800: {frames} frames, {ms:.3f} ms/frame, "
+        fail("GI 800x800 image is not finite with nonzero variance")
+    n_rays = m.rays_per_frame(r.width, r.height, r.probes, ctx.n_light_slots,
+                              r.screen_cfg, r.volumetrics)
+    print(f"GI 800x800: {frames} frames, {timer.mean * 1e3:.3f} ms/frame, "
           f"{n_rays / timer.mean / 1e6:.1f} M rays/s ({n_rays} rays/frame); "
           f"image mean {float(img.mean()):.5f} var {float(img.var()):.6f}; "
           f"[{card}]")
 
-    # ---- 6. kernel vs plain version at the passes' full shapes: timed,
-    # and the last outputs of each held against each other
-    times = {}
+    # ---- 6. geometry kernel vs plain version at the passes' full shapes:
+    # held against each other, then timed
+    geo = {}
     for name, rays in (("radiance", rad_full), ("screen", scr_full)):
-        last = {}
+        n = rays[0].shape[0]
+        ref, flops = counted(torch, m,
+                             lambda: run(M.geometry_reference, rays, name))
+        k = run(M.geometry, rays, name)
+        torch.cuda.synchronize()
+        max_err = max(max_err, check_geometry(torch, f"{name} full", n, k,
+                                              ref))
+        del k, ref
+        (k1, k2), (p1, p2) = time_pair(
+            torch, lambda: run(M.geometry, rays, name),
+            lambda: run(M.geometry_reference, rays, name))
+        refl = passes[name][1]
+        n_l = ctx.n_light_slots
+        # per ray in: o, d; out: t, hit, idx, mid, normal, ao, shadows,
+        # vis8, and with the reflection its t, hit, mid, normal, shadows,
+        # vis8, best_pid, best_dir; the scene, lights, roughness once
+        per_ray = 24 + 4 * (10 + n_l + 8) + (4 * (14 + n_l + 8) if refl
+                                             else 0)
+        n_bytes = n * per_ray + 4 * (ctx.packed.slots.numel()
+                                     + ctx.lpos_vec.numel()
+                                     + ctx.rough_vec.numel())
+        b_ms, b_by = bound(flops, n_bytes)
+        geo[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                         bound_ms=b_ms, bound_by=b_by)
+        print(f"time geometry {name} ({n} rays): kernel {k1:.3f}/{k2:.3f} "
+              f"ms, plain {p1:.1f}/{p2:.1f} ms; bound {b_ms:.5f} ms "
+              f"({b_by}: {flops:.4e} flops, {n_bytes} bytes); [{card}]")
 
-        def kernel():
-            last["kernel"] = run(M.geometry, rays, name)
+    # ---- 7. the raycast and visibility kernels' ptxas report
+    ptxas_lines(m, "march")
 
-        def plain():
-            last["plain"] = run(M.geometry_reference, rays, name)
+    # ---- 8. raycast and visibility vs plain versions at light_shafts'
+    # full shapes
+    ls = S.light_shafts(width=800, height=800, device=dev)
+    lctx = m.SceneCtx(ls.spec, ls.scene_data)
+    vol = ls.volumetrics
+    max_steps = ls.screen_cfg.max_march_steps
+    (so, sd), (fp, fdir, fdist) = ls_rays(torch, m, ls)
+    n_scat, n_frox = so.shape[0], fp.shape[0]
+    if (n_scat, n_frox) != (62_500, 1_000_000):
+        fail(f"light_shafts rays: {n_scat} scattering, {n_frox} froxel")
+    froxel_en = torch.ones(n_frox, dtype=torch.bool, device=dev)
 
-        plain1 = cuda_ms(torch, plain, 1)
-        kern1 = cuda_ms(torch, kernel, 10)
-        kern2 = cuda_ms(torch, kernel, 10)
-        plain2 = cuda_ms(torch, plain, 1)
-        times[name] = (min(kern1, kern2), min(plain1, plain2))
-        print(f"time {name} ({rays[0].shape[0]} rays): kernel "
-              f"{kern1:.3f}/{kern2:.3f} ms, plain {plain1:.1f}/{plain2:.1f} "
-              f"ms; [{card}]")
-        max_err = max(max_err, check(torch, f"{name} full",
-                                     rays[0].shape[0], last["kernel"],
-                                     last["plain"]))
+    def raycast(fn):
+        return fn(lctx.packed, so, sd, vol.max_depth, max_steps=max_steps)
 
-    print(json.dumps({"kernels": [{
-        "name": "geometry", "route": "cuda",
-        "source": "madarch_tpu_torch/ops/csrc/geometry.cu",
-        "replaces": "madarch_tpu/ops/march.py:1163",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": times["screen"][0], "plain_ms": times["screen"][1],
-        "ms_radiance": times["radiance"][0],
-        "plain_ms_radiance": times["radiance"][1]}]}))
+    def visibility(fn):
+        return fn(lctx.packed, fp, fdir, fdist, max_steps=max_steps,
+                  enabled=froxel_en)
+
+    (rt, rhit, _), rc_flops = counted(torch, m,
+                                      lambda: raycast(M.raycast_reference))
+    kt, khit, _ = raycast(M.raycast)
+    torch.cuda.synchronize()
+    agree = khit == rhit
+    rc_err = float(torch.where(agree, (kt - rt).abs(), 0.0).max())
+    check("raycast full", n_scat, int(rhit.sum()),
+          {"hit": 1.0 - agree.float().mean().item()}, {"t": rc_err})
+    rvis, vis_flops = counted(torch, m,
+                              lambda: visibility(M.visibility_reference))
+    kvis = visibility(M.visibility)
+    torch.cuda.synchronize()
+    vis_err = float((kvis - rvis).abs().max())
+    check("visibility full", n_frox, int((rvis == 0).sum()),
+          {"vis": 1.0 - (kvis == rvis).float().mean().item()}, {})
+
+    # ---- 9. light_shafts 128x128, 2 frames, against the JAX golden
+    small = S.light_shafts(width=128, height=128, device=dev)
+    img = small.converge(frames=2).cpu().numpy()
+    stats = m.image_stats(img, goldens["light_shafts"])
+    print(f"golden light_shafts 128x128: {json.dumps(stats)}")
+    if stats["breached"]:
+        fail(f"light_shafts golden gates breached: {stats['breached']}")
+
+    # ---- 10. light_shafts 800x800: the main path, counted and timed
+    ls.render()  # warm-up frame
+    timer = m.FrameTimer(dev)
+    reset_launches(m)
+    for _ in range(frames):
+        with timer.frame():
+            img = ls.render()
+    launches = {"geometry": M.geometry.launches,
+                "raycast": M.raycast.launches,
+                "visibility": M.visibility.launches}
+    img = img.cpu()
+    want = {"geometry": 2 * frames, "raycast": frames,
+            "visibility": lctx.n_light_slots * frames}
+    if launches != want:
+        fail(f"light_shafts launches {launches} in {frames} frames, "
+             f"expected {want}")
+    if not bool(torch.isfinite(img).all()) or float(img.var()) <= 0.0:
+        fail("light_shafts 800x800 image is not finite with nonzero "
+             "variance")
+    n_rays = m.rays_per_frame(ls.width, ls.height, ls.probes,
+                              lctx.n_light_slots, ls.screen_cfg, vol)
+    print(f"light_shafts 800x800: {frames} frames, "
+          f"{timer.mean * 1e3:.3f} ms/frame, "
+          f"{n_rays / timer.mean / 1e6:.1f} M rays/s ({n_rays} rays/frame); "
+          f"launches {json.dumps(launches)}; "
+          f"image mean {float(img.mean()):.5f} var {float(img.var()):.6f}; "
+          f"[{card}]")
+    split = pass_split(torch, m, ls, 3)
+    print(f"light_shafts 800x800 per pass (ms, CUDA events, mean of 3; "
+          f"screen includes the composite): "
+          f"{json.dumps({k: round(v, 3) for k, v in split.items()})}; "
+          f"[{card}]")
+
+    # ---- 11. raycast and visibility kernels vs plain versions, timed
+    rc_t = time_pair(torch, lambda: raycast(M.raycast),
+                     lambda: raycast(M.raycast_reference))
+    vis_t = time_pair(torch, lambda: visibility(M.visibility),
+                      lambda: visibility(M.visibility_reference))
+    slot_bytes = 4 * lctx.packed.slots.numel()
+    # per ray in: o, d, enabled (visibility: + max_dist); out: t, hit
+    # (visibility: vis)
+    rc_bound = bound(rc_flops, n_scat * (24 + 1 + 4 + 1) + slot_bytes)
+    vis_bound = bound(vis_flops, n_frox * (24 + 4 + 1 + 4) + slot_bytes)
+    for name, n, (ks, ps), (b_ms, b_by), flops in (
+            ("raycast", n_scat, rc_t, rc_bound, rc_flops),
+            ("visibility", n_frox, vis_t, vis_bound, vis_flops)):
+        print(f"time {name} ({n} rays): kernel {ks[0]:.4f}/{ks[1]:.4f} ms, "
+              f"plain {ps[0]:.1f}/{ps[1]:.1f} ms; bound {b_ms:.5f} ms "
+              f"({b_by}: {flops:.4e} flops); [{card}]")
+
+    src = "madarch_tpu_torch/ops/csrc/"
+    print(json.dumps({"kernels": [
+        {"name": "geometry", "route": "cuda", "source": src + "geometry.cu",
+         "replaces": "madarch_tpu/ops/march.py:1163",
+         "launches": launches["geometry"], "max_abs_err": max_err,
+         "ms": geo["screen"]["ms"], "plain_ms": geo["screen"]["plain_ms"],
+         "bound_ms": geo["screen"]["bound_ms"],
+         "bound_by": geo["screen"]["bound_by"], "library_ms": None,
+         "ms_radiance": geo["radiance"]["ms"],
+         "plain_ms_radiance": geo["radiance"]["plain_ms"],
+         "bound_ms_radiance": geo["radiance"]["bound_ms"],
+         "launches_gi": gi_launches[0]},
+        {"name": "raycast", "route": "cuda", "source": src + "march.cu",
+         "replaces": "madarch_tpu/ops/march.py:1089",
+         "launches": launches["raycast"], "max_abs_err": rc_err,
+         "ms": min(rc_t[0]), "plain_ms": min(rc_t[1]),
+         "bound_ms": rc_bound[0], "bound_by": rc_bound[1],
+         "library_ms": None},
+        {"name": "visibility", "route": "cuda", "source": src + "march.cu",
+         "replaces": "madarch_tpu/ops/march.py:1127",
+         "launches": launches["visibility"], "max_abs_err": vis_err,
+         "ms": min(vis_t[0]), "plain_ms": min(vis_t[1]),
+         "bound_ms": vis_bound[0], "bound_by": vis_bound[1],
+         "library_ms": None},
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

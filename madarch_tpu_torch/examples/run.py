@@ -3,8 +3,12 @@ frames of an example scene, prints each frame's time and writes the last
 frame as a PNG.
 
 Usage:
-    python -m madarch_tpu_torch.examples.run global_illumination \\
-        --device cuda [--frames N] [--size WxH] [--out out.png] [--fast]
+    python -m madarch_tpu_torch.examples.run SCENE [--device cuda] \\
+        [--frames N] [--size WxH] [--out out.png] [--fast]
+
+SCENE: global_illumination | light_shafts.  The device defaults to the
+CUDA card; ``--device cpu`` renders on the CPU (the plain versions of the
+kernels).
 
 On a GPU the frame times come from CUDA events; on the CPU from the host
 clock.
@@ -14,23 +18,31 @@ from __future__ import annotations
 import argparse
 import time
 
-from madarch_tpu.core.config import ProbeSettings, screen_shade_config
-from madarch_tpu.io.image import write_png
+from madarch_tpu_torch.core.config import ProbeSettings, screen_shade_config
 from madarch_tpu_torch.examples import scenes as S
-from madarch_tpu_torch.utils.profiling import FrameTimer, sync
+from madarch_tpu_torch.io.image import write_png
+from madarch_tpu_torch.utils.profiling import FrameTimer, device_busy, sync
 
 
-def main(argv=None):
+def parser():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("scene", choices=["global_illumination"])
-    ap.add_argument("--device", required=True,
-                    help="torch device, e.g. cuda, cuda:0 or cpu")
+    ap.add_argument("scene", choices=["global_illumination", "light_shafts"])
+    ap.add_argument("--device", default="cuda",
+                    help="torch device, e.g. cuda (the default), cuda:0 or "
+                         "cpu")
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--size", default="800x800")
     ap.add_argument("--out", default=None)
     ap.add_argument("--fast", action="store_true",
                     help="small probes + capped march steps")
-    args = ap.parse_args(argv)
+    ap.add_argument("--profile", type=int, default=0, metavar="N",
+                    help="then trace N more frames with torch.profiler and "
+                         "print the device's busy time (CUDA only)")
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
 
     w, h = (int(x) for x in args.size.split("x"))
     kwargs = {"width": w, "height": h, "device": args.device}
@@ -40,6 +52,9 @@ def main(argv=None):
             probe_count=(4, 2), grid_dimensions=(2, 2, 2),
             grid_spacing=(4.0, 4.0, 4.0))
     r = getattr(S, args.scene)(**kwargs)
+    if args.profile and r.device.type != "cuda":
+        raise SystemExit("--profile traces the CUDA card; the renderer is "
+                         f"on {r.device}")
     if args.fast:
         r.screen_cfg = screen_shade_config(
             r.volumetrics.enabled, max_march_steps=128)
@@ -56,6 +71,14 @@ def main(argv=None):
             img = r.render()
             sync(img)
             print(f"frame {i}: {time.perf_counter() - t0:.3f}s (host clock)")
+
+    if args.profile:
+        busy, wall, top = device_busy(r.render, args.profile)
+        print(f"profile: {args.profile} frames, device busy {busy:.3f} "
+              f"ms/frame of {wall:.3f} ms/frame under the profiler "
+              f"(idle share {1.0 - busy / wall:.3f})")
+        for name, ms in top:
+            print(f"  {ms:8.3f} ms/frame  {name[:100]}")
 
     if args.out:
         write_png(args.out, img.cpu().numpy())

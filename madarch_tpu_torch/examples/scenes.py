@@ -1,10 +1,12 @@
 """The reference example scenes as Renderer builders (port of
-madarch_tpu/examples/scenes.py: global_illumination)."""
+madarch_tpu/examples/scenes.py: global_illumination, light_shafts).  Each
+runs on the CUDA card unless a ``device`` keyword says otherwise."""
 from __future__ import annotations
 
 import numpy as np
 
-from madarch_tpu.core.config import NO_VOLUMETRICS
+from madarch_tpu_torch.core.config import (NO_VOLUMETRICS,
+                                           VolumetricsSettings)
 from madarch_tpu_torch.render.renderer import Renderer
 from madarch_tpu_torch.scene import lights as L
 from madarch_tpu_torch.scene import primitives as P
@@ -23,14 +25,13 @@ def _room(r: Renderer, wall_mats):
         r.add_primitive(P.Plane, normal=nrm, offset=off, material_id=m)
 
 
-def global_illumination(width=1000, height=1000, time: float = 0.0, *,
-                        device, **kwargs) -> Renderer:
+def global_illumination(width=1000, height=1000, time: float = 0.0,
+                        **kwargs) -> Renderer:
     """The DDGI showcase: room with a mirror sphere, a metallic green box
     and a spot light."""
     spec = SceneSpec(prims=((P.Sphere, 20), (P.Plane, 10), (P.Box, 10)),
                      lights=((L.SpotLight, 4),))
-    r = Renderer(spec, width, height, volumetrics=NO_VOLUMETRICS,
-                 device=device, **kwargs)
+    r = Renderer(spec, width, height, volumetrics=NO_VOLUMETRICS, **kwargs)
     wall1 = r.add_material((0.0, 0.0, 0.0), 0.0, 0.6)
     wall2 = r.add_material((1.0, 0.0, 0.0), 0.0, 0.6)
     wall3 = r.add_material((0.0, 0.0, 1.0), 0.0, 0.6)
@@ -44,5 +45,29 @@ def global_illumination(width=1000, height=1000, time: float = 0.0, *,
     r.add_light(L.SpotLight, position=(3.5, 5.0, 2.0),
                 direction=(np.cos(time), np.sin(time), 0.0),
                 aperture=3.1415 / 4.0, color=(0.9, 0.9, 0.8))
+    r.set_camera_position((2.0, 2.0, 0.0))
+    return r
+
+
+def light_shafts(width=1000, height=1000, **kwargs) -> Renderer:
+    """The room with fully rough matte materials (black walls, red +x,
+    green -x), a blue sphere, a green box, a white point light at (5,3,6),
+    and volumetrics on (``volumetrics`` overrides the settings)."""
+    spec = SceneSpec(prims=((P.Sphere, 20), (P.Plane, 10), (P.Box, 10)),
+                     lights=((L.PointLight, 4),))
+    r = Renderer(spec, width, height,
+                 volumetrics=kwargs.pop("volumetrics",
+                                        VolumetricsSettings()), **kwargs)
+    r.set_material(0, (0.0, 0.0, 0.0), 0.0, 1.0)
+    r.set_material(1, (1.0, 0.0, 0.0), 0.0, 1.0)
+    r.set_material(2, (0.0, 1.0, 0.0), 0.0, 1.0)
+    r.set_material(3, (0.0, 0.0, 1.0), 0.0, 1.0)
+    _room(r, (0, 1, 2))
+    r.add_primitive(P.Sphere, center=(3.0, 4.0, 3.0), radius=1.0,
+                    material_id=3)
+    r.add_primitive(P.Box, center=(3.0, 0.0, 4.0), side=(1.5, 1.5, 1.5),
+                    material_id=2)
+    r.add_light(L.PointLight, position=(5.0, 3.0, 6.0),
+                color=(0.9, 0.9, 0.9))
     r.set_camera_position((2.0, 2.0, 0.0))
     return r

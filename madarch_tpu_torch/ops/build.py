@@ -2,8 +2,9 @@
 
 Each source file compiles on first use into a shared library with a plain C
 interface, under ``ops/_build/<name>-<hash>/``; the hash covers the
-source and the compiler flags, so an edited source rebuilds and an
-unchanged one loads the library already built.  The build log (with
+source, the shared headers (``csrc/*.cuh``) and the compiler flags, so an
+edited source rebuilds and an unchanged one loads the library already
+built.  The build log (with
 ``-Xptxas -v``'s register and spill report) is kept beside the library.
 """
 from __future__ import annotations
@@ -36,9 +37,13 @@ def nvcc_path():
 
 
 def _digest(src_path):
+    """Hash of the source, every header of csrc/ and the flags."""
+    headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                     if f.endswith(".cuh"))
     h = hashlib.sha256()
-    with open(src_path, "rb") as f:
-        h.update(f.read())
+    for path in [src_path, *headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

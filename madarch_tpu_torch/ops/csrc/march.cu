@@ -1,0 +1,115 @@
+// Raycast and visibility kernels for Hopper (sm_90a): one thread per ray.
+//
+// raycast_kernel replaces the Pallas TPU kernel
+// madarch_tpu/ops/march.py:_raycast_kernel (reached through
+// pallas_raycast): the over-relaxed primary march to max_dist, then
+// hit = d(o + t·d) < eps ∧ t < max_dist, both masked by `enabled`.  The
+// volumetric scattering pass casts one such ray per scattering texel.
+// visibility_kernel replaces _visibility_kernel (pallas_visibility):
+// 1 if the ray reaches its own max distance unblocked, else 0, with the
+// same march; the froxel visibility pass casts one per froxel and light.
+//
+// What bounds them: scene evaluations, not bytes.  A raycast ray reads 25
+// bytes and writes 5, a visibility ray reads 29 and writes 4, but each
+// runs up to max_steps march steps, every step a loop over all live
+// slots.  The TPU kernels marched (8,128) tiles until their slowest lane
+// finished; here each thread leaves its loop on its own (a warp still
+// waits for its slowest lane).  The packed scene sits in shared memory,
+// read by every thread at the same address (a broadcast).  Neither kernel
+// culls: on the TPU the box-exit cap exists only for all-bounded plans,
+// and a scene with a plane has none.
+//
+// Each launch passes its own scene-distance cap: raycast caps at its
+// max_dist, visibility at 1e4 (as pallas_visibility does); dead
+// dynamic-count slots read as that cap.
+#include <cuda_runtime.h>
+
+#include "scene.cuh"
+
+// Mirrored field for field by ops/march.py:_MarchArgs (ctypes).
+struct MarchArgs {
+  const float* slots;            // f32[n_slots, SLOT_WIDTH]
+  int n_slots;
+  const float* origins;          // f32[n, 3]
+  const float* dirs;             // f32[n, 3]
+  const float* max_dists;        // f32[n] (visibility only)
+  const unsigned char* enabled;  // bool[n]
+  int n;
+  float max_dist;                // raycast's march budget
+  float cap;                     // scene-distance cap
+  float eps;
+  int max_steps;
+  float omega;
+  float one_minus_omega;
+  float* t;                      // f32[n] (raycast)
+  unsigned char* hit;            // bool[n] (raycast)
+  float* vis;                    // f32[n] (visibility)
+};
+
+namespace {
+
+// Copies the packed scene into shared memory; returns the thread's ray
+// index.  Every thread of the block takes part before any returns.
+__device__ __forceinline__ int load_scene(const MarchArgs& a, float* s) {
+  for (int j = threadIdx.x; j < a.n_slots * SLOT_WIDTH; j += blockDim.x) {
+    s[j] = a.slots[j];
+  }
+  __syncthreads();
+  return blockIdx.x * blockDim.x + threadIdx.x;
+}
+
+__global__ void raycast_kernel(const MarchArgs a) {
+  extern __shared__ float s_slots[];
+  const int i = load_scene(a, s_slots);
+  if (i >= a.n) return;
+  const Scene sc{s_slots, a.n_slots, a.cap};
+  const March m{a.max_dist, a.eps, a.omega, a.one_minus_omega, 0.f,
+                a.max_steps};
+  const float ox = a.origins[3 * i + 0];
+  const float oy = a.origins[3 * i + 1];
+  const float oz = a.origins[3 * i + 2];
+  const float dx = a.dirs[3 * i + 0];
+  const float dy = a.dirs[3 * i + 1];
+  const float dz = a.dirs[3 * i + 2];
+  const bool en = a.enabled[i] != 0;
+  const float t = march_primary(sc, m, ox, oy, oz, dx, dy, dz, en);
+  bool hit = false;
+  if (en && t < a.max_dist) {
+    hit = scene_dist(sc, ox + t * dx, oy + t * dy, oz + t * dz) < a.eps;
+  }
+  a.t[i] = t;
+  a.hit[i] = hit ? 1 : 0;
+}
+
+__global__ void visibility_kernel(const MarchArgs a) {
+  extern __shared__ float s_slots[];
+  const int i = load_scene(a, s_slots);
+  if (i >= a.n) return;
+  const Scene sc{s_slots, a.n_slots, a.cap};
+  const March m{a.cap, a.eps, a.omega, a.one_minus_omega, 0.f, a.max_steps};
+  a.vis[i] = march_visibility(
+      sc, m, a.origins[3 * i + 0], a.origins[3 * i + 1],
+      a.origins[3 * i + 2], a.dirs[3 * i + 0], a.dirs[3 * i + 1],
+      a.dirs[3 * i + 2], a.max_dists[i], a.enabled[i] != 0);
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, const MarchArgs* a, void* stream) {
+  if (a->n == 0) return 0;
+  const int threads = 128;
+  const int blocks = (a->n + threads - 1) / threads;
+  const size_t smem = sizeof(float) * a->n_slots * SLOT_WIDTH;
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Each launches on `stream` and returns cudaGetLastError() (0 on success).
+extern "C" int madarch_raycast(const MarchArgs* a, void* stream) {
+  return launch(raycast_kernel, a, stream);
+}
+
+extern "C" int madarch_visibility(const MarchArgs* a, void* stream) {
+  return launch(visibility_kernel, a, stream);
+}

@@ -1,19 +1,24 @@
-"""The fused geometry pass: scene packing, the CUDA kernel's wrapper and
-its plain PyTorch version (port of madarch_tpu/ops/march.py's
-pallas_geometry path).
+"""The march kernels: scene packing, the CUDA kernels' wrappers and their
+plain PyTorch versions (port of madarch_tpu/ops/march.py's
+pallas_geometry, pallas_raycast and pallas_visibility).
 
 ``geometry`` returns what the JAX package's ``pallas_geometry`` returns: a
 dict with t, hit, idx, mid, normal, ao, shadows, vis8 and, when
 ``mat_rough_vec`` is given, "refl" (the folded specular mode-2 bounce).
-On a CUDA tensor it launches ``csrc/geometry.cu`` (which replaces the TPU
-kernel ``madarch_tpu/ops/march.py:_geometry_kernel``; the design note is in
-that file); on a CPU tensor it runs ``geometry_reference``, the same
-composition built from render/raymarch.py's marches.
+``raycast`` returns (t, hit, pos) and ``visibility`` 0/1 per ray, as
+``pallas_raycast`` and ``pallas_visibility`` do.  On a CUDA tensor each
+launches its kernel (``csrc/geometry.cu`` for the TPU kernel
+``_geometry_kernel``, ``csrc/march.cu`` for ``_raycast_kernel`` and
+``_visibility_kernel``; the design notes are in those files); on a CPU
+tensor it runs its plain version (``geometry_reference``,
+``raycast_reference``, ``visibility_reference``), the same marches from
+render/raymarch.py over ``scene_dist``.
 
 The scene packs into one small f32 table, one row per evaluated slot in
 spec order: (type code, global index, material id, live flag, 6 params).
 The global index is capacity based (the type's block offset + slot); the
-live flag is 0 on slots past a dynamic count, which then read as max_dist.
+live flag is 0 on slots past a dynamic count, which then read as the
+scene-distance cap.
 """
 from __future__ import annotations
 
@@ -43,6 +48,22 @@ KERNEL_TYPES = {
     P.Plane: (1, ("normal", "offset")),
     P.Box: (2, ("center", "side")),
 }
+# Float operations of one slot evaluation in csrc/scene.cuh:slot_dist,
+# plus the min that folds it into the scene distance, by type code:
+# sphere 3 sub, 3 mul, 2 add, sqrt, sub; plane 3 mul, 3 add; box 3 sub,
+# 3 abs, 3 sub, 3 max, 3 mul, 2 add, sqrt, 3 max/min, add.
+SLOT_FLOPS = {0: 11, 1: 7, 2: 23}
+# The visibility kernel's scene-distance cap (pallas_visibility's 1e4).
+VIS_CAP = 1e4
+# Slot evaluations of the plain versions by type code, summed over every
+# point they evaluate the scene at (march steps of the active lanes,
+# classification, normals, AO): the work the kernels do on the same rays.
+scene_evals = {code: 0 for code, _ in KERNEL_TYPES.values()}
+
+
+def scene_eval_flops():
+    """Float operations of the slot evaluations counted in scene_evals."""
+    return sum(SLOT_FLOPS[code] * n for code, n in scene_evals.items())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +159,7 @@ def _slot_dists(packed, p, max_dist):
         if not static:
             d = torch.where(rows[:, 3] > 0.5, d, max_dist)
         cols.append(d)
+        scene_evals[KERNEL_TYPES[ptype][0]] += p.shape[0] * n
     return torch.cat(cols, dim=1)
 
 
@@ -286,6 +308,25 @@ def geometry_reference(packed, lpos, n_lights, origins, dirs, max_dist, *,
                    "shadows": r_sh, "vis8": r_vis, "best_pid": best_pid,
                    "best_dir": best_dir}
     return out
+
+
+def raycast_reference(packed, origins, dirs, max_dist, *, eps=EPSILON,
+                      max_steps=300, enabled=None, omega=1.6):
+    """Plain PyTorch version of the raycast kernel: render/raymarch.py's
+    raycast over the packed scene, whose distances cap at max_dist."""
+    return rm.raycast(lambda p: scene_dist(packed, p, max_dist), origins,
+                      dirs, max_dist, eps=eps, max_steps=max_steps,
+                      enabled=enabled, omega=omega)
+
+
+def visibility_reference(packed, origins, dirs, max_dists, *, eps=EPSILON,
+                         max_steps=300, enabled=None, omega=1.6):
+    """Plain PyTorch version of the visibility kernel: render/raymarch.py's
+    raycast_visibility over the packed scene, whose distances cap at
+    VIS_CAP."""
+    return rm.raycast_visibility(
+        lambda p: scene_dist(packed, p, VIS_CAP), origins, dirs, max_dists,
+        eps=eps, max_steps=max_steps, enabled=enabled, omega=omega)
 
 
 # ---------------------------------------------------------------------------
@@ -459,6 +500,113 @@ def _launch(packed, lpos, n_lights, origins, dirs, max_dist, *,
     return out
 
 
+class _MarchArgs(ctypes.Structure):
+    """Field for field the MarchArgs struct of csrc/march.cu."""
+
+    _fields_ = [
+        ("slots", ctypes.c_void_p), ("n_slots", ctypes.c_int),
+        ("origins", ctypes.c_void_p), ("dirs", ctypes.c_void_p),
+        ("max_dists", ctypes.c_void_p), ("enabled", ctypes.c_void_p),
+        ("n", ctypes.c_int),
+        ("max_dist", ctypes.c_float), ("cap", ctypes.c_float),
+        ("eps", ctypes.c_float), ("max_steps", ctypes.c_int),
+        ("omega", ctypes.c_float), ("one_minus_omega", ctypes.c_float),
+        ("t", ctypes.c_void_p), ("hit", ctypes.c_void_p),
+        ("vis", ctypes.c_void_p),
+    ]
+
+
+def _march_library():
+    lib = build.load("march")
+    for fn in (lib.madarch_raycast, lib.madarch_visibility):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_rays(packed, origins, dirs, enabled):
+    """Checks the arguments the raycast and visibility wrappers share and
+    returns the enable mask as a bool[N] tensor."""
+    dev = origins.device
+    n = origins.shape[0]
+    _check("origins", origins, dev, torch.float32, (n, 3))
+    _check("dirs", dirs, dev, torch.float32, (n, 3))
+    _check("packed.slots", packed.slots, dev, torch.float32,
+           (packed.n_slots, SLOT_WIDTH))
+    if enabled is None:
+        return torch.ones(n, dtype=torch.bool, device=dev)
+    _check("enabled", enabled, dev, torch.bool, (n,))
+    return enabled
+
+
+def _launch_march(fn, packed, origins, dirs, enabled, **fields):
+    """Launches one of csrc/march.cu's kernels on the current stream."""
+    if 4 * packed.slots.numel() > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"scene needs {4 * packed.slots.numel()} bytes of shared "
+            f"memory; the march kernels hold at most {SMEM_LIMIT}")
+    omega = fields.pop("omega")
+    args = _MarchArgs(slots=_ptr(packed.slots), n_slots=packed.n_slots,
+                      origins=_ptr(origins), dirs=_ptr(dirs),
+                      enabled=_ptr(enabled), n=origins.shape[0],
+                      omega=omega, one_minus_omega=1.0 - omega, **fields)
+    dev = origins.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ctypes.addressof(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
+
+
+def raycast(packed, origins, dirs, max_dist, *, eps=EPSILON, max_steps=300,
+            enabled=None, omega=1.6):
+    """Over-relaxed primary march of rays origins/dirs f32[N, 3] to
+    max_dist (also the scene-distance cap): (t f32[N], max_dist or more
+    on a miss and 0 where disabled; hit bool[N]; pos = o + t·d).
+    ``enabled``: optional bool[N]; disabled rays never march."""
+    dev = origins.device
+    en = _check_rays(packed, origins, dirs, enabled)
+    kwargs = dict(eps=eps, max_steps=max_steps, omega=omega)
+    if dev.type == "cpu":
+        return raycast_reference(packed, origins, dirs, max_dist,
+                                 enabled=enabled, **kwargs)
+    if dev.type != "cuda":
+        raise ValueError(f"raycast runs on cpu or cuda, not {dev}")
+    n = origins.shape[0]
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    _launch_march(_march_library().madarch_raycast, packed, origins, dirs,
+                  en, max_dist=max_dist, cap=max_dist, t=_ptr(t),
+                  hit=_ptr(hit), **kwargs)
+    raycast.launches += 1
+    return t, hit, origins + t[:, None] * dirs
+
+
+def visibility(packed, origins, dirs, max_dists, *, eps=EPSILON,
+               max_steps=300, enabled=None, omega=1.6):
+    """f32[N]: 1 where the ray origins/dirs f32[N, 3] reaches its own
+    max_dists f32[N] unblocked, else 0; a ray starts only where
+    0 < max_dist and ``enabled`` (optional bool[N]) holds."""
+    dev = origins.device
+    n = origins.shape[0]
+    en = _check_rays(packed, origins, dirs, enabled)
+    _check("max_dists", max_dists, dev, torch.float32, (n,))
+    kwargs = dict(eps=eps, max_steps=max_steps, omega=omega)
+    if dev.type == "cpu":
+        return visibility_reference(packed, origins, dirs, max_dists,
+                                    enabled=enabled, **kwargs)
+    if dev.type != "cuda":
+        raise ValueError(f"visibility runs on cpu or cuda, not {dev}")
+    vis = torch.empty(n, dtype=torch.float32, device=dev)
+    _launch_march(_march_library().madarch_visibility, packed, origins,
+                  dirs, en, max_dists=_ptr(max_dists), max_dist=VIS_CAP,
+                  cap=VIS_CAP, vis=_ptr(vis), **kwargs)
+    visibility.launches += 1
+    return vis
+
+
 # Kernel launches since the count was last reset (the CPU path does not
-# count): lets a run show that its main path went through the kernel.
+# count): lets a run show that its main path went through the kernels.
 geometry.launches = 0
+raycast.launches = 0
+visibility.launches = 0

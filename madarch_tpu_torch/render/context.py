@@ -1,4 +1,4 @@
-"""SceneCtx: everything the geometry kernel needs, packed once per pass
+"""SceneCtx: everything the march kernels need, packed once per pass
 (port of madarch_tpu/render/context.py)."""
 from __future__ import annotations
 
@@ -37,3 +37,14 @@ class SceneCtx:
             max_steps=cfg.max_march_steps,
             mat_rough_vec=self.rough_vec if want_reflection else None,
             refl_shadows=cfg.add_indirect_specular)
+
+    def raycast(self, origins, dirs, max_dist, *, max_steps, enabled=None):
+        """The raycast kernel over this scene: (t, hit, pos)."""
+        return march_ops.raycast(self.packed, origins, dirs, max_dist,
+                                 max_steps=max_steps, enabled=enabled)
+
+    def visibility(self, origins, dirs, max_dists, *, max_steps,
+                   enabled=None):
+        """The visibility kernel over this scene: 0/1 per ray."""
+        return march_ops.visibility(self.packed, origins, dirs, max_dists,
+                                    max_steps=max_steps, enabled=enabled)

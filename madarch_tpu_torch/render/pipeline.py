@@ -1,10 +1,12 @@
-"""The frame pipeline: radiance → irradiance → screen, with probe-atlas
-feedback across frames (port of madarch_tpu/render/pipeline.py, without
-volumetrics).
+"""The frame pipeline: radiance → irradiance → [visibility → scattering] →
+screen, with probe-atlas feedback across frames (port of
+madarch_tpu/render/pipeline.py).
 
 The radiance pass reads the *previous* frame's irradiance atlas (the GI
 feedback that accumulates light bounces over frames), the irradiance pass
-integrates the new radiance, and the screen pass consumes both.
+integrates the new radiance, the volumetric passes (when the scene has
+them) build this frame's scattering map, and the screen pass consumes
+everything.
 """
 from __future__ import annotations
 
@@ -13,11 +15,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from madarch_tpu.core.config import (PROBE_SHADE_CONFIG, ProbeSettings,
-                                     ShadeConfig, VolumetricsSettings,
-                                     screen_shade_config)
+from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG,
+                                           ProbeSettings, ShadeConfig,
+                                           VolumetricsSettings,
+                                           screen_shade_config)
 from madarch_tpu_torch.render import probes as probes_mod
+from madarch_tpu_torch.render import volumetrics as vol_mod
 from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
+from madarch_tpu_torch.render.context import SceneCtx
 from madarch_tpu_torch.render.shading import pixel_color
 from madarch_tpu_torch.scene.scene import SceneData, SceneSpec
 
@@ -45,19 +50,15 @@ class Camera:
     orientation: torch.Tensor  # f32[3,3]
 
 
-def _no_volumetrics(vol: VolumetricsSettings):
-    if vol.enabled:
-        raise NotImplementedError("volumetrics are not ported")
-
-
 def initial_state(probes: ProbeSettings, vol: VolumetricsSettings,
                   device) -> FrameState:
-    _no_volumetrics(vol)
+    sy, sx = (vol.scattering_resolution[1], vol.scattering_resolution[0]) \
+        if vol.enabled else (1, 1)
     return FrameState(
         radiance=torch.zeros(probes.radiance_atlas_shape, device=device),
         irradiance=torch.zeros(probes.irradiance_atlas_shape,
                                device=device),
-        scattering=torch.zeros((1, 1, 4), device=device))
+        scattering=torch.zeros((sy, sx, 4), device=device))
 
 
 def radiance_pass(spec: SceneSpec, data: SceneData, probes: ProbeSettings,
@@ -108,12 +109,11 @@ def _from_blocks(arr, height, width):
 
 def screen_pass(spec: SceneSpec, data: SceneData, probes: ProbeSettings,
                 vol: VolumetricsSettings, cfg: ShadeConfig, width: int,
-                height: int, camera: Camera, irr_atlas, rad_atlas):
-    """Primary rays -> shade -> Reinhard tonemap + gamma.  Returns
+                height: int, camera: Camera, irr_atlas, rad_atlas,
+                scattering):
+    """Primary rays -> shade -> volumetric composite (when
+    cfg.render_volumetrics) -> Reinhard tonemap + gamma.  Returns
     f32[H, W, 3], row 0 = bottom."""
-    _no_volumetrics(vol)
-    if cfg.render_volumetrics:
-        raise NotImplementedError("volumetrics are not ported")
     frag = pixel_grid(width, height, irr_atlas.device)
     origins, dirs = camera_rays(frag, camera.position, camera.orientation)
     origins_f = origins.reshape(-1, 3)
@@ -122,10 +122,17 @@ def screen_pass(spec: SceneSpec, data: SceneData, probes: ProbeSettings,
     if blocked:
         origins_f = _to_blocks(origins_f, height, width).contiguous()
         dirs_f = _to_blocks(dirs_f, height, width).contiguous()
-    color, _, _ = pixel_color(spec, data, probes, cfg, irr_atlas, rad_atlas,
-                              origins_f, dirs_f)
+    color, _, hit_pos = pixel_color(spec, data, probes, cfg, irr_atlas,
+                                    rad_atlas, origins_f, dirs_f)
     if blocked:
         color = _from_blocks(color, height, width)
+    if cfg.render_volumetrics:
+        if blocked:
+            hit_pos = _from_blocks(hit_pos, height, width)
+        ray_len = torch.linalg.vector_norm(hit_pos - origins.reshape(-1, 3),
+                                           dim=-1)
+        color = vol_mod.composite(vol, scattering, color, ray_len, width,
+                                  height, spec.max_dist)
 
     color = torch.clamp_min(color, 0.0)
     # Reinhard + gamma; the 1e-8 matches the reference's finite-derivative
@@ -145,7 +152,18 @@ def render_frame(spec: SceneSpec, probes: ProbeSettings,
     radiance = radiance_pass(spec, data, probes, probe_cfg,
                              state.irradiance, state.radiance)
     irradiance = probes_mod.integrate_irradiance(probes, radiance)
+
+    scattering = state.scattering
+    if vol.enabled:
+        ctx = SceneCtx(spec, data)
+        visibility = vol_mod.visibility_pass(
+            spec, data, vol, ctx, camera.position, camera.orientation,
+            max_steps=screen_cfg.max_march_steps)
+        scattering = vol_mod.scattering_pass(
+            spec, data, vol, ctx, visibility, camera.position,
+            camera.orientation, max_steps=screen_cfg.max_march_steps)
+
     image = screen_pass(spec, data, probes, vol, screen_cfg, width, height,
-                        camera, irradiance, radiance)
+                        camera, irradiance, radiance, scattering)
     return image, FrameState(radiance=radiance, irradiance=irradiance,
-                             scattering=state.scattering)
+                             scattering=scattering)

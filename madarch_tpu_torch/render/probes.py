@@ -13,7 +13,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from madarch_tpu.core.config import ProbeSettings
+from madarch_tpu_torch.core.config import ProbeSettings
 from madarch_tpu_torch.core.vecmath import dot, length, mix, sign_not_zero
 
 # The 8 probe-cell corners, bit k of the corner index selecting +1 on axis k.

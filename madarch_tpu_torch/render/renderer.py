@@ -1,5 +1,7 @@
 """The engine facade: scene mutation API + frame loop (port of
-madarch_tpu/render/renderer.py, without eval_distance_to).
+madarch_tpu/render/renderer.py, without eval_distance_to).  Volumetrics
+are on by default, as in the JAX package; the renderer runs on the CUDA
+card unless the caller names another device.
 
 Mutations edit a host-side numpy mirror; the next ``render()`` copies the
 snapshot to ``device`` once and reuses it until the next mutation.
@@ -11,9 +13,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from madarch_tpu.core.config import (PROBE_SHADE_CONFIG, ProbeSettings,
-                                     ShadeConfig, VolumetricsSettings,
-                                     screen_shade_config)
+from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG,
+                                           ProbeSettings, ShadeConfig,
+                                           VolumetricsSettings,
+                                           screen_shade_config)
 from madarch_tpu_torch.render.camera import orientation_from_angles
 from madarch_tpu_torch.render.pipeline import (Camera, initial_state,
                                                render_frame)
@@ -22,15 +25,21 @@ from madarch_tpu_torch.scene.scene import SceneBuilder, SceneSpec
 
 class Renderer:
     """Owns the scene mirror, camera and probe feedback state on one
-    device (``device`` is required: there is no auto-detection)."""
+    device: ``cuda`` (the card) unless the caller asks for another, with
+    no auto-detection and no CPU fallback."""
 
     def __init__(self, spec: SceneSpec, width: int = 1000,
                  height: int = 1000,
                  probes: ProbeSettings = ProbeSettings(),
                  volumetrics: VolumetricsSettings = VolumetricsSettings(),
                  screen_cfg: Optional[ShadeConfig] = None,
-                 probe_cfg: ShadeConfig = PROBE_SHADE_CONFIG, *, device):
+                 probe_cfg: ShadeConfig = PROBE_SHADE_CONFIG, *,
+                 device="cuda"):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Renderer asked for a CUDA device and none is available; "
+                "pass device='cpu' to render on the CPU")
         self.base_spec = spec
         self.width = width
         self.height = height

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from madarch_tpu.core.config import ProbeSettings, ShadeConfig
+from madarch_tpu_torch.core.config import ProbeSettings, ShadeConfig
 from madarch_tpu_torch.core.vecmath import reflect, vec3
 from madarch_tpu_torch.render import probes as probes_mod
 from madarch_tpu_torch.render.context import SceneCtx

@@ -1,18 +1,20 @@
-"""The CUDA geometry kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (geometry, raycast, visibility) against their plain
+PyTorch versions, on the card.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-The kernel is built with -fmad=false and rounds like the plain version, so
-discrete outputs must be equal and continuous ones agree to 1e-5 (t) and
-1e-4 (the rest), on the lanes where they are meaningful.
+The kernels are built with -fmad=false and round like the plain versions,
+so discrete outputs (hit, idx, mid, visibility) must be equal and
+continuous ones agree to 1e-5 (t) and 1e-4 (the rest), on the lanes where
+they are meaningful.
 """
 import pytest
 import torch
 
-from madarch_tpu.core.config import ProbeSettings
+from madarch_tpu_torch.core.config import ProbeSettings
 from madarch_tpu_torch.examples import scenes as S
 from madarch_tpu_torch.ops import march as M
 from madarch_tpu_torch.render import probes as PR
@@ -157,3 +159,101 @@ def test_kernel_skips_reflection_shadows(dev):
                                r.spec.max_dist, **kw)
     assert (k["refl"]["shadows"] == 1).all()
     _assert_match(k, ref)
+
+
+# ---------------------------------------------------------------------------
+# The raycast and visibility kernels (csrc/march.cu)
+# ---------------------------------------------------------------------------
+
+def _light_shafts_rays(dev, n=8192):
+    """Seeded subsets of light_shafts' scattering rays (to max_depth) and
+    froxel-to-light rays of its point light, with the scene."""
+    r = S.light_shafts(width=64, height=64, device=dev)
+    vol = r.volumetrics
+    cam = r.camera
+    g = torch.Generator().manual_seed(13)
+    sx, sy = vol.scattering_resolution
+    o, d = camera_rays(pixel_grid(sx, sy, dev), cam.position,
+                       cam.orientation)
+    ids = torch.randperm(sx * sy, generator=g)[:n].to(dev)
+    scat = (o.reshape(-1, 3)[ids].contiguous(),
+            d.reshape(-1, 3)[ids].contiguous())
+    vx, vy, vz = vol.visibility_resolution
+    fo, fd = camera_rays(pixel_grid(vx, vy, dev), cam.position,
+                         cam.orientation)
+    pix = torch.randint(0, vx * vy, (n,), generator=g).to(dev)
+    depth = torch.randint(0, vz, (n,), generator=g).to(dev).float() \
+        * vol.visibility_step_size
+    pts = fo.reshape(-1, 3)[pix] + fd.reshape(-1, 3)[pix] * depth[:, None]
+    params = {k: v[0] for k, v in r.scene_data.lights["point_light"].items()}
+    _, ldir, ldist = L.PointLight.sample(params, pts, torch.zeros_like(pts))
+    return r, scat, (pts.contiguous(), ldir.contiguous(),
+                     ldist.contiguous())
+
+
+def _check_raycast(packed, o, d, max_dist, en):
+    before = M.raycast.launches
+    kt, khit, kpos = M.raycast(packed, o, d, max_dist, enabled=en)
+    torch.cuda.synchronize()
+    assert M.raycast.launches == before + 1
+    rt, rhit, rpos = M.raycast_reference(packed, o, d, max_dist, enabled=en)
+    assert torch.equal(khit, rhit)
+    torch.testing.assert_close(kt, rt, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(kpos, rpos, rtol=1e-5, atol=1e-5)
+    return rhit
+
+
+def _check_visibility(packed, o, d, mx, en):
+    before = M.visibility.launches
+    kv = M.visibility(packed, o, d, mx, enabled=en)
+    torch.cuda.synchronize()
+    assert M.visibility.launches == before + 1
+    rv = M.visibility_reference(packed, o, d, mx, enabled=en)
+    assert torch.equal(kv, rv)
+    return rv
+
+
+def test_raycast_and_visibility_match_plain_on_light_shafts(dev):
+    r, (o, d), (pts, ldir, ldist) = _light_shafts_rays(dev)
+    packed = M.pack_scene(r.spec, r.scene_data)
+    max_depth = r.volumetrics.max_depth
+    en = torch.rand(o.shape[0], generator=torch.Generator().manual_seed(3)
+                    ) > 0.2
+    assert _check_raycast(packed, o, d, max_depth, None).float().mean() > 0.5
+    _check_raycast(packed, o, d, max_depth, en.to(dev))
+    ldist[:64] = 0.0
+    vis = _check_visibility(packed, pts, ldir, ldist, None)
+    assert 0.0 < vis.mean() < 1.0
+    _check_visibility(packed, pts, ldir, ldist, en.to(dev))
+
+
+def test_raycast_and_visibility_match_plain_with_dead_slots(dev):
+    spec, data = _dynamic_scene(dev)
+    packed = M.pack_scene(spec, data)
+    g = torch.Generator().manual_seed(17)
+    o = torch.rand(8192, 3, generator=g) * 2.0 - 1.0
+    o[:, 1] += 1.0
+    d = torch.randn(8192, 3, generator=g)
+    d = d / d.norm(dim=1, keepdim=True)
+    mx = torch.rand(8192, generator=g) * 31.0 - 1.0
+    en = torch.rand(8192, generator=g) > 0.2
+    o, d, mx, en = o.to(dev), d.to(dev), mx.to(dev), en.to(dev)
+    _check_raycast(packed, o, d, 10.0, en)
+    _check_visibility(packed, o, d, mx, en)
+
+
+def test_visibility_tail_block_at_a_million_rays(dev):
+    """The froxel pass's launch size: 7,813 blocks of 128 threads, the
+    last one holding 64 rays: every one of the 1,000,000 outputs equals
+    the plain version's."""
+    r, _, (pts, ldir, ldist) = _light_shafts_rays(dev, n=4096)
+    packed = M.pack_scene(r.spec, r.scene_data)
+    n = 1_000_000
+    reps = -(-n // pts.shape[0])
+    o = pts.repeat(reps, 1)[:n].contiguous()
+    d = ldir.repeat(reps, 1)[:n].contiguous()
+    mx = ldist.repeat(reps)[:n].contiguous()
+    v = M.visibility(packed, o, d, mx)
+    torch.cuda.synchronize()
+    ref = M.visibility_reference(packed, pts, ldir, ldist)
+    assert torch.equal(v, ref.repeat(reps)[:n])

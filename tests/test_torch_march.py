@@ -21,11 +21,12 @@ import numpy as np
 import pytest
 import torch
 
-from madarch_tpu.core.config import PROBE_SHADE_CONFIG, screen_shade_config
 from madarch_tpu.examples import scenes as jscenes
 from madarch_tpu.ops import march as JM
 from madarch_tpu.render import raymarch as jrm
 from madarch_tpu.scene.scene import scene_sdf as jscene_sdf
+from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG, ProbeSettings,
+                                           screen_shade_config)
 from madarch_tpu_torch.ops import march as TM
 from madarch_tpu_torch.render import raymarch as trm
 from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
@@ -34,6 +35,9 @@ from madarch_tpu_torch.scene import lights as TL
 from madarch_tpu_torch.scene import primitives as TP
 from madarch_tpu_torch.scene import scene as TS
 from test_march_kernels import build_scene, rand_rays
+from test_torch_config import torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 N_RAYS = 256
 GRID = {"spacing": (2.0, 3.0, 3.0), "dims": (4, 3, 3)}
@@ -62,7 +66,6 @@ def _gi_rays(variant):
     rays) or screen pass (128² camera rays)."""
     rng = np.random.RandomState(21 if variant == "radiance" else 22)
     if variant == "radiance":
-        from madarch_tpu.core.config import ProbeSettings
         probes = ProbeSettings()
         rr = probes.radiance_resolution
         o = tprobes.probe_world_positions(probes, "cpu").repeat(rr * rr, 1)
@@ -397,22 +400,21 @@ def test_ambient_occlusion_matches_jax(basic):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
 
 
-def test_ctypes_args_mirror_the_kernel_struct():
-    """The wrapper's ctypes struct lists GeomArgs's fields of
-    csrc/geometry.cu in order, with matching C types (the kernel cannot
-    run here, so drift would show only on the card)."""
+def _struct_fields(source, struct):
+    """(name, ctypes type) of each field of ``struct`` in csrc/<source>,
+    in order."""
     import ctypes
     import os
     import re
     src = open(os.path.join(os.path.dirname(TM.__file__), "csrc",
-                            "geometry.cu")).read()
-    body = re.search(r"struct GeomArgs \{(.*?)\n\};", src, re.S).group(1)
+                            source)).read()
+    body = re.search(r"struct %s \{(.*?)\n\};" % struct, src, re.S).group(1)
     want = []
     for line in body.splitlines():
         decl = line.split("//")[0].strip().rstrip(";")
         if not decl:
             continue
-        m = re.match(r"(const )?(float|int)(\*?) (.*)", decl)
+        m = re.match(r"(const )?(float|int|unsigned char)(\*?) (.*)", decl)
         ptr, base = m.group(3), m.group(2)
         for name in m.group(4).split(","):
             name = name.strip()
@@ -423,10 +425,76 @@ def test_ctypes_args_mirror_the_kernel_struct():
                 want.append((name, ctypes.c_void_p if ptr else
                              ctypes.c_float if base == "float"
                              else ctypes.c_int))
-    got = TM._GeomArgs._fields_
+    return want
+
+
+def _assert_mirrors(got, want):
     assert [n for n, _ in got] == [n for n, _ in want]
     for (n, g), (_, w) in zip(got, want):
         if hasattr(w, "_length_"):
             assert g._type_ is w._type_ and g._length_ == w._length_, n
         else:
             assert g is w, n
+
+
+def test_ctypes_args_mirror_the_kernel_struct():
+    """The wrapper's ctypes struct lists GeomArgs's fields of
+    csrc/geometry.cu in order, with matching C types (the kernel cannot
+    run here, so drift would show only on the card)."""
+    _assert_mirrors(TM._GeomArgs._fields_,
+                    _struct_fields("geometry.cu", "GeomArgs"))
+
+
+def test_ctypes_march_args_mirror_the_kernel_struct():
+    """The same for MarchArgs of csrc/march.cu (raycast, visibility)."""
+    _assert_mirrors(TM._MarchArgs._fields_,
+                    _struct_fields("march.cu", "MarchArgs"))
+
+
+def test_raycast_and_visibility_on_cpu_run_the_plain_versions_uncounted():
+    """On CPU tensors the wrappers are their plain versions, launch no
+    kernel and count nothing; they check their arguments as on the card."""
+    _, _, tspec, tdata = _scene("basic")
+    packed = TM.pack_scene(tspec, tdata)
+    o, d = (torch.as_tensor(np.array(x)) for x in rand_rays(64, seed=51))
+    en = torch.as_tensor(np.random.RandomState(52).rand(64) > 0.3)
+    mx = torch.as_tensor(np.random.RandomState(53).uniform(
+        -1.0, 12.0, 64).astype(np.float32))
+    before = (TM.raycast.launches, TM.visibility.launches)
+    for a, b in zip(TM.raycast(packed, o, d, 10.0, enabled=en),
+                    TM.raycast_reference(packed, o, d, 10.0, enabled=en)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(
+        TM.visibility(packed, o, d, mx, enabled=en),
+        TM.visibility_reference(packed, o, d, mx, enabled=en), rtol=0,
+        atol=0)
+    assert (TM.raycast.launches, TM.visibility.launches) == before
+    with pytest.raises(TypeError):
+        TM.raycast(packed, o, d, 10.0, enabled=en.float())
+    with pytest.raises(ValueError):
+        TM.visibility(packed, o, d, mx[:8])
+    with pytest.raises(TypeError):
+        TM.visibility(packed, o, d, mx.double())
+
+
+def test_scene_evals_count_active_lanes_times_slots():
+    """The plain marches' evaluation count (the bound's operation count):
+    a march step evaluates every live slot at each active lane only."""
+    _, _, tspec, tdata = _scene("gi")
+    packed = TM.pack_scene(tspec, tdata)
+    slots = {code: int((packed.slots[:, 0] == code).sum())
+             for code in TM.scene_evals}
+    p = torch.zeros((5, 3))
+    for code in TM.scene_evals:
+        TM.scene_evals[code] = 0
+    TM.scene_dist(packed, p, 20.0)
+    assert TM.scene_evals == {c: 5 * n for c, n in slots.items()}
+    assert TM.scene_eval_flops() == 5 * sum(TM.SLOT_FLOPS[c] * n
+                                            for c, n in slots.items())
+    # one ray that starts inside the floor stops after one step; the final
+    # classification adds one more evaluation
+    for code in TM.scene_evals:
+        TM.scene_evals[code] = 0
+    TM.raycast_reference(packed, torch.tensor([[0.0, -2.0, 0.0]]),
+                         torch.tensor([[0.0, 1.0, 0.0]]), 10.0)
+    assert TM.scene_evals == {c: 2 * n for c, n in slots.items()}

@@ -6,8 +6,10 @@ The passes are held to the JAX package's under the golden gates
 GOLDEN_GATES): near-tie pixels (the mode-2 best-probe pick, silhouette
 hit/miss) may flip between backends, so images are held with robust
 statistics.  The JAX package runs its XLA path here (its Pallas kernels
-serve the TPU only), the port its plain geometry version.
+serve the TPU only), the port the plain versions of its kernels.  Each
+package gets its own settings dataclasses, built from the same fields.
 """
+import inspect
 import os
 from functools import partial
 
@@ -17,23 +19,34 @@ import pytest
 import torch
 
 import bench
-from madarch_tpu.core.config import (NO_VOLUMETRICS, PROBE_SHADE_CONFIG,
-                                     ProbeSettings, ShadeConfig,
-                                     screen_shade_config)
+from madarch_tpu.core import config as JC
 from madarch_tpu.examples import scenes as jscenes
 from madarch_tpu.render import pipeline as JPL
 from madarch_tpu.utils.profiling import rays_per_frame as j_rays_per_frame
+from madarch_tpu_torch.core.config import (NO_VOLUMETRICS,
+                                           PROBE_SHADE_CONFIG, ProbeSettings,
+                                           ShadeConfig, VolumetricsSettings,
+                                           screen_shade_config)
 from madarch_tpu_torch.examples import run as trun
 from madarch_tpu_torch.examples import scenes as tscenes
 from madarch_tpu_torch.render import pipeline as TPL
+from madarch_tpu_torch.render.renderer import Renderer
 from madarch_tpu_torch.scene.scene import scene_data_from_numpy
 from madarch_tpu_torch.utils.golden import GOLDEN_GATES, image_stats
 from madarch_tpu_torch.utils.profiling import rays_per_frame
+from test_torch_config import jax_config, torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 FAST = ProbeSettings(radiance_resolution=8, irradiance_resolution=4,
                      probe_count=(4, 2), grid_dimensions=(2, 2, 2),
                      grid_spacing=(4.0, 4.0, 4.0))
 SIZE = 32
+# the small volumetrics of test_examples.py's light_shafts test
+SMALL_VOL = VolumetricsSettings(visibility_resolution=(8, 8, 8),
+                                visibility_step_size=0.5,
+                                scattering_resolution=(12, 12),
+                                scattering_step_size=0.5)
 
 
 def test_gates_equal_the_bench_gates():
@@ -44,7 +57,8 @@ def test_gates_equal_the_bench_gates():
 def gi():
     """The GI scene in both packages at 32² with the fast probes, and the
     JAX package's feedback atlases after two frames."""
-    jr = jscenes.global_illumination(width=SIZE, height=SIZE, probes=FAST)
+    jr = jscenes.global_illumination(width=SIZE, height=SIZE,
+                                     probes=jax_config(FAST))
     jr.converge(frames=2)
     tree = jax.tree.map(np.asarray, jr.scene_data)
     data = scene_data_from_numpy(tree, "cpu")
@@ -62,8 +76,9 @@ def _gate(img, ref):
 
 def test_radiance_pass_matches_jax(gi):
     jr, tr, data, state = gi
-    ref = jax.jit(partial(JPL.radiance_pass, jr.spec, probes=FAST,
-                          cfg=PROBE_SHADE_CONFIG))(
+    ref = jax.jit(partial(JPL.radiance_pass, jr.spec,
+                          probes=jax_config(FAST),
+                          cfg=jax_config(PROBE_SHADE_CONFIG)))(
         data=jr.scene_data, irr_atlas=state.irradiance,
         rad_atlas=state.radiance)
     tstate = TPL.FrameState.from_numpy(state, "cpu")
@@ -80,15 +95,16 @@ def test_radiance_pass_matches_jax(gi):
 def test_screen_pass_matches_jax(gi):
     jr, tr, data, state = gi
     cfg = screen_shade_config(False)
-    ref = jax.jit(partial(JPL.screen_pass, jr.spec, probes=FAST,
-                          vol=NO_VOLUMETRICS, cfg=cfg, width=SIZE,
-                          height=SIZE))(
+    ref = jax.jit(partial(JPL.screen_pass, jr.spec,
+                          probes=jax_config(FAST),
+                          vol=jax_config(NO_VOLUMETRICS),
+                          cfg=jax_config(cfg), width=SIZE, height=SIZE))(
         data=jr.scene_data, camera=jr.camera, irr_atlas=state.irradiance,
         rad_atlas=state.radiance, scattering=state.scattering)
     tstate = TPL.FrameState.from_numpy(state, "cpu")
     got = TPL.screen_pass(tr.spec, data, FAST, NO_VOLUMETRICS, cfg, SIZE,
                           SIZE, tr.camera, tstate.irradiance,
-                          tstate.radiance)
+                          tstate.radiance, tstate.scattering)
     stats = _gate(got.numpy(), np.asarray(ref))
     assert stats["mean_absdiff"] < 1e-3
 
@@ -117,7 +133,8 @@ def test_rays_per_frame_matches_jax():
     for w, h, probes, n_lights in ((800, 800, ProbeSettings(), 1),
                                    (128, 64, FAST, 3)):
         assert rays_per_frame(w, h, probes, n_lights, cfg) == \
-            j_rays_per_frame(w, h, probes, n_lights, cfg)
+            j_rays_per_frame(w, h, jax_config(probes), n_lights,
+                             jax_config(cfg))
 
 
 def test_unported_options_raise(gi):
@@ -128,7 +145,7 @@ def test_unported_options_raise(gi):
         with pytest.raises(NotImplementedError):
             TPL.screen_pass(tr.spec, data, FAST, NO_VOLUMETRICS, cfg, SIZE,
                             SIZE, tr.camera, tstate.irradiance,
-                            tstate.radiance)
+                            tstate.radiance, tstate.scattering)
 
 
 def test_run_cli_writes_png(tmp_path):
@@ -147,3 +164,68 @@ def test_gi_slice_matches_golden():
     img = r.converge(frames=4).numpy()
     stats = _gate(img, golden)
     assert stats["mean_absdiff"] < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# light_shafts: the volumetric slice
+# ---------------------------------------------------------------------------
+
+def test_rays_per_frame_counts_light_shafts_like_jax():
+    """At 800² with the default probes and volumetrics and one light:
+    640,000 × 23 per-pixel rays, 36,864 × 10 probe rays, 1,000,000 froxel
+    rays and 62,500 scattering rays."""
+    vol = VolumetricsSettings()
+    cfg = screen_shade_config(True)
+    n = rays_per_frame(800, 800, ProbeSettings(), 1, cfg, vol)
+    assert n == j_rays_per_frame(800, 800, JC.ProbeSettings(), 1,
+                                 jax_config(cfg), jax_config(vol))
+    assert n == 640_000 * 23 + 36_864 * 10 + 1_000_000 + 62_500 \
+        == 16_151_140
+
+
+def test_light_shafts_frame_matches_jax():
+    """The slice: light_shafts at 32² with the fast probes and the small
+    volumetrics, two frames of render_frame from the JAX renderer's scene
+    and initial state, against two frames of the JAX renderer."""
+    jr = jscenes.light_shafts(width=SIZE, height=SIZE,
+                              probes=jax_config(FAST),
+                              volumetrics=jax_config(SMALL_VOL))
+    tr = tscenes.light_shafts(width=SIZE, height=SIZE, probes=FAST,
+                              volumetrics=SMALL_VOL, device="cpu")
+    data = scene_data_from_numpy(jax.tree.map(np.asarray, jr.scene_data),
+                                 "cpu")
+    state = TPL.FrameState.from_numpy(jax.tree.map(np.asarray, jr.state),
+                                      "cpu")
+    assert state.scattering.shape == (12, 12, 4)
+    for _ in range(2):
+        ref = jr.render()
+        img, state = TPL.render_frame(tr.spec, FAST, SMALL_VOL, SIZE, SIZE,
+                                      data, tr.camera, state,
+                                      screen_cfg=tr.screen_cfg)
+    assert tr.screen_cfg.render_volumetrics
+    assert state.scattering.shape == (12, 12, 4)
+    np.testing.assert_allclose(state.scattering.numpy(),
+                               np.asarray(jr.state.scattering), atol=1e-5)
+    stats = _gate(img.numpy(), np.asarray(ref))
+    assert stats["mean_absdiff"] < 1e-3
+
+
+def test_run_cli_renders_light_shafts(tmp_path):
+    out = tmp_path / "ls.png"
+    trun.main(["light_shafts", "--device", "cpu", "--fast", "--size",
+               "32x32", "--frames", "1", "--out", str(out)])
+    assert out.stat().st_size > 0
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Renderer and run.py run on the CUDA card unless asked for another
+    device, and a Renderer asked for the card where there is none raises
+    instead of rendering on the CPU."""
+    assert inspect.signature(Renderer).parameters["device"].default \
+        == "cuda"
+    assert trun.parser().parse_args(["light_shafts"]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        tscenes.light_shafts(width=SIZE, height=SIZE)
+    with pytest.raises(RuntimeError):
+        trun.main(["light_shafts", "--frames", "1", "--size", "32x32"])

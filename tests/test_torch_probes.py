@@ -1,14 +1,18 @@
 """Port parity: DDGI probe atlases of madarch_tpu_torch against
 madarch_tpu, on seeded random atlases and lookups, at atol 1e-5 (float32
-contractions summed in another order)."""
+contractions summed in another order).  Each package gets its own
+ProbeSettings, built from the same fields."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from madarch_tpu.core.config import ProbeSettings
 from madarch_tpu.render import probes as JP
+from madarch_tpu_torch.core.config import ProbeSettings
 from madarch_tpu_torch.render import probes as TP
+from test_torch_config import jax_config, torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 ATOL = 1e-5
 SETTINGS = {
@@ -36,21 +40,23 @@ def _close(got, ref, atol=ATOL):
 @pytest.mark.parametrize("name", sorted(SETTINGS))
 def test_integrate_irradiance_matches_jax(name):
     s = SETTINGS[name]
+    js = jax_config(s)
     rad = _atlas(np.random.RandomState(1), s.radiance_atlas_shape)
     _close(TP.integrate_irradiance(s, torch.as_tensor(rad)),
-           JP.integrate_irradiance(s, jnp.asarray(rad)))
+           JP.integrate_irradiance(js, jnp.asarray(rad)))
 
 
 @pytest.mark.parametrize("name", sorted(SETTINGS))
 def test_sample_irradiance_with_vis8_matches_jax(name):
     s = SETTINGS[name]
+    js = jax_config(s)
     rng = np.random.RandomState(2)
     irr = _atlas(rng, s.irradiance_atlas_shape)
     hi = np.array(s.grid_dimensions) * np.array(s.grid_spacing)
     pos = rng.uniform(-1.0, hi + 1.0, (128, 3)).astype(np.float32)
     normal = _dirs(rng, 128)
     vis8 = (rng.rand(8, 128) > 0.3).astype(np.float32)
-    ref = JP.sample_irradiance(s, None, jnp.asarray(irr), jnp.asarray(pos),
+    ref = JP.sample_irradiance(js, None, jnp.asarray(irr), jnp.asarray(pos),
                                jnp.asarray(normal), vis8=jnp.asarray(vis8))
     got = TP.sample_irradiance(s, torch.as_tensor(irr), torch.as_tensor(pos),
                                torch.as_tensor(normal),
@@ -63,15 +69,16 @@ def test_radiance_mip1_all_tiles_matches_jax(name):
     """The mode-2 lookup: mip 1 of the radiance atlas sampled in every tile
     at once."""
     s = SETTINGS[name]
+    js = jax_config(s)
     rng = np.random.RandomState(3)
     rad = _atlas(rng, s.radiance_atlas_shape)
     ray_id = np.array(JP.dir_to_ray_id(jnp.asarray(_dirs(rng, 96))))
     res = s.radiance_resolution // 2
-    jm = JP.radiance_mip1(s, jnp.asarray(rad))
+    jm = JP.radiance_mip1(js, jnp.asarray(rad))
     tm = TP.radiance_mip1(s, torch.as_tensor(rad))
     _close(tm, jm)
     _close(TP.sample_all_tiles_bilinear(s, tm, torch.as_tensor(ray_id), res),
-           JP.sample_all_tiles_bilinear(s, jm, jnp.asarray(ray_id), res))
+           JP.sample_all_tiles_bilinear(js, jm, jnp.asarray(ray_id), res))
 
 
 def test_bilinear_weights_match_jax():
@@ -113,18 +120,19 @@ def test_octahedral_mapping_matches_jax():
 @pytest.mark.parametrize("name", sorted(SETTINGS))
 def test_probe_addressing_matches_jax(name):
     s = SETTINGS[name]
-    _close(TP.probe_world_positions(s, "cpu"), JP.probe_world_positions(s))
+    js = jax_config(s)
+    _close(TP.probe_world_positions(s, "cpu"), JP.probe_world_positions(js))
     _close(TP.texel_directions(s.radiance_resolution, "cpu"),
            JP.texel_directions(s.radiance_resolution))
     rad = _atlas(np.random.RandomState(7), s.radiance_atlas_shape)
     tiles = TP.atlas_to_tiles(s, torch.as_tensor(rad), s.radiance_resolution)
-    _close(tiles, JP.atlas_to_tiles(s, jnp.asarray(rad),
+    _close(tiles, JP.atlas_to_tiles(js, jnp.asarray(rad),
                                     s.radiance_resolution))
     _close(TP.tiles_to_atlas(s, tiles, s.radiance_resolution), rad)
     gp = np.stack(np.meshgrid(*(np.arange(d) for d in s.grid_dimensions),
                               indexing="ij"), -1).reshape(-1, 3)
     pid = TP.grid_position_to_probe_id(s, torch.as_tensor(gp))
     np.testing.assert_array_equal(
-        pid.numpy(), np.asarray(JP.grid_position_to_probe_id(s, gp)))
+        pid.numpy(), np.asarray(JP.grid_position_to_probe_id(js, gp)))
     np.testing.assert_array_equal(
         TP.probe_id_to_grid_position(s, pid).numpy(), gp)

@@ -199,15 +199,18 @@ def test_builder_rejects_overflow_like_jax():
         b.set_material(spec.max_materials, (0, 0, 0), 0.0, 0.5)
 
 
+# The JAX package's own top-level names: the port may import none of them.
+JAX_SIDE = ("jax", "jaxlib", "madarch_tpu")
+
 _NO_JAX = r"""
 import importlib, pkgutil, sys
-for name in [m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib")]:
+BLOCKED = ("jax", "jaxlib", "madarch_tpu")
+for name in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
     del sys.modules[name]
 
 class BlockJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError("the port imported " + name)
 
 sys.meta_path.insert(0, BlockJax())
@@ -217,16 +220,48 @@ names = [m.name for m in pkgutil.walk_packages(madarch_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+chip_smoke.port_modules()      # the imports chip_smoke makes inside main()
+bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
 print(len(names))
 """
 
 
 def test_port_never_imports_jax():
-    """Every module of the port, and chip_smoke.py, import with JAX made
-    unimportable, and leave no jax module behind."""
+    """Every module of the port, and chip_smoke.py with the imports its
+    main() makes, import with JAX and the JAX package made unimportable,
+    and leave none of their modules behind."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 20
+
+
+def _port_sources():
+    root = os.path.join(REPO, "madarch_tpu_torch")
+    paths = [os.path.join(d, f) for d, _, files in os.walk(root)
+             for f in files if f.endswith(".py")]
+    return sorted(paths) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def test_port_sources_import_nothing_of_jax():
+    """No import statement anywhere in the port's sources or chip_smoke.py,
+    at any depth (inside functions too), names jax, jaxlib or
+    madarch_tpu."""
+    import ast
+    paths = _port_sources()
+    assert len(paths) > 20
+    bad = []
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {m}"
+                    for m in mods if m.split(".")[0] in JAX_SIDE]
+    assert not bad, bad
