@@ -13,16 +13,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
 3. holds the geometry kernel against its plain PyTorch version
    (geometry_reference) on the global_illumination scene, on rays of the
    radiance pass (no reflection) and of the 800x800 screen pass
-   (reflection folded in);
+   (reflection folded in): seeded subsets of 16,384 rays, then both
+   passes' full shapes (36,864 and 640,000 rays), where it also times the
+   kernel against the plain version;
 4. renders global_illumination at 128x128 over 4 frames through
    Renderer(device="cuda") and holds it to the JAX golden
    (tests/goldens/images.npz) under the golden gates;
 5. renders global_illumination at 800x800, checks the image, checks that
    the geometry kernel ran twice per frame, and reports ms/frame (CUDA
    events) and rays/s;
-6. times the geometry kernel against the plain version at both passes'
-   full shapes (36,864 and 640,000 rays) and holds the two outputs
-   against each other there too;
 7. prints ptxas's register and spill lines for the raycast and
    visibility kernels (march.cu);
 8. holds the raycast kernel against raycast_reference on the 62,500 rays
@@ -35,7 +34,37 @@ Phases, each printed on its own lines; any failure exits non-zero:
    raycast kernel once and the visibility kernel once per live light
    slot, and reports ms/frame, rays/s and the per-pass split;
 11. times the raycast and visibility kernels against their plain
-   versions at those shapes.
+   versions at those shapes;
+12. prints ptxas's register and spill lines for the softshadow kernel
+   (march.cu);
+13. holds, on the rays of a global_illumination specular-mode-1 800x800
+   screen pass, the raycast kernel against raycast_reference on its
+   640,000 masked reflection rays and the softshadow kernel against
+   softshadows_reference on its 5,120,000 penumbra rays (8 per pixel,
+   k = 0.5);
+14. holds the geometry kernel with a per-ray mask and no AO (specular
+   mode 3's reflection launch) against geometry_reference on 16,384 and
+   on all 640,000 of the mode-3 reflection rays;
+15. renders global_illumination in specular modes 1 and 3 at 128x128 over
+   4 frames through Renderer(device="cuda") and holds each to the same
+   render through Renderer(device="cpu") (the plain versions) under the
+   golden gates (no JAX golden exists for these modes);
+16. renders simple_scene (40 live slots) at 128x128 over 2 frames and
+   holds it to the JAX golden; holds the geometry kernel against its
+   plain version on simple_scene's radiance and screen rays (16,384 of
+   each, then all 36,864 and 640,000) and times it there;
+17. renders global_illumination in mode 1, in mode 3 and simple_scene at
+   800x800 (5 timed frames after a warm-up each), checks each image and
+   the launches per frame (mode 1: geometry 2, raycast 1, softshadows 1;
+   mode 3: geometry 3; simple_scene: geometry 2), and reports ms/frame,
+   rays/s, the per-pass split and, under torch.profiler, the device's
+   busy time per frame and its heaviest kernels;
+18. times the softshadow kernel against its plain version on the
+   5,120,000 penumbra rays, and the raycast kernel on the 640,000
+   reflection rays.
+
+(Phase 6 of earlier versions, the geometry kernel at the full shapes, is
+part of phase 3.)
 
 Each kernel's bound is the larger of its bytes over 3.35 TB/s and the
 float operations of its scene evaluations (counted on the plain version
@@ -73,24 +102,30 @@ def fail(msg):
 def port_modules():
     """The port's modules this script drives, imported together (a test
     imports them with JAX blocked)."""
-    from madarch_tpu_torch.core.config import PROBE_SHADE_CONFIG
+    from madarch_tpu_torch.core.config import PROBE_SHADE_CONFIG, ShadeConfig
+    from madarch_tpu_torch.core.vecmath import reflect
     from madarch_tpu_torch.examples import scenes
     from madarch_tpu_torch.ops import build
     from madarch_tpu_torch.ops import march
     from madarch_tpu_torch.render import pipeline
     from madarch_tpu_torch.render import probes
+    from madarch_tpu_torch.render import shading
     from madarch_tpu_torch.render import volumetrics
     from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
     from madarch_tpu_torch.render.context import SceneCtx
     from madarch_tpu_torch.render.raymarch import SURFACE_OFFSET
+    from madarch_tpu_torch.scene.scene import material_lookup
     from madarch_tpu_torch.utils.golden import image_stats
-    from madarch_tpu_torch.utils.profiling import FrameTimer, rays_per_frame
+    from madarch_tpu_torch.utils.profiling import (FrameTimer, device_busy,
+                                                   rays_per_frame)
     return SimpleNamespace(
-        PROBE_SHADE_CONFIG=PROBE_SHADE_CONFIG, S=scenes, build=build,
-        M=march, pipeline=pipeline, probes=probes, vol=volumetrics,
+        PROBE_SHADE_CONFIG=PROBE_SHADE_CONFIG, ShadeConfig=ShadeConfig,
+        reflect=reflect, S=scenes, build=build, M=march, pipeline=pipeline,
+        probes=probes, shading=shading, vol=volumetrics,
         camera_rays=camera_rays, pixel_grid=pixel_grid, SceneCtx=SceneCtx,
-        SURFACE_OFFSET=SURFACE_OFFSET, image_stats=image_stats,
-        FrameTimer=FrameTimer, rays_per_frame=rays_per_frame)
+        SURFACE_OFFSET=SURFACE_OFFSET, material_lookup=material_lookup,
+        image_stats=image_stats, FrameTimer=FrameTimer,
+        device_busy=device_busy, rays_per_frame=rays_per_frame)
 
 
 def toolchain(torch, m):
@@ -115,10 +150,16 @@ def build_all(m, names):
           f"{time.perf_counter() - t0:.2f} s")
 
 
-def ptxas_lines(m, name):
+def ptxas_lines(m, name, kernel=""):
+    """ptxas's register and spill lines of csrc/<name>.cu, each tagged with
+    the kernel it reports on; only the kernels whose (mangled) name holds
+    ``kernel``."""
+    entry = "?"
     for line in m.build.build_log(name).splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas {name}: {line.strip()}")
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif ("registers" in line or "spill" in line) and kernel in entry:
+            print(f"ptxas {name} {entry}: {line.strip()}")
 
 
 def gi_rays(torch, m, r, dev):
@@ -247,9 +288,43 @@ def time_pair(torch, kernel, plain, iters=10):
     return (kern1, kern2), (plain1, plain2)
 
 
+KERNELS = ("geometry", "raycast", "visibility", "softshadows")
+
+
 def reset_launches(m):
-    for fn in (m.M.geometry, m.M.raycast, m.M.visibility):
-        fn.launches = 0
+    for name in KERNELS:
+        getattr(m.M, name).launches = 0
+
+
+def drive(torch, m, r, label, frames, per_frame, card):
+    """The main path of renderer r: a warm-up frame, then ``frames`` frames
+    timed with CUDA events, the launch counts set to 0 just before and read
+    just after.  Fails unless each kernel launched per_frame[name] (0 if
+    absent) times per frame and the last image is finite with nonzero
+    variance.  Returns the launches."""
+    r.render()
+    timer = m.FrameTimer(r.device)
+    reset_launches(m)
+    for _ in range(frames):
+        with timer.frame():
+            img = r.render()
+    launches = {name: getattr(m.M, name).launches for name in KERNELS}
+    img = img.cpu()
+    want = {name: per_frame.get(name, 0) * frames for name in KERNELS}
+    if launches != want:
+        fail(f"{label}: launches {launches} in {frames} frames, expected "
+             f"{want}")
+    if not bool(torch.isfinite(img).all()) or float(img.var()) <= 0.0:
+        fail(f"{label} image is not finite with nonzero variance")
+    n_lights = m.M.pack_light_positions(r.spec, r.scene_data)[1]
+    n_rays = m.rays_per_frame(r.width, r.height, r.probes, n_lights,
+                              r.screen_cfg, r.volumetrics)
+    print(f"{label}: {frames} frames, {timer.mean * 1e3:.3f} ms/frame, "
+          f"{n_rays / timer.mean / 1e6:.1f} M rays/s ({n_rays} rays/frame); "
+          f"launches {json.dumps(launches)}; "
+          f"image mean {float(img.mean()):.5f} var {float(img.var()):.6f}; "
+          f"[{card}]")
+    return launches
 
 
 def ls_rays(torch, m, r):
@@ -277,40 +352,46 @@ def ls_rays(torch, m, r):
 
 
 def pass_split(torch, m, r, frames):
-    """ms per pass of light_shafts' frame (CUDA events), mean over frames:
-    the passes of pipeline.render_frame called one by one, and the
-    composite alone on a frame's scattering map."""
+    """ms per pass of renderer r's frame (CUDA events), mean over frames:
+    the passes of pipeline.render_frame called one by one and, with
+    volumetrics, the composite alone on a frame's scattering map."""
     P = m.pipeline
     spec, data, cam, vol, cfg = (r.spec, r.scene_data, r.camera,
                                  r.volumetrics, r.screen_cfg)
     state = r.state
-    names = ["radiance", "irradiance", "visibility", "scattering", "screen"]
+    names = ["radiance", "irradiance"] + (
+        ["visibility", "scattering"] if vol.enabled else []) + ["screen"]
     sums = dict.fromkeys(names, 0.0)
     for _ in range(frames):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(names) + 1)]
         ev[0].record()
         rad = P.radiance_pass(spec, data, r.probes, r.probe_cfg,
                               state.irradiance, state.radiance)
         ev[1].record()
         irr = m.probes.integrate_irradiance(r.probes, rad)
         ev[2].record()
-        ctx = m.SceneCtx(spec, data)
-        vis = m.vol.visibility_pass(spec, data, vol, ctx, cam.position,
-                                    cam.orientation,
-                                    max_steps=cfg.max_march_steps)
-        ev[3].record()
-        scat = m.vol.scattering_pass(spec, data, vol, ctx, vis,
-                                     cam.position, cam.orientation,
-                                     max_steps=cfg.max_march_steps)
-        ev[4].record()
+        scat = state.scattering
+        if vol.enabled:
+            ctx = m.SceneCtx(spec, data)
+            vis = m.vol.visibility_pass(spec, data, vol, ctx, cam.position,
+                                        cam.orientation,
+                                        max_steps=cfg.max_march_steps)
+            ev[3].record()
+            scat = m.vol.scattering_pass(spec, data, vol, ctx, vis,
+                                         cam.position, cam.orientation,
+                                         max_steps=cfg.max_march_steps)
+            ev[4].record()
         P.screen_pass(spec, data, r.probes, vol, cfg, r.width, r.height,
                       cam, irr, rad, scat)
-        ev[5].record()
-        ev[5].synchronize()
+        ev[-1].record()
+        ev[-1].synchronize()
         for i, name in enumerate(names):
             sums[name] += ev[i].elapsed_time(ev[i + 1])
         state = P.FrameState(radiance=rad, irradiance=irr, scattering=scat)
     split = {k: v / frames for k, v in sums.items()}
+    if not vol.enabled:
+        return split
     # the composite alone, on the last scattering map with seeded colors
     # and ray lengths (screen above includes it)
     n = r.width * r.height
@@ -322,6 +403,88 @@ def pass_split(torch, m, r, frames):
                                        ray_len, r.width, r.height,
                                        spec.max_dist), frames)
     return split
+
+
+def geometry_passes(torch, m, r, label, card):
+    """The geometry kernel against its plain version on renderer r's
+    radiance-pass rays (no reflection) and screen-pass rays (its screen
+    config; the reflection folded in for mode 2): seeded subsets of
+    CHECK_RAYS rays, then both passes' full ray sets, held against each
+    other and timed there with their bounds.  Returns ({pass: ms,
+    plain_ms, bound_ms, bound_by}, largest continuous difference)."""
+    M = m.M
+    ctx = m.SceneCtx(r.spec, r.scene_data)
+    rad_check, scr_check, rad_full, scr_full = gi_rays(torch, m, r, r.device)
+    passes = {"radiance": (m.PROBE_SHADE_CONFIG, False),
+              "screen": (r.screen_cfg,
+                         r.screen_cfg.indirect_specular_mode == 2)}
+
+    def run(fn, rays, name):
+        cfg, refl = passes[name]
+        return fn(ctx.packed, ctx.lpos_vec, ctx.n_light_slots, rays[0],
+                  rays[1], ctx.max_dist, probe_spacing=r.probes.grid_spacing,
+                  probe_dims=r.probes.grid_dimensions,
+                  surface_offset=m.SURFACE_OFFSET,
+                  ao_steps=cfg.ambient_occlusion_steps,
+                  max_steps=cfg.max_march_steps,
+                  mat_rough_vec=ctx.rough_vec if refl else None,
+                  refl_shadows=cfg.add_indirect_specular)
+
+    max_err = 0.0
+    for name, rays in (("radiance", rad_check), ("screen", scr_check)):
+        k = run(M.geometry, rays, name)
+        torch.cuda.synchronize()
+        ref = run(M.geometry_reference, rays, name)
+        torch.cuda.synchronize()
+        max_err = max(max_err, check_geometry(
+            torch, f"{label}{name}", rays[0].shape[0], k, ref))
+
+    geo = {}
+    for name, rays in (("radiance", rad_full), ("screen", scr_full)):
+        n = rays[0].shape[0]
+        ref, flops = counted(torch, m,
+                             lambda: run(M.geometry_reference, rays, name))
+        k = run(M.geometry, rays, name)
+        torch.cuda.synchronize()
+        max_err = max(max_err, check_geometry(torch, f"{label}{name} full",
+                                              n, k, ref))
+        del k, ref
+        (k1, k2), (p1, p2) = time_pair(
+            torch, lambda: run(M.geometry, rays, name),
+            lambda: run(M.geometry_reference, rays, name))
+        refl = passes[name][1]
+        n_l = ctx.n_light_slots
+        # per ray in: o, d; out: t, hit, idx, mid, normal, ao, shadows,
+        # vis8, and with the reflection its t, hit, mid, normal, shadows,
+        # vis8, best_pid, best_dir; the scene, lights, roughness once
+        per_ray = 24 + 4 * (10 + n_l + 8) + (4 * (14 + n_l + 8) if refl
+                                             else 0)
+        n_bytes = n * per_ray + 4 * (ctx.packed.slots.numel()
+                                     + ctx.lpos_vec.numel()
+                                     + ctx.rough_vec.numel())
+        b_ms, b_by = bound(flops, n_bytes)
+        geo[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                         bound_ms=b_ms, bound_by=b_by)
+        print(f"time geometry {label}{name} ({n} rays): kernel "
+              f"{k1:.3f}/{k2:.3f} ms, plain {p1:.1f}/{p2:.1f} ms; bound "
+              f"{b_ms:.5f} ms ({b_by}: {flops:.4e} flops, {n_bytes} "
+              f"bytes); [{card}]")
+    return geo, max_err
+
+
+def reflection_rays(torch, m, r, o, d):
+    """Specular modes 1 and 3's reflection rays for renderer r's screen
+    rays o, d, built as shading.shade_hits builds them: the primary
+    geometry launch (not counted on any path), the roughness < 0.75 gate,
+    the origin off the surface and the reflected direction.  Returns
+    (hit points, origins, directions, enabled)."""
+    ctx = m.SceneCtx(r.spec, r.scene_data)
+    g = ctx.geometry(o, d, r.probes, r.screen_cfg)
+    pos = o + g["t"][:, None] * d
+    _, _, rough = m.material_lookup(r.scene_data, g["mid"])
+    return (pos, (pos + g["normal"] * m.SURFACE_OFFSET).contiguous(),
+            m.reflect(d, g["normal"]).contiguous(),
+            g["hit"] & (rough < 0.75))
 
 
 def main():
@@ -345,35 +508,10 @@ def main():
     build_all(m, ["geometry", "march"])
     ptxas_lines(m, "geometry")
 
-    # ---- 3. geometry kernel vs plain version on the GI scene
+    # ---- 3. geometry kernel vs plain version on the GI scene: seeded
+    # subsets, then the passes' full shapes, held and timed
     r = S.global_illumination(width=800, height=800, device=dev)
-    ctx = m.SceneCtx(r.spec, r.scene_data)
-    rad_check, scr_check, rad_full, scr_full = gi_rays(torch, m, r, dev)
-    passes = {"radiance": (m.PROBE_SHADE_CONFIG, False),
-              "screen": (r.screen_cfg, True)}
-
-    def geom_kwargs(cfg, refl):
-        return dict(probe_spacing=r.probes.grid_spacing,
-                    probe_dims=r.probes.grid_dimensions,
-                    surface_offset=m.SURFACE_OFFSET,
-                    ao_steps=cfg.ambient_occlusion_steps,
-                    max_steps=cfg.max_march_steps,
-                    mat_rough_vec=ctx.rough_vec if refl else None,
-                    refl_shadows=cfg.add_indirect_specular)
-
-    def run(fn, rays, name):
-        cfg, refl = passes[name]
-        return fn(ctx.packed, ctx.lpos_vec, ctx.n_light_slots, rays[0],
-                  rays[1], ctx.max_dist, **geom_kwargs(cfg, refl))
-
-    max_err = 0.0
-    for name, rays in (("radiance", rad_check), ("screen", scr_check)):
-        k = run(M.geometry, rays, name)
-        torch.cuda.synchronize()
-        ref = run(M.geometry_reference, rays, name)
-        torch.cuda.synchronize()
-        max_err = max(max_err, check_geometry(torch, name, rays[0].shape[0],
-                                              k, ref))
+    geo, max_err = geometry_passes(torch, m, r, "", card)
 
     # ---- 4. GI 128x128, 4 frames, against the JAX golden
     goldens = np.load(os.path.join(REPO, "tests", "goldens", "images.npz"))
@@ -386,61 +524,12 @@ def main():
 
     # ---- 5. GI 800x800: counted and timed
     frames = 5
-    r.render()  # warm-up frame
-    timer = m.FrameTimer(dev)
-    reset_launches(m)
-    for _ in range(frames):
-        with timer.frame():
-            img = r.render()
-    gi_launches = (M.geometry.launches, M.raycast.launches,
-                   M.visibility.launches)
-    img = img.cpu()
-    if gi_launches != (2 * frames, 0, 0):
-        fail(f"GI: (geometry, raycast, visibility) launched {gi_launches} "
-             f"times in {frames} frames, expected ({2 * frames}, 0, 0)")
-    if not bool(torch.isfinite(img).all()) or float(img.var()) <= 0.0:
-        fail("GI 800x800 image is not finite with nonzero variance")
-    n_rays = m.rays_per_frame(r.width, r.height, r.probes, ctx.n_light_slots,
-                              r.screen_cfg, r.volumetrics)
-    print(f"GI 800x800: {frames} frames, {timer.mean * 1e3:.3f} ms/frame, "
-          f"{n_rays / timer.mean / 1e6:.1f} M rays/s ({n_rays} rays/frame); "
-          f"image mean {float(img.mean()):.5f} var {float(img.var()):.6f}; "
-          f"[{card}]")
-
-    # ---- 6. geometry kernel vs plain version at the passes' full shapes:
-    # held against each other, then timed
-    geo = {}
-    for name, rays in (("radiance", rad_full), ("screen", scr_full)):
-        n = rays[0].shape[0]
-        ref, flops = counted(torch, m,
-                             lambda: run(M.geometry_reference, rays, name))
-        k = run(M.geometry, rays, name)
-        torch.cuda.synchronize()
-        max_err = max(max_err, check_geometry(torch, f"{name} full", n, k,
-                                              ref))
-        del k, ref
-        (k1, k2), (p1, p2) = time_pair(
-            torch, lambda: run(M.geometry, rays, name),
-            lambda: run(M.geometry_reference, rays, name))
-        refl = passes[name][1]
-        n_l = ctx.n_light_slots
-        # per ray in: o, d; out: t, hit, idx, mid, normal, ao, shadows,
-        # vis8, and with the reflection its t, hit, mid, normal, shadows,
-        # vis8, best_pid, best_dir; the scene, lights, roughness once
-        per_ray = 24 + 4 * (10 + n_l + 8) + (4 * (14 + n_l + 8) if refl
-                                             else 0)
-        n_bytes = n * per_ray + 4 * (ctx.packed.slots.numel()
-                                     + ctx.lpos_vec.numel()
-                                     + ctx.rough_vec.numel())
-        b_ms, b_by = bound(flops, n_bytes)
-        geo[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
-                         bound_ms=b_ms, bound_by=b_by)
-        print(f"time geometry {name} ({n} rays): kernel {k1:.3f}/{k2:.3f} "
-              f"ms, plain {p1:.1f}/{p2:.1f} ms; bound {b_ms:.5f} ms "
-              f"({b_by}: {flops:.4e} flops, {n_bytes} bytes); [{card}]")
+    gi_launches = drive(torch, m, r, "GI 800x800", frames,
+                           {"geometry": 2}, card)
 
     # ---- 7. the raycast and visibility kernels' ptxas report
-    ptxas_lines(m, "march")
+    ptxas_lines(m, "march", "raycast_kernel")
+    ptxas_lines(m, "march", "visibility_kernel")
 
     # ---- 8. raycast and visibility vs plain versions at light_shafts'
     # full shapes
@@ -486,32 +575,9 @@ def main():
         fail(f"light_shafts golden gates breached: {stats['breached']}")
 
     # ---- 10. light_shafts 800x800: the main path, counted and timed
-    ls.render()  # warm-up frame
-    timer = m.FrameTimer(dev)
-    reset_launches(m)
-    for _ in range(frames):
-        with timer.frame():
-            img = ls.render()
-    launches = {"geometry": M.geometry.launches,
-                "raycast": M.raycast.launches,
-                "visibility": M.visibility.launches}
-    img = img.cpu()
-    want = {"geometry": 2 * frames, "raycast": frames,
-            "visibility": lctx.n_light_slots * frames}
-    if launches != want:
-        fail(f"light_shafts launches {launches} in {frames} frames, "
-             f"expected {want}")
-    if not bool(torch.isfinite(img).all()) or float(img.var()) <= 0.0:
-        fail("light_shafts 800x800 image is not finite with nonzero "
-             "variance")
-    n_rays = m.rays_per_frame(ls.width, ls.height, ls.probes,
-                              lctx.n_light_slots, ls.screen_cfg, vol)
-    print(f"light_shafts 800x800: {frames} frames, "
-          f"{timer.mean * 1e3:.3f} ms/frame, "
-          f"{n_rays / timer.mean / 1e6:.1f} M rays/s ({n_rays} rays/frame); "
-          f"launches {json.dumps(launches)}; "
-          f"image mean {float(img.mean()):.5f} var {float(img.var()):.6f}; "
-          f"[{card}]")
+    launches = drive(torch, m, ls, "light_shafts 800x800", frames,
+                        {"geometry": 2, "raycast": 1,
+                         "visibility": lctx.n_light_slots}, card)
     split = pass_split(torch, m, ls, 3)
     print(f"light_shafts 800x800 per pass (ms, CUDA events, mean of 3; "
           f"screen includes the composite): "
@@ -535,6 +601,153 @@ def main():
               f"plain {ps[0]:.1f}/{ps[1]:.1f} ms; bound {b_ms:.5f} ms "
               f"({b_by}: {flops:.4e} flops); [{card}]")
 
+    # ---- 12. the softshadow kernel's ptxas report
+    ptxas_lines(m, "march", "softshadow_kernel")
+
+    # ---- 13. raycast and softshadow kernels vs plain versions on the rays
+    # of a GI specular-mode-1 800x800 screen pass
+    mode1 = m.ShadeConfig(indirect_specular_mode=1)
+    mode3 = m.ShadeConfig(indirect_specular_mode=3)
+    g1 = S.global_illumination(width=800, height=800, device=dev,
+                               screen_cfg=mode1)
+    g1ctx = m.SceneCtx(g1.spec, g1.scene_data)
+    max_steps = mode1.max_march_steps
+    _, _, _, (o_scr, d_scr) = gi_rays(torch, m, g1, dev)
+    pos, ro, rd, ren = reflection_rays(torch, m, g1, o_scr, d_scr)
+    n_refl = ro.shape[0]
+
+    def refl_raycast(fn):
+        return fn(g1ctx.packed, ro, rd, g1.spec.max_dist,
+                  max_steps=max_steps, enabled=ren)
+
+    (rt, rhit, spec_pos), rc1_flops = counted(
+        torch, m, lambda: refl_raycast(M.raycast_reference))
+    kt, khit, _ = refl_raycast(M.raycast)
+    torch.cuda.synchronize()
+    agree = khit == rhit
+    rc_err = max(rc_err, float(torch.where(agree, (kt - rt).abs(),
+                                           0.0).max()))
+    check("raycast mode-1 reflections", n_refl, int(rhit.sum()),
+          {"hit": 1.0 - agree.float().mean().item()},
+          {"t": float(torch.where(agree, (kt - rt).abs(), 0.0).max())})
+    pen = m.shading.glossy_corners(g1.probes, pos, spec_pos, ren & rhit)[3]
+    n_pen = pen["origins"].shape[0]
+    if (n_refl, n_pen) != (640_000, 5_120_000):
+        fail(f"GI mode-1 rays: {n_refl} reflection, {n_pen} penumbra")
+
+    def penumbra(fn):
+        return fn(g1ctx.packed, pen["origins"], pen["dirs"],
+                  pen["min_dists"], pen["max_dists"], m.shading.GLOSSY_K,
+                  max_steps=max_steps, enabled=pen["enabled"])
+
+    rsh, sh_flops = counted(torch, m,
+                            lambda: penumbra(M.softshadows_reference))
+    ksh = penumbra(M.softshadows)
+    torch.cuda.synchronize()
+    same = (ksh == 0) == (rsh == 0)
+    sh_err = float(torch.where(same, (ksh - rsh).abs(), 0.0).max())
+    check("softshadows mode-1 penumbras", n_pen, int((rsh == 0).sum()),
+          {"blocked": 1.0 - same.float().mean().item()}, {"res": sh_err})
+    print(f"mode-1 penumbras: {int(pen['enabled'].sum())} of {n_pen} "
+          f"marched, {int((rsh == 0).sum())} blocked, "
+          f"{int(((rsh > 0) & (rsh < 1)).sum())} soft")
+    del rsh, ksh
+
+    # ---- 14. the masked geometry launch (mode 3's reflection rays, no AO)
+    # vs its plain version
+    def masked(fn, ids=slice(None)):
+        return fn(g1ctx.packed, g1ctx.lpos_vec, g1ctx.n_light_slots,
+                  ro[ids].contiguous(), rd[ids].contiguous(),
+                  g1.spec.max_dist, probe_spacing=g1.probes.grid_spacing,
+                  probe_dims=g1.probes.grid_dimensions,
+                  surface_offset=m.SURFACE_OFFSET, ao_steps=0,
+                  max_steps=max_steps, enabled=ren[ids].contiguous())
+
+    sub = torch.randperm(n_refl, generator=torch.Generator().manual_seed(
+        SEED))[:CHECK_RAYS].to(dev)
+    for label, ids in (("masked reflections", sub),
+                       ("masked reflections full", slice(None))):
+        k = masked(M.geometry, ids)
+        torch.cuda.synchronize()
+        ref = masked(M.geometry_reference, ids)
+        torch.cuda.synchronize()
+        if bool((k["t"][~ren[ids]] != 0).any()) or bool(
+                k["hit"][~ren[ids]].any()):
+            fail(f"{label}: a disabled ray marched or hit")
+        max_err = max(max_err, check_geometry(
+            torch, label, ref["t"].shape[0], k, ref))
+        del k, ref
+
+    # ---- 15. GI in modes 1 and 3 at 128x128, 4 frames: card vs CPU
+    for cfg in (mode1, mode3):
+        imgs = [S.global_illumination(width=128, height=128, device=d,
+                                      screen_cfg=cfg).converge(frames=4)
+                .cpu().numpy() for d in (dev, "cpu")]
+        stats = m.image_stats(*imgs)
+        print(f"GI mode {cfg.indirect_specular_mode} 128x128, cuda vs cpu: "
+              f"{json.dumps(stats)}")
+        if stats["breached"]:
+            fail(f"GI mode {cfg.indirect_specular_mode}: card vs CPU gates "
+                 f"breached: {stats['breached']}")
+
+    # ---- 16. simple_scene: 128x128 against the JAX golden, then the
+    # geometry kernel vs plain on its rays (40 live slots)
+    small = S.simple_scene(width=128, height=128, device=dev)
+    img = small.converge(frames=2).cpu().numpy()
+    stats = m.image_stats(img, goldens["simple_scene"])
+    print(f"golden simple_scene 128x128: {json.dumps(stats)}")
+    if stats["breached"]:
+        fail(f"simple_scene golden gates breached: {stats['breached']}")
+    ss = S.simple_scene(width=800, height=800, device=dev)
+    n_slots = m.SceneCtx(ss.spec, ss.scene_data).packed.n_slots
+    if n_slots != 40:
+        fail(f"simple_scene packs {n_slots} slots, expected 40")
+    geo_ss, err = geometry_passes(torch, m, ss, "simple_scene ", card)
+    max_err = max(max_err, err)
+
+    # ---- 17. GI mode 1, GI mode 3 and simple_scene at 800x800: the main
+    # paths, counted and timed, with the per-pass split
+    g3 = S.global_illumination(width=800, height=800, device=dev,
+                               screen_cfg=mode3)
+    paths = {}
+    for label, rr, per_frame in (
+            ("GI mode 1", g1, {"geometry": 2, "raycast": 1,
+                               "softshadows": 1}),
+            ("GI mode 3", g3, {"geometry": 3}),
+            ("simple_scene", ss, {"geometry": 2})):
+        paths[label] = drive(torch, m, rr, f"{label} 800x800", frames,
+                                per_frame, card)
+        split = pass_split(torch, m, rr, 3)
+        print(f"{label} 800x800 per pass (ms, CUDA events, mean of 3): "
+              f"{json.dumps({k: round(v, 3) for k, v in split.items()})}; "
+              f"[{card}]")
+        busy, wall, top = m.device_busy(rr.render, 3)
+        print(f"{label} 800x800 under torch.profiler (3 frames): device "
+              f"busy {busy:.3f} ms/frame of {wall:.3f} ms/frame, idle share "
+              f"{1.0 - busy / wall:.3f}; heaviest: "
+              + "; ".join(f"{name[:60]} {ms:.3f}" for name, ms in top[:5])
+              + f"; [{card}]")
+
+    # ---- 18. the softshadow kernel vs its plain version, timed
+    sh_t = time_pair(torch, lambda: penumbra(M.softshadows),
+                     lambda: penumbra(M.softshadows_reference), iters=5)
+    # per ray in: o, d, min_dist, max_dist, enabled; out: the factor
+    sh_bound = bound(sh_flops, n_pen * (24 + 4 + 4 + 1 + 4)
+                     + 4 * g1ctx.packed.slots.numel())
+    print(f"time softshadows ({n_pen} rays): kernel "
+          f"{sh_t[0][0]:.4f}/{sh_t[0][1]:.4f} ms, plain "
+          f"{sh_t[1][0]:.1f}/{sh_t[1][1]:.1f} ms; bound {sh_bound[0]:.5f} "
+          f"ms ({sh_bound[1]}: {sh_flops:.4e} flops); [{card}]")
+    rc1_t = time_pair(torch, lambda: refl_raycast(M.raycast),
+                      lambda: refl_raycast(M.raycast_reference))
+    rc1_bound = bound(rc1_flops, n_refl * (24 + 1 + 4 + 1)
+                      + 4 * g1ctx.packed.slots.numel())
+    print(f"time raycast mode-1 reflections ({n_refl} rays): kernel "
+          f"{rc1_t[0][0]:.4f}/{rc1_t[0][1]:.4f} ms, plain "
+          f"{rc1_t[1][0]:.1f}/{rc1_t[1][1]:.1f} ms; bound "
+          f"{rc1_bound[0]:.5f} ms ({rc1_bound[1]}: {rc1_flops:.4e} flops); "
+          f"[{card}]")
+
     src = "madarch_tpu_torch/ops/csrc/"
     print(json.dumps({"kernels": [
         {"name": "geometry", "route": "cuda", "source": src + "geometry.cu",
@@ -546,18 +759,36 @@ def main():
          "ms_radiance": geo["radiance"]["ms"],
          "plain_ms_radiance": geo["radiance"]["plain_ms"],
          "bound_ms_radiance": geo["radiance"]["bound_ms"],
-         "launches_gi": gi_launches[0]},
+         "launches_gi": gi_launches["geometry"],
+         "launches_gi_mode1": paths["GI mode 1"]["geometry"],
+         "launches_gi_mode3": paths["GI mode 3"]["geometry"],
+         "launches_simple_scene": paths["simple_scene"]["geometry"],
+         "ms_simple_scene": geo_ss["screen"]["ms"],
+         "plain_ms_simple_scene": geo_ss["screen"]["plain_ms"],
+         "bound_ms_simple_scene": geo_ss["screen"]["bound_ms"],
+         "ms_simple_scene_radiance": geo_ss["radiance"]["ms"],
+         "plain_ms_simple_scene_radiance": geo_ss["radiance"]["plain_ms"],
+         "bound_ms_simple_scene_radiance": geo_ss["radiance"]["bound_ms"]},
         {"name": "raycast", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1089",
          "launches": launches["raycast"], "max_abs_err": rc_err,
          "ms": min(rc_t[0]), "plain_ms": min(rc_t[1]),
          "bound_ms": rc_bound[0], "bound_by": rc_bound[1],
-         "library_ms": None},
+         "library_ms": None,
+         "launches_gi_mode1": paths["GI mode 1"]["raycast"],
+         "ms_gi_mode1": min(rc1_t[0]), "plain_ms_gi_mode1": min(rc1_t[1]),
+         "bound_ms_gi_mode1": rc1_bound[0]},
         {"name": "visibility", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1127",
          "launches": launches["visibility"], "max_abs_err": vis_err,
          "ms": min(vis_t[0]), "plain_ms": min(vis_t[1]),
          "bound_ms": vis_bound[0], "bound_by": vis_bound[1],
+         "library_ms": None},
+        {"name": "softshadows", "route": "cuda", "source": src + "march.cu",
+         "replaces": "madarch_tpu/ops/march.py:1144",
+         "launches": paths["GI mode 1"]["softshadows"], "max_abs_err": sh_err,
+         "ms": min(sh_t[0]), "plain_ms": min(sh_t[1]),
+         "bound_ms": sh_bound[0], "bound_by": sh_bound[1],
          "library_ms": None},
     ]}))
     print(card)

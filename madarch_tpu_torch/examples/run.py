@@ -6,9 +6,9 @@ Usage:
     python -m madarch_tpu_torch.examples.run SCENE [--device cuda] \\
         [--frames N] [--size WxH] [--out out.png] [--fast]
 
-SCENE: global_illumination | light_shafts.  The device defaults to the
-CUDA card; ``--device cpu`` renders on the CPU (the plain versions of the
-kernels).
+SCENE: simple_scene | global_illumination | light_shafts.  The device
+defaults to the CUDA card; ``--device cpu`` renders on the CPU (the plain
+versions of the kernels).
 
 On a GPU the frame times come from CUDA events; on the CPU from the host
 clock.
@@ -26,7 +26,8 @@ from madarch_tpu_torch.utils.profiling import FrameTimer, device_busy, sync
 
 def parser():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("scene", choices=["global_illumination", "light_shafts"])
+    ap.add_argument("scene", choices=["simple_scene", "global_illumination",
+                                      "light_shafts"])
     ap.add_argument("--device", default="cuda",
                     help="torch device, e.g. cuda (the default), cuda:0 or "
                          "cpu")

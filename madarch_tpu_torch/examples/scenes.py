@@ -1,6 +1,7 @@
 """The reference example scenes as Renderer builders (port of
-madarch_tpu/examples/scenes.py: global_illumination, light_shafts).  Each
-runs on the CUDA card unless a ``device`` keyword says otherwise."""
+madarch_tpu/examples/scenes.py: simple_scene, global_illumination,
+light_shafts).  Each runs on the CUDA card unless a ``device`` keyword
+says otherwise."""
 from __future__ import annotations
 
 import numpy as np
@@ -23,6 +24,45 @@ def _room(r: Renderer, wall_mats):
                         ((0.0, 0.0, 1.0), 6.0, w1),
                         ((0.0, 0.0, -1.0), 7.0, w1)]:
         r.add_primitive(P.Plane, normal=nrm, offset=off, material_id=m)
+
+
+def simple_scene(width=1000, height=1000, **kwargs) -> Renderer:
+    """The room with a grid of 20 mirror spheres, 14 blue boxes and a
+    point light: 40 live slots, the most of any ported example."""
+    spec = SceneSpec(prims=((P.Sphere, 20), (P.Plane, 10), (P.Box, 20)),
+                     lights=((L.PointLight, 4),))
+    r = Renderer(spec, width, height, volumetrics=NO_VOLUMETRICS, **kwargs)
+    r.set_material(0, (0.0, 0.0, 0.0), 0.0, 0.6)
+    r.set_material(1, (1.0, 0.0, 0.0), 0.0, 0.6)
+    r.set_material(2, (0.0, 0.0, 1.0), 0.0, 0.6)
+    r.set_material(3, (0.1, 0.1, 0.1), 0.9, 0.1)
+    _room(r, (0, 1, 2))
+    sphere_centers = ([(0.5 + i, 3.5, 2.0) for i in range(6)]
+                      + [(0.5 + i, 0.5, 2.0) for i in range(6)]
+                      + [(0.5 + i, 3.5, 5.0) for i in range(6)]
+                      + [(0.5, 0.5, 5.0), (1.5, 0.5, 5.0)])
+    for c in sphere_centers:
+        r.add_primitive(P.Sphere, center=c, radius=0.5, material_id=3)
+    boxes = [((3.0, 1.0, 2.0), (0.5, 0.5, 0.5)),
+             ((0.0, 1.0, 2.0), (0.3, 0.3, 0.5)),
+             ((3.0, 1.0, 4.0), (0.5, 0.5, 0.5)),
+             ((4.0, 2.0, 2.0), (0.5, 0.5, 0.5)),
+             ((2.0, 2.0, 2.0), (0.5, 0.5, 0.5)),
+             ((1.0, 1.0, 6.0), (0.5, 0.5, 0.5)),
+             ((3.0, 1.0, 6.0), (0.5, 0.5, 0.5)),
+             ((3.0, 1.0, -2.0), (0.5, 0.5, 0.5)),
+             ((1.0, 1.0, -2.0), (0.3, 0.3, 0.5)),
+             ((3.0, 1.0, -4.0), (0.5, 0.5, 0.5)),
+             ((4.0, 2.0, -2.0), (0.5, 0.5, 0.5)),
+             ((2.0, 2.0, -2.0), (0.5, 0.5, 0.5)),
+             ((1.0, 1.0, -6.0), (0.5, 0.5, 0.5)),
+             ((3.0, 1.0, -6.0), (0.5, 0.5, 0.5))]
+    for c, s in boxes:
+        r.add_primitive(P.Box, center=c, side=s, material_id=2)
+    r.add_light(L.PointLight, position=(0.0, 3.0, 0.0),
+                color=(0.9, 0.9, 0.9))
+    r.set_camera_position((2.0, 2.0, 0.0))
+    return r
 
 
 def global_illumination(width=1000, height=1000, time: float = 0.0,

@@ -7,7 +7,8 @@
 // probes, one penumbra march per light and the 8 probe-visibility marches;
 // with REFL it also folds in the specular mode-2 reflection bounce (gate,
 // reflect, march, classify, normal, shadows, visibility) and the best-probe
-// pick.
+// pick.  An optional per-ray `enabled` mask (specular mode 3's reflection
+// launch) keeps a ray from marching at all; ao_steps = 0 skips the AO probes.
 //
 // What bounds it: control flow and scene evaluations, not bytes.  A ray
 // reads 28 bytes and, with one light, writes 72 (148 with REFL), but runs
@@ -45,6 +46,7 @@ struct GeomArgs {
   int n_mats;
   const float* origins; // f32[n, 3]
   const float* dirs;    // f32[n, 3]
+  const unsigned char* enabled;  // bool[n]; null: every ray
   int n;
   float max_dist;
   float eps;
@@ -117,8 +119,8 @@ __device__ void shadow_block(const Scene& sc, const March& m,
     const float ldy = tly * inv;
     const float ldz = tlz * inv;
     const float ndotl = nx * ldx + ny * ldy + nz * ldz;
-    out[li * a.n + i] = march_shadow(sc, m, sx, sy, sz, ldx, ldy, ldz, ldist,
-                                     hit && ndotl > a.ndotl_min);
+    out[li * a.n + i] = march_shadow(sc, m, sx, sy, sz, ldx, ldy, ldz, 0.f,
+                                     ldist, hit && ndotl > a.ndotl_min);
   }
 }
 
@@ -212,14 +214,16 @@ __global__ void geometry_kernel(const GeomArgs a) {
   const float dy = a.dirs[3 * i + 1];
   const float dz = a.dirs[3 * i + 2];
 
-  // ---- 1. primary bounce
-  const float t = march_primary(sc, m, ox, oy, oz, dx, dy, dz, true);
+  // ---- 1. primary bounce; a disabled ray stays at t = 0, is no hit and so
+  // enables none of the marches below
+  const bool en = a.enabled == nullptr || a.enabled[i] != 0;
+  const float t = march_primary(sc, m, ox, oy, oz, dx, dy, dz, en);
   const float px = ox + t * dx;
   const float py = oy + t * dy;
   const float pz = oz + t * dz;
   int idx, mid;
   const float d_end = scene_info(sc, px, py, pz, &idx, &mid);
-  const bool hit = d_end < a.eps && t < a.max_dist;
+  const bool hit = en && d_end < a.eps && t < a.max_dist;
   float nx, ny, nz;
   fd_normal(sc, a.normal_h, px, py, pz, &nx, &ny, &nz);
 

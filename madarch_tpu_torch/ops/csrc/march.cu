@@ -1,27 +1,38 @@
-// Raycast and visibility kernels for Hopper (sm_90a): one thread per ray.
+// Raycast, visibility and penumbra kernels for Hopper (sm_90a): one thread
+// per ray.
 //
 // raycast_kernel replaces the Pallas TPU kernel
 // madarch_tpu/ops/march.py:_raycast_kernel (reached through
 // pallas_raycast): the over-relaxed primary march to max_dist, then
 // hit = d(o + t·d) < eps ∧ t < max_dist, both masked by `enabled`.  The
-// volumetric scattering pass casts one such ray per scattering texel.
+// volumetric scattering pass casts one such ray per scattering texel, and
+// specular mode 1 one reflection ray per pixel.
 // visibility_kernel replaces _visibility_kernel (pallas_visibility):
 // 1 if the ray reaches its own max distance unblocked, else 0, with the
 // same march; the froxel visibility pass casts one per froxel and light.
+// softshadow_kernel replaces _softshadow_kernel (pallas_softshadows): the
+// improved-penumbra march (omega = 1) from t0 = min_dist to max_dist,
+// min(k·sqrt(d² − y²)/(t − y)) over its steps, 0 where it hits geometry;
+// specular mode 1 marches 8 per pixel (k = 0.5) from the reflection hit
+// back toward the probe-cell corners.
 //
 // What bounds them: scene evaluations, not bytes.  A raycast ray reads 25
-// bytes and writes 5, a visibility ray reads 29 and writes 4, but each
-// runs up to max_steps march steps, every step a loop over all live
-// slots.  The TPU kernels marched (8,128) tiles until their slowest lane
-// finished; here each thread leaves its loop on its own (a warp still
-// waits for its slowest lane).  The packed scene sits in shared memory,
-// read by every thread at the same address (a broadcast).  Neither kernel
-// culls: on the TPU the box-exit cap exists only for all-bounded plans,
-// and a scene with a plane has none.
+// bytes and writes 5, a visibility ray reads 29 and writes 4, a penumbra
+// ray reads 33 and writes 4, but each runs up to max_steps march steps,
+// every step a loop over all live slots (the penumbra march, without
+// over-relaxation, takes the most).  The TPU kernels marched (8,128)
+// tiles until their slowest lane finished; here each thread leaves its
+// loop on its own (a warp still waits for its slowest lane).  The packed
+// scene sits in shared memory, read by every thread at the same address
+// (a broadcast).  No kernel culls: on the TPU the box-exit cap exists only
+// for all-bounded plans, and a scene with a plane has none; the TPU
+// penumbra kernel's far-field skip for k >= 32 used a margin (0.15) below
+// max_dist/k and darkened shadows, so any culling here would need a margin
+// of at least max_dist/k.
 //
 // Each launch passes its own scene-distance cap: raycast caps at its
-// max_dist, visibility at 1e4 (as pallas_visibility does); dead
-// dynamic-count slots read as that cap.
+// max_dist, visibility and softshadows at 1e4 (as pallas_visibility and
+// pallas_softshadows do); dead dynamic-count slots read as that cap.
 #include <cuda_runtime.h>
 
 #include "scene.cuh"
@@ -32,7 +43,8 @@ struct MarchArgs {
   int n_slots;
   const float* origins;          // f32[n, 3]
   const float* dirs;             // f32[n, 3]
-  const float* max_dists;        // f32[n] (visibility only)
+  const float* min_dists;        // f32[n] (softshadows)
+  const float* max_dists;        // f32[n] (visibility, softshadows)
   const unsigned char* enabled;  // bool[n]
   int n;
   float max_dist;                // raycast's march budget
@@ -41,9 +53,10 @@ struct MarchArgs {
   int max_steps;
   float omega;
   float one_minus_omega;
+  float k;                       // penumbra sharpness (softshadows)
   float* t;                      // f32[n] (raycast)
   unsigned char* hit;            // bool[n] (raycast)
-  float* vis;                    // f32[n] (visibility)
+  float* vis;                    // f32[n] (visibility: 0/1; softshadows)
 };
 
 namespace {
@@ -93,6 +106,18 @@ __global__ void visibility_kernel(const MarchArgs a) {
       a.dirs[3 * i + 2], a.max_dists[i], a.enabled[i] != 0);
 }
 
+__global__ void softshadow_kernel(const MarchArgs a) {
+  extern __shared__ float s_slots[];
+  const int i = load_scene(a, s_slots);
+  if (i >= a.n) return;
+  const Scene sc{s_slots, a.n_slots, a.cap};
+  const March m{a.cap, a.eps, 1.f, 0.f, a.k, a.max_steps};
+  a.vis[i] = march_shadow(
+      sc, m, a.origins[3 * i + 0], a.origins[3 * i + 1],
+      a.origins[3 * i + 2], a.dirs[3 * i + 0], a.dirs[3 * i + 1],
+      a.dirs[3 * i + 2], a.min_dists[i], a.max_dists[i], a.enabled[i] != 0);
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, const MarchArgs* a, void* stream) {
   if (a->n == 0) return 0;
@@ -112,4 +137,8 @@ extern "C" int madarch_raycast(const MarchArgs* a, void* stream) {
 
 extern "C" int madarch_visibility(const MarchArgs* a, void* stream) {
   return launch(visibility_kernel, a, stream);
+}
+
+extern "C" int madarch_softshadows(const MarchArgs* a, void* stream) {
+  return launch(softshadow_kernel, a, stream);
 }

@@ -127,12 +127,14 @@ __device__ float march_visibility(const Scene& sc, const March& m, float ox,
   return 1.f;
 }
 
-// Penumbra march (omega = 1) from t = 0: res starts at 1, prev at 1e20;
-// 0 when the shadow ray hits geometry.
+// Penumbra march (omega = 1) from t = t0: res starts at 1, prev at 1e20;
+// starts only if t0 < mx; 0 when the shadow ray hits geometry.  The
+// penumbra term's denominator t - y counts t from the origin, so t0 > 0
+// shifts every sample's estimate.
 __device__ float march_shadow(const Scene& sc, const March& m, float ox,
                               float oy, float oz, float dx, float dy,
-                              float dz, float mx, bool active) {
-  float t = 0.f, res = 1.f, prev = 1e20f;
+                              float dz, float t0, float mx, bool active) {
+  float t = t0, res = 1.f, prev = 1e20f;
   active = active && t < mx;
   for (int step = 0; step < m.max_steps && active; ++step) {
     const float dist = scene_dist(sc, ox + t * dx, oy + t * dy, oz + t * dz);

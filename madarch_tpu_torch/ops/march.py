@@ -1,18 +1,20 @@
 """The march kernels: scene packing, the CUDA kernels' wrappers and their
 plain PyTorch versions (port of madarch_tpu/ops/march.py's
-pallas_geometry, pallas_raycast and pallas_visibility).
+pallas_geometry, pallas_raycast, pallas_visibility and pallas_softshadows).
 
 ``geometry`` returns what the JAX package's ``pallas_geometry`` returns: a
 dict with t, hit, idx, mid, normal, ao, shadows, vis8 and, when
 ``mat_rough_vec`` is given, "refl" (the folded specular mode-2 bounce).
-``raycast`` returns (t, hit, pos) and ``visibility`` 0/1 per ray, as
-``pallas_raycast`` and ``pallas_visibility`` do.  On a CUDA tensor each
-launches its kernel (``csrc/geometry.cu`` for the TPU kernel
-``_geometry_kernel``, ``csrc/march.cu`` for ``_raycast_kernel`` and
-``_visibility_kernel``; the design notes are in those files); on a CPU
+``raycast`` returns (t, hit, pos), ``visibility`` 0/1 and ``softshadows``
+the penumbra factor per ray, as ``pallas_raycast``, ``pallas_visibility``
+and ``pallas_softshadows`` do.  On a CUDA tensor each launches its kernel
+(``csrc/geometry.cu`` for the TPU kernel ``_geometry_kernel``,
+``csrc/march.cu`` for ``_raycast_kernel``, ``_visibility_kernel`` and
+``_softshadow_kernel``; the design notes are in those files); on a CPU
 tensor it runs its plain version (``geometry_reference``,
-``raycast_reference``, ``visibility_reference``), the same marches from
-render/raymarch.py over ``scene_dist``.
+``raycast_reference``, ``visibility_reference``,
+``softshadows_reference``), the same marches from render/raymarch.py over
+``scene_dist``.
 
 The scene packs into one small f32 table, one row per evaluated slot in
 spec order: (type code, global index, material id, live flag, 6 params).
@@ -53,7 +55,8 @@ KERNEL_TYPES = {
 # sphere 3 sub, 3 mul, 2 add, sqrt, sub; plane 3 mul, 3 add; box 3 sub,
 # 3 abs, 3 sub, 3 max, 3 mul, 2 add, sqrt, 3 max/min, add.
 SLOT_FLOPS = {0: 11, 1: 7, 2: 23}
-# The visibility kernel's scene-distance cap (pallas_visibility's 1e4).
+# The visibility and softshadow kernels' scene-distance cap (the 1e4 of
+# pallas_visibility and pallas_softshadows).
 VIS_CAP = 1e4
 # Slot evaluations of the plain versions by type code, summed over every
 # point they evaluate the scene at (march steps of the active lanes,
@@ -254,11 +257,13 @@ def geometry_reference(packed, lpos, n_lights, origins, dirs, max_dist, *,
                        probe_spacing, probe_dims, surface_offset, ao_steps,
                        ao_step_size=0.1, shadow_k=64.0, eps=EPSILON,
                        max_steps=300, omega=1.6, mat_rough_vec=None,
-                       refl_shadows=True):
+                       refl_shadows=True, enabled=None):
     """Plain PyTorch version of the geometry kernel: the same marches,
     offsets, masks, FD normal and in-order pick, in batched tensor ops."""
     n = origins.shape[0]
     dev = origins.device
+    if enabled is None:
+        enabled = torch.ones(n, dtype=torch.bool, device=dev)
 
     def sdf_b(p):
         return scene_dist(packed, p, max_dist)
@@ -275,8 +280,7 @@ def geometry_reference(packed, lpos, n_lights, origins, dirs, max_dist, *,
         so = p + normal * surface_offset
         return t, p, hit, idx, mid, normal, so
 
-    t, p, hit, idx, mid, normal, so = bounce(
-        origins, dirs, torch.ones(n, dtype=torch.bool, device=dev))
+    t, p, hit, idx, mid, normal, so = bounce(origins, dirs, enabled)
     ao = rm.ambient_occlusion(sdf_b, p, normal, steps=ao_steps,
                               step_size=ao_step_size)
     shadows = _shadows(sdf_b, lpos, n_lights, p, so, normal, hit, shadow_k,
@@ -329,6 +333,15 @@ def visibility_reference(packed, origins, dirs, max_dists, *, eps=EPSILON,
         eps=eps, max_steps=max_steps, enabled=enabled, omega=omega)
 
 
+def softshadows_reference(packed, origins, dirs, min_dists, max_dists, k, *,
+                          eps=EPSILON, max_steps=300, enabled=None):
+    """Plain PyTorch version of the softshadow kernel: render/raymarch.py's
+    softshadows over the packed scene, whose distances cap at VIS_CAP."""
+    return rm.softshadows(
+        lambda p: scene_dist(packed, p, VIS_CAP), origins, dirs, min_dists,
+        max_dists, k, eps=eps, max_steps=max_steps, enabled=enabled)
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel's wrapper
 # ---------------------------------------------------------------------------
@@ -341,7 +354,7 @@ class _GeomArgs(ctypes.Structure):
         ("lpos", ctypes.c_void_p), ("n_lights", ctypes.c_int),
         ("rough", ctypes.c_void_p), ("n_mats", ctypes.c_int),
         ("origins", ctypes.c_void_p), ("dirs", ctypes.c_void_p),
-        ("n", ctypes.c_int),
+        ("enabled", ctypes.c_void_p), ("n", ctypes.c_int),
         ("max_dist", ctypes.c_float), ("eps", ctypes.c_float),
         ("max_steps", ctypes.c_int), ("omega", ctypes.c_float),
         ("one_minus_omega", ctypes.c_float), ("shadow_k", ctypes.c_float),
@@ -392,7 +405,8 @@ def _ptr(x):
 def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
              probe_spacing, probe_dims, surface_offset, ao_steps,
              ao_step_size=0.1, shadow_k=64.0, eps=EPSILON, max_steps=300,
-             omega=1.6, mat_rough_vec=None, refl_shadows=True):
+             omega=1.6, mat_rough_vec=None, refl_shadows=True,
+             enabled=None):
     """Fused geometry pass over rays origins/dirs f32[N, 3]: a dict with t,
     hit (bool), idx (i32 global index, -1 where not hit), mid (i32),
     normal f32[N,3], ao f32[N], shadows f32[L,N], vis8 f32[8,N], and
@@ -401,11 +415,15 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
 
     Outputs other than t/hit are meaningful only where hit holds (shadows
     and vis8 also only where their march was enabled); with
-    ``refl_shadows`` False the reflection's shadows are all ones."""
+    ``refl_shadows`` False the reflection's shadows are all ones;
+    ``ao_steps`` 0 gives ao 1.  ``enabled``: optional bool[N]; a disabled
+    ray does not march (t 0), is no hit and enables no other march."""
     dev = origins.device
     n = origins.shape[0]
     _check("origins", origins, dev, torch.float32, (n, 3))
     _check("dirs", dirs, dev, torch.float32, (n, 3))
+    if enabled is not None:
+        _check("enabled", enabled, dev, torch.bool, (n,))
     _check("packed.slots", packed.slots, dev, torch.float32,
            (packed.n_slots, SLOT_WIDTH))
     _check("lpos", lpos, dev, torch.float32, (3 * n_lights,))
@@ -418,7 +436,8 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
                   surface_offset=surface_offset, ao_steps=ao_steps,
                   ao_step_size=ao_step_size, shadow_k=shadow_k, eps=eps,
                   max_steps=max_steps, omega=omega,
-                  mat_rough_vec=mat_rough_vec, refl_shadows=refl_shadows)
+                  mat_rough_vec=mat_rough_vec, refl_shadows=refl_shadows,
+                  enabled=enabled)
     if dev.type == "cpu":
         return geometry_reference(packed, lpos, n_lights, origins, dirs,
                                   max_dist, **kwargs)
@@ -430,7 +449,7 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
 def _launch(packed, lpos, n_lights, origins, dirs, max_dist, *,
             probe_spacing, probe_dims, surface_offset, ao_steps,
             ao_step_size, shadow_k, eps, max_steps, omega, mat_rough_vec,
-            refl_shadows):
+            refl_shadows, enabled):
     lib = _library()
     dev = origins.device
     n = origins.shape[0]
@@ -464,7 +483,7 @@ def _launch(packed, lpos, n_lights, origins, dirs, max_dist, *,
         lpos=_ptr(lpos), n_lights=n_lights,
         rough=_ptr(mat_rough_vec), n_mats=mat_rough_vec.shape[0] if refl
         else 0,
-        origins=_ptr(origins), dirs=_ptr(dirs), n=n,
+        origins=_ptr(origins), dirs=_ptr(dirs), enabled=_ptr(enabled), n=n,
         max_dist=max_dist, eps=eps, max_steps=max_steps, omega=omega,
         one_minus_omega=1.0 - omega, shadow_k=shadow_k,
         surf_off=surface_offset, ndotl_min=EPSILON, normal_h=NORMAL_H,
@@ -506,11 +525,12 @@ class _MarchArgs(ctypes.Structure):
     _fields_ = [
         ("slots", ctypes.c_void_p), ("n_slots", ctypes.c_int),
         ("origins", ctypes.c_void_p), ("dirs", ctypes.c_void_p),
-        ("max_dists", ctypes.c_void_p), ("enabled", ctypes.c_void_p),
-        ("n", ctypes.c_int),
+        ("min_dists", ctypes.c_void_p), ("max_dists", ctypes.c_void_p),
+        ("enabled", ctypes.c_void_p), ("n", ctypes.c_int),
         ("max_dist", ctypes.c_float), ("cap", ctypes.c_float),
         ("eps", ctypes.c_float), ("max_steps", ctypes.c_int),
         ("omega", ctypes.c_float), ("one_minus_omega", ctypes.c_float),
+        ("k", ctypes.c_float),
         ("t", ctypes.c_void_p), ("hit", ctypes.c_void_p),
         ("vis", ctypes.c_void_p),
     ]
@@ -518,7 +538,8 @@ class _MarchArgs(ctypes.Structure):
 
 def _march_library():
     lib = build.load("march")
-    for fn in (lib.madarch_raycast, lib.madarch_visibility):
+    for fn in (lib.madarch_raycast, lib.madarch_visibility,
+               lib.madarch_softshadows):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -605,8 +626,36 @@ def visibility(packed, origins, dirs, max_dists, *, eps=EPSILON,
     return vis
 
 
+def softshadows(packed, origins, dirs, min_dists, max_dists, k, *,
+                eps=EPSILON, max_steps=300, enabled=None):
+    """f32[N]: the improved-penumbra factor of the ray origins/dirs
+    f32[N, 3] marched (omega 1) from its min_dists to its max_dists
+    f32[N], k the penumbra sharpness; 0 where the ray hits geometry, 1
+    where it never starts (``enabled``, optional bool[N], false, or
+    min_dist >= max_dist)."""
+    dev = origins.device
+    n = origins.shape[0]
+    en = _check_rays(packed, origins, dirs, enabled)
+    _check("min_dists", min_dists, dev, torch.float32, (n,))
+    _check("max_dists", max_dists, dev, torch.float32, (n,))
+    kwargs = dict(eps=eps, max_steps=max_steps)
+    if dev.type == "cpu":
+        return softshadows_reference(packed, origins, dirs, min_dists,
+                                     max_dists, k, enabled=enabled, **kwargs)
+    if dev.type != "cuda":
+        raise ValueError(f"softshadows runs on cpu or cuda, not {dev}")
+    res = torch.empty(n, dtype=torch.float32, device=dev)
+    _launch_march(_march_library().madarch_softshadows, packed, origins,
+                  dirs, en, min_dists=_ptr(min_dists),
+                  max_dists=_ptr(max_dists), max_dist=VIS_CAP, cap=VIS_CAP,
+                  omega=1.0, k=k, vis=_ptr(res), **kwargs)
+    softshadows.launches += 1
+    return res
+
+
 # Kernel launches since the count was last reset (the CPU path does not
 # count): lets a run show that its main path went through the kernels.
 geometry.launches = 0
 raycast.launches = 0
 visibility.launches = 0
+softshadows.launches = 0

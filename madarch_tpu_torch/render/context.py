@@ -24,19 +24,22 @@ class SceneCtx:
         self.rough_vec = data.materials["roughness"].to(
             torch.float32).contiguous()
 
-    def geometry(self, origins, dirs, probes, cfg, want_reflection=False):
+    def geometry(self, origins, dirs, probes, cfg, want_reflection=False,
+                 enabled=None, want_ao=True):
         """Run the fused march+classify+shadow+probe-visibility kernel;
         ``want_reflection`` folds the specular mode-2 bounce into the
-        launch (the result's "refl" key)."""
+        launch (the result's "refl" key); ``enabled`` (bool[N]) keeps rays
+        from marching; ``want_ao`` False skips the AO probes (ao 1), as the
+        reflection launch of specular mode 3 does."""
         return march_ops.geometry(
             self.packed, self.lpos_vec, self.n_light_slots, origins, dirs,
             self.max_dist, probe_spacing=probes.grid_spacing,
             probe_dims=probes.grid_dimensions,
             surface_offset=SURFACE_OFFSET,
-            ao_steps=cfg.ambient_occlusion_steps,
+            ao_steps=cfg.ambient_occlusion_steps if want_ao else 0,
             max_steps=cfg.max_march_steps,
             mat_rough_vec=self.rough_vec if want_reflection else None,
-            refl_shadows=cfg.add_indirect_specular)
+            refl_shadows=cfg.add_indirect_specular, enabled=enabled)
 
     def raycast(self, origins, dirs, max_dist, *, max_steps, enabled=None):
         """The raycast kernel over this scene: (t, hit, pos)."""
@@ -48,3 +51,11 @@ class SceneCtx:
         """The visibility kernel over this scene: 0/1 per ray."""
         return march_ops.visibility(self.packed, origins, dirs, max_dists,
                                     max_steps=max_steps, enabled=enabled)
+
+    def softshadows(self, origins, dirs, min_dists, max_dists, k, *,
+                    max_steps, enabled=None):
+        """The softshadow kernel over this scene: the penumbra factor per
+        ray."""
+        return march_ops.softshadows(self.packed, origins, dirs, min_dists,
+                                     max_dists, k, max_steps=max_steps,
+                                     enabled=enabled)

@@ -73,6 +73,14 @@ def probe_id_to_grid_position(settings: ProbeSettings, pid):
     return torch.stack([x, y, z], dim=-1)
 
 
+def probe_id_to_tile(settings: ProbeSettings, pid):
+    """probe id -> (tile_x, tile_y) in the atlas."""
+    px, _ = settings.probe_count
+    ty = pid // px
+    tx = pid - ty * px
+    return tx, ty
+
+
 def probe_world_positions(settings: ProbeSettings, device):
     """f32[num_probes, 3] world positions of all probes."""
     pid = torch.arange(settings.num_probes, device=device)
@@ -127,6 +135,70 @@ def tiles_to_atlas(settings: ProbeSettings, tiles, res: int):
     px, py = settings.probe_count
     t = tiles.reshape(py, px, res, res, 3).permute(0, 2, 1, 3, 4)
     return t.reshape(py * res, px * res, 3)
+
+
+def sample_tile_bilinear(atlas, tile_x, tile_y, ray_id, res: int):
+    """Bilinear lookup inside one probe tile, clamped half a texel from the
+    tile border.  atlas: f32[H, W, 3]; tile_x, tile_y int [N]; ray_id
+    [N, 2]."""
+    rid = torch.clamp(ray_id, 0.5 / res, 1.0 - 0.5 / res)
+    fx = rid[..., 0] * res - 0.5
+    fy = rid[..., 1] * res - 0.5
+    x0 = torch.clamp(torch.floor(fx).to(torch.int32), 0, res - 1)
+    y0 = torch.clamp(torch.floor(fy).to(torch.int32), 0, res - 1)
+    x1 = torch.clamp_max(x0 + 1, res - 1)
+    y1 = torch.clamp_max(y0 + 1, res - 1)
+    wx = (fx - x0)[..., None]
+    wy = (fy - y0)[..., None]
+
+    bx = tile_x * res
+    by = tile_y * res
+
+    def tex(yy, xx):
+        return atlas[(by + yy).long(), (bx + xx).long()]
+
+    top = tex(y0, x0) * (1 - wx) + tex(y0, x1) * wx
+    bot = tex(y1, x0) * (1 - wx) + tex(y1, x1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def radiance_mips(settings: ProbeSettings, atlas, levels: int):
+    """Mip pyramid of the radiance atlas (2×2 box per level), the
+    textureLod source of specular mode 1.  Levels stay tile-aligned while
+    the tile resolution divides by 2."""
+    mips = [atlas]
+    cur = atlas
+    for _ in range(levels):
+        h, w, _ = cur.shape
+        if h % 2 or w % 2:
+            break
+        cur = cur.reshape(h // 2, 2, w // 2, 2, 3).mean(dim=(1, 3))
+        mips.append(cur)
+    return mips
+
+
+def sample_tile_lod(settings: ProbeSettings, mips, tile_x, tile_y, ray_id,
+                    lod):
+    """Fractional-LOD bilinear sample inside one probe tile (textureLod):
+    lerp between the two adjacent mip levels.  Each level is sampled once;
+    the level loop selects the lower and upper sample as the JAX package's
+    does."""
+    n_levels = len(mips)
+    lod = torch.clamp(lod, 0.0, n_levels - 1.0)
+    lo = torch.floor(lod).to(torch.int32)
+    frac = lod - lo.to(torch.float32)
+
+    base_res = settings.radiance_resolution
+    v = [sample_tile_bilinear(mips[lvl], tile_x, tile_y, ray_id,
+                              base_res >> lvl) for lvl in range(n_levels)]
+    out_lo = torch.zeros(ray_id.shape[:-1] + (3,), dtype=torch.float32,
+                         device=ray_id.device)
+    out_hi = torch.zeros_like(out_lo)
+    for lvl in range(n_levels):
+        at = (lo == lvl)[..., None]
+        out_lo = torch.where(at, v[lvl], out_lo)
+        out_hi = torch.where(at, v[min(lvl + 1, n_levels - 1)], out_hi)
+    return out_lo * (1.0 - frac[..., None]) + out_hi * frac[..., None]
 
 
 def radiance_mip1(settings: ProbeSettings, atlas):

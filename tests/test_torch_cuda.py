@@ -1,5 +1,5 @@
-"""The CUDA kernels (geometry, raycast, visibility) against their plain
-PyTorch versions, on the card.
+"""The CUDA kernels (geometry, raycast, visibility, softshadows) against
+their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs where JAX is absent:
@@ -9,20 +9,24 @@ one.  The file imports no JAX, so it also runs where JAX is absent:
 The kernels are built with -fmad=false and round like the plain versions,
 so discrete outputs (hit, idx, mid, visibility) must be equal and
 continuous ones agree to 1e-5 (t) and 1e-4 (the rest), on the lanes where
-they are meaningful.
+they are meaningful; penumbra factors agree to 1e-5 and are 0 (blocked)
+on the same rays.
 """
 import pytest
 import torch
 
-from madarch_tpu_torch.core.config import ProbeSettings
+from madarch_tpu_torch.core.config import ProbeSettings, ShadeConfig
+from madarch_tpu_torch.core.vecmath import reflect
 from madarch_tpu_torch.examples import scenes as S
 from madarch_tpu_torch.ops import march as M
 from madarch_tpu_torch.render import probes as PR
+from madarch_tpu_torch.render import shading as SH
 from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
 from madarch_tpu_torch.render.raymarch import SURFACE_OFFSET
 from madarch_tpu_torch.scene import lights as L
 from madarch_tpu_torch.scene import primitives as P
-from madarch_tpu_torch.scene.scene import SceneBuilder, SceneSpec
+from madarch_tpu_torch.scene.scene import (SceneBuilder, SceneSpec,
+                                           material_lookup)
 
 pytestmark = pytest.mark.cuda
 
@@ -257,3 +261,146 @@ def test_visibility_tail_block_at_a_million_rays(dev):
     torch.cuda.synchronize()
     ref = M.visibility_reference(packed, pts, ldir, ldist)
     assert torch.equal(v, ref.repeat(reps)[:n])
+
+
+# ---------------------------------------------------------------------------
+# Specular modes 1 and 3: the softshadow kernel and the masked geometry
+# launch
+# ---------------------------------------------------------------------------
+
+def _reflection_rays(r, dev, n=4096):
+    """Seeded GI screen rays' reflection rays, as specular modes 1 and 3
+    cast them: (primary hit points, origins off the surface, reflected
+    directions, the roughness < 0.75 gate)."""
+    o, d = _gi_rays(r, dev, "screen", n=n)
+    packed = M.pack_scene(r.spec, r.scene_data)
+    lpos, n_lights = M.pack_light_positions(r.spec, r.scene_data)
+    g = M.geometry_reference(packed, lpos, n_lights, o, d, r.spec.max_dist,
+                             probe_spacing=r.probes.grid_spacing,
+                             probe_dims=r.probes.grid_dimensions,
+                             surface_offset=SURFACE_OFFSET, ao_steps=3)
+    pos = o + g["t"][:, None] * d
+    _, _, rough = material_lookup(r.scene_data, g["mid"])
+    return (pos, (pos + g["normal"] * SURFACE_OFFSET).contiguous(),
+            reflect(d, g["normal"]).contiguous(), g["hit"] & (rough < 0.75))
+
+
+def _check_softshadows(packed, rays, k):
+    before = M.softshadows.launches
+    args = (packed, rays["origins"], rays["dirs"], rays["min_dists"],
+            rays["max_dists"], k)
+    ks = M.softshadows(*args, enabled=rays["enabled"])
+    torch.cuda.synchronize()
+    assert M.softshadows.launches == before + 1
+    rs = M.softshadows_reference(*args, enabled=rays["enabled"])
+    assert torch.equal(ks == 0, rs == 0)
+    torch.testing.assert_close(ks, rs, rtol=0, atol=1e-5)
+    return rs
+
+
+def test_softshadows_match_plain_on_gi_mode1_rays(dev):
+    """The mode-1 penumbra rays (k = 0.5, from 0.25 to the corner's
+    distance less 0.25) of 4,096 GI screen rays: 32,768 rays, with a
+    quarter of them disabled on top of the path's own mask."""
+    r = S.global_illumination(width=256, height=256, device=dev)
+    packed = M.pack_scene(r.spec, r.scene_data)
+    pos, ro, rd, en = _reflection_rays(r, dev)
+    _, hit, spec_pos = M.raycast(packed, ro, rd, r.spec.max_dist,
+                                 enabled=en)
+    rays = SH.glossy_corners(r.probes, pos, spec_pos, en & hit)[3]
+    g = torch.Generator().manual_seed(19)
+    rays["enabled"] = rays["enabled"] & (
+        torch.rand(rays["enabled"].shape[0], generator=g) > 0.25).to(dev)
+    res = _check_softshadows(packed, rays, SH.GLOSSY_K)
+    on = rays["enabled"]
+    assert (res[~on] == 1).all()
+    assert (res[on] == 0).any() and ((res[on] > 0) & (res[on] < 1)).any()
+
+
+def test_softshadows_match_plain_with_dead_slots(dev):
+    """Dead slots read as the 1e4 cap; k = 64 and 0.5; min dists up to 1,
+    max dists from -1 to 30, and max == min on some rays (never marched)."""
+    spec, data = _dynamic_scene(dev)
+    packed = M.pack_scene(spec, data)
+    g = torch.Generator().manual_seed(23)
+    n = 8192
+    o = torch.rand(n, 3, generator=g) * 2.0 - 1.0
+    o[:, 1] += 1.0
+    d = torch.randn(n, 3, generator=g)
+    d = d / d.norm(dim=1, keepdim=True)
+    mn = torch.rand(n, generator=g)
+    mx = torch.rand(n, generator=g) * 31.0 - 1.0
+    mx[:64] = mn[:64]
+    rays = {"origins": o, "dirs": d, "min_dists": mn, "max_dists": mx,
+            "enabled": torch.rand(n, generator=g) > 0.2}
+    rays = {key: v.to(dev) for key, v in rays.items()}
+    for k in (64.0, 0.5):
+        res = _check_softshadows(packed, rays, k)
+        never = ~rays["enabled"] | (mn.to(dev) >= mx.to(dev))
+        assert (res[never] == 1).all()
+
+
+def test_softshadows_tail_block_beyond_a_million_rays(dev):
+    """A launch of 1,000,037 rays: 7,813 blocks of 128 threads, the last
+    holding 5 rays; every output equals the plain version's on the rays it
+    repeats."""
+    r = S.global_illumination(width=128, height=128, device=dev)
+    packed = M.pack_scene(r.spec, r.scene_data)
+    pos, ro, rd, en = _reflection_rays(r, dev, n=2048)
+    _, hit, spec_pos = M.raycast(packed, ro, rd, r.spec.max_dist,
+                                 enabled=en)
+    rays = SH.glossy_corners(r.probes, pos, spec_pos, en & hit)[3]
+    n = 1_000_037
+    reps = -(-n // rays["origins"].shape[0])
+    big = {key: (v.repeat(reps, 1) if v.ndim == 2 else v.repeat(reps))[:n]
+           .contiguous() for key, v in rays.items()}
+    res = M.softshadows(packed, big["origins"], big["dirs"],
+                        big["min_dists"], big["max_dists"], SH.GLOSSY_K,
+                        enabled=big["enabled"])
+    torch.cuda.synchronize()
+    ref = M.softshadows_reference(packed, rays["origins"], rays["dirs"],
+                                  rays["min_dists"], rays["max_dists"],
+                                  SH.GLOSSY_K, enabled=rays["enabled"])
+    torch.testing.assert_close(res, ref.repeat(reps)[:n], rtol=0, atol=1e-5)
+
+
+def test_masked_geometry_matches_plain_on_gi_reflections(dev):
+    """Specular mode 3's reflection launch: the mask (the roughness gate,
+    and a quarter more rays disabled) and no AO.  Disabled rays stay at
+    t = 0 and are no hits."""
+    r = S.global_illumination(width=256, height=256, device=dev)
+    _, ro, rd, en = _reflection_rays(r, dev)
+    g = torch.Generator().manual_seed(29)
+    en = en & (torch.rand(en.shape[0], generator=g) > 0.25).to(dev)
+    packed = M.pack_scene(r.spec, r.scene_data)
+    lpos, n_lights = M.pack_light_positions(r.spec, r.scene_data)
+    kw = dict(probe_spacing=r.probes.grid_spacing,
+              probe_dims=r.probes.grid_dimensions,
+              surface_offset=SURFACE_OFFSET, ao_steps=0, enabled=en)
+    before = M.geometry.launches
+    k = M.geometry(packed, lpos, n_lights, ro, rd, r.spec.max_dist, **kw)
+    torch.cuda.synchronize()
+    assert M.geometry.launches == before + 1
+    ref = M.geometry_reference(packed, lpos, n_lights, ro, rd,
+                               r.spec.max_dist, **kw)
+    _assert_match(k, ref)
+    assert (k["t"][~en] == 0).all() and not k["hit"][~en].any()
+    assert (k["ao"] == 1).all() and ref["hit"].float().mean() > 0.5
+
+
+def test_modes_1_and_3_launch_their_kernels(dev):
+    """One 64² frame per mode through Renderer.render(): mode 1 launches
+    the geometry kernel twice (radiance, screen), the raycast and the
+    softshadow kernel once; mode 3 the geometry kernel three times."""
+    want = {1: (2, 1, 1), 3: (3, 0, 0)}
+    for mode, launches in want.items():
+        r = S.global_illumination(
+            width=64, height=64, device=dev,
+            screen_cfg=ShadeConfig(indirect_specular_mode=mode))
+        fns = (M.geometry, M.raycast, M.softshadows)
+        before = [f.launches for f in fns]
+        img = r.render()
+        torch.cuda.synchronize()
+        assert tuple(f.launches - b for f, b in zip(fns, before)) \
+            == launches
+        assert torch.isfinite(img).all()

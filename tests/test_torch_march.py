@@ -15,6 +15,8 @@ hit lanes; shadows 1e-4 and vis8 exactly on the lanes whose marches were
 enabled; the reflection outputs as stated in their test.  Other lanes
 are don't-care outputs.
 """
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,7 @@ from madarch_tpu.render import raymarch as jrm
 from madarch_tpu.scene.scene import scene_sdf as jscene_sdf
 from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG, ProbeSettings,
                                            screen_shade_config)
+from madarch_tpu_torch.core.vecmath import reflect
 from madarch_tpu_torch.ops import march as TM
 from madarch_tpu_torch.render import raymarch as trm
 from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
@@ -278,6 +281,78 @@ def test_loose_lanes_are_xla_fma(geom):
 
 
 # ---------------------------------------------------------------------------
+# The masked launch without AO (specular mode 3's reflection geometry)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=["gi", "basic"])
+def masked(request):
+    """Mode-3 reflection rays: from each primary hit of the screen variant
+    offset along its normal, the view ray reflected, enabled where the hit
+    is on a material of roughness < 0.75, and further on a seeded 3 in 4
+    (the GI room's walls are all glossy enough, so every GI ray would be
+    on).  Both packages get these rays as the same numpy arrays; JAX runs
+    ``pallas_geometry(enabled=..., want_ao=False)``, the port
+    ``geometry(enabled=..., ao_steps=0)``."""
+    jspec, jdata, tspec, tdata = _scene(request.param)
+    if request.param == "gi":
+        o, d = _gi_rays("screen")
+    else:
+        o, d = (np.array(x) for x in rand_rays(N_RAYS, seed=31))
+    kw = dict(probe_spacing=GRID["spacing"], probe_dims=GRID["dims"],
+              surface_offset=trm.SURFACE_OFFSET, max_steps=300)
+    packed = TM.pack_scene(tspec, tdata)
+    lpos, n_lights = TM.pack_light_positions(tspec, tdata)
+    g = TM.geometry(packed, lpos, n_lights, torch.as_tensor(o),
+                    torch.as_tensor(d), tspec.max_dist, ao_steps=3, **kw)
+    pos = torch.as_tensor(o) + g["t"][:, None] * torch.as_tensor(d)
+    _, _, rough = TS.material_lookup(tdata, g["mid"])
+    keep = np.random.RandomState(32).rand(N_RAYS) > 0.25
+    en = (g["hit"] & (rough < 0.75)).numpy() & keep
+    ro = (pos + g["normal"] * trm.SURFACE_OFFSET).numpy()
+    rd = reflect(torch.as_tensor(d), g["normal"]).numpy()
+
+    plan = JM.build_plan(jspec)
+    jlpos, _ = JM.pack_light_positions(jspec, jdata)
+    jout = JM.pallas_geometry(plan, JM.pack_params(plan, jdata), jlpos,
+                              n_lights, jnp.asarray(ro), jnp.asarray(rd),
+                              jspec.max_dist, enabled=jnp.asarray(en),
+                              want_ao=False, ao_steps=3, **kw)
+    tout = TM.geometry(packed, lpos, n_lights, torch.as_tensor(ro),
+                       torch.as_tensor(rd), tspec.max_dist, ao_steps=0,
+                       enabled=torch.as_tensor(en), **kw)
+    return (jax.tree.map(np.asarray, jout), tout,
+            (ro, rd, en, jspec, jdata, n_lights))
+
+
+def test_masked_geometry_matches_jax(masked):
+    """Tolerances as for the primary outputs above.  A disabled ray does
+    not march (t exactly 0), is no hit (idx -1) and enables none of its
+    shadow and visibility marches; AO is off (all ones) in both."""
+    j, t, (o, d, en, jspec, jdata, n_lights) = masked
+    assert en.any() and not en.all()
+    np.testing.assert_array_equal(_np(t["hit"]), j["hit"])
+    np.testing.assert_array_equal(_np(t["idx"]), j["idx"])
+    np.testing.assert_allclose(_np(t["t"]), j["t"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(_np(t["t"])[~en], 0.0)
+    np.testing.assert_array_equal(j["t"][~en], 0.0)
+    assert not j["hit"][~en].any() and (j["idx"][~en] == -1).all()
+    np.testing.assert_array_equal(_np(t["ao"]), 1.0)
+    np.testing.assert_array_equal(j["ao"], 1.0)
+    hit = j["hit"]
+    assert hit.any(), "too few hits to test anything"
+    np.testing.assert_array_equal(_np(t["mid"])[hit], j["mid"][hit])
+    np.testing.assert_allclose(_np(t["normal"])[hit], j["normal"][hit],
+                               atol=1e-4)
+    lpos, _ = JM.pack_light_positions(jspec, jdata)
+    sh_on = _shadow_enabled(o + j["t"][:, None] * d, j["normal"], hit,
+                            np.asarray(lpos), n_lights)
+    np.testing.assert_allclose(_np(t["shadows"])[sh_on], j["shadows"][sh_on],
+                               atol=1e-4)
+    np.testing.assert_array_equal(_np(t["vis8"])[:, hit], j["vis8"][:, hit])
+    assert t["refl"] is None and j["refl"] is None
+
+
+# ---------------------------------------------------------------------------
 # Packing and the wrapper
 # ---------------------------------------------------------------------------
 
@@ -332,6 +407,9 @@ def test_geometry_on_cpu_runs_the_plain_version_uncounted():
     with pytest.raises(ValueError):
         TM.geometry(packed, lpos, n_lights, o[:8].T.contiguous().T, d[:8],
                     20.0, **kw)
+    with pytest.raises(TypeError):
+        TM.geometry(packed, lpos, n_lights, o[:8], d[:8], 20.0,
+                    enabled=torch.ones(8), **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -443,12 +521,18 @@ def test_ctypes_args_mirror_the_kernel_struct():
     run here, so drift would show only on the card)."""
     _assert_mirrors(TM._GeomArgs._fields_,
                     _struct_fields("geometry.cu", "GeomArgs"))
+    # the per-ray mask of specular mode 3's reflection launch
+    assert dict(TM._GeomArgs._fields_)["enabled"] is ctypes.c_void_p
 
 
 def test_ctypes_march_args_mirror_the_kernel_struct():
-    """The same for MarchArgs of csrc/march.cu (raycast, visibility)."""
+    """The same for MarchArgs of csrc/march.cu (raycast, visibility,
+    softshadows)."""
     _assert_mirrors(TM._MarchArgs._fields_,
                     _struct_fields("march.cu", "MarchArgs"))
+    fields = dict(TM._MarchArgs._fields_)
+    assert fields["min_dists"] is ctypes.c_void_p
+    assert fields["k"] is ctypes.c_float
 
 
 def test_raycast_and_visibility_on_cpu_run_the_plain_versions_uncounted():

@@ -136,3 +136,37 @@ def test_probe_addressing_matches_jax(name):
         pid.numpy(), np.asarray(JP.grid_position_to_probe_id(js, gp)))
     np.testing.assert_array_equal(
         TP.probe_id_to_grid_position(s, pid).numpy(), gp)
+
+
+@pytest.mark.parametrize("name", sorted(SETTINGS))
+def test_radiance_mips_and_sample_tile_lod_match_jax(name):
+    """The mode-1 lookup: the mip pyramid, and fractional-LOD samples in
+    seeded tiles at LODs across and beyond the pyramid (clamped), at atol
+    1e-6 (the 2×2 means and lerps in f32, summed in the same order)."""
+    s = SETTINGS[name]
+    js = jax_config(s)
+    rng = np.random.RandomState(8)
+    rad = _atlas(rng, s.radiance_atlas_shape)
+    levels = int(np.log2(s.radiance_resolution))
+    jm = JP.radiance_mips(js, jnp.asarray(rad), levels)
+    tm = TP.radiance_mips(s, torch.as_tensor(rad), levels)
+    assert len(tm) == len(jm) == levels + 1
+    for g, r in zip(tm, jm):
+        _close(g, r, atol=1e-6)
+    n = 256
+    pid = rng.randint(0, s.num_probes, n).astype(np.int32)
+    ray_id = np.array(JP.dir_to_ray_id(jnp.asarray(_dirs(rng, n))))
+    lod = rng.uniform(-0.5, levels + 0.5, n).astype(np.float32)
+    lod[:levels + 1] = np.arange(levels + 1)      # whole levels
+    jtx, jty = JP.probe_id_to_tile(js, jnp.asarray(pid))
+    ttx, tty = TP.probe_id_to_tile(s, torch.as_tensor(pid))
+    np.testing.assert_array_equal(ttx.numpy(), np.asarray(jtx))
+    np.testing.assert_array_equal(tty.numpy(), np.asarray(jty))
+    _close(TP.sample_tile_bilinear(tm[0], ttx, tty, torch.as_tensor(ray_id),
+                                   s.radiance_resolution),
+           JP.sample_tile_bilinear(jm[0], jtx, jty, jnp.asarray(ray_id),
+                                   s.radiance_resolution), atol=1e-6)
+    _close(TP.sample_tile_lod(s, tm, ttx, tty, torch.as_tensor(ray_id),
+                              torch.as_tensor(lod)),
+           JP.sample_tile_lod(js, jm, jtx, jty, jnp.asarray(ray_id),
+                              jnp.asarray(lod)), atol=1e-6)
