@@ -61,17 +61,44 @@ Phases, each printed on its own lines; any failure exits non-zero:
    busy time per frame and its heaviest kernels;
 18. times the softshadow kernel against its plain version on the
    5,120,000 penumbra rays, and the raycast kernel on the 640,000
-   reflection rays.
+   reflection rays;
+19. prints ptxas's register and spill lines for the triangle variants of
+   the geometry kernel and of the march kernels;
+20. builds obj_mesh at 800x800 on the in-repo 968-triangle torus
+   (examples/media/torus968.obj) and checks its 968 packed triangles in
+   121 chunks;
+21. holds the geometry kernel against geometry_reference on 16,384 seeded
+   radiance rays and 16,384 seeded screen rays of obj_mesh, then on both
+   passes' full shapes (36,864 and 640,000 rays), where it counts the
+   plain version's work for the bound, and the raycast, visibility and
+   softshadow kernels against their plain versions on 16,384 mesh rays
+   each (from the camera and the probes toward the torus's box);
+22. renders obj_mesh at 32x32 with the tiny probes over 2 frames on the
+   card and on the CPU and holds them to each other under the golden
+   gates;
+23. renders obj_mesh at 800x800 (5 timed frames after a warm-up), checks
+   the image and 2 geometry launches per frame, reports ms/frame, rays/s,
+   the per-pass split and the device busy time under torch.profiler, and
+   times the geometry kernel at both passes' full shapes against its
+   bound (the work of exact pruning, counted in phase 21 on the plain
+   version at the same shapes) and against the unculled count, and the
+   plain version on the subsets; holds the kernel with one box level
+   (every super-chunk box opened, so it tests every chunk box in slot
+   order) to the two-level kernel and times it between two runs of that.
 
 (Phase 6 of earlier versions, the geometry kernel at the full shapes, is
 part of phase 3.)
 
 Each kernel's bound is the larger of its bytes over 3.35 TB/s and the
 float operations of its scene evaluations (counted on the plain version
-over the same rays) over 67 TFLOP/s, the H100 SXM's published fp32 peak.
+over the same rays; for triangles, the super-chunk box tests, the chunk
+box tests inside the admitted super-chunks and the triangles of the
+chunks exact pruning must admit) over 67 TFLOP/s, the H100 SXM's
+published fp32 peak.
 It prints a kernels JSON line, the card line, then the last line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -102,7 +129,8 @@ def fail(msg):
 def port_modules():
     """The port's modules this script drives, imported together (a test
     imports them with JAX blocked)."""
-    from madarch_tpu_torch.core.config import PROBE_SHADE_CONFIG, ShadeConfig
+    from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG,
+                                               ProbeSettings, ShadeConfig)
     from madarch_tpu_torch.core.vecmath import reflect
     from madarch_tpu_torch.examples import scenes
     from madarch_tpu_torch.ops import build
@@ -119,7 +147,8 @@ def port_modules():
     from madarch_tpu_torch.utils.profiling import (FrameTimer, device_busy,
                                                    rays_per_frame)
     return SimpleNamespace(
-        PROBE_SHADE_CONFIG=PROBE_SHADE_CONFIG, ShadeConfig=ShadeConfig,
+        PROBE_SHADE_CONFIG=PROBE_SHADE_CONFIG, ProbeSettings=ProbeSettings,
+        ShadeConfig=ShadeConfig,
         reflect=reflect, S=scenes, build=build, M=march, pipeline=pipeline,
         probes=probes, shading=shading, vol=volumetrics,
         camera_rays=camera_rays, pixel_grid=pixel_grid, SceneCtx=SceneCtx,
@@ -262,11 +291,11 @@ def cuda_ms(torch, fn, iters):
 
 def counted(torch, m, fn):
     """(fn(), float operations of its scene evaluations): fn runs a plain
-    version, whose evaluations ops/march.py counts."""
-    for code in m.M.scene_evals:
-        m.M.scene_evals[code] = 0
-    out = fn()
-    torch.cuda.synchronize()
+    version, whose evaluations ops/march.py counts (triangles as exact
+    pruning must evaluate them)."""
+    with m.M.counting():
+        out = fn()
+        torch.cuda.synchronize()
     return out, m.M.scene_eval_flops()
 
 
@@ -485,6 +514,207 @@ def reflection_rays(torch, m, r, o, d):
     return (pos, (pos + g["normal"] * m.SURFACE_OFFSET).contiguous(),
             m.reflect(d, g["normal"]).contiguous(),
             g["hit"] & (rough < 0.75))
+
+
+# test_examples.py's tiny probes, for the card-against-CPU frames.
+TINY_PROBES = dict(radiance_resolution=8, irradiance_resolution=4,
+                   probe_count=(4, 2), grid_dimensions=(2, 2, 2),
+                   grid_spacing=(4.0, 4.0, 4.0))
+
+
+def mesh_rays(torch, m, r, dev, n, seed):
+    """n seeded rays of obj_mesh's renderer r, half from the camera, half
+    from the camera or a probe position, toward points of the mesh's
+    bounding box (most hit it)."""
+    g = torch.Generator().manual_seed(seed)
+    tri = r.scene_data.prims["triangle"]
+    n_tri = r.builder._prim_counts["triangle"]
+    v = torch.cat([tri[k][:n_tri] for k in ("v1", "v2", "v3")]).cpu()
+    lo, hi = v.amin(0), v.amax(0)
+    cam = torch.as_tensor(r.camera_position)
+    starts = torch.cat([cam[None],
+                        m.probes.probe_world_positions(r.probes, "cpu")])
+    o = starts[torch.randint(0, starts.shape[0], (n,), generator=g)]
+    o[: n // 2] = cam
+    d = lo + torch.rand(n, 3, generator=g) * (hi - lo) - o
+    d = d / d.norm(dim=1, keepdim=True)
+    return o.to(dev).contiguous(), d.to(dev).contiguous()
+
+
+def mesh_phases(torch, m, dev, card):
+    """Phases 19-23, obj_mesh on the 968-triangle torus.  Returns the
+    geometry kernel's obj_mesh numbers, the march kernels' largest
+    differences on mesh rays and the launches of the 800x800 frames."""
+    M, S = m.M, m.S
+
+    # ---- 19. ptxas's report for the triangle variants (the last template
+    # argument, TRIS, true)
+    ptxas_lines(m, "geometry", "Lb1EEEv")
+    ptxas_lines(m, "march", "Lb1EEEv")
+
+    # ---- 20. the scene: 968 triangles in 121 chunks
+    r = S.obj_mesh(width=800, height=800, obj_path=S.TORUS_OBJ, device=dev)
+    ctx = m.SceneCtx(r.spec, r.scene_data)
+    packed = ctx.packed
+    n_tri = int(packed.tris[:, M.TRI_LIVE].sum())
+    if (n_tri, packed.n_chunks) != (968, 121):
+        fail(f"obj_mesh packs {n_tri} triangles in {packed.n_chunks} "
+             f"chunks, expected 968 in 121")
+    print(f"obj_mesh: {n_tri} triangles in {packed.n_chunks} chunks and "
+          f"{packed.n_supers} super-chunks; triangle table "
+          f"{4 * packed.tris.numel()} bytes in device memory, boxes "
+          f"{4 * packed.boxes.numel()} bytes in shared memory")
+
+    # ---- 21. the kernels against their plain versions on mesh rays
+    rad_sub, scr_sub, rad_full, scr_full = gi_rays(torch, m, r, dev)
+    passes = {"radiance": (m.PROBE_SHADE_CONFIG, False),
+              "screen": (r.screen_cfg, True)}
+
+    def run(fn, rays, name, scene=packed):
+        cfg, refl = passes[name]
+        return fn(scene, ctx.lpos_vec, ctx.n_light_slots, rays[0], rays[1],
+                  ctx.max_dist, probe_spacing=r.probes.grid_spacing,
+                  probe_dims=r.probes.grid_dimensions,
+                  surface_offset=m.SURFACE_OFFSET,
+                  ao_steps=cfg.ambient_occlusion_steps,
+                  max_steps=cfg.max_march_steps,
+                  mat_rough_vec=ctx.rough_vec if refl else None,
+                  refl_shadows=cfg.add_indirect_specular)
+
+    # the seeded subsets, then the full shapes, where the plain version's
+    # work is counted for the bound
+    geo_err = 0.0
+    work = {}
+    for name, rays, full in (("radiance", rad_sub, False),
+                             ("screen", scr_sub, False),
+                             ("radiance", rad_full, True),
+                             ("screen", scr_full, True)):
+        k = run(M.geometry, rays, name)
+        torch.cuda.synchronize()
+        if full:
+            ref, flops = counted(torch, m, lambda: run(M.geometry_reference,
+                                                        rays, name))
+            work[name] = (flops, M.scene_eval_flops(pruned=False),
+                          dict(M.pruned_evals),
+                          M.scene_evals[M.TRIANGLE_CODE])
+        else:
+            ref = run(M.geometry_reference, rays, name)
+            torch.cuda.synchronize()
+        geo_err = max(geo_err, check_geometry(
+            torch, f"obj_mesh {name}{' full' if full else ''}",
+            rays[0].shape[0], k, ref))
+        del k, ref
+
+    o, d = mesh_rays(torch, m, r, dev, CHECK_RAYS, SEED)
+    g = torch.Generator().manual_seed(SEED + 1)
+    mx = (torch.rand(CHECK_RAYS, generator=g) * 20.0).to(dev)
+    mn = (torch.rand(CHECK_RAYS, generator=g) * 0.5).to(dev)
+    en = torch.ones(CHECK_RAYS, dtype=torch.bool, device=dev)
+    kt, khit, _ = M.raycast(packed, o, d, r.spec.max_dist)
+    torch.cuda.synchronize()
+    rt, rhit, _ = M.raycast_reference(packed, o, d, r.spec.max_dist)
+    agree = khit == rhit
+    rc_err = float(torch.where(agree, (kt - rt).abs(), 0.0).max())
+    check("raycast obj_mesh", CHECK_RAYS, int(rhit.sum()),
+          {"hit": 1.0 - agree.float().mean().item()}, {"t": rc_err})
+    kvis = M.visibility(packed, o, d, mx, enabled=en)
+    torch.cuda.synchronize()
+    rvis = M.visibility_reference(packed, o, d, mx, enabled=en)
+    vis_err = float((kvis - rvis).abs().max())
+    check("visibility obj_mesh", CHECK_RAYS, int((rvis == 0).sum()),
+          {"vis": 1.0 - (kvis == rvis).float().mean().item()}, {})
+    sh_err = 0.0
+    for k_pen in (64.0, 0.5):
+        ksh = M.softshadows(packed, o, d, mn, mx, k_pen, enabled=en)
+        torch.cuda.synchronize()
+        rsh = M.softshadows_reference(packed, o, d, mn, mx, k_pen,
+                                      enabled=en)
+        same = (ksh == 0) == (rsh == 0)
+        err = float(torch.where(same, (ksh - rsh).abs(), 0.0).max())
+        sh_err = max(sh_err, err)
+        check(f"softshadows obj_mesh k={k_pen}", CHECK_RAYS,
+              int((rsh == 0).sum()),
+              {"blocked": 1.0 - same.float().mean().item()}, {"res": err})
+
+    # ---- 22. card against CPU: 32x32, the tiny probes, 2 frames
+    imgs = [S.obj_mesh(width=32, height=32, obj_path=S.TORUS_OBJ,
+                       probes=m.ProbeSettings(**TINY_PROBES), device=x)
+            .converge(frames=2).cpu().numpy() for x in (dev, "cpu")]
+    stats = m.image_stats(*imgs)
+    print(f"obj_mesh 32x32, cuda vs cpu: {json.dumps(stats)}")
+    if stats["breached"]:
+        fail(f"obj_mesh: card vs CPU gates breached: {stats['breached']}")
+
+    # ---- 23. obj_mesh 800x800: the main path, counted and timed
+    frames = 5
+    launches = drive(torch, m, r, "obj_mesh 800x800", frames,
+                     {"geometry": 2}, card)
+    n_rays = m.rays_per_frame(r.width, r.height, r.probes,
+                              ctx.n_light_slots, r.screen_cfg, r.volumetrics)
+    if n_rays != 15_088_640:
+        fail(f"obj_mesh rays_per_frame {n_rays}, expected 15,088,640")
+    split = pass_split(torch, m, r, 3)
+    print(f"obj_mesh 800x800 per pass (ms, CUDA events, mean of 3): "
+          f"{json.dumps({k: round(v, 3) for k, v in split.items()})}; "
+          f"[{card}]")
+    busy, wall, top = m.device_busy(r.render, 3)
+    print(f"obj_mesh 800x800 under torch.profiler (3 frames): device busy "
+          f"{busy:.3f} ms/frame of {wall:.3f} ms/frame, idle share "
+          f"{1.0 - busy / wall:.3f}; heaviest: "
+          + "; ".join(f"{name[:60]} {ms:.3f}" for name, ms in top[:5])
+          + f"; [{card}]")
+
+    # one box level, against which the second is timed: every super-chunk
+    # box opened to all of space, so the same kernel tests every chunk box
+    # in slot order (still exact)
+    boxes = packed.boxes.clone()
+    supers = boxes[6:6 * (1 + packed.n_supers)].view(-1, 6)
+    supers[:, :3] = -M.BIG
+    supers[:, 3:] = M.BIG
+    one_level = dataclasses.replace(packed, boxes=boxes)
+
+    out = {"launches": launches["geometry"], "max_abs_err": geo_err}
+    for name, sub, full in (("radiance", rad_sub, rad_full),
+                            ("screen", scr_sub, scr_full)):
+        n_sub, n_full = sub[0].shape[0], full[0].shape[0]
+        k, k1_level = (run(M.geometry, full, name),
+                       run(M.geometry, full, name, one_level))
+        torch.cuda.synchronize()
+        check_geometry(torch, f"obj_mesh {name} one box level vs two",
+                       n_full, k1_level, k)
+        del k, k1_level
+        k_full = (cuda_ms(torch, lambda: run(M.geometry, full, name), 3),)
+        k_one = tuple(cuda_ms(torch, lambda: run(M.geometry, full, name,
+                                                 one_level), 3)
+                      for _ in range(2))
+        k_full += (cuda_ms(torch, lambda: run(M.geometry, full, name), 3),)
+        (k1, k2), (p1, p2) = time_pair(
+            torch, lambda: run(M.geometry, sub, name),
+            lambda: run(M.geometry_reference, sub, name), iters=3)
+        flops, unculled, pruned, tri_evals = work[name]
+        n_l = ctx.n_light_slots
+        refl = passes[name][1]
+        per_ray = 24 + 4 * (10 + n_l + 8) + (4 * (14 + n_l + 8) if refl
+                                             else 0)
+        n_bytes = n_full * per_ray + 4 * (
+            packed.tris.numel() + packed.boxes.numel()
+            + ctx.lpos_vec.numel() + ctx.rough_vec.numel())
+        b_ms, b_by = bound(flops, n_bytes)
+        u_ms, u_by = bound(unculled, n_bytes)
+        print(f"time geometry obj_mesh {name}: kernel {k_full[0]:.3f}/"
+              f"{k_full[1]:.3f} ms at {n_full} rays, {k1:.3f}/{k2:.3f} ms "
+              f"at the {n_sub}-ray subset; plain {p1:.1f}/{p2:.1f} ms at "
+              f"the subset; bound at {n_full} rays {b_ms:.5f} ms ({b_by}: "
+              f"{flops:.4e} flops: {pruned['aabb']} box tests, "
+              f"{pruned['triangles']} of {tri_evals} triangle "
+              f"evaluations; {n_bytes} bytes), unculled {u_ms:.4f} ms "
+              f"({u_by}: {unculled:.4e} flops); one box level (timed "
+              f"between the two kernel times) {k_one[0]:.3f}/{k_one[1]:.3f} "
+              f"ms; [{card}]")
+        out[name] = dict(ms=min(k_full), sub_ms=min(k1, k2),
+                         plain_ms=min(p1, p2), bound_ms=b_ms, bound_by=b_by,
+                         unculled_bound_ms=u_ms)
+    return out, rc_err, vis_err, sh_err
 
 
 def main():
@@ -748,6 +978,13 @@ def main():
           f"{rc1_bound[0]:.5f} ms ({rc1_bound[1]}: {rc1_flops:.4e} flops); "
           f"[{card}]")
 
+    # ---- 19-23. obj_mesh: the triangle path
+    mesh, rc_mesh, vis_mesh, sh_mesh = mesh_phases(torch, m, dev, card)
+    max_err = max(max_err, mesh["max_abs_err"])
+    rc_err = max(rc_err, rc_mesh)
+    vis_err = max(vis_err, vis_mesh)
+    sh_err = max(sh_err, sh_mesh)
+
     src = "madarch_tpu_torch/ops/csrc/"
     print(json.dumps({"kernels": [
         {"name": "geometry", "route": "cuda", "source": src + "geometry.cu",
@@ -768,7 +1005,18 @@ def main():
          "bound_ms_simple_scene": geo_ss["screen"]["bound_ms"],
          "ms_simple_scene_radiance": geo_ss["radiance"]["ms"],
          "plain_ms_simple_scene_radiance": geo_ss["radiance"]["plain_ms"],
-         "bound_ms_simple_scene_radiance": geo_ss["radiance"]["bound_ms"]},
+         "bound_ms_simple_scene_radiance": geo_ss["radiance"]["bound_ms"],
+         "launches_obj_mesh": mesh["launches"],
+         "ms_obj_mesh": mesh["screen"]["ms"],
+         "ms_obj_mesh_radiance": mesh["radiance"]["ms"],
+         "plain_ms_obj_mesh": mesh["screen"]["plain_ms"],
+         "plain_ms_obj_mesh_radiance": mesh["radiance"]["plain_ms"],
+         "ms_obj_mesh_subset": mesh["screen"]["sub_ms"],
+         "ms_obj_mesh_radiance_subset": mesh["radiance"]["sub_ms"],
+         "bound_ms_obj_mesh": mesh["screen"]["bound_ms"],
+         "bound_by_obj_mesh": mesh["screen"]["bound_by"],
+         "bound_ms_obj_mesh_radiance": mesh["radiance"]["bound_ms"],
+         "unculled_bound_ms_obj_mesh": mesh["screen"]["unculled_bound_ms"]},
         {"name": "raycast", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1089",
          "launches": launches["raycast"], "max_abs_err": rc_err,

@@ -9,6 +9,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
+
 
 @dataclasses.dataclass(frozen=True)
 class ProbeSettings:
@@ -55,6 +57,28 @@ class VolumetricsSettings:
 
 
 NO_VOLUMETRICS = VolumetricsSettings(enabled=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitioningSettings:
+    """Uniform-grid space partitioning.  ``border_behavior``: 'clamp'
+    clamps out-of-grid lookups to the border cell; 'fallback' evaluates the
+    whole scene outside the grid."""
+
+    index_count: int = 20                     # K candidates per cell
+    border_behavior: str = "clamp"            # 'clamp' | 'fallback'
+    grid_dimensions: Tuple[int, int, int] = (10, 10, 20)
+    grid_spacing: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    grid_offset: Tuple[float, float, float] = (-1.5, -1.5, -10.0)
+
+    @property
+    def num_cells(self) -> int:
+        nx, ny, nz = self.grid_dimensions
+        return nx * ny * nz
+
+    @property
+    def cell_diag(self) -> float:
+        return float(np.linalg.norm(self.grid_spacing))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,6 +22,14 @@ def dot2(a):
     return dot(a, a)
 
 
+def cross(a, b):
+    """Batched vec3 cross product, component by component."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]],
+                       dim=-1)
+
+
 def length(a):
     return torch.sqrt(torch.clamp_min(dot2(a), 1e-30))
 

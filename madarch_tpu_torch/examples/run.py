@@ -4,9 +4,11 @@ frame as a PNG.
 
 Usage:
     python -m madarch_tpu_torch.examples.run SCENE [--device cuda] \\
-        [--frames N] [--size WxH] [--out out.png] [--fast]
+        [--frames N] [--size WxH] [--out out.png] [--fast] [--obj PATH]
 
-SCENE: simple_scene | global_illumination | light_shafts.  The device
+SCENE: simple_scene | global_illumination | light_shafts | obj_mesh
+(obj_mesh reads the mesh at --obj; the repository carries
+madarch_tpu_torch/examples/media/torus968.obj).  The device
 defaults to the CUDA card; ``--device cpu`` renders on the CPU (the plain
 versions of the kernels).
 
@@ -27,7 +29,7 @@ from madarch_tpu_torch.utils.profiling import FrameTimer, device_busy, sync
 def parser():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("scene", choices=["simple_scene", "global_illumination",
-                                      "light_shafts"])
+                                      "light_shafts", "obj_mesh"])
     ap.add_argument("--device", default="cuda",
                     help="torch device, e.g. cuda (the default), cuda:0 or "
                          "cpu")
@@ -36,6 +38,8 @@ def parser():
     ap.add_argument("--out", default=None)
     ap.add_argument("--fast", action="store_true",
                     help="small probes + capped march steps")
+    ap.add_argument("--obj", default=None, metavar="PATH",
+                    help="obj_mesh's mesh (an OBJ file)")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="then trace N more frames with torch.profiler and "
                          "print the device's busy time (CUDA only)")
@@ -52,6 +56,10 @@ def main(argv=None):
             radiance_resolution=8, irradiance_resolution=4,
             probe_count=(4, 2), grid_dimensions=(2, 2, 2),
             grid_spacing=(4.0, 4.0, 4.0))
+    if args.obj is not None:
+        if args.scene != "obj_mesh":
+            raise SystemExit("--obj is obj_mesh's option")
+        kwargs["obj_path"] = args.obj
     r = getattr(S, args.scene)(**kwargs)
     if args.profile and r.device.type != "cuda":
         raise SystemExit("--profile traces the CUDA card; the renderer is "

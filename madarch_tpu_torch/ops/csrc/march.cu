@@ -22,13 +22,16 @@
 // every step a loop over all live slots (the penumbra march, without
 // over-relaxation, takes the most).  The TPU kernels marched (8,128)
 // tiles until their slowest lane finished; here each thread leaves its
-// loop on its own (a warp still waits for its slowest lane).  The packed
-// scene sits in shared memory, read by every thread at the same address
-// (a broadcast).  No kernel culls: on the TPU the box-exit cap exists only
-// for all-bounded plans, and a scene with a plane has none; the TPU
-// penumbra kernel's far-field skip for k >= 32 used a margin (0.15) below
-// max_dist/k and darkened shadows, so any culling here would need a margin
-// of at least max_dist/k.
+// loop on its own (a warp still waits for its slowest lane).  The slot
+// table (and the triangle chunks' boxes) sits in shared memory, read by
+// every thread at the same address (a broadcast); triangles stay in device
+// memory and are pruned exactly by their boxes (scene.cuh:tri_min), so a
+// march steps as the unculled plain version does.  No kernel culls with a
+// margin: on the TPU the box-exit cap exists only for all-bounded plans,
+// and a scene with a plane has none; the TPU penumbra kernel's far-field
+// skip for k >= 32 used a margin (0.15) below max_dist/k and darkened
+// shadows, so any such culling here would need a margin of at least
+// max_dist/k.
 //
 // Each launch passes its own scene-distance cap: raycast caps at its
 // max_dist, visibility and softshadows at 1e4 (as pallas_visibility and
@@ -41,6 +44,11 @@
 struct MarchArgs {
   const float* slots;            // f32[n_slots, SLOT_WIDTH]
   int n_slots;
+  const float* tris;             // f32[n_chunks * CHUNK, TRI_WIDTH]
+  const float* boxes;            // f32[n_box_f]: scale row, boxes
+  int n_box_f;
+  int n_chunks;
+  int n_supers;
   const float* origins;          // f32[n, 3]
   const float* dirs;             // f32[n, 3]
   const float* min_dists;        // f32[n] (softshadows)
@@ -61,21 +69,27 @@ struct MarchArgs {
 
 namespace {
 
-// Copies the packed scene into shared memory; returns the thread's ray
-// index.  Every thread of the block takes part before any returns.
-__device__ __forceinline__ int load_scene(const MarchArgs& a, float* s) {
-  for (int j = threadIdx.x; j < a.n_slots * SLOT_WIDTH; j += blockDim.x) {
-    s[j] = a.slots[j];
+// Copies the slot table and, with TRIS, the boxes into shared memory and
+// returns the scene with scene-distance cap a.cap.  Every thread of the
+// block takes part before any returns.
+template <bool TRIS>
+__device__ __forceinline__ Scene load_scene(const MarchArgs& a, float* s) {
+  const int n_slot_f = a.n_slots * SLOT_WIDTH;
+  const int n_f = n_slot_f + (TRIS ? a.n_box_f : 0);
+  for (int j = threadIdx.x; j < n_f; j += blockDim.x) {
+    s[j] = j < n_slot_f ? a.slots[j] : a.boxes[j - n_slot_f];
   }
   __syncthreads();
-  return blockIdx.x * blockDim.x + threadIdx.x;
+  return Scene{s, a.n_slots, a.cap, a.tris, s + n_slot_f, a.n_chunks,
+               a.n_supers};
 }
 
+template <bool TRIS>
 __global__ void raycast_kernel(const MarchArgs a) {
-  extern __shared__ float s_slots[];
-  const int i = load_scene(a, s_slots);
+  extern __shared__ float smem[];
+  const Scene sc = load_scene<TRIS>(a, smem);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
-  const Scene sc{s_slots, a.n_slots, a.cap};
   const March m{a.max_dist, a.eps, a.omega, a.one_minus_omega, 0.f,
                 a.max_steps};
   const float ox = a.origins[3 * i + 0];
@@ -85,46 +99,54 @@ __global__ void raycast_kernel(const MarchArgs a) {
   const float dy = a.dirs[3 * i + 1];
   const float dz = a.dirs[3 * i + 2];
   const bool en = a.enabled[i] != 0;
-  const float t = march_primary(sc, m, ox, oy, oz, dx, dy, dz, en);
+  const float t = march_primary<TRIS>(sc, m, ox, oy, oz, dx, dy, dz, en);
   bool hit = false;
   if (en && t < a.max_dist) {
-    hit = scene_dist(sc, ox + t * dx, oy + t * dy, oz + t * dz) < a.eps;
+    hit = scene_dist<TRIS>(sc, ox + t * dx, oy + t * dy, oz + t * dz) <
+          a.eps;
   }
   a.t[i] = t;
   a.hit[i] = hit ? 1 : 0;
 }
 
+template <bool TRIS>
 __global__ void visibility_kernel(const MarchArgs a) {
-  extern __shared__ float s_slots[];
-  const int i = load_scene(a, s_slots);
+  extern __shared__ float smem[];
+  const Scene sc = load_scene<TRIS>(a, smem);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
-  const Scene sc{s_slots, a.n_slots, a.cap};
   const March m{a.cap, a.eps, a.omega, a.one_minus_omega, 0.f, a.max_steps};
-  a.vis[i] = march_visibility(
+  a.vis[i] = march_visibility<TRIS>(
       sc, m, a.origins[3 * i + 0], a.origins[3 * i + 1],
       a.origins[3 * i + 2], a.dirs[3 * i + 0], a.dirs[3 * i + 1],
       a.dirs[3 * i + 2], a.max_dists[i], a.enabled[i] != 0);
 }
 
+template <bool TRIS>
 __global__ void softshadow_kernel(const MarchArgs a) {
-  extern __shared__ float s_slots[];
-  const int i = load_scene(a, s_slots);
+  extern __shared__ float smem[];
+  const Scene sc = load_scene<TRIS>(a, smem);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
-  const Scene sc{s_slots, a.n_slots, a.cap};
   const March m{a.cap, a.eps, 1.f, 0.f, a.k, a.max_steps};
-  a.vis[i] = march_shadow(
+  a.vis[i] = march_shadow<TRIS>(
       sc, m, a.origins[3 * i + 0], a.origins[3 * i + 1],
       a.origins[3 * i + 2], a.dirs[3 * i + 0], a.dirs[3 * i + 1],
       a.dirs[3 * i + 2], a.min_dists[i], a.max_dists[i], a.enabled[i] != 0);
 }
 
+// Launches the triangle variant when the scene has triangle chunks.
 template <typename Kernel>
-int launch(Kernel kernel, const MarchArgs* a, void* stream) {
+int launch(Kernel plain, Kernel with_tris, const MarchArgs* a,
+           void* stream) {
   if (a->n == 0) return 0;
   const int threads = 128;
   const int blocks = (a->n + threads - 1) / threads;
-  const size_t smem = sizeof(float) * a->n_slots * SLOT_WIDTH;
-  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(*a);
+  const bool tris = a->n_chunks > 0;
+  const size_t smem =
+      sizeof(float) * (a->n_slots * SLOT_WIDTH + (tris ? a->n_box_f : 0));
+  (tris ? with_tris : plain)<<<blocks, threads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -132,13 +154,15 @@ int launch(Kernel kernel, const MarchArgs* a, void* stream) {
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int madarch_raycast(const MarchArgs* a, void* stream) {
-  return launch(raycast_kernel, a, stream);
+  return launch(raycast_kernel<false>, raycast_kernel<true>, a, stream);
 }
 
 extern "C" int madarch_visibility(const MarchArgs* a, void* stream) {
-  return launch(visibility_kernel, a, stream);
+  return launch(visibility_kernel<false>, visibility_kernel<true>, a,
+                stream);
 }
 
 extern "C" int madarch_softshadows(const MarchArgs* a, void* stream) {
-  return launch(softshadow_kernel, a, stream);
+  return launch(softshadow_kernel<false>, softshadow_kernel<true>, a,
+                stream);
 }

@@ -16,14 +16,20 @@ tensor it runs its plain version (``geometry_reference``,
 ``softshadows_reference``), the same marches from render/raymarch.py over
 ``scene_dist``.
 
-The scene packs into one small f32 table, one row per evaluated slot in
-spec order: (type code, global index, material id, live flag, 6 params).
-The global index is capacity based (the type's block offset + slot); the
-live flag is 0 on slots past a dynamic count, which then read as the
-scene-distance cap.
+The scene packs into two f32 tables, in spec order.  The slot table has
+one row per sphere, plane or box slot: (type code, global index, material
+id, live flag, 6 params).  The triangle table has one row of TRI_WIDTH per
+triangle slot, in slot order: the 28 constants of the derived triangle SDF
+(primitives.py:TRIANGLE_DERIVED_FIELDS), global index, material id, live
+flag; its slots group into chunks of CHUNK, the chunks into super-chunks
+of SUPER, each with a bounding box, by which the kernels prune triangles
+exactly (csrc/scene.cuh:tri_min).  Global indices are capacity based (the
+type's block offset + slot); the live flag is 0 on slots past a dynamic
+count, which then read as the scene-distance cap.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 
@@ -37,9 +43,10 @@ from madarch_tpu_torch.scene import primitives as P
 
 SLOT_WIDTH = 10
 MAX_AO_STEPS = 8
-# The kernel copies the packed scene, light positions and roughness into
-# dynamic shared memory, which a launch gets up to 48 KiB of without an
-# opt-in: about 1,200 slots.
+# The kernels copy the slot table, the triangle boxes, light positions and
+# roughness into dynamic shared memory, which a launch gets up to 48 KiB
+# of without an opt-in: about 1,200 slots, or some 14,500 triangles.  The
+# triangle table itself stays in device memory, whatever its size.
 SMEM_LIMIT = 48 * 1024
 BIG = 1e9
 # Central-difference half-step of the tetrahedron normal.
@@ -50,59 +57,190 @@ KERNEL_TYPES = {
     P.Plane: (1, ("normal", "offset")),
     P.Box: (2, ("center", "side")),
 }
-# Float operations of one slot evaluation in csrc/scene.cuh:slot_dist,
-# plus the min that folds it into the scene distance, by type code:
-# sphere 3 sub, 3 mul, 2 add, sqrt, sub; plane 3 mul, 3 add; box 3 sub,
-# 3 abs, 3 sub, 3 max, 3 mul, 2 add, sqrt, 3 max/min, add.
-SLOT_FLOPS = {0: 11, 1: 7, 2: 23}
+TRIANGLE_CODE = 3
+# The triangle table: 28 derived constants, then global index, material
+# id, live flag and one float of padding (rows of 128 bytes).
+TRI_WIDTH = 32
+TRI_GIDX, TRI_MID, TRI_LIVE = 28, 29, 30
+# Triangle slots per chunk box and chunks per super-chunk box
+# (csrc/scene.cuh).
+CHUNK = 8
+SUPER = 8
+# A box is admitted while its point-to-box distance is within
+# PRUNE_REL · (coordinate scale + |p|₁) of the running minimum
+# (csrc/scene.cuh:tri_min).
+PRUNE_REL = 1e-4
+# Float operations of one slot evaluation in csrc/scene.cuh, plus the min
+# that folds it into the scene distance, by type code: sphere 3 sub, 3
+# mul, 2 add, sqrt, sub; plane 3 mul, 3 add; box 3 sub, 3 abs, 3 sub, 3
+# max, 3 mul, 2 add, sqrt, 3 max/min, add; triangle (tri_dist) 9 add/sub
+# for p1, p2, p3, 3 dots of 5 and 3 signs and 2 adds and a compare for
+# the inside test, 3 edges of 19 (dot 5, mul, clamp 2, 3 mul, 3 sub, 5 for
+# the square), 2 min, the plane term 7 (dot 5, 2 mul), select, max, sqrt.
+SLOT_FLOPS = {0: 11, 1: 7, 2: 23, TRIANGLE_CODE: 100}
+# One point-to-box test (scene.cuh:box_d2 and its compare): 3 × (2 sub, 2
+# max), 3 mul, 2 add, compare.
+AABB_FLOPS = 18
 # The visibility and softshadow kernels' scene-distance cap (the 1e4 of
 # pallas_visibility and pallas_softshadows).
 VIS_CAP = 1e4
+# The plain versions evaluate at most this many points at once when the
+# scene has more than CHUNK_SLOT_THRESHOLD columns, bounding their
+# [points, slots] intermediates (render/context.py:GRID_CHUNK of the JAX
+# package).
+GRID_CHUNK = 32768
+CHUNK_SLOT_THRESHOLD = 128
 # Slot evaluations of the plain versions by type code, summed over every
 # point they evaluate the scene at (march steps of the active lanes,
-# classification, normals, AO): the work the kernels do on the same rays.
-scene_evals = {code: 0 for code, _ in KERNEL_TYPES.values()}
+# classification, normals, AO): the work the kernels do on the same rays
+# with every triangle evaluated.
+scene_evals = {code: 0 for code in (0, 1, 2, TRIANGLE_CODE)}
+# The work of exact pruning on the same points, given each point's scene
+# distance: every super-chunk box test, the chunk box tests inside the
+# super-chunks whose box lies within the pruning slack of that distance,
+# and the live triangles of the chunks whose box does.  Counted only
+# inside counting(): it costs a box test and a host sync per evaluation.
+pruned_evals = {"aabb": 0, "triangles": 0}
+_counting_pruned = False
 
 
-def scene_eval_flops():
-    """Float operations of the slot evaluations counted in scene_evals."""
-    return sum(SLOT_FLOPS[code] * n for code, n in scene_evals.items())
+@contextlib.contextmanager
+def counting():
+    """Counts the plain versions' work from zero inside the block, exact
+    pruning's included."""
+    global _counting_pruned
+    for d in (scene_evals, pruned_evals):
+        for key in d:
+            d[key] = 0
+    _counting_pruned = True
+    try:
+        yield
+    finally:
+        _counting_pruned = False
+
+
+def scene_eval_flops(pruned=True):
+    """Float operations of the slot evaluations counted since counting()
+    last began: with ``pruned`` the triangles as exact pruning must
+    evaluate them (box tests and admitted chunks), else every triangle."""
+    flops = sum(SLOT_FLOPS[code] * n for code, n in scene_evals.items()
+                if code != TRIANGLE_CODE)
+    if pruned:
+        return flops + AABB_FLOPS * pruned_evals["aabb"] \
+            + SLOT_FLOPS[TRIANGLE_CODE] * pruned_evals["triangles"]
+    return flops + SLOT_FLOPS[TRIANGLE_CODE] * scene_evals[TRIANGLE_CODE]
 
 
 @dataclasses.dataclass(frozen=True)
 class PackedScene:
     """``entries``: static ((ptype, first_row, n, static_counts), ...) in
-    spec order; ``slots``: f32[S, SLOT_WIDTH] on the scene's device."""
+    spec order, first_row indexing ``slots`` or, for triangles, ``tris``;
+    ``slots``: f32[S, SLOT_WIDTH]; ``tris``: f32[n_chunks·CHUNK,
+    TRI_WIDTH] (no rows without triangles); ``boxes``: f32[(1 + n_supers +
+    n_chunks)·6], a row holding the coordinate scale, then the super-chunk
+    and chunk boxes (lo xyz, hi xyz); ``col_gidx``/``col_mid``: i32 global
+    index and material id of each column of the plain versions' distance
+    table.  All on the scene's device."""
 
     entries: tuple
     slots: torch.Tensor
+    tris: torch.Tensor
+    boxes: torch.Tensor
+    n_chunks: int
+    col_gidx: torch.Tensor
+    col_mid: torch.Tensor
 
     @property
     def n_slots(self):
         return self.slots.shape[0]
 
+    @property
+    def n_supers(self):
+        return -(-self.n_chunks // SUPER)
+
+    @property
+    def n_columns(self):
+        return self.col_gidx.shape[0]
+
+
+def _pack_triangles(params, n, live, goff):
+    """(triangle table, boxes) of the first n triangle slots."""
+    dev = live.device
+    tri = {k: v[:n].to(torch.float32) for k, v in params.items()
+           if k != "material_id"}
+    tri["material_id"] = params["material_id"][:n]
+    der = P.Triangle.derive(tri)
+    cols = []
+    for name, kind in P.Triangle.derived_fields:
+        if name == "material_id":
+            continue
+        v = der[name]
+        cols += list(v.unbind(-1)) if kind == P.VEC3 else [v]
+    slot = torch.arange(n, device=dev)
+    cols += [(goff + slot).to(torch.float32),
+             tri["material_id"].to(torch.float32), live,
+             torch.zeros(n, device=dev)]
+    n_chunks = -(-n // CHUNK)
+    n_pad = n_chunks * CHUNK
+    table = torch.zeros((n_pad, TRI_WIDTH), device=dev)
+    table[:n] = torch.stack(cols, dim=1)
+
+    lo, hi = P.Triangle.bounds(tri)
+    alive = live[:, None] > 0.5
+    lo = torch.where(alive, lo, BIG)
+    hi = torch.where(alive, hi, -BIG)
+    pad = torch.full((n_pad - n, 3), BIG, device=dev)
+    lo = torch.cat([lo, pad]).reshape(n_chunks, CHUNK, 3).amin(dim=1)
+    hi = torch.cat([hi, -pad]).reshape(n_chunks, CHUNK, 3).amax(dim=1)
+    n_supers = -(-n_chunks // SUPER)
+    padc = torch.full((n_supers * SUPER - n_chunks, 3), BIG, device=dev)
+    lo_s = torch.cat([lo, padc]).reshape(n_supers, SUPER, 3).amin(dim=1)
+    hi_s = torch.cat([hi, -padc]).reshape(n_supers, SUPER, 3).amax(dim=1)
+    # the coordinate scale of the pruning slack: 1 + the largest vertex
+    # coordinate of a live triangle
+    verts = torch.stack([tri["v1"], tri["v2"], tri["v3"]], dim=1)
+    scale = 1.0 + torch.where(alive[:, None], verts.abs(), 0.0).amax()
+    head = torch.zeros(6, device=dev)
+    head[0] = scale
+    boxes = torch.cat([head, torch.cat([lo_s, hi_s], dim=1).reshape(-1),
+                       torch.cat([lo, hi], dim=1).reshape(-1)])
+    return table, boxes, n_chunks
+
 
 def pack_scene(spec, data) -> PackedScene:
     """Pack every slot the scene loops evaluate.  Raises NotImplementedError
-    for a type the kernel does not take (triangles, custom types)."""
+    for a type the kernels do not take (custom types)."""
+    dev = data.materials["albedo"].device
     rows = []
     entries = []
+    col_gidx, col_mid = [], []
+    tris = torch.zeros((0, TRI_WIDTH), device=dev)
+    boxes = torch.zeros(0, device=dev)
+    n_chunks = 0
     first = 0
     goff = 0
     for ptype, cap, n, static in spec.prim_bounds():
         if n == 0:
             goff += cap
             continue
-        if ptype not in KERNEL_TYPES:
+        if ptype not in KERNEL_TYPES and ptype is not P.Triangle:
             raise NotImplementedError(
-                f"geometry kernel takes sphere, plane and box; not "
-                f"{ptype.name!r}")
-        code, names = KERNEL_TYPES[ptype]
+                f"the kernels take spheres, planes, boxes and triangles; "
+                f"not {ptype.name!r}")
         params = data.prims[ptype.name]
-        dev = params["material_id"].device
         slot = torch.arange(n, device=dev)
         live = torch.ones(n, dtype=torch.float32, device=dev) if static \
             else (slot < data.prim_counts[ptype.name]).to(torch.float32)
+        if ptype is P.Triangle:
+            if n_chunks:
+                raise NotImplementedError("one triangle type per scene")
+            tris, boxes, n_chunks = _pack_triangles(params, n, live, goff)
+            entries.append((ptype, 0, n, static))
+            col_gidx.append(tris[:n, TRI_GIDX])
+            col_mid.append(tris[:n, TRI_MID])
+            goff += cap
+            continue
+        code, names = KERNEL_TYPES[ptype]
         cols = [torch.full((n,), float(code), device=dev),
                 (goff + slot).to(torch.float32),
                 params["material_id"][:n].to(torch.float32), live]
@@ -111,13 +249,20 @@ def pack_scene(spec, data) -> PackedScene:
             cols += list(v.unbind(-1)) if v.ndim == 2 else [v]
         cols += [torch.zeros(n, device=dev)] * (SLOT_WIDTH - len(cols))
         rows.append(torch.stack(cols, dim=1))
+        col_gidx.append(rows[-1][:, 1])
+        col_mid.append(rows[-1][:, 2])
         entries.append((ptype, first, n, static))
         first += n
         goff += cap
-    if not rows:
-        raise NotImplementedError("geometry kernel needs a live primitive")
-    return PackedScene(entries=tuple(entries),
-                       slots=torch.cat(rows).contiguous())
+    if not entries:
+        raise NotImplementedError("the kernels need a live primitive")
+    slots = torch.cat(rows).contiguous() if rows \
+        else torch.zeros((0, SLOT_WIDTH), device=dev)
+    return PackedScene(
+        entries=tuple(entries), slots=slots, tris=tris.contiguous(),
+        boxes=boxes.contiguous(), n_chunks=n_chunks,
+        col_gidx=torch.cat(col_gidx).to(torch.int32),
+        col_mid=torch.cat(col_mid).to(torch.int32))
 
 
 def pack_light_positions(spec, data):
@@ -143,45 +288,153 @@ def pack_light_positions(spec, data):
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
+def _planar_scalars(rows, first_col, fields):
+    """{scalar name: column} of a table's rows: vec3 fields split into
+    name_x/name_y/name_z, in table order from first_col."""
+    s = {}
+    col = first_col
+    for name, kind in fields:
+        for sname in ([f"{name}_{ax}" for ax in "xyz"] if kind == P.VEC3
+                      else [name]):
+            s[sname] = rows[:, col]
+            col += 1
+    return s
+
+
 def _slot_dists(packed, p, max_dist):
-    """f32[N, S]: every packed slot's planar SDF at points p[N, 3], dead
-    slots at max_dist; columns in table (= spec) order."""
+    """f32[N, C]: every packed slot's planar SDF at points p[N, 3] (a
+    triangle's through sdf_planar_derived on its table row), dead slots at
+    max_dist; columns in spec order."""
     px, py, pz = p[:, 0:1], p[:, 1:2], p[:, 2:3]
     cols = []
     for ptype, first, n, static in packed.entries:
-        rows = packed.slots[first:first + n]
-        kinds = dict(ptype.fields)
-        s = {}
-        col = 4
-        for name in KERNEL_TYPES[ptype][1]:
-            for sname in ([f"{name}_{ax}" for ax in "xyz"]
-                          if kinds[name] == "vec3" else [name]):
-                s[sname] = rows[:, col]
-                col += 1
-        d = ptype.sdf_planar(s, px, py, pz)
+        if ptype is P.Triangle:
+            rows = packed.tris[:n]
+            fields = [f for f in ptype.derived_fields
+                      if f[0] != "material_id"]
+            d = ptype.sdf_planar_derived(_planar_scalars(rows, 0, fields),
+                                         px, py, pz)
+            live = rows[:, TRI_LIVE]
+            code = TRIANGLE_CODE
+        else:
+            rows = packed.slots[first:first + n]
+            code, names = KERNEL_TYPES[ptype]
+            kinds = dict(ptype.fields)
+            d = ptype.sdf_planar(_planar_scalars(
+                rows, 4, [(k, kinds[k]) for k in names]), px, py, pz)
+            live = rows[:, 3]
         if not static:
-            d = torch.where(rows[:, 3] > 0.5, d, max_dist)
+            d = torch.where(live > 0.5, d, max_dist)
         cols.append(d)
-        scene_evals[KERNEL_TYPES[ptype][0]] += p.shape[0] * n
+        scene_evals[code] += p.shape[0] * n
     return torch.cat(cols, dim=1)
+
+
+def _tri_columns(packed):
+    """(first column, count) of the triangles in the distance table."""
+    col = 0
+    for ptype, _, n, _ in packed.entries:
+        if ptype is P.Triangle:
+            return col, n
+        col += n
+    return col, 0
+
+
+def _admitted(packed, p, best):
+    """(bool[N, n_supers], bool[N, n_chunks]): the super-chunks and the
+    chunks whose box lies within the pruning slack of best[N] at points
+    p[N, 3] (csrc/scene.cuh:tri_min's test); a chunk only inside an
+    admitted super-chunk."""
+    px, py, pz = p[:, 0:1], p[:, 1:2], p[:, 2:3]
+    slack = PRUNE_REL * (packed.boxes[0] + torch.abs(p[:, 0])
+                         + torch.abs(p[:, 1]) + torch.abs(p[:, 2]))
+    lim = best + slack
+
+    def within(b):
+        def gap(q, lo, hi):
+            return torch.clamp_min(torch.maximum(lo - q, q - hi), 0.0)
+
+        dx = gap(px, b[:, 0], b[:, 3])
+        dy = gap(py, b[:, 1], b[:, 4])
+        dz = gap(pz, b[:, 2], b[:, 5])
+        return dx * dx + dy * dy + dz * dz <= (lim * lim)[:, None]
+
+    boxes = packed.boxes[6:].reshape(-1, 6)
+    sup = within(boxes[:packed.n_supers])
+    chunk = within(boxes[packed.n_supers:]) & sup.repeat_interleave(
+        SUPER, dim=1)[:, :packed.n_chunks]
+    return sup, chunk
+
+
+def _count_pruned(packed, p, dmin):
+    """Adds the work of exact pruning at points p with scene distances
+    dmin to pruned_evals, inside counting()."""
+    if not _counting_pruned or not packed.n_chunks:
+        return
+    sup, chunk = _admitted(packed, p, dmin)
+    per_super = torch.full((packed.n_supers,), float(SUPER),
+                           dtype=torch.float64, device=p.device)
+    per_super[-1] = packed.n_chunks - SUPER * (packed.n_supers - 1)
+    live = packed.tris[:, TRI_LIVE].reshape(packed.n_chunks, CHUNK).sum(1)
+    pruned_evals["aabb"] += p.shape[0] * packed.n_supers + int(
+        (sup.to(torch.float64) @ per_super).sum().item())
+    pruned_evals["triangles"] += int(
+        (chunk.to(torch.float64) @ live.to(torch.float64)).sum().item())
+
+
+def _by_chunks(fn, packed, p, max_dist):
+    """fn(packed, p, max_dist) over GRID_CHUNK points at a time when the
+    scene has many columns."""
+    if packed.n_columns <= CHUNK_SLOT_THRESHOLD or p.shape[0] <= GRID_CHUNK:
+        return fn(packed, p, max_dist)
+    parts = [fn(packed, q, max_dist) for q in p.split(GRID_CHUNK)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(x) for x in zip(*parts))
+    return torch.cat(parts)
+
+
+def _scene_dist(packed, p, max_dist):
+    d = torch.clamp_max(torch.amin(_slot_dists(packed, p, max_dist), dim=1),
+                        max_dist)
+    _count_pruned(packed, p, d)
+    return d
+
+
+def _scene_dist_info(packed, p, max_dist):
+    dmin, arg = torch.min(_slot_dists(packed, p, max_dist), dim=1)
+    near = dmin < max_dist
+    idx = torch.where(near, packed.col_gidx[arg], -1)
+    mid = torch.where(near, packed.col_mid[arg], 0)
+    dmin = torch.clamp_max(dmin, max_dist)
+    _count_pruned(packed, p, dmin)
+    return dmin, idx, mid
 
 
 def scene_dist(packed, p, max_dist):
     """Scene distance at p[N, 3]: min over live slots, capped at max_dist."""
-    return torch.clamp_max(torch.amin(_slot_dists(packed, p, max_dist),
-                                      dim=1), max_dist)
+    return _by_chunks(_scene_dist, packed, p, max_dist)
 
 
 def scene_dist_info(packed, p, max_dist):
     """(distance, global index i32 (-1 when nothing is under max_dist),
     material id i32): the first minimum in spec order wins."""
+    return _by_chunks(_scene_dist_info, packed, p, max_dist)
+
+
+def pruned_scene_dist(packed, p, max_dist):
+    """Scene distance at p[N, 3] with only the admitted triangle chunks
+    evaluated (those pruned_evals counts): the vectorised emulation of the
+    kernels' exact pruning, equal to scene_dist wherever it is exact."""
     d = _slot_dists(packed, p, max_dist)
-    dmin, arg = torch.min(d, dim=1)
-    near = dmin < max_dist
-    row = packed.slots[arg]
-    idx = torch.where(near, row[:, 1], -1.0).to(torch.int32)
-    mid = torch.where(near, row[:, 2], 0.0).to(torch.int32)
-    return torch.clamp_max(dmin, max_dist), idx, mid
+    dmin = torch.clamp_max(torch.amin(d, dim=1), max_dist)
+    first, n = _tri_columns(packed)
+    if n:
+        admitted = _admitted(packed, p, dmin)[1].repeat_interleave(
+            CHUNK, dim=1)[:, :n]
+        d = d.clone()
+        d[:, first:first + n] = torch.where(admitted, d[:, first:first + n],
+                                            torch.inf)
+    return torch.clamp_max(torch.amin(d, dim=1), max_dist)
 
 
 def _fd_normal(sdf_b, p, h):
@@ -351,6 +604,9 @@ class _GeomArgs(ctypes.Structure):
 
     _fields_ = [
         ("slots", ctypes.c_void_p), ("n_slots", ctypes.c_int),
+        ("tris", ctypes.c_void_p), ("boxes", ctypes.c_void_p),
+        ("n_box_f", ctypes.c_int), ("n_chunks", ctypes.c_int),
+        ("n_supers", ctypes.c_int),
         ("lpos", ctypes.c_void_p), ("n_lights", ctypes.c_int),
         ("rough", ctypes.c_void_p), ("n_mats", ctypes.c_int),
         ("origins", ctypes.c_void_p), ("dirs", ctypes.c_void_p),
@@ -402,6 +658,31 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def _check_scene(packed, dev):
+    _check("packed.slots", packed.slots, dev, torch.float32,
+           (packed.n_slots, SLOT_WIDTH))
+    _check("packed.tris", packed.tris, dev, torch.float32,
+           (packed.n_chunks * CHUNK, TRI_WIDTH))
+    _check("packed.boxes", packed.boxes, dev, torch.float32,
+           ((1 + packed.n_supers + packed.n_chunks) * 6
+            if packed.n_chunks else 0,))
+
+
+def _scene_fields(packed, extra_smem_floats, kernels):
+    """The scene's fields of _GeomArgs/_MarchArgs; raises when its shared
+    memory (slot table, boxes and extra_smem_floats) exceeds SMEM_LIMIT."""
+    n_bytes = 4 * (packed.slots.numel() + packed.boxes.numel()
+                   + extra_smem_floats)
+    if n_bytes > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"scene needs {n_bytes} bytes of shared memory; the {kernels} "
+            f"kernels hold at most {SMEM_LIMIT}")
+    return dict(slots=_ptr(packed.slots), n_slots=packed.n_slots,
+                tris=_ptr(packed.tris), boxes=_ptr(packed.boxes),
+                n_box_f=packed.boxes.numel(), n_chunks=packed.n_chunks,
+                n_supers=packed.n_supers)
+
+
 def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
              probe_spacing, probe_dims, surface_offset, ao_steps,
              ao_step_size=0.1, shadow_k=64.0, eps=EPSILON, max_steps=300,
@@ -424,8 +705,7 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
     _check("dirs", dirs, dev, torch.float32, (n, 3))
     if enabled is not None:
         _check("enabled", enabled, dev, torch.bool, (n,))
-    _check("packed.slots", packed.slots, dev, torch.float32,
-           (packed.n_slots, SLOT_WIDTH))
+    _check_scene(packed, dev)
     _check("lpos", lpos, dev, torch.float32, (3 * n_lights,))
     if mat_rough_vec is not None:
         _check("mat_rough_vec", mat_rough_vec, dev, torch.float32,
@@ -454,12 +734,8 @@ def _launch(packed, lpos, n_lights, origins, dirs, max_dist, *,
     dev = origins.device
     n = origins.shape[0]
     refl = mat_rough_vec is not None
-    smem_floats = packed.slots.numel() + lpos.numel() + (
-        mat_rough_vec.numel() if refl else 0)
-    if 4 * smem_floats > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"scene needs {4 * smem_floats} bytes of shared memory; the "
-            f"geometry kernel holds at most {SMEM_LIMIT}")
+    scene = _scene_fields(packed, lpos.numel() + (
+        mat_rough_vec.numel() if refl else 0), "geometry")
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -479,8 +755,7 @@ def _launch(packed, lpos, n_lights, origins, dirs, max_dist, *,
     hs = [(i + 1) * ao_step_size for i in range(ao_steps)]
     ao_max = sum(h / (2.0 ** i) for i, h in enumerate(hs))
     args = _GeomArgs(
-        slots=_ptr(packed.slots), n_slots=packed.n_slots,
-        lpos=_ptr(lpos), n_lights=n_lights,
+        **scene, lpos=_ptr(lpos), n_lights=n_lights,
         rough=_ptr(mat_rough_vec), n_mats=mat_rough_vec.shape[0] if refl
         else 0,
         origins=_ptr(origins), dirs=_ptr(dirs), enabled=_ptr(enabled), n=n,
@@ -524,6 +799,9 @@ class _MarchArgs(ctypes.Structure):
 
     _fields_ = [
         ("slots", ctypes.c_void_p), ("n_slots", ctypes.c_int),
+        ("tris", ctypes.c_void_p), ("boxes", ctypes.c_void_p),
+        ("n_box_f", ctypes.c_int), ("n_chunks", ctypes.c_int),
+        ("n_supers", ctypes.c_int),
         ("origins", ctypes.c_void_p), ("dirs", ctypes.c_void_p),
         ("min_dists", ctypes.c_void_p), ("max_dists", ctypes.c_void_p),
         ("enabled", ctypes.c_void_p), ("n", ctypes.c_int),
@@ -552,8 +830,7 @@ def _check_rays(packed, origins, dirs, enabled):
     n = origins.shape[0]
     _check("origins", origins, dev, torch.float32, (n, 3))
     _check("dirs", dirs, dev, torch.float32, (n, 3))
-    _check("packed.slots", packed.slots, dev, torch.float32,
-           (packed.n_slots, SLOT_WIDTH))
+    _check_scene(packed, dev)
     if enabled is None:
         return torch.ones(n, dtype=torch.bool, device=dev)
     _check("enabled", enabled, dev, torch.bool, (n,))
@@ -562,13 +839,9 @@ def _check_rays(packed, origins, dirs, enabled):
 
 def _launch_march(fn, packed, origins, dirs, enabled, **fields):
     """Launches one of csrc/march.cu's kernels on the current stream."""
-    if 4 * packed.slots.numel() > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"scene needs {4 * packed.slots.numel()} bytes of shared "
-            f"memory; the march kernels hold at most {SMEM_LIMIT}")
+    scene = _scene_fields(packed, 0, "march")
     omega = fields.pop("omega")
-    args = _MarchArgs(slots=_ptr(packed.slots), n_slots=packed.n_slots,
-                      origins=_ptr(origins), dirs=_ptr(dirs),
+    args = _MarchArgs(**scene, origins=_ptr(origins), dirs=_ptr(dirs),
                       enabled=_ptr(enabled), n=origins.shape[0],
                       omega=omega, one_minus_omega=1.0 - omega, **fields)
     dev = origins.device

@@ -53,6 +53,7 @@ class Renderer:
         self.camera_position = np.zeros(3, np.float32)
         self.camera_orientation = np.eye(3, dtype=np.float32)
         self._data = None  # device snapshot; invalidated on mutation
+        self._grid = None  # partitioning grid of update_partitioning
 
     # -- scene mutation (invalidates the device snapshot) --
     def add_primitive(self, ptype, **fields):
@@ -101,8 +102,21 @@ class Renderer:
     @property
     def scene_data(self):
         if self._data is None:
-            self._data = self.builder.device_data(self.device)
+            self._data = self.builder.device_data(self.device,
+                                                  grid=self._grid)
         return self._data
+
+    def update_partitioning(self, method: str = "gpu_fast"):
+        """Rebuild the uniform grid's candidate lists on the renderer's
+        device (methods gpu_fast, cpu_fast, cpu_best); a no-op when the
+        spec has no partitioning settings."""
+        if self.spec.partitioning is None:
+            return
+        from madarch_tpu_torch.scene.partitioning import build_grid
+        base = self.builder.device_data(self.device)
+        self._grid = build_grid(self.spec, self.spec.partitioning, base,
+                                method=method)
+        self._data = None
 
     @property
     def camera(self) -> Camera:

@@ -24,12 +24,14 @@ MAX_MATERIALS = 20
 
 @dataclasses.dataclass(frozen=True)
 class SceneSpec:
-    """Static scene shape: (type, capacity) pairs."""
+    """Static scene shape: (type, capacity) pairs.  ``partitioning``:
+    the uniform grid's PartitioningSettings, or None for no grid."""
 
     prims: Tuple[Tuple[PrimitiveType, int], ...]
     lights: Tuple[Tuple[LightType, int], ...]
     max_dist: float = 20.0
     max_materials: int = MAX_MATERIALS
+    partitioning: object = None
     # Static *live* counts aligned with prims/lights; when set, scene loops
     # run over exactly the live slots with no count masking.
     live_prims: Tuple[int, ...] = None
@@ -65,6 +67,10 @@ class SceneSpec:
             off += cap
         raise KeyError(ptype.name)
 
+    @property
+    def total_prim_capacity(self) -> int:
+        return sum(cap for _, cap in self.prims)
+
 
 @dataclasses.dataclass
 class SceneData:
@@ -75,6 +81,7 @@ class SceneData:
     lights: dict        # type name -> field name -> tensors
     light_counts: dict  # type name -> i32[]
     materials: dict     # albedo f32[M,3], metallic f32[M], roughness f32[M]
+    grid: object = None  # GridData of scene/partitioning.py, or None
 
 
 def _tensor(x, device):
@@ -84,16 +91,23 @@ def _tensor(x, device):
 def scene_data_from_numpy(tree, device) -> SceneData:
     """SceneData from any object with SceneData's fields holding numpy
     arrays, e.g. ``jax.tree.map(np.asarray, jax_renderer.scene_data)``:
-    hands both packages identical scenes."""
+    hands both packages identical scenes, every primitive type's fields
+    (triangles too) and the partitioning grid (when it has one)."""
+    from madarch_tpu_torch.scene.partitioning import GridData
+
     def leaves(d):
         return {k: _tensor(v, device) for k, v in d.items()}
 
+    grid = getattr(tree, "grid", None)
     return SceneData(
         prims={k: leaves(v) for k, v in tree.prims.items()},
         prim_counts=leaves(tree.prim_counts),
         lights={k: leaves(v) for k, v in tree.lights.items()},
         light_counts=leaves(tree.light_counts),
-        materials=leaves(tree.materials))
+        materials=leaves(tree.materials),
+        grid=None if grid is None else GridData(
+            cells=_tensor(grid.cells, device),
+            counts=_tensor(grid.counts, device)))
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +249,9 @@ class SceneBuilder:
         self._roughness[index] = roughness
         self._material_count = max(self._material_count, index + 1)
 
-    def device_data(self, device) -> SceneData:
+    def device_data(self, device, grid=None) -> SceneData:
+        """The scene on ``device``, with the partitioning ``grid`` (a
+        GridData already there) when the caller built one."""
         def leaves(d):
             return {k: _tensor(v, device) for k, v in d.items()}
 
@@ -250,4 +266,5 @@ class SceneBuilder:
             light_counts=counts(self._light_counts),
             materials=leaves({"albedo": self._albedo,
                               "metallic": self._metallic,
-                              "roughness": self._roughness}))
+                              "roughness": self._roughness}),
+            grid=grid)

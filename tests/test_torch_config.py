@@ -10,7 +10,8 @@ import torch
 from madarch_tpu.core import config as JC
 from madarch_tpu_torch.core import config as TC
 
-CLASSES = ["ProbeSettings", "VolumetricsSettings", "ShadeConfig"]
+CLASSES = ["ProbeSettings", "VolumetricsSettings", "ShadeConfig",
+           "PartitioningSettings"]
 
 
 @pytest.fixture(scope="module")
@@ -73,3 +74,12 @@ def test_instances_and_derived_values_match_jax():
                 t.irradiance_atlas_shape) == (j.num_probes,
                                               j.radiance_atlas_shape,
                                               j.irradiance_atlas_shape)
+
+
+def test_partitioning_derived_values_match_jax():
+    for kw in ({}, {"grid_dimensions": (30, 20, 20),
+                    "grid_spacing": (0.1, 0.1, 0.1)},
+               {"grid_spacing": (0.5, 1.0, 2.0)}):
+        t = TC.PartitioningSettings(**kw)
+        j = JC.PartitioningSettings(**kw)
+        assert (t.num_cells, t.cell_diag) == (j.num_cells, j.cell_diag)

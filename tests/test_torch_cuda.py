@@ -1,5 +1,6 @@
 """The CUDA kernels (geometry, raycast, visibility, softshadows) against
-their plain PyTorch versions, on the card.
+their plain PyTorch versions, on the card, on the room scenes and on
+obj_mesh's 968-triangle torus (the chunk-pruned triangle path).
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs where JAX is absent:
@@ -404,3 +405,100 @@ def test_modes_1_and_3_launch_their_kernels(dev):
         assert tuple(f.launches - b for f, b in zip(fns, before)) \
             == launches
         assert torch.isfinite(img).all()
+
+
+# ---------------------------------------------------------------------------
+# Triangles: the chunk-pruned triangle path of every kernel (obj_mesh)
+# ---------------------------------------------------------------------------
+
+def _mesh_scene(dev, n_live=None, capacity=1000):
+    """obj_mesh's torus (968 triangles) on the card; with n_live, the
+    spec keeps its capacity and only the first n_live triangles are live
+    (dynamic counts: dead slots in the table)."""
+    r = S.obj_mesh(width=64, height=64, obj_path=S.TORUS_OBJ,
+                   triangle_capacity=capacity, device=dev)
+    spec, data = r.spec, r.scene_data
+    if n_live is not None:
+        spec = SceneSpec(prims=spec.prims, lights=spec.lights,
+                         max_dist=spec.max_dist)
+        data.prim_counts["triangle"] = torch.tensor(n_live,
+                                                    dtype=torch.int32,
+                                                    device=dev)
+    return r, spec, data
+
+
+def _mesh_rays(r, dev, n=4096, seed=31):
+    """Seeded rays from the camera and the probe positions toward points
+    in the torus's bounding box (most hit), and camera rays."""
+    g = torch.Generator().manual_seed(seed)
+    v = r.scene_data.prims["triangle"]["v1"][:968].cpu()
+    lo, hi = v.amin(0), v.amax(0)
+    starts = torch.cat([torch.as_tensor(r.camera_position)[None],
+                        PR.probe_world_positions(r.probes, "cpu")])
+    o = starts[torch.randint(0, starts.shape[0], (n,), generator=g)]
+    o[: n // 2] = torch.as_tensor(r.camera_position)
+    d = lo + torch.rand(n, 3, generator=g) * (hi - lo) - o
+    d = d / d.norm(dim=1, keepdim=True)
+    return o.to(dev).contiguous(), d.to(dev).contiguous()
+
+
+@pytest.mark.parametrize("refl", [False, True])
+def test_geometry_matches_plain_on_the_mesh(dev, refl):
+    """968 triangles: a 123,904-byte table, beyond the 48 KiB of shared
+    memory a launch gets, read from device memory; 4,097 rays (a tail
+    block of one ray)."""
+    r, spec, data = _mesh_scene(dev)
+    o, d = _mesh_rays(r, dev, n=4097)
+    packed = M.pack_scene(spec, data)
+    assert packed.tris.numel() * 4 > 48 * 1024 and packed.n_chunks == 121
+    k, ref = _both(spec, data, o, d, refl, 3 if refl else 0, r.probes)
+    assert ref["hit"].float().mean() > 0.5
+    _assert_match(k, ref)
+
+
+def test_geometry_matches_plain_with_dead_triangle_slots(dev):
+    """Capacity 1000 and 700 live triangles (dynamic counts): dead slots
+    never win, their chunks' boxes are inert."""
+    r, spec, data = _mesh_scene(dev, n_live=700)
+    o, d = _mesh_rays(r, dev, seed=37)
+    packed = M.pack_scene(spec, data)
+    assert packed.n_chunks == 125
+    assert int((packed.tris[:, M.TRI_LIVE] == 0).sum()) == 300
+    k, ref = _both(spec, data, o, d, True, 3, r.probes)
+    assert ref["hit"].float().mean() > 0.3
+    _assert_match(k, ref)
+
+
+def test_march_kernels_match_plain_on_the_mesh(dev):
+    """The raycast, visibility and softshadow kernels take triangles
+    through the same scene evaluation: held to their plain versions on
+    mesh rays, penumbras at k = 64 and 0.5 out to 20."""
+    for n_live in (None, 700):
+        r, spec, data = _mesh_scene(dev, n_live=n_live)
+        packed = M.pack_scene(spec, data)
+        o, d = _mesh_rays(r, dev, n=8195, seed=41)
+        g = torch.Generator().manual_seed(43)
+        en = (torch.rand(o.shape[0], generator=g) > 0.2).to(dev)
+        mx = (torch.rand(o.shape[0], generator=g) * 21.0 - 1.0).to(dev)
+        mn = (torch.rand(o.shape[0], generator=g) * 0.5).to(dev)
+        assert _check_raycast(packed, o, d, spec.max_dist, None) \
+            .float().mean() > 0.3
+        _check_raycast(packed, o, d, spec.max_dist, en)
+        vis = _check_visibility(packed, o, d, mx, en)
+        assert 0.0 < vis.mean() < 1.0
+        for k in (64.0, 0.5):
+            res = _check_softshadows(packed, {
+                "origins": o, "dirs": d, "min_dists": mn, "max_dists": mx,
+                "enabled": en}, k)
+            assert (res == 0).any()
+
+
+def test_obj_mesh_frame_launches_the_kernel(dev):
+    """One 64² obj_mesh frame through Renderer.render(): two geometry
+    launches (radiance, screen) and a finite image."""
+    r = S.obj_mesh(width=64, height=64, obj_path=S.TORUS_OBJ, device=dev)
+    before = M.geometry.launches
+    img = r.render()
+    torch.cuda.synchronize()
+    assert M.geometry.launches - before == 2
+    assert torch.isfinite(img).all() and img.var() > 0

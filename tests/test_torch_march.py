@@ -16,6 +16,7 @@ enabled; the reflection outputs as stated in their test.  Other lanes
 are don't-care outputs.
 """
 import ctypes
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +28,8 @@ from madarch_tpu.examples import scenes as jscenes
 from madarch_tpu.ops import march as JM
 from madarch_tpu.render import raymarch as jrm
 from madarch_tpu.scene.scene import scene_sdf as jscene_sdf
-from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG, ProbeSettings,
+from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG,
+                                           PartitioningSettings, ProbeSettings,
                                            screen_shade_config)
 from madarch_tpu_torch.core.vecmath import reflect
 from madarch_tpu_torch.ops import march as TM
@@ -54,13 +56,18 @@ TET = ((1.0, -1.0, -1.0), (-1.0, -1.0, 1.0), (-1.0, 1.0, -1.0),
 
 
 def port_spec(jspec):
-    """The port's SceneSpec for a JAX SceneSpec (types matched by name)."""
-    prims = {"sphere": TP.Sphere, "plane": TP.Plane, "box": TP.Box}
+    """The port's SceneSpec for a JAX SceneSpec (types matched by name,
+    the partitioning settings copied field for field)."""
+    prims = {"sphere": TP.Sphere, "plane": TP.Plane, "box": TP.Box,
+             "triangle": TP.Triangle}
     lights = {"point_light": TL.PointLight, "spot_light": TL.SpotLight}
+    part = jspec.partitioning
     return TS.SceneSpec(
         prims=tuple((prims[pt.name], c) for pt, c in jspec.prims),
         lights=tuple((lights[lt.name], c) for lt, c in jspec.lights),
         max_dist=jspec.max_dist, max_materials=jspec.max_materials,
+        partitioning=None if part is None else PartitioningSettings(
+            **dataclasses.asdict(part)),
         live_prims=jspec.live_prims, live_lights=jspec.live_lights)
 
 
@@ -569,16 +576,14 @@ def test_scene_evals_count_active_lanes_times_slots():
     slots = {code: int((packed.slots[:, 0] == code).sum())
              for code in TM.scene_evals}
     p = torch.zeros((5, 3))
-    for code in TM.scene_evals:
-        TM.scene_evals[code] = 0
-    TM.scene_dist(packed, p, 20.0)
+    with TM.counting():
+        TM.scene_dist(packed, p, 20.0)
     assert TM.scene_evals == {c: 5 * n for c, n in slots.items()}
     assert TM.scene_eval_flops() == 5 * sum(TM.SLOT_FLOPS[c] * n
                                             for c, n in slots.items())
     # one ray that starts inside the floor stops after one step; the final
     # classification adds one more evaluation
-    for code in TM.scene_evals:
-        TM.scene_evals[code] = 0
-    TM.raycast_reference(packed, torch.tensor([[0.0, -2.0, 0.0]]),
-                         torch.tensor([[0.0, 1.0, 0.0]]), 10.0)
+    with TM.counting():
+        TM.raycast_reference(packed, torch.tensor([[0.0, -2.0, 0.0]]),
+                             torch.tensor([[0.0, 1.0, 0.0]]), 10.0)
     assert TM.scene_evals == {c: 2 * n for c, n in slots.items()}

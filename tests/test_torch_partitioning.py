@@ -1,0 +1,215 @@
+"""Port parity: the uniform partitioning grid
+(madarch_tpu_torch/scene/partitioning.py) against
+madarch_tpu/scene/partitioning.py.
+
+build_grid's three methods on test_march_kernels.build_chunked_scene()
+(80 triangles and a plane, a 10×8×10 grid of K = 20) and on the in-repo
+torus with obj_mesh's 30×20×20 grid (K = 150; cpu_best on a block of it,
+TORUS_BEST_BLOCK says why), each package building its own grid from the
+same scene:
+- the candidate sets and counts are equal, except on cells where the sets
+  differ by a near-tie, which _explained checks cell by cell: a candidate
+  within 1e-6 of the keep threshold or of the K-th kept one (where the
+  order is a last bit's choice); for cpu_best a sample where two primitives are
+  closest to within 1e-6 (a shared edge of the mesh), each package's
+  rounding picking its own winner.  Both packages compute the same float32
+  distances up to XLA's fused multiply-adds.  Those cells are counted and
+  the count asserted;
+- grid_closest on the same grid at seeded points inside and outside it
+  agrees to 1e-6, with the clamp and the fallback border behaviours.
+"""
+import dataclasses
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from madarch_tpu.core import config as JC
+from madarch_tpu.examples import scenes as jscenes
+from madarch_tpu.scene import partitioning as JPT
+from madarch_tpu_torch.core.config import PartitioningSettings
+from madarch_tpu_torch.examples import scenes as tscenes
+from madarch_tpu_torch.scene import partitioning as TPT
+from madarch_tpu_torch.scene.scene import scene_data_from_numpy
+from test_march_kernels import build_chunked_scene
+from test_torch_config import torch_threads  # noqa: F401
+from test_torch_march import port_spec
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
+
+METHODS = ["gpu_fast", "cpu_fast", "cpu_best"]
+SMALL_GRID = PartitioningSettings(index_count=20, border_behavior="clamp",
+                                  grid_dimensions=(10, 8, 10),
+                                  grid_spacing=(0.5, 0.5, 0.5),
+                                  grid_offset=(-2.5, -1.2, 2.5))
+# cpu_best samples 27 points per cell against every triangle: on the torus
+# it runs on this 10×10×10 block of obj_mesh's grid (its spacing and K,
+# the block over the torus's near half), a twelfth of the cells, to keep
+# the test fast.
+TORUS_BEST_BLOCK = dict(grid_dimensions=(10, 10, 10),
+                        grid_offset=(0.5, 0.5, 0.2))
+# Cells whose candidate sets differ between the packages, every one
+# explained by a near-tie (see _explained), counted on these scenes.
+DIFFERING_CELLS = {("torus", "gpu_fast"): 3, ("torus", "cpu_fast"): 3,
+                   ("torus", "cpu_best"): 220}
+
+
+def _jax_settings(s):
+    return JC.PartitioningSettings(**dataclasses.asdict(s))
+
+
+@pytest.fixture(scope="module", params=["tris80", "torus"])
+def scene(request):
+    """(name, jax spec, jax data, port spec, port data, port settings)."""
+    if request.param == "torus":
+        jr = jscenes.obj_mesh(width=8, height=8, obj_path=tscenes.TORUS_OBJ)
+        jspec, jdata = jr.spec, jr.builder.device_data(grid=None)
+        tspec = port_spec(jspec)
+        settings = tspec.partitioning
+    else:
+        jspec, jdata = build_chunked_scene(n_tris=80)
+        tspec = port_spec(jspec)
+        settings = SMALL_GRID
+    tdata = scene_data_from_numpy(jax.tree.map(np.asarray, jdata), "cpu")
+    return request.param, jspec, jdata, tspec, tdata, settings
+
+
+def _method_settings(name, settings, method):
+    if name == "torus" and method == "cpu_best":
+        return dataclasses.replace(settings, **TORUS_BEST_BLOCK)
+    return settings
+
+
+@pytest.fixture(scope="module")
+def grids(scene):
+    """Both packages' grids for every method: {method: (settings, jax,
+    port)}."""
+    name, jspec, jdata, tspec, tdata, settings = scene
+    out = {}
+    for method in METHODS:
+        s = _method_settings(name, settings, method)
+        j = JPT.build_grid(jspec, _jax_settings(s), jdata, method=method)
+        t = TPT.build_grid(tspec, s, tdata, method=method)
+        out[method] = (s, jax.tree.map(np.asarray, j), t)
+    return out
+
+
+def _explained(tspec, tdata, settings, method, cell, tset, jset):
+    """Whether a cell's differing candidate sets come from near-ties: for
+    the keep-threshold methods, every candidate in one set only lies
+    within 1e-6 of the threshold closest + cell_diag or of the K-th kept
+    distance; for cpu_best, both sets hold a closest primitive (to
+    1e-6) at each of the cell's 27 samples."""
+    center = TPT._cell_centers(settings, "cpu")[cell:cell + 1]
+    if method == "cpu_best":
+        offs = torch.tensor(TPT._BEST_OFFSETS, dtype=torch.float32) * 0.5
+        pts = center + offs * torch.tensor(settings.grid_spacing)
+        d = TPT.all_slot_dists(tspec, tdata, pts)
+        dt = d[:, sorted(tset)].amin(dim=1)
+        dj = d[:, sorted(jset)].amin(dim=1)
+        return bool(torch.allclose(dt, dj, rtol=1e-6, atol=1e-6))
+    d = TPT.all_slot_dists(tspec, tdata, center)[0]
+    thresh = float(d.min()) + settings.cell_diag
+    kept = torch.sort(d[d < thresh]).values
+    k = settings.index_count
+    kth = float(kept[k - 1]) if len(kept) > k else None
+
+    def near(x, y):
+        return y is not None and math.isclose(x, y, rel_tol=1e-6,
+                                              abs_tol=1e-6)
+
+    return all(near(float(d[c]), thresh) or near(float(d[c]), kth)
+               for c in tset ^ jset)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_build_grid_matches_jax(scene, grids, method):
+    name, jspec, jdata, tspec, tdata, _ = scene
+    settings, j, t = grids[method]
+    assert t.cells.dtype == torch.int32 and t.counts.dtype == torch.int32
+    assert t.cells.shape == j.cells.shape == (settings.num_cells,
+                                              settings.index_count)
+    assert j.counts.max() > 0
+    tc, tn = t.cells.numpy(), t.counts.numpy()
+    differ = []
+    for c in range(settings.num_cells):
+        assert (tc[c, tn[c]:] == -1).all()          # -1 past the count
+        tset, jset = set(tc[c, :tn[c]]), set(j.cells[c, :j.counts[c]])
+        if tset != jset:
+            assert _explained(tspec, tdata, settings, method, c, tset,
+                              jset), c
+            differ.append(c)
+    assert len(differ) == DIFFERING_CELLS.get((name, method), 0), differ
+    same = np.ones(settings.num_cells, bool)
+    same[differ] = False
+    np.testing.assert_array_equal(tn[same], j.counts[same])
+
+
+def _points(settings, n, seed):
+    """Seeded points over the grid and a margin around it (outside cells
+    clamp to the border)."""
+    rng = np.random.RandomState(seed)
+    lo = np.asarray(settings.grid_offset, np.float32)
+    ext = np.asarray(settings.grid_dimensions, np.float32) \
+        * np.asarray(settings.grid_spacing, np.float32)
+    return (lo - 0.1 * ext + rng.rand(n, 3) * 1.2 * ext).astype(np.float32)
+
+
+@pytest.mark.parametrize("method", ["gpu_fast", "cpu_best"])
+def test_grid_closest_matches_jax(scene, grids, method):
+    """The query on the JAX package's grid, handed to both."""
+    name, jspec, jdata, tspec, tdata, _ = scene
+    settings, j, _ = grids[method]
+    t = TPT.GridData(cells=torch.as_tensor(np.array(j.cells)),
+                     counts=torch.as_tensor(np.array(j.counts)))
+    p = _points(settings, 256, seed=81)
+    jg = JPT.GridData(cells=jnp.asarray(j.cells), counts=jnp.asarray(j.counts))
+    js = _jax_settings(settings)
+    jd = jax.vmap(lambda q: JPT.grid_closest(jspec, js, jdata, jg, q))(
+        jnp.asarray(p))
+    td = TPT.grid_closest(tspec, settings, tdata, t, torch.as_tensor(p))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-6,
+                               atol=1e-6)
+    assert (td.numpy() < tspec.max_dist).any()
+
+
+def test_grid_closest_fallback_outside_the_grid(scene, grids):
+    """border_behavior 'fallback': outside the grid the whole scene's
+    distance, inside the candidates' (as the JAX package)."""
+    name, jspec, jdata, tspec, tdata, _ = scene
+    settings, j, _ = grids["gpu_fast"]
+    t = TPT.GridData(cells=torch.as_tensor(np.array(j.cells)),
+                     counts=torch.as_tensor(np.array(j.counts)))
+    fb = dataclasses.replace(settings, border_behavior="fallback")
+    p = _points(settings, 128, seed=82)
+    jg = JPT.GridData(cells=jnp.asarray(j.cells), counts=jnp.asarray(j.counts))
+    js = _jax_settings(fb)
+    jd = jax.vmap(lambda q: JPT.grid_closest(jspec, js, jdata, jg, q))(
+        jnp.asarray(p))
+    td = TPT.grid_closest(tspec, fb, tdata, t, torch.as_tensor(p))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_build_grid_rejects_unknown_methods(scene):
+    name, jspec, jdata, tspec, tdata, settings = scene
+    with pytest.raises(ValueError):
+        TPT.build_grid(tspec, settings, tdata, method="gpu_best")
+
+
+def test_renderer_carries_the_grid():
+    """obj_mesh builds the grid on the renderer's device and scene_data
+    carries it; scene_data_from_numpy carries the JAX package's."""
+    r = tscenes.obj_mesh(width=8, height=8, obj_path=tscenes.TORUS_OBJ,
+                         device="cpu")
+    g = r.scene_data.grid
+    assert isinstance(g, TPT.GridData)
+    assert g.cells.shape == (12000, 150) and g.counts.shape == (12000,)
+    jr = jscenes.obj_mesh(width=8, height=8, obj_path=tscenes.TORUS_OBJ)
+    data = scene_data_from_numpy(jax.tree.map(np.asarray, jr.scene_data),
+                                 "cpu")
+    np.testing.assert_array_equal(data.grid.counts.numpy(),
+                                  g.counts.numpy())
