@@ -7,9 +7,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
 
 1. toolchain: the card's name and power limit (nvidia-smi), torch, CUDA
    and nvcc versions; fails without a CUDA device;
-2. builds the kernels (ops/csrc/geometry.cu and march.cu, one nvcc each,
-   started together) from the checkout and prints ptxas's register and
-   spill lines for the geometry kernel;
+2. builds the kernels (ops/csrc/march.cu, and geometry.cu once per lane
+   count, with FMA contraction and with COUNT_WORK; one nvcc each, started
+   together) from the
+   checkout and prints ptxas's register and spill lines for the geometry
+   kernel;
 3. holds the geometry kernel against its plain PyTorch version
    (geometry_reference) on the global_illumination scene, on rays of the
    radiance pass (no reflection) and of the 800x800 screen pass
@@ -86,6 +88,20 @@ Phases, each printed on its own lines; any failure exits non-zero:
    (every super-chunk box opened, so it tests every chunk box in slot
    order) to the two-level kernel and times it between two runs of that.
 
+24. the geometry kernel built with FMA contraction on (-fmad=true, which
+   no path launches), at the six full shapes (GI, simple_scene and
+   obj_mesh, radiance and screen) and the lane count the wrapper chooses
+   there: held to the shipped build and timed against it in turns.
+
+The geometry kernel shares a ray among a group of lanes
+(ops/csrc/scene.cuh).  At every full shape above (phases 3, 16, 21) and on
+the masked launch (phase 14) each lane count the wrapper can choose
+(ops/march.py:LANE_CHOICES) is held to the plain version, and each of
+TIMED_LANES is timed in turns beside the bound (phases 3, 16, 23); on
+obj_mesh a COUNT_WORK build reports the box tests and triangles the kernel
+itself evaluated, beside the plain version's count of what exact pruning
+needs (phase 23).
+
 (Phase 6 of earlier versions, the geometry kernel at the full shapes, is
 part of phase 3.)
 
@@ -119,6 +135,10 @@ SEED = 0
 # H100 SXM published peaks: HBM bandwidth and fp32 outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+# Lanes per ray the geometry kernel is timed at beside the wrapper's choices
+# (ops/march.py:LANE_CHOICES): 32, a whole warp per ray, is measured and
+# not chosen anywhere.
+TIMED_LANES = (1, 8, 32)
 
 
 def fail(msg):
@@ -170,25 +190,43 @@ def toolchain(torch, m):
     return card
 
 
-def build_all(m, names):
-    """Builds every kernel source at once (one nvcc each, in parallel)."""
+def build_all(m):
+    """Builds every library this script launches at once (one nvcc each, in
+    parallel): march.cu; geometry.cu at each of TIMED_LANES and, at the
+    lane counts the wrapper can choose, with FMA contraction and with
+    COUNT_WORK."""
+    M = m.M
+    builds = [("march.cu", M.march_library)]
+    builds += [(f"geometry.cu {x} lanes", lambda x=x: M.geometry_library(x))
+               for x in TIMED_LANES]
+    for x in M.LANE_CHOICES:
+        builds += [
+            (f"geometry.cu {x} lanes fmad",
+             lambda x=x: M.geometry_library(x, fmad=True)),
+            (f"geometry.cu {x} lanes COUNT_WORK",
+             lambda x=x: M.geometry_library(x, count_work=True))]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(m.build.load, names))
-    print(f"build: {', '.join(n + '.cu' for n in names)} in "
-          f"{time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda b: b[1](), builds))
+    print("build: " + ", ".join(name for name, _ in builds)
+          + f" in {time.perf_counter() - t0:.2f} s")
 
 
-def ptxas_lines(m, name, kernel=""):
-    """ptxas's register and spill lines of csrc/<name>.cu, each tagged with
-    the kernel it reports on; only the kernels whose (mangled) name holds
-    ``kernel``."""
+def ptxas_lines(m, name, kernel="", defines=()):
+    """ptxas's register and spill lines of csrc/<name>.cu built with the
+    macros ``defines``, each tagged with the kernel it reports on; only
+    the kernels whose (mangled) name holds ``kernel``."""
     entry = "?"
-    for line in m.build.build_log(name).splitlines():
+    tag = f"{name} {' '.join(defines)}".strip()
+    for line in m.build.build_log(name, defines).splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1] if "'" in line else line
         elif ("registers" in line or "spill" in line) and kernel in entry:
-            print(f"ptxas {name} {entry}: {line.strip()}")
+            print(f"ptxas {tag} {entry}: {line.strip()}")
+
+
+def lanes_def(lanes):
+    return (f"LANES={lanes}",)
 
 
 def gi_rays(torch, m, r, dev):
@@ -317,6 +355,34 @@ def time_pair(torch, kernel, plain, iters=10):
     return (kern1, kern2), (plain1, plain2)
 
 
+def time_turns(torch, fns, iters=10):
+    """Each of fns timed twice, in turns (a, b, ..., b, a): the lower ms
+    of each."""
+    first = [cuda_ms(torch, fn, iters) for fn in fns]
+    second = [cuda_ms(torch, fn, iters) for fn in reversed(fns)][::-1]
+    return [min(a, b) for a, b in zip(first, second)]
+
+
+def scene_bytes(packed):
+    """Bytes of the packed scene's tables."""
+    return 4 * (packed.rows.numel() + packed.info.numel()
+                + packed.tris.numel() + packed.aabbs.numel())
+
+
+def time_lanes(torch, m, run, packed, n, label, bound_txt, card):
+    """The geometry kernel at each of TIMED_LANES lanes per ray, in turns;
+    run(library) launches it.  Returns ({lanes: ms}, the wrapper's
+    choice)."""
+    ms = dict(zip(TIMED_LANES, time_turns(
+        torch, [lambda x=x: run(m.M.geometry_library(x))
+                for x in TIMED_LANES])))
+    chosen = m.M.geometry_lanes(packed, n)
+    print(f"lanes {label} ({n} rays): "
+          + ", ".join(f"{x} lanes {t:.3f} ms" for x, t in ms.items())
+          + f"; the wrapper launches {chosen}; {bound_txt}; [{card}]")
+    return ms, chosen
+
+
 KERNELS = ("geometry", "raycast", "visibility", "softshadows")
 
 
@@ -438,9 +504,12 @@ def geometry_passes(torch, m, r, label, card):
     """The geometry kernel against its plain version on renderer r's
     radiance-pass rays (no reflection) and screen-pass rays (its screen
     config; the reflection folded in for mode 2): seeded subsets of
-    CHECK_RAYS rays, then both passes' full ray sets, held against each
-    other and timed there with their bounds.  Returns ({pass: ms,
-    plain_ms, bound_ms, bound_by}, largest continuous difference)."""
+    CHECK_RAYS rays, then both passes' full ray sets, where every lane
+    count the wrapper can choose is held to the plain version and the
+    kernel is timed with its bound, as the wrapper launches it and at each
+    of TIMED_LANES.  Returns ({pass: ms, plain_ms, bound_ms, bound_by,
+    lanes, ms_by_lanes, launch}, largest continuous difference); launch(
+    library) launches the kernel at the pass's full shape."""
     M = m.M
     ctx = m.SceneCtx(r.spec, r.scene_data)
     rad_check, scr_check, rad_full, scr_full = gi_rays(torch, m, r, r.device)
@@ -448,7 +517,7 @@ def geometry_passes(torch, m, r, label, card):
               "screen": (r.screen_cfg,
                          r.screen_cfg.indirect_specular_mode == 2)}
 
-    def run(fn, rays, name):
+    def run(fn, rays, name, **measure):
         cfg, refl = passes[name]
         return fn(ctx.packed, ctx.lpos_vec, ctx.n_light_slots, rays[0],
                   rays[1], ctx.max_dist, probe_spacing=r.probes.grid_spacing,
@@ -457,7 +526,7 @@ def geometry_passes(torch, m, r, label, card):
                   ao_steps=cfg.ambient_occlusion_steps,
                   max_steps=cfg.max_march_steps,
                   mat_rough_vec=ctx.rough_vec if refl else None,
-                  refl_shadows=cfg.add_indirect_specular)
+                  refl_shadows=cfg.add_indirect_specular, **measure)
 
     max_err = 0.0
     for name, rays in (("radiance", rad_check), ("screen", scr_check)):
@@ -473,11 +542,14 @@ def geometry_passes(torch, m, r, label, card):
         n = rays[0].shape[0]
         ref, flops = counted(torch, m,
                              lambda: run(M.geometry_reference, rays, name))
-        k = run(M.geometry, rays, name)
-        torch.cuda.synchronize()
-        max_err = max(max_err, check_geometry(torch, f"{label}{name} full",
-                                              n, k, ref))
-        del k, ref
+        for lanes in M.LANE_CHOICES:
+            k = run(M.geometry, rays, name,
+                    library=M.geometry_library(lanes))
+            torch.cuda.synchronize()
+            max_err = max(max_err, check_geometry(
+                torch, f"{label}{name} full, {lanes} lanes", n, k, ref))
+            del k
+        del ref
         (k1, k2), (p1, p2) = time_pair(
             torch, lambda: run(M.geometry, rays, name),
             lambda: run(M.geometry_reference, rays, name))
@@ -488,16 +560,23 @@ def geometry_passes(torch, m, r, label, card):
         # vis8, best_pid, best_dir; the scene, lights, roughness once
         per_ray = 24 + 4 * (10 + n_l + 8) + (4 * (14 + n_l + 8) if refl
                                              else 0)
-        n_bytes = n * per_ray + 4 * (ctx.packed.slots.numel()
-                                     + ctx.lpos_vec.numel()
-                                     + ctx.rough_vec.numel())
+        n_bytes = n * per_ray + scene_bytes(ctx.packed) + 4 * (
+            ctx.lpos_vec.numel() + ctx.rough_vec.numel())
         b_ms, b_by = bound(flops, n_bytes)
-        geo[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
-                         bound_ms=b_ms, bound_by=b_by)
         print(f"time geometry {label}{name} ({n} rays): kernel "
               f"{k1:.3f}/{k2:.3f} ms, plain {p1:.1f}/{p2:.1f} ms; bound "
               f"{b_ms:.5f} ms ({b_by}: {flops:.4e} flops, {n_bytes} "
               f"bytes); [{card}]")
+
+        def launch(library, rays=rays, name=name):
+            return run(M.geometry, rays, name, library=library)
+
+        by_lanes, chosen = time_lanes(
+            torch, m, launch, ctx.packed, n, f"{label}{name}",
+            f"bound {b_ms:.5f} ms", card)
+        geo[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                         bound_ms=b_ms, bound_by=b_by, lanes=chosen,
+                         ms_by_lanes=by_lanes, launch=launch)
     return geo, max_err
 
 
@@ -549,28 +628,29 @@ def mesh_phases(torch, m, dev, card):
 
     # ---- 19. ptxas's report for the triangle variants (the last template
     # argument, TRIS, true)
-    ptxas_lines(m, "geometry", "Lb1EEEv")
+    for lanes in M.LANE_CHOICES:
+        ptxas_lines(m, "geometry", "Lb1EEEv", lanes_def(lanes))
     ptxas_lines(m, "march", "Lb1EEEv")
 
     # ---- 20. the scene: 968 triangles in 121 chunks
     r = S.obj_mesh(width=800, height=800, obj_path=S.TORUS_OBJ, device=dev)
     ctx = m.SceneCtx(r.spec, r.scene_data)
     packed = ctx.packed
-    n_tri = int(packed.tris[:, M.TRI_LIVE].sum())
+    n_tri = int(packed.tri_live.sum())
     if (n_tri, packed.n_chunks) != (968, 121):
         fail(f"obj_mesh packs {n_tri} triangles in {packed.n_chunks} "
              f"chunks, expected 968 in 121")
     print(f"obj_mesh: {n_tri} triangles in {packed.n_chunks} chunks and "
           f"{packed.n_supers} super-chunks; triangle table "
           f"{4 * packed.tris.numel()} bytes in device memory, boxes "
-          f"{4 * packed.boxes.numel()} bytes in shared memory")
+          f"{4 * packed.aabbs.numel()} bytes in shared memory")
 
     # ---- 21. the kernels against their plain versions on mesh rays
     rad_sub, scr_sub, rad_full, scr_full = gi_rays(torch, m, r, dev)
     passes = {"radiance": (m.PROBE_SHADE_CONFIG, False),
               "screen": (r.screen_cfg, True)}
 
-    def run(fn, rays, name, scene=packed):
+    def run(fn, rays, name, scene=packed, **measure):
         cfg, refl = passes[name]
         return fn(scene, ctx.lpos_vec, ctx.n_light_slots, rays[0], rays[1],
                   ctx.max_dist, probe_spacing=r.probes.grid_spacing,
@@ -579,18 +659,17 @@ def mesh_phases(torch, m, dev, card):
                   ao_steps=cfg.ambient_occlusion_steps,
                   max_steps=cfg.max_march_steps,
                   mat_rough_vec=ctx.rough_vec if refl else None,
-                  refl_shadows=cfg.add_indirect_specular)
+                  refl_shadows=cfg.add_indirect_specular, **measure)
 
     # the seeded subsets, then the full shapes, where the plain version's
-    # work is counted for the bound
+    # work is counted for the bound and every lane count the wrapper can
+    # choose is held to it
     geo_err = 0.0
     work = {}
     for name, rays, full in (("radiance", rad_sub, False),
                              ("screen", scr_sub, False),
                              ("radiance", rad_full, True),
                              ("screen", scr_full, True)):
-        k = run(M.geometry, rays, name)
-        torch.cuda.synchronize()
         if full:
             ref, flops = counted(torch, m, lambda: run(M.geometry_reference,
                                                         rays, name))
@@ -600,10 +679,16 @@ def mesh_phases(torch, m, dev, card):
         else:
             ref = run(M.geometry_reference, rays, name)
             torch.cuda.synchronize()
-        geo_err = max(geo_err, check_geometry(
-            torch, f"obj_mesh {name}{' full' if full else ''}",
-            rays[0].shape[0], k, ref))
-        del k, ref
+        for lanes in M.LANE_CHOICES if full else (None,):
+            k = run(M.geometry, rays, name,
+                    library=lanes and M.geometry_library(lanes))
+            torch.cuda.synchronize()
+            geo_err = max(geo_err, check_geometry(
+                torch, f"obj_mesh {name}"
+                + (f" full, {lanes} lanes" if full else ""),
+                rays[0].shape[0], k, ref))
+            del k
+        del ref
 
     o, d = mesh_rays(torch, m, r, dev, CHECK_RAYS, SEED)
     g = torch.Generator().manual_seed(SEED + 1)
@@ -667,11 +752,10 @@ def mesh_phases(torch, m, dev, card):
     # one box level, against which the second is timed: every super-chunk
     # box opened to all of space, so the same kernel tests every chunk box
     # in slot order (still exact)
-    boxes = packed.boxes.clone()
-    supers = boxes[6:6 * (1 + packed.n_supers)].view(-1, 6)
-    supers[:, :3] = -M.BIG
-    supers[:, 3:] = M.BIG
-    one_level = dataclasses.replace(packed, boxes=boxes)
+    aabbs = packed.aabbs.clone()
+    aabbs[1:1 + packed.n_supers, 0:3] = -M.BIG
+    aabbs[1:1 + packed.n_supers, 4:7] = M.BIG
+    one_level = dataclasses.replace(packed, aabbs=aabbs)
 
     out = {"launches": launches["geometry"], "max_abs_err": geo_err}
     for name, sub, full in (("radiance", rad_sub, rad_full),
@@ -696,9 +780,8 @@ def mesh_phases(torch, m, dev, card):
         refl = passes[name][1]
         per_ray = 24 + 4 * (10 + n_l + 8) + (4 * (14 + n_l + 8) if refl
                                              else 0)
-        n_bytes = n_full * per_ray + 4 * (
-            packed.tris.numel() + packed.boxes.numel()
-            + ctx.lpos_vec.numel() + ctx.rough_vec.numel())
+        n_bytes = n_full * per_ray + scene_bytes(packed) + 4 * (
+            ctx.lpos_vec.numel() + ctx.rough_vec.numel())
         b_ms, b_by = bound(flops, n_bytes)
         u_ms, u_by = bound(unculled, n_bytes)
         print(f"time geometry obj_mesh {name}: kernel {k_full[0]:.3f}/"
@@ -711,9 +794,40 @@ def mesh_phases(torch, m, dev, card):
               f"({u_by}: {unculled:.4e} flops); one box level (timed "
               f"between the two kernel times) {k_one[0]:.3f}/{k_one[1]:.3f} "
               f"ms; [{card}]")
+
+        def launch(library, full=full, name=name, **measure):
+            return run(M.geometry, full, name, library=library, **measure)
+
+        by_lanes, chosen = time_lanes(
+            torch, m, launch, packed, n_full, f"obj_mesh {name}",
+            f"bound {b_ms:.5f} ms", card)
+
+        # the kernel's own count of its work (a COUNT_WORK build, launched
+        # here only) beside the plain version's count of what exact pruning
+        # needs on the same rays
+        for lanes in M.LANE_CHOICES:
+            done = torch.zeros(3, dtype=torch.int64, device=dev)
+            launch(M.geometry_library(lanes, count_work=True), work=done)
+            evals, tests, tris = done.tolist()
+            plain_evals = tri_evals // n_tri
+            print(f"work obj_mesh {name}, {lanes} lanes: the kernel made "
+                  f"{evals} scene evaluations, {tests} box tests "
+                  f"({tests / evals:.2f} each) and {tris} triangle "
+                  f"evaluations ({tris / evals:.2f} each); the plain "
+                  f"version {plain_evals} evaluations, exact pruning "
+                  f"needing {pruned['aabb']} box tests "
+                  f"({pruned['aabb'] / plain_evals:.2f} each) and "
+                  f"{pruned['triangles']} triangles "
+                  f"({pruned['triangles'] / plain_evals:.2f} each)")
+            out.setdefault("work", {})[f"{name}_{lanes}"] = dict(
+                evals=evals, box_tests=tests, triangles=tris)
         out[name] = dict(ms=min(k_full), sub_ms=min(k1, k2),
                          plain_ms=min(p1, p2), bound_ms=b_ms, bound_by=b_by,
-                         unculled_bound_ms=u_ms)
+                         unculled_bound_ms=u_ms, lanes=chosen,
+                         ms_by_lanes=by_lanes, launch=launch,
+                         plain_evals=tri_evals // n_tri,
+                         pruned_box_tests=pruned["aabb"],
+                         pruned_triangles=pruned["triangles"])
     return out, rc_err, vis_err, sh_err
 
 
@@ -735,8 +849,9 @@ def main():
     card = toolchain(torch, m)
 
     # ---- 2. build (both sources at once)
-    build_all(m, ["geometry", "march"])
-    ptxas_lines(m, "geometry")
+    build_all(m)
+    for lanes in TIMED_LANES:
+        ptxas_lines(m, "geometry", defines=lanes_def(lanes))
 
     # ---- 3. geometry kernel vs plain version on the GI scene: seeded
     # subsets, then the passes' full shapes, held and timed
@@ -819,7 +934,7 @@ def main():
                      lambda: raycast(M.raycast_reference))
     vis_t = time_pair(torch, lambda: visibility(M.visibility),
                       lambda: visibility(M.visibility_reference))
-    slot_bytes = 4 * lctx.packed.slots.numel()
+    slot_bytes = scene_bytes(lctx.packed)
     # per ray in: o, d, enabled (visibility: + max_dist); out: t, hit
     # (visibility: vis)
     rc_bound = bound(rc_flops, n_scat * (24 + 1 + 4 + 1) + slot_bytes)
@@ -847,8 +962,8 @@ def main():
     n_refl = ro.shape[0]
 
     def refl_raycast(fn):
-        return fn(g1ctx.packed, ro, rd, g1.spec.max_dist,
-                  max_steps=max_steps, enabled=ren)
+        return fn(g1ctx.packed, ro, rd, g1.spec.max_dist, max_steps=max_steps,
+                  enabled=ren)
 
     (rt, rhit, spec_pos), rc1_flops = counted(
         torch, m, lambda: refl_raycast(M.raycast_reference))
@@ -866,9 +981,9 @@ def main():
         fail(f"GI mode-1 rays: {n_refl} reflection, {n_pen} penumbra")
 
     def penumbra(fn):
-        return fn(g1ctx.packed, pen["origins"], pen["dirs"],
-                  pen["min_dists"], pen["max_dists"], m.shading.GLOSSY_K,
-                  max_steps=max_steps, enabled=pen["enabled"])
+        return fn(g1ctx.packed, pen["origins"], pen["dirs"], pen["min_dists"],
+                  pen["max_dists"], m.shading.GLOSSY_K, max_steps=max_steps,
+                  enabled=pen["enabled"])
 
     rsh, sh_flops = counted(torch, m,
                             lambda: penumbra(M.softshadows_reference))
@@ -885,28 +1000,31 @@ def main():
 
     # ---- 14. the masked geometry launch (mode 3's reflection rays, no AO)
     # vs its plain version
-    def masked(fn, ids=slice(None)):
+    def masked(fn, ids=slice(None), **measure):
         return fn(g1ctx.packed, g1ctx.lpos_vec, g1ctx.n_light_slots,
                   ro[ids].contiguous(), rd[ids].contiguous(),
                   g1.spec.max_dist, probe_spacing=g1.probes.grid_spacing,
                   probe_dims=g1.probes.grid_dimensions,
                   surface_offset=m.SURFACE_OFFSET, ao_steps=0,
-                  max_steps=max_steps, enabled=ren[ids].contiguous())
+                  max_steps=max_steps, enabled=ren[ids].contiguous(),
+                  **measure)
 
     sub = torch.randperm(n_refl, generator=torch.Generator().manual_seed(
         SEED))[:CHECK_RAYS].to(dev)
     for label, ids in (("masked reflections", sub),
                        ("masked reflections full", slice(None))):
-        k = masked(M.geometry, ids)
-        torch.cuda.synchronize()
         ref = masked(M.geometry_reference, ids)
         torch.cuda.synchronize()
-        if bool((k["t"][~ren[ids]] != 0).any()) or bool(
-                k["hit"][~ren[ids]].any()):
-            fail(f"{label}: a disabled ray marched or hit")
-        max_err = max(max_err, check_geometry(
-            torch, label, ref["t"].shape[0], k, ref))
-        del k, ref
+        for lanes in M.LANE_CHOICES:
+            k = masked(M.geometry, ids, library=M.geometry_library(lanes))
+            torch.cuda.synchronize()
+            if bool((k["t"][~ren[ids]] != 0).any()) or bool(
+                    k["hit"][~ren[ids]].any()):
+                fail(f"{label}: a disabled ray marched or hit")
+            max_err = max(max_err, check_geometry(
+                torch, f"{label}, {lanes} lanes", ref["t"].shape[0], k, ref))
+            del k
+        del ref
 
     # ---- 15. GI in modes 1 and 3 at 128x128, 4 frames: card vs CPU
     for cfg in (mode1, mode3):
@@ -929,9 +1047,9 @@ def main():
     if stats["breached"]:
         fail(f"simple_scene golden gates breached: {stats['breached']}")
     ss = S.simple_scene(width=800, height=800, device=dev)
-    n_slots = m.SceneCtx(ss.spec, ss.scene_data).packed.n_slots
-    if n_slots != 40:
-        fail(f"simple_scene packs {n_slots} slots, expected 40")
+    ss_packed = m.SceneCtx(ss.spec, ss.scene_data).packed
+    if ss_packed.n_slots != 40:
+        fail(f"simple_scene packs {ss_packed.n_slots} slots, expected 40")
     geo_ss, err = geometry_passes(torch, m, ss, "simple_scene ", card)
     max_err = max(max_err, err)
 
@@ -963,7 +1081,7 @@ def main():
                      lambda: penumbra(M.softshadows_reference), iters=5)
     # per ray in: o, d, min_dist, max_dist, enabled; out: the factor
     sh_bound = bound(sh_flops, n_pen * (24 + 4 + 4 + 1 + 4)
-                     + 4 * g1ctx.packed.slots.numel())
+                     + scene_bytes(g1ctx.packed))
     print(f"time softshadows ({n_pen} rays): kernel "
           f"{sh_t[0][0]:.4f}/{sh_t[0][1]:.4f} ms, plain "
           f"{sh_t[1][0]:.1f}/{sh_t[1][1]:.1f} ms; bound {sh_bound[0]:.5f} "
@@ -971,7 +1089,7 @@ def main():
     rc1_t = time_pair(torch, lambda: refl_raycast(M.raycast),
                       lambda: refl_raycast(M.raycast_reference))
     rc1_bound = bound(rc1_flops, n_refl * (24 + 1 + 4 + 1)
-                      + 4 * g1ctx.packed.slots.numel())
+                      + scene_bytes(g1ctx.packed))
     print(f"time raycast mode-1 reflections ({n_refl} rays): kernel "
           f"{rc1_t[0][0]:.4f}/{rc1_t[0][1]:.4f} ms, plain "
           f"{rc1_t[1][0]:.1f}/{rc1_t[1][1]:.1f} ms; bound "
@@ -984,6 +1102,37 @@ def main():
     rc_err = max(rc_err, rc_mesh)
     vis_err = max(vis_err, vis_mesh)
     sh_err = max(sh_err, sh_mesh)
+
+    # ---- 24. the geometry kernel with FMA contraction on, at the six full
+    # shapes and the lane count the wrapper chooses there: held to the
+    # shipped build (which the phases above held to the plain version) and
+    # timed against it in turns
+    shapes = {f"{scene} {name}": g[name]
+              for scene, g in (("GI", geo), ("simple_scene", geo_ss),
+                               ("obj_mesh", mesh))
+              for name in ("radiance", "screen")}
+    ab = {}
+    for label, g in shapes.items():
+        lanes = g["lanes"]
+        base_lib = M.geometry_library(lanes)
+        lib = M.geometry_library(lanes, fmad=True)
+        base, other = g["launch"](base_lib), g["launch"](lib)
+        torch.cuda.synchronize()
+        shares, errs = compare(torch, other, base)
+        del base, other
+        t_base, t_other = time_turns(
+            torch, [lambda: g["launch"](base_lib), lambda: g["launch"](lib)])
+        ok = max(shares.values()) <= DISCRETE_MAX_FRAC and max(
+            errs.values()) <= CONT_ATOL
+        print(f"variant {label}, fmad, {lanes} lanes: {t_other:.3f} ms "
+              f"against {t_base:.3f} ms; discrete mismatch "
+              f"{max(shares.values()):.3e}, max abs err "
+              f"{max(errs.values()):.3e}, "
+              f"{'within' if ok else 'BEYOND'} the limits; [{card}]")
+        ab[f"{label}, fmad, {lanes} lanes"] = dict(
+            ms=t_other, base_ms=t_base, within_limits=ok,
+            discrete=max(shares.values()), max_abs_err=max(errs.values()))
+    print(json.dumps({"kernel_variants": ab}))
 
     src = "madarch_tpu_torch/ops/csrc/"
     print(json.dumps({"kernels": [
@@ -1016,7 +1165,20 @@ def main():
          "bound_ms_obj_mesh": mesh["screen"]["bound_ms"],
          "bound_by_obj_mesh": mesh["screen"]["bound_by"],
          "bound_ms_obj_mesh_radiance": mesh["radiance"]["bound_ms"],
-         "unculled_bound_ms_obj_mesh": mesh["screen"]["unculled_bound_ms"]},
+         "unculled_bound_ms_obj_mesh": mesh["screen"]["unculled_bound_ms"],
+         # lanes per ray: the wrapper's choice and the time at each of
+         # TIMED_LANES, per full shape
+         "lanes": {label: g["lanes"] for label, g in shapes.items()},
+         "ms_by_lanes": {label: {str(x): t
+                                 for x, t in g["ms_by_lanes"].items()}
+                         for label, g in shapes.items()},
+         # the kernel's own counts on obj_mesh (COUNT_WORK builds) beside
+         # the plain version's count of what exact pruning needs
+         "work_obj_mesh": mesh["work"],
+         "pruned_work_obj_mesh": {
+             name: {k: mesh[name][k] for k in (
+                 "plain_evals", "pruned_box_tests", "pruned_triangles")}
+             for name in ("radiance", "screen")}},
         {"name": "raycast", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1089",
          "launches": launches["raycast"], "max_abs_err": rc_err,

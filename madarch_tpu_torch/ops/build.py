@@ -2,10 +2,11 @@
 
 Each source file compiles on first use into a shared library with a plain C
 interface, under ``ops/_build/<name>-<hash>/``; the hash covers the
-source, the shared headers (``csrc/*.cuh``) and the compiler flags, so an
-edited source rebuilds and an unchanged one loads the library already
-built.  The build log (with
-``-Xptxas -v``'s register and spill report) is kept beside the library.
+source, the shared headers (``csrc/*.cuh``) and the compiler flags
+(macros included: one library per value of LANES), so an edited source
+rebuilds and an unchanged one loads the library already built.  The build
+log (with ``-Xptxas -v``'s register and spill report) is kept beside the
+library.
 """
 from __future__ import annotations
 
@@ -20,12 +21,9 @@ import tempfile
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
-# sm_90a: Hopper with its architecture-specific features.  FMA contraction
-# is off so each kernel rounds operation for operation like its plain
-# PyTorch version (a*b+c as two roundings).
+# sm_90a: Hopper with its architecture-specific features.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 
 def nvcc_path():
@@ -36,7 +34,15 @@ def nvcc_path():
                         "bin", "nvcc")
 
 
-def _digest(src_path):
+def _flags(defines, fmad):
+    """nvcc's flags for a build with the macros ``defines``.  Without
+    ``fmad``, FMA contraction is off, so each kernel rounds operation for
+    operation like its plain PyTorch version (a*b+c as two roundings)."""
+    return (*NVCC_FLAGS, f"-fmad={'true' if fmad else 'false'}",
+            *(f"-D{d}" for d in defines))
+
+
+def _digest(src_path, flags):
     """Hash of the source, every header of csrc/ and the flags."""
     headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
                      if f.endswith(".cuh"))
@@ -44,27 +50,30 @@ def _digest(src_path):
     for path in [src_path, *headers]:
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
-def library_path(name):
+def library_path(name, defines=(), fmad=False):
     src = os.path.join(CSRC, name + ".cu")
-    out_dir = os.path.join(BUILD_DIR, f"{name}-{_digest(src)}")
+    out_dir = os.path.join(
+        BUILD_DIR, f"{name}-{_digest(src, _flags(defines, fmad))}")
     return src, out_dir, os.path.join(out_dir, f"lib{name}.so")
 
 
 @functools.cache
-def load(name):
-    """The ctypes handle of csrc/<name>.cu, compiled first if needed.
+def load(name, defines=(), fmad=False):
+    """The ctypes handle of csrc/<name>.cu built with the macros
+    ``defines`` (a tuple of NAME or NAME=VALUE), compiled first if needed.
     Raises RuntimeError with nvcc's output when the build fails."""
-    src, out_dir, lib = library_path(name)
+    src, out_dir, lib = library_path(name, defines, fmad)
     if not os.path.exists(lib):
         os.makedirs(out_dir, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
+        proc = subprocess.run(
+            [nvcc_path(), *_flags(defines, fmad), "-o", tmp, src],
+            capture_output=True, text=True)
         with open(os.path.join(out_dir, "build.log"), "w") as f:
             f.write(proc.stdout + proc.stderr)
         if proc.returncode != 0:
@@ -75,10 +84,10 @@ def load(name):
     return ctypes.CDLL(lib)
 
 
-def build_log(name):
-    """nvcc's output from the build of csrc/<name>.cu ('' if not built
+def build_log(name, defines=(), fmad=False):
+    """nvcc's output from that build of csrc/<name>.cu ('' if not built
     here)."""
-    _, out_dir, _ = library_path(name)
+    _, out_dir, _ = library_path(name, defines, fmad)
     path = os.path.join(out_dir, "build.log")
     if not os.path.exists(path):
         return ""

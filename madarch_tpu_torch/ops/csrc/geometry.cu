@@ -1,4 +1,4 @@
-// Fused geometry kernel for Hopper (sm_90a): one thread per ray.
+// Fused geometry kernel for Hopper (sm_90a): LANES lanes of a warp per ray.
 //
 // Replaces the Pallas TPU kernel madarch_tpu/ops/march.py:_geometry_kernel
 // (reached through pallas_geometry), in all three of its scene layouts:
@@ -12,45 +12,57 @@
 // pick.  An optional per-ray `enabled` mask (specular mode 3's reflection
 // launch) keeps a ray from marching at all; ao_steps = 0 skips the AO probes.
 //
-// What bounds it: control flow and scene evaluations, not bytes.  A ray
+// What bounds it: latency and control flow, not bytes or arithmetic.  A ray
 // reads 28 bytes and, with one light, writes 72 (148 with REFL), but runs
 // up to 300 march steps per march (1 + lights + 8 marches, twice with
-// REFL), each step a scene evaluation.  The TPU kernel marched (8,128)
-// tiles that exit only when their slowest lane does; here each thread
-// exits its own loops (a warp still waits for its slowest lane).  The slot
-// table, the triangle chunks' boxes, light positions and roughness sit in
-// shared memory, read by every thread at the same address (a broadcast).
-// Every live slot is evaluated exactly, with no culling.  Triangles (the
-// TRIS variant) stay in device memory, ~124 KB for obj_mesh's 968, read
-// through the read-only cache: shared memory that large would leave one
-// block per SM.  They are pruned exactly by their chunk boxes
+// REFL), each step a scene evaluation whose running minimum makes every
+// box test wait for the one before.  One thread per ray left a warp
+// executing the union of what its 32 rays admitted, and a launch of a few
+// ten thousand rays left most of the card's 132 SMs idle.  So a group of
+// LANES lanes shares one ray (scene.cuh): each lane holds the ray's whole
+// state and only the scene evaluation is split, a box, a triangle or a
+// slot a lane.  A warp then diverges on 32 / LANES rays, an evaluation is
+// a few short rounds, and a launch has LANES times the threads.  The
+// library is built once per LANES (ops/build.py); the wrapper picks the
+// build from the scene's layout and the ray count (ops/march.py).
+//
+// A ray that hits nothing pays none of the hit's fixed work: its normal is
+// the reversed ray direction and its AO 1 (the plain version defines the
+// same), so the four normal and the AO evaluations run on hits only.  The
+// hit's index and material id are classified on every ray.
+//
+// The typed slot runs, the triangle boxes, light positions and roughness
+// sit in shared memory; the triangle table (~108 KB for obj_mesh's 968)
+// stays in device memory behind the read-only cache.  Every live slot is
+// evaluated exactly; triangles are pruned exactly by their boxes
 // (scene.cuh:tri_min), where the TPU kernel's culling gave margin lower
 // bounds that moved the march.
 //
+// Built with COUNT_WORK, which no path of the package does, the kernel sums
+// the scene evaluations, box tests and triangle evaluations of the launch.
+//
 // Built with -fmad=false so each float operation rounds like the plain
 // PyTorch version (ops/march.py:geometry_reference), which composes the
-// same marches from render/raymarch.py.  The scene evaluation and the
-// marches live in scene.cuh, shared with march.cu.
+// same marches from render/raymarch.py.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "scene.cuh"
 
+#ifndef LANES
+#define LANES 1
+#endif
+
 namespace {
 
 constexpr int MAX_AO_STEPS = 8;
+constexpr int THREADS = 128;
 
 }  // namespace
 
 // Mirrored field for field by ops/march.py:_GeomArgs (ctypes).
 struct GeomArgs {
-  const float* slots;   // f32[n_slots, SLOT_WIDTH]
-  int n_slots;
-  const float* tris;    // f32[n_chunks * CHUNK, TRI_WIDTH] (TRIS only)
-  const float* boxes;   // f32[n_box_f]: scale row, super and chunk boxes
-  int n_box_f;
-  int n_chunks;
-  int n_supers;
+  SceneArgs scene;
   const float* lpos;    // f32[3 * n_lights]
   int n_lights;
   const float* rough;   // f32[n_mats] (REFL only)
@@ -97,13 +109,14 @@ struct GeomArgs {
 namespace {
 
 // Tetrahedron finite-difference normal of the scene SDF.
-template <bool TRIS>
-__device__ void fd_normal(const Scene& sc, float h, float px, float py,
-                          float pz, float* nx, float* ny, float* nz) {
-  const float f0 = scene_dist<TRIS>(sc, px + h, py - h, pz - h);
-  const float f1 = scene_dist<TRIS>(sc, px - h, py - h, pz + h);
-  const float f2 = scene_dist<TRIS>(sc, px - h, py + h, pz - h);
-  const float f3 = scene_dist<TRIS>(sc, px + h, py + h, pz + h);
+template <int G, bool TRIS>
+__device__ void fd_normal(const Scene& sc, const Group<G>& g, float h,
+                          float px, float py, float pz, float* nx, float* ny,
+                          float* nz) {
+  const float f0 = scene_dist<G, TRIS>(sc, g, px + h, py - h, pz - h);
+  const float f1 = scene_dist<G, TRIS>(sc, g, px - h, py - h, pz + h);
+  const float f2 = scene_dist<G, TRIS>(sc, g, px - h, py + h, pz - h);
+  const float f3 = scene_dist<G, TRIS>(sc, g, px + h, py + h, pz + h);
   const float gx = f0 - f1 - f2 + f3;
   const float gy = -f0 - f1 + f2 + f3;
   const float gz = -f0 + f1 - f2 + f3;
@@ -116,11 +129,11 @@ __device__ void fd_normal(const Scene& sc, float h, float px, float py,
 // Per-light penumbra: origin (sx,sy,sz) is the offset surface point, the
 // light direction and distance come from the un-offset point p; enabled
 // only where n·l > ndotl_min.
-template <bool TRIS>
-__device__ void shadow_block(const Scene& sc, const March& m,
-                             const GeomArgs& a, const float* lpos,
-                             float px, float py, float pz, float sx,
-                             float sy, float sz, float nx, float ny,
+template <int G, bool TRIS>
+__device__ void shadow_block(const Scene& sc, const Group<G>& g,
+                             const March& m, const GeomArgs& a,
+                             const float* lpos, float px, float py, float pz,
+                             float sx, float sy, float sz, float nx, float ny,
                              float nz, bool hit, float* out, int i) {
   for (int li = 0; li < a.n_lights; ++li) {
     const float tlx = lpos[3 * li + 0] - px;
@@ -132,61 +145,74 @@ __device__ void shadow_block(const Scene& sc, const March& m,
     const float ldy = tly * inv;
     const float ldz = tlz * inv;
     const float ndotl = nx * ldx + ny * ldy + nz * ldz;
-    out[li * a.n + i] =
-        march_shadow<TRIS>(sc, m, sx, sy, sz, ldx, ldy, ldz, 0.f, ldist,
-                           hit && ndotl > a.ndotl_min);
+    const float sh =
+        march_shadow<G, TRIS>(sc, g, m, sx, sy, sz, ldx, ldy, ldz, 0.f,
+                              ldist, hit && ndotl > a.ndotl_min);
+    if (g.lane == 0) out[li * a.n + i] = sh;
   }
+}
+
+// Corner k of the probe cell holding p, clamped to the grid: its probe id
+// and the direction and distance to it from p.
+struct Corner {
+  float pid, vdx, vdy, vdz, pdist;
+};
+
+__device__ __forceinline__ Corner probe_corner(const GeomArgs& a, int k,
+                                               float px, float py,
+                                               float pz) {
+  const float cx = fminf(fmaxf(floorf(px / a.spx) +
+                               static_cast<float>(k & 1), 0.f),
+                         static_cast<float>(a.dimx - 1));
+  const float cy = fminf(fmaxf(floorf(py / a.spy) +
+                               static_cast<float>((k >> 1) & 1), 0.f),
+                         static_cast<float>(a.dimy - 1));
+  const float cz = fminf(fmaxf(floorf(pz / a.spz) +
+                               static_cast<float>((k >> 2) & 1), 0.f),
+                         static_cast<float>(a.dimz - 1));
+  const float wx = cx * a.spx - px;
+  const float wy = cy * a.spy - py;
+  const float wz = cz * a.spz - pz;
+  Corner c;
+  c.pdist = fmaxf(sqrtf(wx * wx + wy * wy + wz * wz), 1e-6f);
+  const float inv = 1.f / c.pdist;
+  c.vdx = wx * inv;
+  c.vdy = wy * inv;
+  c.vdz = wz * inv;
+  c.pid = cz * static_cast<float>(a.dimx * a.dimy) +
+          cy * static_cast<float>(a.dimx) + cx;
+  return c;
 }
 
 // The 8 probe-visibility marches to the clamped corners of the probe cell
 // holding p (direction and distance from p, origin the offset point).
 // With pick, also the mode-2 best probe: weight dot(dir, n)·vis from -BIG,
 // strict > so the first corner wins a tie; emits -dir of the winner.
-template <bool PICK, bool TRIS>
-__device__ void vis_block(const Scene& sc, const March& m, const GeomArgs& a,
-                          float px, float py, float pz, float sx, float sy,
-                          float sz, float nx, float ny, float nz, bool hit,
-                          float* out, int i, float* best_pid,
-                          float* best_dir) {
-  const float cellx = floorf(px / a.spx);
-  const float celly = floorf(py / a.spy);
-  const float cellz = floorf(pz / a.spz);
-  const float fx = static_cast<float>(a.dimx);
-  const float fxy = static_cast<float>(a.dimx * a.dimy);
+template <bool PICK, int G, bool TRIS>
+__device__ void vis_block(const Scene& sc, const Group<G>& g, const March& m,
+                          const GeomArgs& a, float px, float py, float pz,
+                          float sx, float sy, float sz, float nx, float ny,
+                          float nz, bool hit, float* out, int i,
+                          float* best_pid, float* best_dir) {
   float bw = 0.f - BIG, bpid = 0.f, bdx = 0.f, bdy = 0.f, bdz = 0.f;
   for (int k = 0; k < 8; ++k) {
-    const float cx = fminf(fmaxf(cellx + static_cast<float>(k & 1), 0.f),
-                           static_cast<float>(a.dimx - 1));
-    const float cy = fminf(fmaxf(celly + static_cast<float>((k >> 1) & 1),
-                                 0.f),
-                           static_cast<float>(a.dimy - 1));
-    const float cz = fminf(fmaxf(cellz + static_cast<float>((k >> 2) & 1),
-                                 0.f),
-                           static_cast<float>(a.dimz - 1));
-    const float wx = cx * a.spx - px;
-    const float wy = cy * a.spy - py;
-    const float wz = cz * a.spz - pz;
-    const float pdist = fmaxf(sqrtf(wx * wx + wy * wy + wz * wz), 1e-6f);
-    const float inv = 1.f / pdist;
-    const float vdx = wx * inv;
-    const float vdy = wy * inv;
-    const float vdz = wz * inv;
-    const float vis = march_visibility<TRIS>(
-        sc, m, sx, sy, sz, vdx, vdy, vdz, pdist - a.surf_off, hit);
-    out[k * a.n + i] = vis;
+    const Corner c = probe_corner(a, k, px, py, pz);
+    const float vis = march_visibility<G, TRIS>(
+        sc, g, m, sx, sy, sz, c.vdx, c.vdy, c.vdz, c.pdist - a.surf_off,
+        hit);
+    if (g.lane == 0) out[k * a.n + i] = vis;
     if (PICK) {
-      const float pid = cz * fxy + cy * fx + cx;
-      const float w = (vdx * nx + vdy * ny + vdz * nz) * vis;
+      const float w = (c.vdx * nx + c.vdy * ny + c.vdz * nz) * vis;
       if (w > bw) {
-        bpid = pid;
-        bdx = -vdx;
-        bdy = -vdy;
-        bdz = -vdz;
+        bpid = c.pid;
+        bdx = -c.vdx;
+        bdy = -c.vdy;
+        bdz = -c.vdz;
       }
       bw = fmaxf(bw, w);
     }
   }
-  if (PICK) {
+  if (PICK && g.lane == 0) {
     best_pid[i] = bpid;
     best_dir[3 * i + 0] = bdx;
     best_dir[3 * i + 1] = bdy;
@@ -194,44 +220,53 @@ __device__ void vis_block(const Scene& sc, const March& m, const GeomArgs& a,
   }
 }
 
-template <bool REFL, bool TRIS>
+// One bounce from (o, d): the march, the classification of its end point,
+// and on a hit the FD normal; on a miss the normal is -d.
+template <int G, bool TRIS>
+__device__ void bounce(const Scene& sc, const Group<G>& g, const March& m,
+                       const GeomArgs& a, float ox, float oy, float oz,
+                       float dx, float dy, float dz, bool en, float* t,
+                       float* px, float* py, float* pz, bool* hit, int* idx,
+                       int* mid, float* nx, float* ny, float* nz) {
+  *t = march_primary<G, TRIS>(sc, g, m, ox, oy, oz, dx, dy, dz, en);
+  *px = ox + *t * dx;
+  *py = oy + *t * dy;
+  *pz = oz + *t * dz;
+  const float d_end = scene_info<G, TRIS>(sc, g, *px, *py, *pz, idx, mid);
+  *hit = en && d_end < a.eps && *t < a.max_dist;
+  *nx = -dx;
+  *ny = -dy;
+  *nz = -dz;
+  if (*hit) fd_normal<G, TRIS>(sc, g, a.normal_h, *px, *py, *pz, nx, ny, nz);
+}
+
+template <int G, bool REFL, bool TRIS>
 __global__ void geometry_kernel(const GeomArgs a) {
-  // shared memory: slot table, boxes (TRIS), light positions, roughness
-  extern __shared__ float smem[];
-  const int n_slot_f = a.n_slots * SLOT_WIDTH;
-  const int n_box_f = TRIS ? a.n_box_f : 0;
+  // shared memory: the typed slot runs, boxes (TRIS), light positions,
+  // roughness
+  extern __shared__ float4 smem[];
+  Scene sc = stage_scene<TRIS>(a.scene, smem, a.max_dist);
   const int n_light_f = 3 * a.n_lights;
   const int n_rough = REFL ? a.n_mats : 0;
-  float* s_slots = smem;
-  float* s_boxes = s_slots + n_slot_f;
-  float* s_lpos = s_boxes + n_box_f;
+  float4* s_end = smem + scene_row4(a.scene) +
+                  (TRIS ? scene_aabb4(a.scene) : 0);
+  float* s_lpos = reinterpret_cast<float*>(s_end);
   float* s_rough = s_lpos + n_light_f;
-  for (int j = threadIdx.x; j < n_slot_f + n_box_f + n_light_f + n_rough;
-       j += blockDim.x) {
-    int k = j;
-    if (k < n_slot_f) {
-      s_slots[k] = a.slots[k];
-      continue;
-    }
-    k -= n_slot_f;
-    if (k < n_box_f) {
-      s_boxes[k] = a.boxes[k];
-      continue;
-    }
-    k -= n_box_f;
-    if (k < n_light_f) {
-      s_lpos[k] = a.lpos[k];
-      continue;
-    }
-    s_rough[k - n_light_f] = a.rough[k - n_light_f];
+  for (int j = threadIdx.x; j < n_light_f + n_rough; j += blockDim.x) {
+    s_lpos[j] = j < n_light_f ? a.lpos[j] : a.rough[j - n_light_f];
   }
   __syncthreads();
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  // the lanes of a group share ray i and leave together
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / G;
   if (i >= a.n) return;
+  const Group<G> g;
+  const bool writer = g.lane == 0;
+#ifdef COUNT_WORK
+  unsigned long long work[3] = {0, 0, 0};
+  sc.work = work;
+#endif
 
-  const Scene sc{s_slots, a.n_slots, a.max_dist, a.tris, s_boxes,
-                 a.n_chunks, a.n_supers};
   const March m{a.max_dist, a.eps, a.omega, a.one_minus_omega, a.shadow_k,
                 a.max_steps};
   const float ox = a.origins[3 * i + 0];
@@ -244,24 +279,21 @@ __global__ void geometry_kernel(const GeomArgs a) {
   // ---- 1. primary bounce; a disabled ray stays at t = 0, is no hit and so
   // enables none of the marches below
   const bool en = a.enabled == nullptr || a.enabled[i] != 0;
-  const float t = march_primary<TRIS>(sc, m, ox, oy, oz, dx, dy, dz, en);
-  const float px = ox + t * dx;
-  const float py = oy + t * dy;
-  const float pz = oz + t * dz;
+  float t, px, py, pz, nx, ny, nz;
+  bool hit;
   int idx, mid;
-  const float d_end = scene_info<TRIS>(sc, px, py, pz, &idx, &mid);
-  const bool hit = en && d_end < a.eps && t < a.max_dist;
-  float nx, ny, nz;
-  fd_normal<TRIS>(sc, a.normal_h, px, py, pz, &nx, &ny, &nz);
+  bounce<G, TRIS>(sc, g, m, a, ox, oy, oz, dx, dy, dz, en, &t, &px, &py, &pz,
+                  &hit, &idx, &mid, &nx, &ny, &nz);
 
   float ao = 1.f;
-  if (a.ao_steps > 0) {
+  if (hit && a.ao_steps > 0) {
     float ao_sum = 0.f;
     for (int s = 0; s < a.ao_steps; ++s) {
       const float h = a.ao_h[s];
       const float factor = 1.f / static_cast<float>(1 << s);
-      ao_sum = ao_sum + factor * scene_dist<TRIS>(sc, px + nx * h,
-                                                   py + ny * h, pz + nz * h);
+      ao_sum = ao_sum + factor * scene_dist<G, TRIS>(
+                                     sc, g, px + nx * h, py + ny * h,
+                                     pz + nz * h);
     }
     ao = 0.6f + 0.4f * ao_sum / a.ao_max_sum;
   }
@@ -270,59 +302,68 @@ __global__ void geometry_kernel(const GeomArgs a) {
   const float soy = py + ny * a.surf_off;
   const float soz = pz + nz * a.surf_off;
 
-  shadow_block<TRIS>(sc, m, a, s_lpos, px, py, pz, sox, soy, soz, nx, ny,
-                     nz, hit, a.shadows, i);
-  vis_block<false, TRIS>(sc, m, a, px, py, pz, sox, soy, soz, nx, ny, nz,
-                         hit, a.vis8, i, nullptr, nullptr);
+  shadow_block<G, TRIS>(sc, g, m, a, s_lpos, px, py, pz, sox, soy, soz, nx,
+                        ny, nz, hit, a.shadows, i);
+  vis_block<false, G, TRIS>(sc, g, m, a, px, py, pz, sox, soy, soz, nx, ny,
+                            nz, hit, a.vis8, i, nullptr, nullptr);
 
-  a.t[i] = t;
-  a.hit[i] = hit ? 1.f : 0.f;
-  a.idx[i] = hit ? idx : -1;
-  a.mid[i] = mid;
-  a.normal[3 * i + 0] = nx;
-  a.normal[3 * i + 1] = ny;
-  a.normal[3 * i + 2] = nz;
-  a.ao[i] = ao;
-
-  if (!REFL) return;
-
-  // ---- 2. reflection bounce (specular mode 2): roughness(mid) < 0.75 gate,
-  // reflected ray from the offset primary hit
-  const float rough = (mid >= 0 && mid < a.n_mats) ? s_rough[mid] : 0.f;
-  const bool r_en = hit && rough < 0.75f;
-  const float ddn = dx * nx + dy * ny + dz * nz;
-  const float rdx = dx - 2.f * ddn * nx;
-  const float rdy = dy - 2.f * ddn * ny;
-  const float rdz = dz - 2.f * ddn * nz;
-  const float r_t =
-      march_primary<TRIS>(sc, m, sox, soy, soz, rdx, rdy, rdz, r_en);
-  const float rpx = sox + r_t * rdx;
-  const float rpy = soy + r_t * rdy;
-  const float rpz = soz + r_t * rdz;
-  int r_idx, r_mid;
-  const float r_end = scene_info<TRIS>(sc, rpx, rpy, rpz, &r_idx, &r_mid);
-  const bool r_hit = r_en && r_end < a.eps && r_t < a.max_dist;
-  float rnx, rny, rnz;
-  fd_normal<TRIS>(sc, a.normal_h, rpx, rpy, rpz, &rnx, &rny, &rnz);
-  const float rsox = rpx + rnx * a.surf_off;
-  const float rsoy = rpy + rny * a.surf_off;
-  const float rsoz = rpz + rnz * a.surf_off;
-
-  if (a.refl_shadows) {
-    shadow_block<TRIS>(sc, m, a, s_lpos, rpx, rpy, rpz, rsox, rsoy, rsoz,
-                       rnx, rny, rnz, r_hit, a.r_shadows, i);
-  } else {
-    for (int li = 0; li < a.n_lights; ++li) a.r_shadows[li * a.n + i] = 1.f;
+  if (writer) {
+    a.t[i] = t;
+    a.hit[i] = hit ? 1.f : 0.f;
+    a.idx[i] = hit ? idx : -1;
+    a.mid[i] = mid;
+    a.normal[3 * i + 0] = nx;
+    a.normal[3 * i + 1] = ny;
+    a.normal[3 * i + 2] = nz;
+    a.ao[i] = ao;
   }
-  vis_block<true, TRIS>(sc, m, a, rpx, rpy, rpz, rsox, rsoy, rsoz, rnx, rny,
-                        rnz, r_hit, a.r_vis8, i, a.best_pid, a.best_dir);
 
-  a.r_t[i] = r_t;
-  a.r_hit[i] = r_hit ? 1.f : 0.f;
-  a.r_mid[i] = r_mid;
-  a.r_normal[3 * i + 0] = rnx;
-  a.r_normal[3 * i + 1] = rny;
-  a.r_normal[3 * i + 2] = rnz;
+  if (REFL) {
+    // ---- 2. reflection bounce (specular mode 2): roughness(mid) < 0.75
+    // gate, reflected ray from the offset primary hit
+    const float rough = (mid >= 0 && mid < a.n_mats) ? s_rough[mid] : 0.f;
+    const bool r_en = hit && rough < 0.75f;
+    const float ddn = dx * nx + dy * ny + dz * nz;
+    const float rdx = dx - 2.f * ddn * nx;
+    const float rdy = dy - 2.f * ddn * ny;
+    const float rdz = dz - 2.f * ddn * nz;
+    float r_t, rpx, rpy, rpz, rnx, rny, rnz;
+    bool r_hit;
+    int r_idx, r_mid;
+    bounce<G, TRIS>(sc, g, m, a, sox, soy, soz, rdx, rdy, rdz, r_en, &r_t,
+                    &rpx, &rpy, &rpz, &r_hit, &r_idx, &r_mid, &rnx, &rny,
+                    &rnz);
+    const float rsox = rpx + rnx * a.surf_off;
+    const float rsoy = rpy + rny * a.surf_off;
+    const float rsoz = rpz + rnz * a.surf_off;
+
+    if (a.refl_shadows) {
+      shadow_block<G, TRIS>(sc, g, m, a, s_lpos, rpx, rpy, rpz, rsox, rsoy,
+                            rsoz, rnx, rny, rnz, r_hit, a.r_shadows, i);
+    } else if (writer) {
+      for (int li = 0; li < a.n_lights; ++li) {
+        a.r_shadows[li * a.n + i] = 1.f;
+      }
+    }
+    vis_block<true, G, TRIS>(sc, g, m, a, rpx, rpy, rpz, rsox, rsoy, rsoz,
+                             rnx, rny, rnz, r_hit, a.r_vis8, i, a.best_pid,
+                             a.best_dir);
+
+    if (writer) {
+      a.r_t[i] = r_t;
+      a.r_hit[i] = r_hit ? 1.f : 0.f;
+      a.r_mid[i] = r_mid;
+      a.r_normal[3 * i + 0] = rnx;
+      a.r_normal[3 * i + 1] = rny;
+      a.r_normal[3 * i + 2] = rnz;
+    }
+  }
+
+#ifdef COUNT_WORK
+  for (int k = 0; k < 3; ++k) {
+    if (work[k]) atomicAdd(a.scene.work + k, work[k]);
+  }
+#endif
 }
 
 }  // namespace
@@ -331,22 +372,21 @@ __global__ void geometry_kernel(const GeomArgs a) {
 // triangle variant runs when the scene has triangle chunks.
 extern "C" int madarch_geometry(const GeomArgs* a, int refl, void* stream) {
   if (a->n == 0) return 0;
-  if (a->ao_steps > MAX_AO_STEPS) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 128;
-  const int blocks = (a->n + threads - 1) / threads;
-  const bool tris = a->n_chunks > 0;
-  const size_t smem =
-      sizeof(float) * (a->n_slots * SLOT_WIDTH + (tris ? a->n_box_f : 0) +
-                       3 * a->n_lights + (refl ? a->n_mats : 0));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (refl && tris) {
-    geometry_kernel<true, true><<<blocks, threads, smem, s>>>(*a);
-  } else if (refl) {
-    geometry_kernel<true, false><<<blocks, threads, smem, s>>>(*a);
-  } else if (tris) {
-    geometry_kernel<false, true><<<blocks, threads, smem, s>>>(*a);
-  } else {
-    geometry_kernel<false, false><<<blocks, threads, smem, s>>>(*a);
+  if (a->ao_steps > MAX_AO_STEPS ||
+      a->n > (0x7fffffff - THREADS) / LANES) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int rays = THREADS / LANES;
+  const int blocks = (a->n + rays - 1) / rays;
+  const bool tris = a->scene.n_chunks > 0;
+  const size_t smem =
+      sizeof(float4) * (scene_row4(a->scene) + scene_aabb4(a->scene)) +
+      sizeof(float) * (3 * a->n_lights + (refl ? a->n_mats : 0));
+  void (*kernel)(const GeomArgs) =
+      refl ? (tris ? geometry_kernel<LANES, true, true>
+                   : geometry_kernel<LANES, true, false>)
+           : (tris ? geometry_kernel<LANES, false, true>
+                   : geometry_kernel<LANES, false, false>);
+  kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,11 +22,12 @@
 // every step a loop over all live slots (the penumbra march, without
 // over-relaxation, takes the most).  The TPU kernels marched (8,128)
 // tiles until their slowest lane finished; here each thread leaves its
-// loop on its own (a warp still waits for its slowest lane).  The slot
-// table (and the triangle chunks' boxes) sits in shared memory, read by
-// every thread at the same address (a broadcast); triangles stay in device
-// memory and are pruned exactly by their boxes (scene.cuh:tri_min), so a
-// march steps as the unculled plain version does.  No kernel culls with a
+// loop on its own (a warp still waits for its slowest lane): scene.cuh's
+// evaluation in its one-lane form (G = 1).  The typed slot runs (and the
+// triangle chunks' boxes) sit in shared memory, read by every thread at
+// the same address (a broadcast); triangles stay in device memory and are
+// pruned exactly by their boxes (scene.cuh:tri_min), so a march steps as
+// the unculled plain version does.  No kernel culls with a
 // margin: on the TPU the box-exit cap exists only for all-bounded plans,
 // and a scene with a plane has none; the TPU penumbra kernel's far-field
 // skip for k >= 32 used a margin (0.15) below max_dist/k and darkened
@@ -35,20 +36,18 @@
 //
 // Each launch passes its own scene-distance cap: raycast caps at its
 // max_dist, visibility and softshadows at 1e4 (as pallas_visibility and
-// pallas_softshadows do); dead dynamic-count slots read as that cap.
+// pallas_softshadows do); dead dynamic-count slots are packed inert.
 #include <cuda_runtime.h>
+
+// Each kernel here inlines one scene evaluation, and four slots in flight
+// hide a slot's latency (scene.cuh).
+#define SLOT_UNROLL 4
 
 #include "scene.cuh"
 
 // Mirrored field for field by ops/march.py:_MarchArgs (ctypes).
 struct MarchArgs {
-  const float* slots;            // f32[n_slots, SLOT_WIDTH]
-  int n_slots;
-  const float* tris;             // f32[n_chunks * CHUNK, TRI_WIDTH]
-  const float* boxes;            // f32[n_box_f]: scale row, boxes
-  int n_box_f;
-  int n_chunks;
-  int n_supers;
+  SceneArgs scene;
   const float* origins;          // f32[n, 3]
   const float* dirs;             // f32[n, 3]
   const float* min_dists;        // f32[n] (softshadows)
@@ -69,27 +68,22 @@ struct MarchArgs {
 
 namespace {
 
-// Copies the slot table and, with TRIS, the boxes into shared memory and
-// returns the scene with scene-distance cap a.cap.  Every thread of the
-// block takes part before any returns.
+// The scene staged in shared memory, with scene-distance cap a.cap.  Every
+// thread of the block takes part before any returns.
 template <bool TRIS>
-__device__ __forceinline__ Scene load_scene(const MarchArgs& a, float* s) {
-  const int n_slot_f = a.n_slots * SLOT_WIDTH;
-  const int n_f = n_slot_f + (TRIS ? a.n_box_f : 0);
-  for (int j = threadIdx.x; j < n_f; j += blockDim.x) {
-    s[j] = j < n_slot_f ? a.slots[j] : a.boxes[j - n_slot_f];
-  }
+__device__ __forceinline__ Scene load_scene(const MarchArgs& a, float4* s) {
+  const Scene sc = stage_scene<TRIS>(a.scene, s, a.cap);
   __syncthreads();
-  return Scene{s, a.n_slots, a.cap, a.tris, s + n_slot_f, a.n_chunks,
-               a.n_supers};
+  return sc;
 }
 
 template <bool TRIS>
 __global__ void raycast_kernel(const MarchArgs a) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem[];
   const Scene sc = load_scene<TRIS>(a, smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
+  const Group<1> g;
   const March m{a.max_dist, a.eps, a.omega, a.one_minus_omega, 0.f,
                 a.max_steps};
   const float ox = a.origins[3 * i + 0];
@@ -99,11 +93,12 @@ __global__ void raycast_kernel(const MarchArgs a) {
   const float dy = a.dirs[3 * i + 1];
   const float dz = a.dirs[3 * i + 2];
   const bool en = a.enabled[i] != 0;
-  const float t = march_primary<TRIS>(sc, m, ox, oy, oz, dx, dy, dz, en);
+  const float t = march_primary<1, TRIS>(sc, g, m, ox, oy, oz, dx, dy, dz,
+                                         en);
   bool hit = false;
   if (en && t < a.max_dist) {
-    hit = scene_dist<TRIS>(sc, ox + t * dx, oy + t * dy, oz + t * dz) <
-          a.eps;
+    hit = scene_dist<1, TRIS>(sc, g, ox + t * dx, oy + t * dy,
+                              oz + t * dz) < a.eps;
   }
   a.t[i] = t;
   a.hit[i] = hit ? 1 : 0;
@@ -111,26 +106,26 @@ __global__ void raycast_kernel(const MarchArgs a) {
 
 template <bool TRIS>
 __global__ void visibility_kernel(const MarchArgs a) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem[];
   const Scene sc = load_scene<TRIS>(a, smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const March m{a.cap, a.eps, a.omega, a.one_minus_omega, 0.f, a.max_steps};
-  a.vis[i] = march_visibility<TRIS>(
-      sc, m, a.origins[3 * i + 0], a.origins[3 * i + 1],
+  a.vis[i] = march_visibility<1, TRIS>(
+      sc, Group<1>(), m, a.origins[3 * i + 0], a.origins[3 * i + 1],
       a.origins[3 * i + 2], a.dirs[3 * i + 0], a.dirs[3 * i + 1],
       a.dirs[3 * i + 2], a.max_dists[i], a.enabled[i] != 0);
 }
 
 template <bool TRIS>
 __global__ void softshadow_kernel(const MarchArgs a) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem[];
   const Scene sc = load_scene<TRIS>(a, smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const March m{a.cap, a.eps, 1.f, 0.f, a.k, a.max_steps};
-  a.vis[i] = march_shadow<TRIS>(
-      sc, m, a.origins[3 * i + 0], a.origins[3 * i + 1],
+  a.vis[i] = march_shadow<1, TRIS>(
+      sc, Group<1>(), m, a.origins[3 * i + 0], a.origins[3 * i + 1],
       a.origins[3 * i + 2], a.dirs[3 * i + 0], a.dirs[3 * i + 1],
       a.dirs[3 * i + 2], a.min_dists[i], a.max_dists[i], a.enabled[i] != 0);
 }
@@ -142,9 +137,9 @@ int launch(Kernel plain, Kernel with_tris, const MarchArgs* a,
   if (a->n == 0) return 0;
   const int threads = 128;
   const int blocks = (a->n + threads - 1) / threads;
-  const bool tris = a->n_chunks > 0;
+  const bool tris = a->scene.n_chunks > 0;
   const size_t smem =
-      sizeof(float) * (a->n_slots * SLOT_WIDTH + (tris ? a->n_box_f : 0));
+      sizeof(float4) * (scene_row4(a->scene) + scene_aabb4(a->scene));
   (tris ? with_tris : plain)<<<blocks, threads, smem,
                                static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());

@@ -1,75 +1,227 @@
 // Scene evaluation and the sphere-tracing marches shared by the kernels of
-// this directory (geometry.cu, march.cu): one thread marches one ray.
+// this directory (geometry.cu, march.cu): a group of G lanes of one warp
+// works on one ray (G = 1: one thread per ray).
+//
+// What held the thread-per-ray evaluation back on an H100 was control flow
+// and latency, not arithmetic: a warp ran the union of the triangle chunks
+// its 32 rays admitted, each chunk a serial chain of 8 dependent row loads,
+// and a launch of a few ten thousand rays left most of the card idle.  So
+// the lanes of a group share one ray: every lane holds the whole state of
+// the ray and takes the same branches, and only the scene evaluation is
+// split, one box, triangle or slot a lane, folded with xor shuffles that
+// leave the same bits in every lane.  No lane of a group can leave a loop
+// its partners stay in, so every shuffle names exactly the group's lanes
+// (Group::mask); the groups of a warp diverge from each other freely.
 //
 // The scene is what ops/march.py:pack_scene packs:
-//  - the slot table, one row of SLOT_WIDTH floats per sphere, plane or box
-//    slot: (type, global index, material id, live flag, 6 params); every
-//    live slot is evaluated at every point;
-//  - the triangle table, one row of TRI_WIDTH floats per triangle slot in
-//    slot (Morton) order: the 28 constants of the derived triangle SDF,
-//    then global index, material id and live flag.  Slots come in chunks
-//    of CHUNK with one bounding box each, chunks in super-chunks of SUPER
-//    with one box each; padded and dead slots make inert boxes.
+//  - `rows`, float4 rows in three typed runs: spheres (center, radius),
+//    planes (normal, offset), boxes (all centers, then all half-sides).
+//    Three branch-free loops read them, a lane every G-th row.  A dead
+//    slot (past a dynamic count) is packed so that its distance is about
+//    1e9 and never wins a minimum that starts at max_dist;
+//  - `info`, int2 (global index, material id) per slot in run order, then
+//    per triangle slot: read only where a hit is classified;
+//  - `tris`, per chunk of CHUNK triangle slots TRI_ROWS x CHUNK float4:
+//    row k of all CHUNK triangles, then row k + 1 (the 28 constants of the
+//    derived triangle SDF), so the lanes of a group load one 128-byte line
+//    per row.  It stays in device memory behind the read-only cache;
+//  - `aabbs`, two float4 (lo, hi) per box: first a row holding the
+//    coordinate scale, then the super-chunk boxes (SUPER chunks each),
+//    then the chunk boxes; padded and dead slots make inert boxes.
 //
 // Triangles are pruned exactly.  A box's point-to-box distance bounds
 // every triangle in it from below, so a box whose bound exceeds the
-// running minimum cannot change the minimum.  tri_min visits the nearest
-// super-chunk first, then every other super-chunk, and within each only
-// the chunks whose bound is within `slack` of the running minimum.  The
-// slack (PRUNE_REL times the scene's and the point's coordinate scale)
-// covers the rounding of a bound and of a triangle's distance, so the
-// pruned minimum is the unpruned one bit for bit.  Ties go to the lower
-// global index: the first minimum of the plain version's spec-order scan.
+// running minimum cannot change the minimum.  tri_min tests the
+// super-chunk boxes a lane each and opens them nearest bound first while
+// the bound is within `slack` of the running minimum; an opened
+// super-chunk's chunk boxes are tested a lane each and its chunks taken
+// nearest bound first, each re-checked against the running minimum, its
+// triangles evaluated a lane each.  The slack (PRUNE_REL times the scene's
+// and the point's coordinate scale) covers the rounding of a bound and of
+// a triangle's distance, and fminf is exact in any order, so the pruned
+// minimum is the unpruned one bit for bit.  Ties go to the lower global
+// index in every fold: the first minimum of the plain version's
+// spec-order scan.
 //
 // Built with -fmad=false, so each float operation rounds like the plain
 // PyTorch marches of render/raymarch.py.  The scene functions and marches
-// are templates on TRIS: scenes without triangles compile to the code
-// they had before triangles came.
+// are templates on TRIS: scenes without triangles compile without the
+// triangle code.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <math_constants.h>
+
+// SLOT_UNROLL: how far scene_dist's three slot loops are unrolled, set by
+// the including source.  Rolled (1, the default) suits geometry.cu, whose
+// marches inline the evaluation some 25 times: unrolled four-fold its
+// screen passes took up to three times as long.  march.cu, with one
+// evaluation a kernel, sets 4.
+#ifndef SLOT_UNROLL
+#define SLOT_UNROLL 1
+#endif
 
 namespace {
 
-constexpr int SLOT_WIDTH = 10;  // type, gidx, mid, live, 6 params
-constexpr int TRI_WIDTH = 32;   // 28 derived constants, gidx, mid, live, 0
-constexpr int CHUNK = 8;        // triangle slots per chunk box
-constexpr int SUPER = 8;        // chunks per super-chunk box
-constexpr int BOX_WIDTH = 6;    // lo xyz, hi xyz
+constexpr int CHUNK = 8;      // triangle slots per chunk box
+constexpr int SUPER = 8;      // chunks per super-chunk box
+constexpr int TRI_ROWS = 7;   // float4 rows of a triangle's 28 constants
 constexpr float PRUNE_REL = 1e-4f;
 constexpr float BIG = 1e9f;
-enum SlotType { SPHERE = 0, PLANE = 1, BOX = 2 };
+constexpr int SLOT_UNROLL_N = SLOT_UNROLL;
 
-// max_dist caps every scene distance; dead slots read as it.  With
-// triangles: `tris` in device memory (read through the read-only cache)
-// and `boxes` in shared memory: boxes[0] the coordinate scale, then from
-// boxes + BOX_WIDTH n_supers super-chunk boxes and n_chunks chunk boxes.
-struct Scene {
-  const float* slots;
-  int n_slots;
-  float max_dist;
-  const float* tris;
-  const float* boxes;
+// The scene's tables as the wrappers pass them; mirrored field for field
+// by ops/march.py:_SceneArgs (ctypes).
+struct SceneArgs {
+  const float4* rows;   // [n_spheres + n_planes + 2 n_boxes]
+  int n_spheres;
+  int n_planes;
+  int n_boxes;
+  const int2* info;     // [slots + n_chunks * CHUNK]
+  const float4* tris;   // [n_chunks][TRI_ROWS][CHUNK]
+  const float4* aabbs;  // [1 + n_supers + n_chunks][2]
   int n_chunks;
   int n_supers;
+  // scene evaluations, box tests and triangle evaluations, summed over the
+  // launch by geometry.cu built with COUNT_WORK; else unused
+  unsigned long long* work;
 };
 
-__device__ __forceinline__ float slot_dist(const float* r, float px,
-                                           float py, float pz) {
-  const int type = static_cast<int>(r[0]);
-  if (type == SPHERE) {
-    const float dx = r[4] - px;
-    const float dy = r[5] - py;
-    const float dz = r[6] - pz;
-    return sqrtf(dx * dx + dy * dy + dz * dz) - r[7];
+// The scene as a kernel reads it: `rows` and `aabbs` in shared memory.
+// max_dist caps every scene distance.
+struct Scene {
+  const float4* rows;
+  int n_spheres, n_planes, n_boxes;
+  float max_dist;
+  const int2* info;
+  const float4* tris;
+  const float4* aabbs;
+  int n_chunks, n_supers;
+#ifdef COUNT_WORK
+  // this thread's scene evaluations, box tests and triangle evaluations
+  unsigned long long* work;
+#endif
+};
+
+// float4s of the typed runs and of the boxes.
+__host__ __device__ inline int scene_row4(const SceneArgs& a) {
+  return a.n_spheres + a.n_planes + 2 * a.n_boxes;
+}
+
+__host__ __device__ inline int scene_aabb4(const SceneArgs& a) {
+  return a.n_chunks > 0 ? 2 * (1 + a.n_supers + a.n_chunks) : 0;
+}
+
+// Copies the typed runs and, with TRIS, the boxes into shared memory at s
+// and returns the scene with scene-distance cap max_dist.  The caller
+// synchronises the block before the first evaluation.
+template <bool TRIS>
+__device__ __forceinline__ Scene stage_scene(const SceneArgs& a, float4* s,
+                                             float max_dist) {
+  const int n_row4 = scene_row4(a);
+  const int n4 = n_row4 + (TRIS ? scene_aabb4(a) : 0);
+  for (int j = threadIdx.x; j < n4; j += blockDim.x) {
+    s[j] = j < n_row4 ? a.rows[j] : a.aabbs[j - n_row4];
   }
-  if (type == PLANE) {
-    return r[4] * px + r[5] * py + r[6] * pz + r[7];
+  Scene sc;
+  sc.rows = s;
+  sc.n_spheres = a.n_spheres;
+  sc.n_planes = a.n_planes;
+  sc.n_boxes = a.n_boxes;
+  sc.max_dist = max_dist;
+  sc.info = a.info;
+  sc.tris = a.tris;
+  sc.aabbs = s + n_row4;
+  sc.n_chunks = a.n_chunks;
+  sc.n_supers = a.n_supers;
+  return sc;
+}
+
+// (distance, global index, material id) of the nearest primitive so far.
+struct Near {
+  float d;
+  int gi;
+  int mid;
+};
+
+// The lower distance wins, then the lower global index.
+__device__ __forceinline__ void take(Near& a, float d, int gi, int mid) {
+  if (d < a.d || (d == a.d && gi < a.gi)) {
+    a.d = d;
+    a.gi = gi;
+    a.mid = mid;
   }
-  const float qx = fabsf(r[4] - px) - r[7];
-  const float qy = fabsf(r[5] - py) - r[8];
-  const float qz = fabsf(r[6] - pz) - r[9];
+}
+
+// The G lanes (a power of two, consecutive in their warp) that share one
+// ray.  Each fold leaves the same value in every lane of the group.
+template <int G>
+struct Group {
+  int lane;       // 0 .. G - 1
+  unsigned mask;  // the group's lanes within the warp
+
+  __device__ Group()
+      : lane(threadIdx.x & (G - 1)),
+        mask((0xffffffffu >> (32 - G)) << ((threadIdx.x & 31) & ~(G - 1))) {}
+
+  __device__ __forceinline__ float min(float v) const {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) {
+      v = fminf(v, __shfl_xor_sync(mask, v, o));
+    }
+    return v;
+  }
+
+  // The least v and, among equal v, the least i.
+  __device__ __forceinline__ void argmin(float& v, int& i) const {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(mask, v, o);
+      const int oi = __shfl_xor_sync(mask, i, o);
+      if (ov < v || (ov == v && oi < i)) {
+        v = ov;
+        i = oi;
+      }
+    }
+  }
+
+  __device__ __forceinline__ Near nearest(Near a) const {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) {
+      const float od = __shfl_xor_sync(mask, a.d, o);
+      const int ogi = __shfl_xor_sync(mask, a.gi, o);
+      const int omid = __shfl_xor_sync(mask, a.mid, o);
+      take(a, od, ogi, omid);
+    }
+    return a;
+  }
+
+  // Bit k set where lane k of the group holds p.
+  __device__ __forceinline__ unsigned ballot(bool p) const {
+    if (G == 1) return p ? 1u : 0u;
+    return (__ballot_sync(mask, p) & mask) >> (__ffs(mask) - 1);
+  }
+};
+
+__device__ __forceinline__ float sphere_dist(float4 r, float px, float py,
+                                             float pz) {
+  const float dx = r.x - px;
+  const float dy = r.y - py;
+  const float dz = r.z - pz;
+  return sqrtf(dx * dx + dy * dy + dz * dz) - r.w;
+}
+
+__device__ __forceinline__ float plane_dist(float4 r, float px, float py,
+                                            float pz) {
+  return r.x * px + r.y * py + r.z * pz + r.w;
+}
+
+__device__ __forceinline__ float box_dist(float4 c, float4 s, float px,
+                                          float py, float pz) {
+  const float qx = fabsf(c.x - px) - s.x;
+  const float qy = fabsf(c.y - py) - s.y;
+  const float qz = fabsf(c.z - pz) - s.z;
   const float ox = fmaxf(qx, 0.f);
   const float oy = fmaxf(qy, 0.f);
   const float oz = fmaxf(qz, 0.f);
@@ -96,24 +248,17 @@ __device__ __forceinline__ float tri_edge(float vx, float vy, float vz,
   return ex * ex + ey * ey + ez * ez;
 }
 
-// Distance from p to one triangle row (primitives.py:
-// _triangle_sdf_planar_derived, operation for operation); the row's
-// global index, material id and live flag come back through the pointers.
-__device__ __forceinline__ float tri_dist(const float* row, float px,
-                                          float py, float pz, float* gidx,
-                                          float* mid, float* live) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-  const float4 a = __ldg(r4 + 0);  // v1 xyz, v21 x
-  const float4 b = __ldg(r4 + 1);  // v21 yz, v32 xy
-  const float4 c = __ldg(r4 + 2);  // v32 z, v13 xyz
-  const float4 d = __ldg(r4 + 3);  // nor xyz, n21 x
-  const float4 e = __ldg(r4 + 4);  // n21 yz, n32 xy
-  const float4 f = __ldg(r4 + 5);  // n32 z, n13 xyz
-  const float4 g = __ldg(r4 + 6);  // i21, i32, i13, inor
-  const float4 h = __ldg(r4 + 7);  // gidx, mid, live, 0
-  *gidx = h.x;
-  *mid = h.y;
-  *live = h.z;
+// Distance from p to triangle j of the chunk at `rows` (primitives.py:
+// _triangle_sdf_planar_derived, operation for operation).
+__device__ __forceinline__ float tri_dist(const float4* rows, int j,
+                                          float px, float py, float pz) {
+  const float4 a = __ldg(rows + 0 * CHUNK + j);  // v1 xyz, v21 x
+  const float4 b = __ldg(rows + 1 * CHUNK + j);  // v21 yz, v32 xy
+  const float4 c = __ldg(rows + 2 * CHUNK + j);  // v32 z, v13 xyz
+  const float4 d = __ldg(rows + 3 * CHUNK + j);  // nor xyz, n21 x
+  const float4 e = __ldg(rows + 4 * CHUNK + j);  // n21 yz, n32 xy
+  const float4 f = __ldg(rows + 5 * CHUNK + j);  // n32 z, n13 xyz
+  const float4 g = __ldg(rows + 6 * CHUNK + j);  // i21, i32, i13, inor
   const float p1x = px - a.x;
   const float p1y = py - a.y;
   const float p1z = pz - a.z;
@@ -135,116 +280,186 @@ __device__ __forceinline__ float tri_dist(const float* row, float px,
   return sqrtf(fmaxf(s < 2.f ? edge_d2 : plane_d2, 1e-30f));
 }
 
-// Squared distance from p to a box (0 inside it).
-__device__ __forceinline__ float box_d2(const float* b, float px, float py,
-                                        float pz) {
-  const float dx = fmaxf(fmaxf(b[0] - px, px - b[3]), 0.f);
-  const float dy = fmaxf(fmaxf(b[1] - py, py - b[4]), 0.f);
-  const float dz = fmaxf(fmaxf(b[2] - pz, pz - b[5]), 0.f);
+// Squared distance from p to the box at b (lo, hi); 0 inside it.
+__device__ __forceinline__ float aabb_d2(const float4* b, float px, float py,
+                                         float pz) {
+  const float4 lo = b[0];
+  const float4 hi = b[1];
+  const float dx = fmaxf(fmaxf(lo.x - px, px - hi.x), 0.f);
+  const float dy = fmaxf(fmaxf(lo.y - py, py - hi.y), 0.f);
+  const float dz = fmaxf(fmaxf(lo.z - pz, pz - hi.z), 0.f);
   return dx * dx + dy * dy + dz * dz;
 }
 
-// Folds one super-chunk's admitted chunks into (best, bi, bm); INFO keeps
-// the first minimum by global index.
-template <bool INFO>
-__device__ void tri_super(const Scene& sc, int s, float slack, float px,
-                          float py, float pz, float& best, int& bi,
-                          int& bm) {
-  const float* chunk_boxes = sc.boxes + BOX_WIDTH * (1 + sc.n_supers);
-  const int c_end = min(sc.n_chunks, (s + 1) * SUPER);
-  for (int ch = s * SUPER; ch < c_end; ++ch) {
-    const float lim = best + slack;
-    if (box_d2(chunk_boxes + BOX_WIDTH * ch, px, py, pz) > lim * lim) {
-      continue;
+__device__ __forceinline__ void count_work(const Scene& sc, int what,
+                                           int n) {
+#ifdef COUNT_WORK
+  sc.work[what] += n;
+#endif
+}
+
+// Folds the triangles of chunk ch that fall to this lane into `mine`; INFO
+// keeps the global index and material id of the minimum.
+template <int G, bool INFO>
+__device__ __forceinline__ void tri_chunk(const Scene& sc,
+                                          const Group<G>& g, int ch,
+                                          float px, float py, float pz,
+                                          Near& mine) {
+  const float4* rows = sc.tris + ch * (TRI_ROWS * CHUNK);
+  const int2* info =
+      sc.info + sc.n_spheres + sc.n_planes + sc.n_boxes + ch * CHUNK;
+  for (int j = g.lane; j < CHUNK; j += G) {
+    const float d = tri_dist(rows, j, px, py, pz);
+    count_work(sc, 2, 1);
+    if (INFO) {
+      const int2 im = __ldg(info + j);
+      take(mine, d, im.x, im.y);
+    } else {
+      mine.d = fminf(mine.d, d);
     }
-    for (int j = 0; j < CHUNK; ++j) {
-      float gidx, mid, live;
-      const float d = tri_dist(sc.tris + (ch * CHUNK + j) * TRI_WIDTH, px,
-                               py, pz, &gidx, &mid, &live);
-      if (live < 0.5f) continue;
-      if (INFO) {
-        const int gi = static_cast<int>(gidx);
-        if (d < best || (d == best && gi < bi)) {
-          best = d;
-          bi = gi;
-          bm = static_cast<int>(mid);
-        }
-      } else {
-        best = fminf(best, d);
+  }
+}
+
+// The lanes' minima folded into one that every lane holds.
+template <int G, bool INFO>
+__device__ __forceinline__ Near fold(const Group<G>& g, Near mine) {
+  if (INFO) return g.nearest(mine);
+  mine.d = g.min(mine.d);
+  return mine;
+}
+
+// Folds super-chunk s into nb: its chunk boxes tested a lane each, in
+// rounds of G, and of each round the chunks within slack of the running
+// minimum taken nearest bound first, with a fold after every chunk: the
+// next chunk is re-checked against what the last one left.  (Taking a
+// round's admitted chunks in slot order, or all of them between two folds,
+// evaluates more triangles and took longer on the card: the time follows
+// the triangles evaluated, not the folds.)
+template <int G, bool INFO>
+__device__ void tri_super(const Scene& sc, const Group<G>& g, int s,
+                          float slack, float px, float py, float pz,
+                          Near& nb) {
+  const float4* chunk_boxes = sc.aabbs + 2 * (1 + sc.n_supers);
+  const int c_end = min(sc.n_chunks, (s + 1) * SUPER);
+  for (int c0 = s * SUPER; c0 < c_end; c0 += G) {
+    const int c = c0 + g.lane;
+    float key = CUDART_INF_F;
+    if (c < c_end) {
+      key = aabb_d2(chunk_boxes + 2 * c, px, py, pz);
+      count_work(sc, 1, 1);
+    }
+    for (;;) {
+      const float nearest = g.min(key);
+      const float lim = nb.d + slack;
+      if (!(nearest <= lim * lim)) break;
+      const int owner = __ffs(g.ballot(key == nearest)) - 1;
+      if (g.lane == owner) key = CUDART_INF_F;
+      Near mine = nb;
+      tri_chunk<G, INFO>(sc, g, c0 + owner, px, py, pz, mine);
+      nb = fold<G, INFO>(g, mine);
+    }
+  }
+}
+
+// The pruned triangle minimum folded into nb, which every lane of the
+// group holds alike.  Super-chunks are opened in order of their bound (the
+// next one found by testing every box again, a lane each: two tests a lane
+// for obj_mesh's 16), until the next bound lies beyond slack of the running
+// minimum: every box after it lies farther still.  In this order the
+// opened set is the least any exact pruning opens: a super-chunk opened
+// before the one that holds the minimum has a bound below the minimum.
+template <int G, bool INFO>
+__device__ void tri_min(const Scene& sc, const Group<G>& g, float px,
+                        float py, float pz, Near& nb) {
+  const float slack =
+      PRUNE_REL * (sc.aabbs[0].x + fabsf(px) + fabsf(py) + fabsf(pz));
+  const float4* super_boxes = sc.aabbs + 2;
+  if (g.lane == 0) count_work(sc, 0, 1);
+  float last_d2 = -1.f;
+  int last = -1;
+  for (;;) {
+    // the nearest super-chunk after (last_d2, last), ties by index
+    float next_d2 = CUDART_INF_F;
+    int next = 0x7fffffff;
+    for (int s = g.lane; s < sc.n_supers; s += G) {
+      const float d2 = aabb_d2(super_boxes + 2 * s, px, py, pz);
+      count_work(sc, 1, 1);
+      const bool after = d2 > last_d2 || (d2 == last_d2 && s > last);
+      if (after && (d2 < next_d2 || (d2 == next_d2 && s < next))) {
+        next_d2 = d2;
+        next = s;
       }
     }
+    g.argmin(next_d2, next);
+    const float lim = nb.d + slack;
+    if (!(next_d2 <= lim * lim)) break;
+    tri_super<G, INFO>(sc, g, next, slack, px, py, pz, nb);
+    last_d2 = next_d2;
+    last = next;
   }
 }
 
-// The pruned triangle minimum folded into (best, bi, bm): the nearest
-// super-chunk first, then the others whose bound is within slack.
-template <bool INFO>
-__device__ void tri_min(const Scene& sc, float px, float py, float pz,
-                        float& best, int& bi, int& bm) {
-  const float slack =
-      PRUNE_REL * (sc.boxes[0] + fabsf(px) + fabsf(py) + fabsf(pz));
-  const float* super_boxes = sc.boxes + BOX_WIDTH;
-  int first = 0;
-  float first_d2 = box_d2(super_boxes, px, py, pz);
-  for (int s = 1; s < sc.n_supers; ++s) {
-    const float d2 = box_d2(super_boxes + BOX_WIDTH * s, px, py, pz);
-    if (d2 < first_d2) {
-      first_d2 = d2;
-      first = s;
-    }
-  }
-  for (int k = -1; k < sc.n_supers; ++k) {
-    if (k == first) continue;
-    const int s = k < 0 ? first : k;
-    const float lim = best + slack;
-    if (box_d2(super_boxes + BOX_WIDTH * s, px, py, pz) > lim * lim) {
-      continue;
-    }
-    tri_super<INFO>(sc, s, slack, px, py, pz, best, bi, bm);
-  }
-}
-
-// Scene distance: min over live slots, capped at max_dist.  Dead slots
-// (dynamic counts) read as max_dist and so never win.
-template <bool TRIS>
-__device__ float scene_dist(const Scene& sc, float px, float py, float pz) {
+// Scene distance: min over the slots and triangles, capped at max_dist.
+template <int G, bool TRIS>
+__device__ float scene_dist(const Scene& sc, const Group<G>& g, float px,
+                            float py, float pz) {
   float best = sc.max_dist;
-  for (int s = 0; s < sc.n_slots; ++s) {
-    const float* r = sc.slots + s * SLOT_WIDTH;
-    float d = slot_dist(r, px, py, pz);
-    if (r[3] < 0.5f) d = sc.max_dist;
-    best = fminf(best, d);
+  const float4* r = sc.rows;
+#pragma unroll SLOT_UNROLL_N
+  for (int s = g.lane; s < sc.n_spheres; s += G) {
+    best = fminf(best, sphere_dist(r[s], px, py, pz));
+  }
+  r += sc.n_spheres;
+#pragma unroll SLOT_UNROLL_N
+  for (int s = g.lane; s < sc.n_planes; s += G) {
+    best = fminf(best, plane_dist(r[s], px, py, pz));
+  }
+  r += sc.n_planes;
+#pragma unroll SLOT_UNROLL_N
+  for (int s = g.lane; s < sc.n_boxes; s += G) {
+    best = fminf(best, box_dist(r[s], r[sc.n_boxes + s], px, py, pz));
+  }
+  if (G > 1 && sc.n_spheres + sc.n_planes + sc.n_boxes > 0) {
+    best = g.min(best);
   }
   if (TRIS) {
-    int bi = -1, bm = 0;
-    tri_min<false>(sc, px, py, pz, best, bi, bm);
+    Near nb{best, -1, 0};
+    tri_min<G, false>(sc, g, px, py, pz, nb);
+    best = nb.d;
   }
   return best;
 }
 
-// (distance, global index, material id); the first minimum in spec (=
-// global index) order wins; index -1 and material 0 when nothing is under
-// max_dist.
-template <bool TRIS>
-__device__ float scene_info(const Scene& sc, float px, float py, float pz,
-                            int* idx, int* mid) {
-  float best = sc.max_dist;
-  int bi = -1;
-  int bm = 0;
-  for (int s = 0; s < sc.n_slots; ++s) {
-    const float* r = sc.slots + s * SLOT_WIDTH;
-    float d = slot_dist(r, px, py, pz);
-    if (r[3] < 0.5f) d = sc.max_dist;
-    if (d < best) {
-      best = d;
-      bi = static_cast<int>(r[1]);
-      bm = static_cast<int>(r[2]);
-    }
+// (distance, global index, material id); among equal distances the lower
+// global index wins (the first minimum in spec order); index -1 and
+// material 0 when nothing is under max_dist.
+template <int G, bool TRIS>
+__device__ float scene_info(const Scene& sc, const Group<G>& g, float px,
+                            float py, float pz, int* idx, int* mid) {
+  Near nb{sc.max_dist, -1, 0};
+  const float4* r = sc.rows;
+  const int2* info = sc.info;
+  for (int s = g.lane; s < sc.n_spheres; s += G) {
+    const int2 im = __ldg(info + s);
+    take(nb, sphere_dist(r[s], px, py, pz), im.x, im.y);
   }
-  if (TRIS) tri_min<true>(sc, px, py, pz, best, bi, bm);
-  *idx = bi;
-  *mid = bm;
-  return best;
+  r += sc.n_spheres;
+  info += sc.n_spheres;
+  for (int s = g.lane; s < sc.n_planes; s += G) {
+    const int2 im = __ldg(info + s);
+    take(nb, plane_dist(r[s], px, py, pz), im.x, im.y);
+  }
+  r += sc.n_planes;
+  info += sc.n_planes;
+  for (int s = g.lane; s < sc.n_boxes; s += G) {
+    const int2 im = __ldg(info + s);
+    take(nb, box_dist(r[s], r[sc.n_boxes + s], px, py, pz), im.x, im.y);
+  }
+  if (G > 1) nb = g.nearest(nb);
+  if (TRIS) tri_min<G, true>(sc, g, px, py, pz, nb);
+  *idx = nb.gi;
+  *mid = nb.mid;
+  return nb.d;
 }
 
 struct March {
@@ -254,14 +469,14 @@ struct March {
 
 // Over-relaxed sphere trace with the Keinert backtrack; t = the march
 // distance where it stopped (t >= max_dist on a miss).
-template <bool TRIS>
-__device__ float march_primary(const Scene& sc, const March& m, float ox,
-                               float oy, float oz, float dx, float dy,
-                               float dz, bool active) {
+template <int G, bool TRIS>
+__device__ float march_primary(const Scene& sc, const Group<G>& g,
+                               const March& m, float ox, float oy, float oz,
+                               float dx, float dy, float dz, bool active) {
   float t = 0.f, prev_r = 0.f, step_len = 0.f, om = m.omega;
   for (int step = 0; step < m.max_steps && active; ++step) {
     const float dist =
-        scene_dist<TRIS>(sc, ox + t * dx, oy + t * dy, oz + t * dz);
+        scene_dist<G, TRIS>(sc, g, ox + t * dx, oy + t * dy, oz + t * dz);
     const bool fail = om > 1.f && fabsf(dist) + prev_r <= step_len;
     if (!fail && dist < m.eps) break;
     const float new_step = fail ? step_len * m.one_minus_omega : dist * om;
@@ -275,15 +490,16 @@ __device__ float march_primary(const Scene& sc, const March& m, float ox,
 }
 
 // 1 if the ray reaches mx unobstructed, else 0; starts only if 0 < mx.
-template <bool TRIS>
-__device__ float march_visibility(const Scene& sc, const March& m, float ox,
-                                  float oy, float oz, float dx, float dy,
-                                  float dz, float mx, bool active) {
+template <int G, bool TRIS>
+__device__ float march_visibility(const Scene& sc, const Group<G>& g,
+                                  const March& m, float ox, float oy,
+                                  float oz, float dx, float dy, float dz,
+                                  float mx, bool active) {
   float t = 0.f, prev_r = 0.f, step_len = 0.f, om = m.omega;
   active = active && 0.f < mx;
   for (int step = 0; step < m.max_steps && active; ++step) {
     const float dist =
-        scene_dist<TRIS>(sc, ox + t * dx, oy + t * dy, oz + t * dz);
+        scene_dist<G, TRIS>(sc, g, ox + t * dx, oy + t * dy, oz + t * dz);
     const bool fail = om > 1.f && fabsf(dist) + prev_r <= step_len;
     if (!fail && dist < m.eps) return 0.f;
     const float new_step = fail ? step_len * m.one_minus_omega : dist * om;
@@ -300,15 +516,16 @@ __device__ float march_visibility(const Scene& sc, const March& m, float ox,
 // starts only if t0 < mx; 0 when the shadow ray hits geometry.  The
 // penumbra term's denominator t - y counts t from the origin, so t0 > 0
 // shifts every sample's estimate.
-template <bool TRIS>
-__device__ float march_shadow(const Scene& sc, const March& m, float ox,
-                              float oy, float oz, float dx, float dy,
-                              float dz, float t0, float mx, bool active) {
+template <int G, bool TRIS>
+__device__ float march_shadow(const Scene& sc, const Group<G>& g,
+                              const March& m, float ox, float oy, float oz,
+                              float dx, float dy, float dz, float t0,
+                              float mx, bool active) {
   float t = t0, res = 1.f, prev = 1e20f;
   active = active && t < mx;
   for (int step = 0; step < m.max_steps && active; ++step) {
     const float dist =
-        scene_dist<TRIS>(sc, ox + t * dx, oy + t * dy, oz + t * dz);
+        scene_dist<G, TRIS>(sc, g, ox + t * dx, oy + t * dy, oz + t * dz);
     if (dist < m.eps) return 0.f;
     const float y = dist * dist / (2.f * prev);
     const float dd = sqrtf(fmaxf(dist * dist - y * y, 0.f));

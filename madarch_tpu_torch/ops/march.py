@@ -16,16 +16,22 @@ tensor it runs its plain version (``geometry_reference``,
 ``softshadows_reference``), the same marches from render/raymarch.py over
 ``scene_dist``.
 
-The scene packs into two f32 tables, in spec order.  The slot table has
-one row per sphere, plane or box slot: (type code, global index, material
-id, live flag, 6 params).  The triangle table has one row of TRI_WIDTH per
-triangle slot, in slot order: the 28 constants of the derived triangle SDF
-(primitives.py:TRIANGLE_DERIVED_FIELDS), global index, material id, live
-flag; its slots group into chunks of CHUNK, the chunks into super-chunks
-of SUPER, each with a bounding box, by which the kernels prune triangles
-exactly (csrc/scene.cuh:tri_min).  Global indices are capacity based (the
-type's block offset + slot); the live flag is 0 on slots past a dynamic
-count, which then read as the scene-distance cap.
+The scene packs into the tables csrc/scene.cuh reads.  ``rows``: float4
+rows in three typed runs, spheres (center, radius), planes (normal,
+offset), boxes (every center, then every half-side).  ``info``: (global
+index, material id) per slot in run order, then per triangle slot.
+``tris``: per chunk of CHUNK triangle slots, in slot order, TRI_ROWS x
+CHUNK float4: the 28 constants of the derived triangle SDF
+(primitives.py:TRIANGLE_DERIVED_FIELDS), row k of every triangle of the
+chunk before row k + 1.  ``aabbs``: (lo, 0, hi, 0) per chunk and per
+super-chunk of SUPER chunks, by which the kernels prune triangles exactly
+(csrc/scene.cuh:tri_min).  Global indices are capacity based (the type's
+block offset + slot).  A slot past a dynamic count is packed inert: a
+sphere of radius -1e9, a plane 1e9 away, a box of half-side -1e9, a
+triangle 3e9 away, so its distance never comes under a scene-distance cap.
+
+``geometry`` picks the lanes per ray of its launch from the scene's layout
+and the ray count (``geometry_lanes``).
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import ctypes
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from madarch_tpu_torch.core.vecmath import EPSILON, dot
 from madarch_tpu_torch.ops import build
@@ -41,27 +48,27 @@ from madarch_tpu_torch.render import raymarch as rm
 from madarch_tpu_torch.render.probes import CORNER_OFFSETS
 from madarch_tpu_torch.scene import primitives as P
 
-SLOT_WIDTH = 10
 MAX_AO_STEPS = 8
-# The kernels copy the slot table, the triangle boxes, light positions and
-# roughness into dynamic shared memory, which a launch gets up to 48 KiB
-# of without an opt-in: about 1,200 slots, or some 14,500 triangles.  The
-# triangle table itself stays in device memory, whatever its size.
+# The kernels copy the typed slot runs, the triangle boxes, light positions
+# and roughness into dynamic shared memory, which a launch gets up to 48
+# KiB of without an opt-in: about 3,000 spheres, or some 10,000 triangles.
+# The triangle table itself stays in device memory, whatever its size.
 SMEM_LIMIT = 48 * 1024
 BIG = 1e9
 # Central-difference half-step of the tetrahedron normal.
 NORMAL_H = 1e-3
-# Kernel type codes and each type's params in table order.
+# The slot types in run order, each with its params in row order and the
+# params of a dead slot.
 KERNEL_TYPES = {
-    P.Sphere: (0, ("center", "radius")),
-    P.Plane: (1, ("normal", "offset")),
-    P.Box: (2, ("center", "side")),
+    P.Sphere: (0, ("center", "radius"), {"center": 0.0, "radius": -BIG}),
+    P.Plane: (1, ("normal", "offset"), {"normal": 0.0, "offset": BIG}),
+    P.Box: (2, ("center", "side"), {"center": 0.0, "side": -BIG}),
 }
 TRIANGLE_CODE = 3
-# The triangle table: 28 derived constants, then global index, material
-# id, live flag and one float of padding (rows of 128 bytes).
-TRI_WIDTH = 32
-TRI_GIDX, TRI_MID, TRI_LIVE = 28, 29, 30
+# A triangle's 28 derived constants are TRI_ROWS float4 rows; a dead or
+# padded triangle slot holds v1 = (3e9, 0, 0) and zeros, 3e9 from anywhere.
+TRI_ROWS = 7
+DEAD_TRIANGLE_X = 3e9
 # Triangle slots per chunk box and chunks per super-chunk box
 # (csrc/scene.cuh).
 CHUNK = 8
@@ -70,6 +77,8 @@ SUPER = 8
 # PRUNE_REL · (coordinate scale + |p|₁) of the running minimum
 # (csrc/scene.cuh:tri_min).
 PRUNE_REL = 1e-4
+# Lanes per ray the geometry kernel is built for (csrc/geometry.cu).
+LANE_CHOICES = (1, 8)
 # Float operations of one slot evaluation in csrc/scene.cuh, plus the min
 # that folds it into the scene distance, by type code: sphere 3 sub, 3
 # mul, 2 add, sqrt, sub; plane 3 mul, 3 add; box 3 sub, 3 abs, 3 sub, 3
@@ -134,25 +143,31 @@ def scene_eval_flops(pruned=True):
 @dataclasses.dataclass(frozen=True)
 class PackedScene:
     """``entries``: static ((ptype, first_row, n, static_counts), ...) in
-    spec order, first_row indexing ``slots`` or, for triangles, ``tris``;
-    ``slots``: f32[S, SLOT_WIDTH]; ``tris``: f32[n_chunks·CHUNK,
-    TRI_WIDTH] (no rows without triangles); ``boxes``: f32[(1 + n_supers +
-    n_chunks)·6], a row holding the coordinate scale, then the super-chunk
-    and chunk boxes (lo xyz, hi xyz); ``col_gidx``/``col_mid``: i32 global
+    spec order, first_row the type's first row of ``rows`` (0 for
+    triangles); ``rows``: f32[n_spheres + n_planes + 2·n_boxes, 4], the
+    typed runs; ``counts``: (n_spheres, n_planes, n_boxes); ``info``:
+    i32[n_slots + n_chunks·CHUNK, 2]; ``tris``: f32[n_chunks, TRI_ROWS,
+    CHUNK, 4]; ``tri_live``: f32[n_chunks·CHUNK], 1 on live triangle
+    slots; ``aabbs``: f32[1 + n_supers + n_chunks, 8], a row holding the
+    coordinate scale, then the super-chunk and chunk boxes (lo xyz, 0, hi
+    xyz, 0), empty without triangles; ``col_gidx``/``col_mid``: i32 global
     index and material id of each column of the plain versions' distance
-    table.  All on the scene's device."""
+    table (spec order).  All on the scene's device."""
 
     entries: tuple
-    slots: torch.Tensor
+    rows: torch.Tensor
+    counts: tuple
+    info: torch.Tensor
     tris: torch.Tensor
-    boxes: torch.Tensor
+    tri_live: torch.Tensor
+    aabbs: torch.Tensor
     n_chunks: int
     col_gidx: torch.Tensor
     col_mid: torch.Tensor
 
     @property
     def n_slots(self):
-        return self.slots.shape[0]
+        return sum(self.counts)
 
     @property
     def n_supers(self):
@@ -162,9 +177,15 @@ class PackedScene:
     def n_columns(self):
         return self.col_gidx.shape[0]
 
+    def triangle_rows(self):
+        """f32[n_chunks·CHUNK, 28]: each triangle slot's derived constants
+        in TRIANGLE_DERIVED_FIELDS order."""
+        return self.tris.permute(0, 2, 1, 3).reshape(-1, 4 * TRI_ROWS)
 
-def _pack_triangles(params, n, live, goff):
-    """(triangle table, boxes) of the first n triangle slots."""
+
+def _pack_triangles(params, n, live):
+    """(triangle table, live flags, boxes, chunks) of the first n triangle
+    slots."""
     dev = live.device
     tri = {k: v[:n].to(torch.float32) for k, v in params.items()
            if k != "material_id"}
@@ -176,17 +197,17 @@ def _pack_triangles(params, n, live, goff):
             continue
         v = der[name]
         cols += list(v.unbind(-1)) if kind == P.VEC3 else [v]
-    slot = torch.arange(n, device=dev)
-    cols += [(goff + slot).to(torch.float32),
-             tri["material_id"].to(torch.float32), live,
-             torch.zeros(n, device=dev)]
     n_chunks = -(-n // CHUNK)
     n_pad = n_chunks * CHUNK
-    table = torch.zeros((n_pad, TRI_WIDTH), device=dev)
-    table[:n] = torch.stack(cols, dim=1)
+    alive = live[:, None] > 0.5
+    table = torch.zeros((n_pad, 4 * TRI_ROWS), device=dev)
+    table[:, 0] = DEAD_TRIANGLE_X
+    table[:n] = torch.where(alive, torch.stack(cols, dim=1), table[:n])
+    table = table.reshape(n_chunks, CHUNK, TRI_ROWS, 4).permute(0, 2, 1, 3)
+    tri_live = torch.zeros(n_pad, device=dev)
+    tri_live[:n] = live
 
     lo, hi = P.Triangle.bounds(tri)
-    alive = live[:, None] > 0.5
     lo = torch.where(alive, lo, BIG)
     hi = torch.where(alive, hi, -BIG)
     pad = torch.full((n_pad - n, 3), BIG, device=dev)
@@ -200,24 +221,25 @@ def _pack_triangles(params, n, live, goff):
     # coordinate of a live triangle
     verts = torch.stack([tri["v1"], tri["v2"], tri["v3"]], dim=1)
     scale = 1.0 + torch.where(alive[:, None], verts.abs(), 0.0).amax()
-    head = torch.zeros(6, device=dev)
-    head[0] = scale
-    boxes = torch.cat([head, torch.cat([lo_s, hi_s], dim=1).reshape(-1),
-                       torch.cat([lo, hi], dim=1).reshape(-1)])
-    return table, boxes, n_chunks
+    aabbs = torch.zeros((1 + n_supers + n_chunks, 8), device=dev)
+    aabbs[0, 0] = scale
+    aabbs[1:, 0:3] = torch.cat([lo_s, lo])
+    aabbs[1:, 4:7] = torch.cat([hi_s, hi])
+    return table.contiguous(), tri_live, aabbs, n_chunks
 
 
 def pack_scene(spec, data) -> PackedScene:
     """Pack every slot the scene loops evaluate.  Raises NotImplementedError
     for a type the kernels do not take (custom types)."""
     dev = data.materials["albedo"].device
-    rows = []
+    runs = {}      # type code -> (row blocks, info rows) of the type's run
     entries = []
     col_gidx, col_mid = [], []
-    tris = torch.zeros((0, TRI_WIDTH), device=dev)
-    boxes = torch.zeros(0, device=dev)
+    tris = torch.zeros((0, TRI_ROWS, CHUNK, 4), device=dev)
+    tri_live = torch.zeros(0, device=dev)
+    tri_info = torch.zeros((0, 2), dtype=torch.int32, device=dev)
+    aabbs = torch.zeros((0, 8), device=dev)
     n_chunks = 0
-    first = 0
     goff = 0
     for ptype, cap, n, static in spec.prim_bounds():
         if n == 0:
@@ -227,42 +249,66 @@ def pack_scene(spec, data) -> PackedScene:
             raise NotImplementedError(
                 f"the kernels take spheres, planes, boxes and triangles; "
                 f"not {ptype.name!r}")
+        code = TRIANGLE_CODE if ptype is P.Triangle \
+            else KERNEL_TYPES[ptype][0]
+        if code in runs or (code == TRIANGLE_CODE and n_chunks):
+            raise NotImplementedError(f"one {ptype.name} type per scene")
         params = data.prims[ptype.name]
         slot = torch.arange(n, device=dev)
         live = torch.ones(n, dtype=torch.float32, device=dev) if static \
             else (slot < data.prim_counts[ptype.name]).to(torch.float32)
+        gidx = (goff + slot).to(torch.int32)
+        mid = params["material_id"][:n].to(torch.int32)
+        col_gidx.append(gidx)
+        col_mid.append(mid)
+        entries.append((ptype, code, n, static))
+        goff += cap
         if ptype is P.Triangle:
-            if n_chunks:
-                raise NotImplementedError("one triangle type per scene")
-            tris, boxes, n_chunks = _pack_triangles(params, n, live, goff)
-            entries.append((ptype, 0, n, static))
-            col_gidx.append(tris[:n, TRI_GIDX])
-            col_mid.append(tris[:n, TRI_MID])
-            goff += cap
+            tris, tri_live, aabbs, n_chunks = _pack_triangles(params, n,
+                                                              live)
+            tri_info = torch.zeros((n_chunks * CHUNK, 2), dtype=torch.int32,
+                                   device=dev)
+            tri_info[:n] = torch.stack([gidx, mid], dim=1)
             continue
-        code, names = KERNEL_TYPES[ptype]
-        cols = [torch.full((n,), float(code), device=dev),
-                (goff + slot).to(torch.float32),
-                params["material_id"][:n].to(torch.float32), live]
+        _, names, dead = KERNEL_TYPES[ptype]
+        blocks = []
         for name in names:
             v = params[name][:n].to(torch.float32)
-            cols += list(v.unbind(-1)) if v.ndim == 2 else [v]
-        cols += [torch.zeros(n, device=dev)] * (SLOT_WIDTH - len(cols))
-        rows.append(torch.stack(cols, dim=1))
-        col_gidx.append(rows[-1][:, 1])
-        col_mid.append(rows[-1][:, 2])
-        entries.append((ptype, first, n, static))
-        first += n
-        goff += cap
+            v = v if v.ndim == 2 else v[:, None]
+            if not static:
+                v = torch.where(live[:, None] > 0.5, v, dead[name])
+            blocks.append(v)
+        # a box's two rows, padded to float4: every center, then every side
+        block = torch.cat([F.pad(v, (0, 1)) for v in blocks]) \
+            if ptype is P.Box else torch.cat(blocks, dim=1)
+        runs[code] = (block, torch.stack([gidx, mid], dim=1))
     if not entries:
         raise NotImplementedError("the kernels need a live primitive")
-    slots = torch.cat(rows).contiguous() if rows \
-        else torch.zeros((0, SLOT_WIDTH), device=dev)
+    codes = sorted(runs)
+    first, row = {}, 0
+    for code in codes:
+        first[code] = row
+        row += runs[code][0].shape[0]
+    rows = torch.cat([runs[c][0] for c in codes]).contiguous() if codes \
+        else torch.zeros((0, 4), device=dev)
+    info = torch.cat([runs[c][1] for c in codes] + [tri_info]).contiguous()
+    counts = tuple(runs[c][1].shape[0] if c in runs else 0
+                   for c in range(TRIANGLE_CODE))
     return PackedScene(
-        entries=tuple(entries), slots=slots, tris=tris.contiguous(),
-        boxes=boxes.contiguous(), n_chunks=n_chunks,
-        col_gidx=torch.cat(col_gidx).to(torch.int32),
-        col_mid=torch.cat(col_mid).to(torch.int32))
+        entries=tuple((ptype, first.get(code, 0), n, static)
+                      for ptype, code, n, static in entries),
+        rows=rows, counts=counts, info=info, tris=tris, tri_live=tri_live,
+        aabbs=aabbs, n_chunks=n_chunks, col_gidx=torch.cat(col_gidx),
+        col_mid=torch.cat(col_mid))
+
+
+def slot_live(packed):
+    """bool[n_slots] in run order: False on the slots packed dead."""
+    n_spheres, n_planes, n_boxes = packed.counts
+    r = packed.rows
+    return torch.cat([r[:n_spheres, 3] != -BIG,
+                      r[n_spheres:n_spheres + n_planes, 3] != BIG,
+                      r[n_spheres + n_planes + n_boxes:, 0] != -BIG])
 
 
 def pack_light_positions(spec, data):
@@ -288,11 +334,11 @@ def pack_light_positions(spec, data):
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def _planar_scalars(rows, first_col, fields):
+def _planar_scalars(rows, fields):
     """{scalar name: column} of a table's rows: vec3 fields split into
-    name_x/name_y/name_z, in table order from first_col."""
+    name_x/name_y/name_z, in table order."""
     s = {}
-    col = first_col
+    col = 0
     for name, kind in fields:
         for sname in ([f"{name}_{ax}" for ax in "xyz"] if kind == P.VEC3
                       else [name]):
@@ -301,30 +347,30 @@ def _planar_scalars(rows, first_col, fields):
     return s
 
 
-def _slot_dists(packed, p, max_dist):
+def _slot_dists(packed, p):
     """f32[N, C]: every packed slot's planar SDF at points p[N, 3] (a
     triangle's through sdf_planar_derived on its table row), dead slots at
-    max_dist; columns in spec order."""
+    1e9 or more; columns in spec order."""
     px, py, pz = p[:, 0:1], p[:, 1:2], p[:, 2:3]
     cols = []
-    for ptype, first, n, static in packed.entries:
+    for ptype, first, n, _ in packed.entries:
         if ptype is P.Triangle:
-            rows = packed.tris[:n]
             fields = [f for f in ptype.derived_fields
                       if f[0] != "material_id"]
-            d = ptype.sdf_planar_derived(_planar_scalars(rows, 0, fields),
-                                         px, py, pz)
-            live = rows[:, TRI_LIVE]
+            d = ptype.sdf_planar_derived(
+                _planar_scalars(packed.triangle_rows()[:n], fields),
+                px, py, pz)
             code = TRIANGLE_CODE
         else:
-            rows = packed.slots[first:first + n]
-            code, names = KERNEL_TYPES[ptype]
+            code, names, _ = KERNEL_TYPES[ptype]
             kinds = dict(ptype.fields)
+            rows = packed.rows[first:first + n]
+            if ptype is P.Box:
+                rows = torch.cat(
+                    [rows[:, :3], packed.rows[first + n:first + 2 * n, :3]],
+                    dim=1)
             d = ptype.sdf_planar(_planar_scalars(
-                rows, 4, [(k, kinds[k]) for k in names]), px, py, pz)
-            live = rows[:, 3]
-        if not static:
-            d = torch.where(live > 0.5, d, max_dist)
+                rows, [(k, kinds[k]) for k in names]), px, py, pz)
         cols.append(d)
         scene_evals[code] += p.shape[0] * n
     return torch.cat(cols, dim=1)
@@ -346,7 +392,7 @@ def _admitted(packed, p, best):
     p[N, 3] (csrc/scene.cuh:tri_min's test); a chunk only inside an
     admitted super-chunk."""
     px, py, pz = p[:, 0:1], p[:, 1:2], p[:, 2:3]
-    slack = PRUNE_REL * (packed.boxes[0] + torch.abs(p[:, 0])
+    slack = PRUNE_REL * (packed.aabbs[0, 0] + torch.abs(p[:, 0])
                          + torch.abs(p[:, 1]) + torch.abs(p[:, 2]))
     lim = best + slack
 
@@ -354,12 +400,12 @@ def _admitted(packed, p, best):
         def gap(q, lo, hi):
             return torch.clamp_min(torch.maximum(lo - q, q - hi), 0.0)
 
-        dx = gap(px, b[:, 0], b[:, 3])
-        dy = gap(py, b[:, 1], b[:, 4])
-        dz = gap(pz, b[:, 2], b[:, 5])
+        dx = gap(px, b[:, 0], b[:, 4])
+        dy = gap(py, b[:, 1], b[:, 5])
+        dz = gap(pz, b[:, 2], b[:, 6])
         return dx * dx + dy * dy + dz * dz <= (lim * lim)[:, None]
 
-    boxes = packed.boxes[6:].reshape(-1, 6)
+    boxes = packed.aabbs[1:]
     sup = within(boxes[:packed.n_supers])
     chunk = within(boxes[packed.n_supers:]) & sup.repeat_interleave(
         SUPER, dim=1)[:, :packed.n_chunks]
@@ -375,7 +421,7 @@ def _count_pruned(packed, p, dmin):
     per_super = torch.full((packed.n_supers,), float(SUPER),
                            dtype=torch.float64, device=p.device)
     per_super[-1] = packed.n_chunks - SUPER * (packed.n_supers - 1)
-    live = packed.tris[:, TRI_LIVE].reshape(packed.n_chunks, CHUNK).sum(1)
+    live = packed.tri_live.reshape(packed.n_chunks, CHUNK).sum(1)
     pruned_evals["aabb"] += p.shape[0] * packed.n_supers + int(
         (sup.to(torch.float64) @ per_super).sum().item())
     pruned_evals["triangles"] += int(
@@ -394,14 +440,14 @@ def _by_chunks(fn, packed, p, max_dist):
 
 
 def _scene_dist(packed, p, max_dist):
-    d = torch.clamp_max(torch.amin(_slot_dists(packed, p, max_dist), dim=1),
+    d = torch.clamp_max(torch.amin(_slot_dists(packed, p), dim=1),
                         max_dist)
     _count_pruned(packed, p, d)
     return d
 
 
 def _scene_dist_info(packed, p, max_dist):
-    dmin, arg = torch.min(_slot_dists(packed, p, max_dist), dim=1)
+    dmin, arg = torch.min(_slot_dists(packed, p), dim=1)
     near = dmin < max_dist
     idx = torch.where(near, packed.col_gidx[arg], -1)
     mid = torch.where(near, packed.col_mid[arg], 0)
@@ -425,7 +471,7 @@ def pruned_scene_dist(packed, p, max_dist):
     """Scene distance at p[N, 3] with only the admitted triangle chunks
     evaluated (those pruned_evals counts): the vectorised emulation of the
     kernels' exact pruning, equal to scene_dist wherever it is exact."""
-    d = _slot_dists(packed, p, max_dist)
+    d = _slot_dists(packed, p)
     dmin = torch.clamp_max(torch.amin(d, dim=1), max_dist)
     first, n = _tri_columns(packed)
     if n:
@@ -524,18 +570,26 @@ def geometry_reference(packed, lpos, n_lights, origins, dirs, max_dist, *,
     march = dict(eps=eps, max_steps=max_steps)
 
     def bounce(o, d, en_b):
-        t, _, _ = rm.raycast(sdf_b, o, d, max_dist, enabled=en_b,
-                             omega=omega, **march)
+        t = rm.raycast_distance(sdf_b, o, d, max_dist, enabled=en_b,
+                                omega=omega, **march)
         p = o + t[:, None] * d
         d_end, idx, mid = scene_dist_info(packed, p, max_dist)
         hit = en_b & (d_end < eps) & (t < max_dist)
-        normal = _fd_normal(sdf_b, p, NORMAL_H)
+        # at a miss the normal is the reversed ray and the AO 1: like the
+        # kernel, no evaluation is spent there
+        rows = hit.nonzero().squeeze(1)
+        normal = -d
+        if rows.numel():
+            normal[rows] = _fd_normal(sdf_b, p[rows], NORMAL_H)
         so = p + normal * surface_offset
-        return t, p, hit, idx, mid, normal, so
+        return t, p, hit, rows, idx, mid, normal, so
 
-    t, p, hit, idx, mid, normal, so = bounce(origins, dirs, enabled)
-    ao = rm.ambient_occlusion(sdf_b, p, normal, steps=ao_steps,
-                              step_size=ao_step_size)
+    t, p, hit, rows, idx, mid, normal, so = bounce(origins, dirs, enabled)
+    ao = torch.ones(n, dtype=torch.float32, device=dev)
+    if rows.numel():
+        ao[rows] = rm.ambient_occlusion(
+            sdf_b, p[rows], normal[rows], steps=ao_steps,
+            step_size=ao_step_size)
     shadows = _shadows(sdf_b, lpos, n_lights, p, so, normal, hit, shadow_k,
                        **march)
     vis8 = _vis8(sdf_b, p, so, hit, probe_spacing, probe_dims,
@@ -554,7 +608,7 @@ def geometry_reference(packed, lpos, n_lights, origins, dirs, max_dist, *,
     r_en = hit & (rough < 0.75)
     ddn = dot(dirs, normal)
     r_d = dirs - (2.0 * ddn)[:, None] * normal
-    r_t, rp, r_hit, _, r_mid, r_normal, r_so = bounce(so, r_d, r_en)
+    r_t, rp, r_hit, _, _, r_mid, r_normal, r_so = bounce(so, r_d, r_en)
     r_sh = _shadows(sdf_b, lpos, n_lights, rp, r_so, r_normal, r_hit,
                     shadow_k, **march) if refl_shadows \
         else torch.ones((n_lights, n), dtype=torch.float32, device=dev)
@@ -599,14 +653,23 @@ def softshadows_reference(packed, origins, dirs, min_dists, max_dists, k, *,
 # The CUDA kernel's wrapper
 # ---------------------------------------------------------------------------
 
+class _SceneArgs(ctypes.Structure):
+    """Field for field the SceneArgs struct of csrc/scene.cuh."""
+
+    _fields_ = [
+        ("rows", ctypes.c_void_p), ("n_spheres", ctypes.c_int),
+        ("n_planes", ctypes.c_int), ("n_boxes", ctypes.c_int),
+        ("info", ctypes.c_void_p), ("tris", ctypes.c_void_p),
+        ("aabbs", ctypes.c_void_p), ("n_chunks", ctypes.c_int),
+        ("n_supers", ctypes.c_int), ("work", ctypes.c_void_p),
+    ]
+
+
 class _GeomArgs(ctypes.Structure):
     """Field for field the GeomArgs struct of csrc/geometry.cu."""
 
     _fields_ = [
-        ("slots", ctypes.c_void_p), ("n_slots", ctypes.c_int),
-        ("tris", ctypes.c_void_p), ("boxes", ctypes.c_void_p),
-        ("n_box_f", ctypes.c_int), ("n_chunks", ctypes.c_int),
-        ("n_supers", ctypes.c_int),
+        ("scene", _SceneArgs),
         ("lpos", ctypes.c_void_p), ("n_lights", ctypes.c_int),
         ("rough", ctypes.c_void_p), ("n_mats", ctypes.c_int),
         ("origins", ctypes.c_void_p), ("dirs", ctypes.c_void_p),
@@ -634,8 +697,13 @@ class _GeomArgs(ctypes.Structure):
     ]
 
 
-def _library():
-    lib = build.load("geometry")
+def geometry_library(lanes=1, count_work=False, fmad=False):
+    """The geometry kernel's library built for ``lanes`` lanes per ray;
+    ``count_work`` (the kernel sums its own work) and ``fmad`` (FMA
+    contraction on) select measurement builds that no path of the package
+    launches."""
+    defines = (f"LANES={lanes}",) + (("COUNT_WORK",) if count_work else ())
+    lib = build.load("geometry", defines, fmad)
     lib.madarch_geometry.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                      ctypes.c_void_p]
     lib.madarch_geometry.restype = ctypes.c_int
@@ -659,35 +727,64 @@ def _ptr(x):
 
 
 def _check_scene(packed, dev):
-    _check("packed.slots", packed.slots, dev, torch.float32,
-           (packed.n_slots, SLOT_WIDTH))
+    n_tri = packed.n_chunks * CHUNK
+    _check("packed.rows", packed.rows, dev, torch.float32,
+           (sum(packed.counts) + packed.counts[2], 4))
+    _check("packed.info", packed.info, dev, torch.int32,
+           (packed.n_slots + n_tri, 2))
     _check("packed.tris", packed.tris, dev, torch.float32,
-           (packed.n_chunks * CHUNK, TRI_WIDTH))
-    _check("packed.boxes", packed.boxes, dev, torch.float32,
-           ((1 + packed.n_supers + packed.n_chunks) * 6
-            if packed.n_chunks else 0,))
+           (packed.n_chunks, TRI_ROWS, CHUNK, 4))
+    _check("packed.aabbs", packed.aabbs, dev, torch.float32,
+           (1 + packed.n_supers + packed.n_chunks if packed.n_chunks else 0,
+            8))
+    # the kernels read these tables as float4 and int2
+    for name, align in (("rows", 16), ("tris", 16), ("aabbs", 16),
+                        ("info", 8)):
+        if getattr(packed, name).data_ptr() % align:
+            raise ValueError(f"packed.{name} must be {align}-byte aligned")
 
 
-def _scene_fields(packed, extra_smem_floats, kernels):
-    """The scene's fields of _GeomArgs/_MarchArgs; raises when its shared
-    memory (slot table, boxes and extra_smem_floats) exceeds SMEM_LIMIT."""
-    n_bytes = 4 * (packed.slots.numel() + packed.boxes.numel()
+def _scene_args(packed, extra_smem_floats, kernels, work=None):
+    """The scene's _SceneArgs; raises when its shared memory (typed runs,
+    boxes and extra_smem_floats) exceeds SMEM_LIMIT."""
+    n_bytes = 4 * (packed.rows.numel() + packed.aabbs.numel()
                    + extra_smem_floats)
     if n_bytes > SMEM_LIMIT:
         raise NotImplementedError(
             f"scene needs {n_bytes} bytes of shared memory; the {kernels} "
             f"kernels hold at most {SMEM_LIMIT}")
-    return dict(slots=_ptr(packed.slots), n_slots=packed.n_slots,
-                tris=_ptr(packed.tris), boxes=_ptr(packed.boxes),
-                n_box_f=packed.boxes.numel(), n_chunks=packed.n_chunks,
-                n_supers=packed.n_supers)
+    n_spheres, n_planes, n_boxes = packed.counts
+    return _SceneArgs(
+        rows=_ptr(packed.rows), n_spheres=n_spheres, n_planes=n_planes,
+        n_boxes=n_boxes, info=_ptr(packed.info), tris=_ptr(packed.tris),
+        aabbs=_ptr(packed.aabbs), n_chunks=packed.n_chunks,
+        n_supers=packed.n_supers, work=_ptr(work))
+
+
+# geometry() gives a ray 8 lanes on a launch of fewer rays than this (a
+# thread per ray leaves the card's 132 SMs short of warps) and on a scene
+# of at least this many slots (two a lane).  Both are cut-offs placed
+# between the two points measured on the card (36,864 and 640,000 rays; 8
+# and 40 slots: PERF.md), not fitted crossovers: nothing between them has
+# been timed.
+LANES_RAY_LIMIT = 100_000
+LANES_MIN_SLOTS = 16
+
+
+def geometry_lanes(packed, n_rays):
+    """The lanes per ray geometry() launches with: 8 on a scene with
+    triangles, whose chunks and boxes are 8 wide, on a scene of many slots
+    and on a small launch; else 1."""
+    if packed.n_chunks or packed.n_slots >= LANES_MIN_SLOTS:
+        return 8
+    return 8 if n_rays < LANES_RAY_LIMIT else 1
 
 
 def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
              probe_spacing, probe_dims, surface_offset, ao_steps,
              ao_step_size=0.1, shadow_k=64.0, eps=EPSILON, max_steps=300,
              omega=1.6, mat_rough_vec=None, refl_shadows=True,
-             enabled=None):
+             enabled=None, library=None, work=None):
     """Fused geometry pass over rays origins/dirs f32[N, 3]: a dict with t,
     hit (bool), idx (i32 global index, -1 where not hit), mid (i32),
     normal f32[N,3], ao f32[N], shadows f32[L,N], vis8 f32[8,N], and
@@ -698,7 +795,13 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
     and vis8 also only where their march was enabled); with
     ``refl_shadows`` False the reflection's shadows are all ones;
     ``ao_steps`` 0 gives ao 1.  ``enabled``: optional bool[N]; a disabled
-    ray does not march (t 0), is no hit and enables no other march."""
+    ray does not march (t 0), is no hit and enables no other march.  At a
+    miss the normal is the reversed ray direction and the ao 1.
+
+    On the card the launch uses ``geometry_lanes`` lanes per ray;
+    ``library`` (a ``geometry_library`` build) overrides the choice and
+    ``work`` (i64[3] on the device) receives a COUNT_WORK build's counts:
+    both are for measurements."""
     dev = origins.device
     n = origins.shape[0]
     _check("origins", origins, dev, torch.float32, (n, 3))
@@ -723,19 +826,23 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
                                   max_dist, **kwargs)
     if dev.type != "cuda":
         raise ValueError(f"geometry runs on cpu or cuda, not {dev}")
-    return _launch(packed, lpos, n_lights, origins, dirs, max_dist, **kwargs)
+    if work is not None:
+        _check("work", work, dev, torch.int64, (3,))
+    if library is None:
+        library = geometry_library(geometry_lanes(packed, n))
+    return _launch(library, work, packed, lpos, n_lights, origins, dirs,
+                   max_dist, **kwargs)
 
 
-def _launch(packed, lpos, n_lights, origins, dirs, max_dist, *,
+def _launch(lib, work, packed, lpos, n_lights, origins, dirs, max_dist, *,
             probe_spacing, probe_dims, surface_offset, ao_steps,
             ao_step_size, shadow_k, eps, max_steps, omega, mat_rough_vec,
             refl_shadows, enabled):
-    lib = _library()
     dev = origins.device
     n = origins.shape[0]
     refl = mat_rough_vec is not None
-    scene = _scene_fields(packed, lpos.numel() + (
-        mat_rough_vec.numel() if refl else 0), "geometry")
+    scene = _scene_args(packed, lpos.numel() + (
+        mat_rough_vec.numel() if refl else 0), "geometry", work)
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -755,7 +862,7 @@ def _launch(packed, lpos, n_lights, origins, dirs, max_dist, *,
     hs = [(i + 1) * ao_step_size for i in range(ao_steps)]
     ao_max = sum(h / (2.0 ** i) for i, h in enumerate(hs))
     args = _GeomArgs(
-        **scene, lpos=_ptr(lpos), n_lights=n_lights,
+        scene=scene, lpos=_ptr(lpos), n_lights=n_lights,
         rough=_ptr(mat_rough_vec), n_mats=mat_rough_vec.shape[0] if refl
         else 0,
         origins=_ptr(origins), dirs=_ptr(dirs), enabled=_ptr(enabled), n=n,
@@ -798,10 +905,7 @@ class _MarchArgs(ctypes.Structure):
     """Field for field the MarchArgs struct of csrc/march.cu."""
 
     _fields_ = [
-        ("slots", ctypes.c_void_p), ("n_slots", ctypes.c_int),
-        ("tris", ctypes.c_void_p), ("boxes", ctypes.c_void_p),
-        ("n_box_f", ctypes.c_int), ("n_chunks", ctypes.c_int),
-        ("n_supers", ctypes.c_int),
+        ("scene", _SceneArgs),
         ("origins", ctypes.c_void_p), ("dirs", ctypes.c_void_p),
         ("min_dists", ctypes.c_void_p), ("max_dists", ctypes.c_void_p),
         ("enabled", ctypes.c_void_p), ("n", ctypes.c_int),
@@ -814,7 +918,8 @@ class _MarchArgs(ctypes.Structure):
     ]
 
 
-def _march_library():
+def march_library():
+    """The library of the raycast, visibility and softshadow kernels."""
     lib = build.load("march")
     for fn in (lib.madarch_raycast, lib.madarch_visibility,
                lib.madarch_softshadows):
@@ -839,9 +944,9 @@ def _check_rays(packed, origins, dirs, enabled):
 
 def _launch_march(fn, packed, origins, dirs, enabled, **fields):
     """Launches one of csrc/march.cu's kernels on the current stream."""
-    scene = _scene_fields(packed, 0, "march")
+    scene = _scene_args(packed, 0, "march")
     omega = fields.pop("omega")
-    args = _MarchArgs(**scene, origins=_ptr(origins), dirs=_ptr(dirs),
+    args = _MarchArgs(scene=scene, origins=_ptr(origins), dirs=_ptr(dirs),
                       enabled=_ptr(enabled), n=origins.shape[0],
                       omega=omega, one_minus_omega=1.0 - omega, **fields)
     dev = origins.device
@@ -869,9 +974,9 @@ def raycast(packed, origins, dirs, max_dist, *, eps=EPSILON, max_steps=300,
     n = origins.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=dev)
     hit = torch.empty(n, dtype=torch.bool, device=dev)
-    _launch_march(_march_library().madarch_raycast, packed, origins, dirs,
-                  en, max_dist=max_dist, cap=max_dist, t=_ptr(t),
-                  hit=_ptr(hit), **kwargs)
+    _launch_march(march_library().madarch_raycast, packed,
+                  origins, dirs, en, max_dist=max_dist, cap=max_dist,
+                  t=_ptr(t), hit=_ptr(hit), **kwargs)
     raycast.launches += 1
     return t, hit, origins + t[:, None] * dirs
 
@@ -892,9 +997,9 @@ def visibility(packed, origins, dirs, max_dists, *, eps=EPSILON,
     if dev.type != "cuda":
         raise ValueError(f"visibility runs on cpu or cuda, not {dev}")
     vis = torch.empty(n, dtype=torch.float32, device=dev)
-    _launch_march(_march_library().madarch_visibility, packed, origins,
-                  dirs, en, max_dists=_ptr(max_dists), max_dist=VIS_CAP,
-                  cap=VIS_CAP, vis=_ptr(vis), **kwargs)
+    _launch_march(march_library().madarch_visibility, packed,
+                  origins, dirs, en, max_dists=_ptr(max_dists),
+                  max_dist=VIS_CAP, cap=VIS_CAP, vis=_ptr(vis), **kwargs)
     visibility.launches += 1
     return vis
 
@@ -918,8 +1023,8 @@ def softshadows(packed, origins, dirs, min_dists, max_dists, k, *,
     if dev.type != "cuda":
         raise ValueError(f"softshadows runs on cpu or cuda, not {dev}")
     res = torch.empty(n, dtype=torch.float32, device=dev)
-    _launch_march(_march_library().madarch_softshadows, packed, origins,
-                  dirs, en, min_dists=_ptr(min_dists),
+    _launch_march(march_library().madarch_softshadows, packed,
+                  origins, dirs, en, min_dists=_ptr(min_dists),
                   max_dists=_ptr(max_dists), max_dist=VIS_CAP, cap=VIS_CAP,
                   omega=1.0, k=k, vis=_ptr(res), **kwargs)
     softshadows.launches += 1

@@ -62,6 +62,16 @@ def _over_relaxed(sdf_b, origins, dirs, max_dists, active, eps, max_steps,
     return t, blocked
 
 
+def raycast_distance(sdf_b, origins, dirs, max_dist, *, eps=EPSILON,
+                     max_steps=MAX_STEPS, enabled=None, omega=RELAXATION):
+    """The march of ``raycast`` alone: t f32[N], where each ray stopped (0
+    where disabled), for a caller that classifies the end point itself."""
+    max_dists = torch.full((origins.shape[0],), max_dist,
+                           dtype=torch.float32, device=origins.device)
+    return _over_relaxed(sdf_b, origins, dirs, max_dists,
+                         _active0(origins, enabled), eps, max_steps, omega)[0]
+
+
 def raycast(sdf_b, origins, dirs, max_dist, *, eps=EPSILON,
             max_steps=MAX_STEPS, enabled=None, omega=RELAXATION):
     """Sphere-trace a batch of rays.
@@ -70,10 +80,8 @@ def raycast(sdf_b, origins, dirs, max_dist, *, eps=EPSILON,
     f32[N,3]; enabled: optional bool[N], disabled lanes never march.
     Returns (t f32[N], hit bool[N], pos f32[N,3]).
     """
-    max_dists = torch.full((origins.shape[0],), max_dist,
-                           dtype=torch.float32, device=origins.device)
-    t, _ = _over_relaxed(sdf_b, origins, dirs, max_dists,
-                         _active0(origins, enabled), eps, max_steps, omega)
+    t = raycast_distance(sdf_b, origins, dirs, max_dist, eps=eps,
+                         max_steps=max_steps, enabled=enabled, omega=omega)
     pos = origins + t[:, None] * dirs
     hit = (sdf_b(pos) < eps) & (t < max_dist)
     if enabled is not None:

@@ -1,6 +1,7 @@
 """The CUDA kernels (geometry, raycast, visibility, softshadows) against
 their plain PyTorch versions, on the card, on the room scenes and on
-obj_mesh's 968-triangle torus (the chunk-pruned triangle path).
+obj_mesh's 968-triangle torus (the chunk-pruned triangle path); the
+geometry kernel at every lane count per ray its wrapper can choose.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs where JAX is absent:
@@ -105,15 +106,19 @@ def _assert_match(k, r):
     assert torch.equal(kr["vis8"][:, rhit], rr["vis8"][:, rhit])
 
 
-def _both(spec, data, o, d, refl, ao_steps, grid):
+def _both(spec, data, o, d, refl, ao_steps, grid, lanes=None, enabled=None):
+    """(kernel, plain version) on the same rays; ``lanes``: the kernel
+    built for that many lanes per ray in place of the wrapper's choice."""
     packed = M.pack_scene(spec, data)
     lpos, n_lights = M.pack_light_positions(spec, data)
     kw = dict(probe_spacing=grid.grid_spacing,
               probe_dims=grid.grid_dimensions,
               surface_offset=SURFACE_OFFSET, ao_steps=ao_steps,
-              mat_rough_vec=data.materials["roughness"] if refl else None)
+              mat_rough_vec=data.materials["roughness"] if refl else None,
+              enabled=enabled)
     before = M.geometry.launches
-    k = M.geometry(packed, lpos, n_lights, o, d, spec.max_dist, **kw)
+    k = M.geometry(packed, lpos, n_lights, o, d, spec.max_dist,
+                   library=lanes and M.geometry_library(lanes), **kw)
     torch.cuda.synchronize()
     assert M.geometry.launches == before + 1
     r = M.geometry_reference(packed, lpos, n_lights, o, d, spec.max_dist,
@@ -141,7 +146,7 @@ def test_kernel_matches_plain_version_with_dead_slots(dev):
     d = d / d.norm(dim=1, keepdim=True)
     o, d = o.to(dev), d.to(dev)
     packed = M.pack_scene(spec, data)
-    assert (packed.slots[:, 3] == 0).sum() == 10
+    assert (~M.slot_live(packed)).sum() == 10
     k, ref = _both(spec, data, o, d, True, 3, ProbeSettings())
     assert k["shadows"].shape == (2, 4096)
     _assert_match(k, ref)
@@ -444,7 +449,7 @@ def _mesh_rays(r, dev, n=4096, seed=31):
 
 @pytest.mark.parametrize("refl", [False, True])
 def test_geometry_matches_plain_on_the_mesh(dev, refl):
-    """968 triangles: a 123,904-byte table, beyond the 48 KiB of shared
+    """968 triangles: a 108,416-byte table, beyond the 48 KiB of shared
     memory a launch gets, read from device memory; 4,097 rays (a tail
     block of one ray)."""
     r, spec, data = _mesh_scene(dev)
@@ -463,7 +468,7 @@ def test_geometry_matches_plain_with_dead_triangle_slots(dev):
     o, d = _mesh_rays(r, dev, seed=37)
     packed = M.pack_scene(spec, data)
     assert packed.n_chunks == 125
-    assert int((packed.tris[:, M.TRI_LIVE] == 0).sum()) == 300
+    assert int((packed.tri_live == 0).sum()) == 300
     k, ref = _both(spec, data, o, d, True, 3, r.probes)
     assert ref["hit"].float().mean() > 0.3
     _assert_match(k, ref)
@@ -502,3 +507,99 @@ def test_obj_mesh_frame_launches_the_kernel(dev):
     torch.cuda.synchronize()
     assert M.geometry.launches - before == 2
     assert torch.isfinite(img).all() and img.var() > 0
+
+
+# ---------------------------------------------------------------------------
+# Lane groups: the geometry kernel built for each lane count per ray the
+# wrapper can choose (ops/march.py:LANE_CHOICES), whatever it would choose
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lanes", M.LANE_CHOICES)
+@pytest.mark.parametrize("variant", ["radiance", "screen"])
+def test_each_lane_count_matches_plain_on_gi(dev, lanes, variant):
+    """Both REFL variants; 4,099 rays: the last block is partly filled and,
+    at 8 lanes, so is the last warp (3 of its 4 groups hold a ray)."""
+    r = S.global_illumination(width=256, height=256, device=dev)
+    o, d = _gi_rays(r, dev, variant, n=4099)
+    refl = variant == "screen"
+    k, ref = _both(r.spec, r.scene_data, o, d, refl, 3 if refl else 0,
+                   r.probes, lanes)
+    assert ref["hit"].float().mean() > 0.5
+    _assert_match(k, ref)
+
+
+@pytest.mark.parametrize("lanes", M.LANE_CHOICES)
+def test_each_lane_count_matches_plain_on_simple_scene(dev, lanes):
+    """40 slots in three typed runs: 20 spheres, 6 planes, 14 boxes."""
+    r = S.simple_scene(width=256, height=256, device=dev)
+    assert M.pack_scene(r.spec, r.scene_data).counts == (20, 6, 14)
+    o, d = _gi_rays(r, dev, "screen", n=4099)
+    k, ref = _both(r.spec, r.scene_data, o, d, True, 3, r.probes, lanes)
+    assert ref["hit"].float().mean() > 0.5
+    _assert_match(k, ref)
+
+
+@pytest.mark.parametrize("lanes", M.LANE_CHOICES)
+def test_each_lane_count_matches_plain_with_dead_slots(dev, lanes):
+    """Dead sphere, plane and box slots (dynamic counts), two lights."""
+    spec, data = _dynamic_scene(dev)
+    g = torch.Generator().manual_seed(47)
+    o = torch.rand(4099, 3, generator=g) * 2.0 - 1.0
+    o[:, 1] += 1.0
+    d = torch.randn(4099, 3, generator=g)
+    d = (d / d.norm(dim=1, keepdim=True)).to(dev)
+    k, ref = _both(spec, data, o.to(dev), d, True, 3, ProbeSettings(), lanes)
+    _assert_match(k, ref)
+
+
+@pytest.mark.parametrize("lanes", M.LANE_CHOICES)
+@pytest.mark.parametrize("n_live", [None, 700])
+def test_each_lane_count_matches_plain_on_the_mesh(dev, lanes, n_live):
+    """The torus, and the torus with 300 dead triangle slots; 4,099 rays."""
+    r, spec, data = _mesh_scene(dev, n_live=n_live)
+    o, d = _mesh_rays(r, dev, n=4099, seed=53)
+    k, ref = _both(spec, data, o, d, True, 3, r.probes, lanes)
+    assert ref["hit"].float().mean() > 0.3
+    _assert_match(k, ref)
+
+
+@pytest.mark.parametrize("lanes", M.LANE_CHOICES)
+@pytest.mark.parametrize("scene", ["gi", "mesh"])
+def test_each_lane_count_matches_plain_on_a_masked_launch(dev, lanes, scene):
+    """The masked launch without AO, with single rays, whole groups' warps
+    (runs of 4 rays: the 4 groups of a warp at 8 lanes) and whole warps and
+    blocks at one lane a ray (runs of 32 and 128 rays) disabled."""
+    if scene == "gi":
+        r = S.global_illumination(width=256, height=256, device=dev)
+        spec, data = r.spec, r.scene_data
+        _, o, d, en = _reflection_rays(r, dev, n=4099)
+    else:
+        r, spec, data = _mesh_scene(dev)
+        o, d = _mesh_rays(r, dev, n=4099, seed=59)
+        en = torch.ones(4099, dtype=torch.bool, device=dev)
+    i = torch.arange(4099, device=dev)
+    g = torch.Generator().manual_seed(61)
+    en = en & ((i // 4) % 3 != 0) & ((i // 32) % 5 != 0) \
+        & ((i // 128) % 7 != 0) \
+        & (torch.rand(4099, generator=g) > 0.1).to(dev)
+    assert en.any() and not en.all()
+    k, ref = _both(spec, data, o, d, False, 0, r.probes, lanes, enabled=en)
+    _assert_match(k, ref)
+    assert (k["t"][~en] == 0).all() and not k["hit"][~en].any()
+    assert ref["hit"].any()
+
+
+def test_the_wrapper_launches_its_choice_of_lanes(dev):
+    """geometry() without a library launches geometry_lanes' build: on a
+    small launch over simple_scene's 40 slots and on the mesh its outputs
+    equal the 8-lane build's bit for bit."""
+    for r in (S.simple_scene(width=64, height=64, device=dev),
+              S.obj_mesh(width=64, height=64, obj_path=S.TORUS_OBJ,
+                         device=dev)):
+        spec, data = r.spec, r.scene_data
+        o, d = _gi_rays(r, dev, "radiance", n=2048)
+        assert M.geometry_lanes(M.pack_scene(spec, data), 2048) == 8
+        k, _ = _both(spec, data, o, d, False, 0, r.probes)
+        k8, _ = _both(spec, data, o, d, False, 0, r.probes, 8)
+        for key in ("t", "hit", "idx", "mid", "normal", "shadows", "vis8"):
+            assert torch.equal(k[key], k8[key]), key

@@ -279,11 +279,12 @@ def test_loose_lanes_are_xla_fma(geom):
     assert loose.sum() == LOOSE_LANES[scene]
     if not loose.any():
         return
-    slots = packed.slots.numpy()
-    rows = np.stack([slots[slots[:, 1] == i][0] for i in j["idx"][loose]])
-    assert (rows[:, 0] == TM.KERNEL_TYPES[TP.Sphere][0]).all()
+    gidx = packed.info[:, 0].numpy()
+    slot = np.array([np.flatnonzero(gidx == i)[0] for i in j["idx"][loose]])
+    assert (slot < packed.counts[0]).all()      # the sphere run comes first
+    rows = packed.rows.numpy()[slot]
     fused = _fused_sphere_normal(o[loose], d[loose], j["t"][loose],
-                                 rows[:, 4:7], rows[:, 7])
+                                 rows[:, 0:3], rows[:, 3])
     np.testing.assert_array_equal(fused, j["normal"][loose])
 
 
@@ -364,22 +365,27 @@ def test_masked_geometry_matches_jax(masked):
 # ---------------------------------------------------------------------------
 
 def test_pack_scene_layout():
-    """One row per evaluated slot, in spec order, with capacity-based
-    global indices; dynamic counts mark dead slots."""
+    """One slot per evaluated primitive in three typed runs (spheres,
+    planes, boxes: two rows each), with capacity-based global indices;
+    dynamic counts pack dead slots inert."""
     jspec, jdata, tspec, tdata = _scene("basic")
     packed = TM.pack_scene(tspec, tdata)
-    assert packed.n_slots == 4 + 6 + 4      # capacities: counts are dynamic
-    s = packed.slots.numpy()
-    np.testing.assert_array_equal(s[:, 0], [0] * 4 + [1] * 6 + [2] * 4)
-    np.testing.assert_array_equal(s[:, 1], np.arange(14))
-    np.testing.assert_array_equal(s[:, 3], [1, 1, 0, 0, 1] + [0] * 5
-                                  + [1, 0, 0, 0])
-    np.testing.assert_allclose(s[1, 4:8], [2.0, 1.0, 7.0, 0.7])
+    assert packed.counts == (4, 6, 4)      # capacities: counts are dynamic
+    assert packed.n_slots == 14 and packed.rows.shape == (4 + 6 + 2 * 4, 4)
+    np.testing.assert_array_equal(packed.info[:, 0].numpy(), np.arange(14))
+    np.testing.assert_array_equal(
+        TM.slot_live(packed).numpy(),
+        np.array([1, 1, 0, 0, 1] + [0] * 5 + [1, 0, 0, 0], bool))
+    r = packed.rows.numpy()
+    np.testing.assert_allclose(r[1], [2.0, 1.0, 7.0, 0.7])
+    np.testing.assert_array_equal(r[2], [0, 0, 0, -TM.BIG])      # sphere
+    np.testing.assert_array_equal(r[5], [0, 0, 0, TM.BIG])       # plane
+    np.testing.assert_array_equal(r[14 + 1, :3], [-TM.BIG] * 3)  # box side
     gspec, _, gtspec, gtdata = _scene("gi")
     gpacked = TM.pack_scene(gtspec, gtdata)
-    np.testing.assert_array_equal(gpacked.slots[:, 1].numpy(),
+    np.testing.assert_array_equal(gpacked.info[:, 0].numpy(),
                                   [0] + list(range(20, 26)) + [30])
-    assert (gpacked.slots[:, 3] == 1).all()
+    assert TM.slot_live(gpacked).all()
 
 
 def test_pack_scene_rejects_unported_types():
@@ -499,8 +505,13 @@ def _struct_fields(source, struct):
         decl = line.split("//")[0].strip().rstrip(";")
         if not decl:
             continue
-        m = re.match(r"(const )?(float|int|unsigned char)(\*?) (.*)", decl)
+        if decl == "SceneArgs scene":
+            want.append(("scene", TM._SceneArgs))
+            continue
+        m = re.match(r"(const )?(float4|float|int2|int|unsigned char|"
+                     r"unsigned long long)(\*?) (.*)", decl)
         ptr, base = m.group(3), m.group(2)
+        assert ptr or base in ("float", "int"), decl
         for name in m.group(4).split(","):
             name = name.strip()
             arr = re.match(r"(\w+)\[(\w+)\]", name)
@@ -528,6 +539,8 @@ def test_ctypes_args_mirror_the_kernel_struct():
     run here, so drift would show only on the card)."""
     _assert_mirrors(TM._GeomArgs._fields_,
                     _struct_fields("geometry.cu", "GeomArgs"))
+    _assert_mirrors(TM._SceneArgs._fields_,
+                    _struct_fields("scene.cuh", "SceneArgs"))
     # the per-ray mask of specular mode 3's reflection launch
     assert dict(TM._GeomArgs._fields_)["enabled"] is ctypes.c_void_p
 
@@ -573,8 +586,7 @@ def test_scene_evals_count_active_lanes_times_slots():
     a march step evaluates every live slot at each active lane only."""
     _, _, tspec, tdata = _scene("gi")
     packed = TM.pack_scene(tspec, tdata)
-    slots = {code: int((packed.slots[:, 0] == code).sum())
-             for code in TM.scene_evals}
+    slots = dict(zip(TM.scene_evals, (*packed.counts, 0)))
     p = torch.zeros((5, 3))
     with TM.counting():
         TM.scene_dist(packed, p, 20.0)
@@ -587,3 +599,44 @@ def test_scene_evals_count_active_lanes_times_slots():
         TM.raycast_reference(packed, torch.tensor([[0.0, -2.0, 0.0]]),
                              torch.tensor([[0.0, 1.0, 0.0]]), 10.0)
     assert TM.scene_evals == {c: 2 * n for c, n in slots.items()}
+
+
+def test_geometry_reference_spends_nothing_at_a_miss():
+    """At a miss the normal is the reversed ray and the AO 1, and the plain
+    version evaluates the scene there no more than the kernel does (its
+    count is behind the kernel's bound): a miss costs its march steps and
+    one classification, the AO ao_steps evaluations per hit."""
+    _, _, tspec, tdata = _scene("basic")
+    packed = TM.pack_scene(tspec, tdata)
+    lpos, n_lights = TM.pack_light_positions(tspec, tdata)
+    o, d = (torch.as_tensor(np.array(x)) for x in rand_rays(96, seed=61))
+    kw = dict(probe_spacing=GRID["spacing"], probe_dims=GRID["dims"],
+              surface_offset=trm.SURFACE_OFFSET)
+
+    def evaluations(**extra):
+        with TM.counting():
+            out = TM.geometry_reference(packed, lpos, n_lights, o, d, 20.0,
+                                        **kw, **extra)
+        per_point = {n // c for n, c in zip(TM.scene_evals.values(),
+                                            packed.counts) if c}
+        assert len(per_point) == 1
+        return out, per_point.pop()
+
+    out, with_ao = evaluations(ao_steps=3)
+    hit = out["hit"]
+    n_hit = int(hit.sum())
+    assert 0 < n_hit < 96
+    torch.testing.assert_close(out["normal"][~hit], -d[~hit], rtol=0, atol=0)
+    assert bool((out["ao"][~hit] == 1.0).all())
+    assert bool((out["ao"][hit] != 1.0).any())
+    _, without_ao = evaluations(ao_steps=0)
+    assert with_ao - without_ao == 3 * n_hit
+    # the missing rays alone cost what their march and one classification
+    # cost (raycast_reference's count): no normal, AO, shadow or visibility
+    # evaluation
+    o, d = o[~hit].contiguous(), d[~hit].contiguous()
+    out, misses = evaluations(ao_steps=3)
+    assert not bool(out["hit"].any())
+    with TM.counting():
+        TM.raycast_reference(packed, o, d, 20.0)
+    assert misses == TM.scene_evals[0] // packed.counts[0]

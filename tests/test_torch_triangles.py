@@ -193,18 +193,25 @@ def _port(jspec, jdata):
 
 
 def test_triangle_table_layout():
-    """Derived constants, global index, material id and live flag per
-    slot; chunk boxes hold their slots' vertices, super-chunk boxes their
-    chunks; padding is inert; columns keep spec order."""
+    """Derived constants per slot, chunk-major with a triangle's float4
+    rows CHUNK apart; global index and material id in the info table after
+    the slots'; chunk boxes hold their slots' vertices, super-chunk boxes
+    their chunks; columns keep spec order."""
     jspec, jdata = build_chunked_scene(n_tris=80)
     tspec, tdata = _port(jspec, jdata)
     packed = TM.pack_scene(tspec, tdata)
     assert packed.n_chunks == 10 and packed.n_supers == 2
-    assert packed.tris.shape == (80, TM.TRI_WIDTH)
+    assert packed.tris.shape == (10, TM.TRI_ROWS, TM.CHUNK, 4)
     assert packed.n_slots == 1 and packed.n_columns == 81
-    tris = packed.tris.numpy()
-    np.testing.assert_array_equal(tris[:, TM.TRI_GIDX], np.arange(80))
-    np.testing.assert_array_equal(tris[:, TM.TRI_LIVE], 1.0)
+    # triangle 8·c + j's float4 row k sits at tris[c, k, j]
+    tris = packed.triangle_rows().numpy()
+    np.testing.assert_array_equal(
+        tris.reshape(10, TM.CHUNK, TM.TRI_ROWS, 4),
+        packed.tris.numpy().transpose(0, 2, 1, 3))
+    # the plane's slot first (gidx 80), then the triangle slots
+    np.testing.assert_array_equal(packed.info[:, 0].numpy(),
+                                  [80] + list(range(80)))
+    np.testing.assert_array_equal(packed.tri_live.numpy(), 1.0)
     np.testing.assert_array_equal(packed.col_gidx.numpy(),
                                   list(range(80)) + [80])
     jd = JP.Triangle.derive(jax.tree.map(lambda a: a[:80],
@@ -216,12 +223,14 @@ def test_triangle_table_layout():
             tris[:, col:col + width].reshape(np.asarray(jd[name]).shape),
             np.asarray(jd[name]), err_msg=name, **PRIM_TOL)
         col += width
-    boxes = packed.boxes.numpy()
+    boxes = packed.aabbs.numpy()
+    assert boxes.shape == (1 + 2 + 10, 8)
+    assert (boxes[1:, 3] == 0).all() and (boxes[1:, 7] == 0).all()
     scale = 1.0 + max(np.abs(np.asarray(jdata.prims["triangle"][k][:80]))
                       .max() for k in ("v1", "v2", "v3"))
-    np.testing.assert_allclose(boxes[0], scale)
-    sup = boxes[6:18].reshape(2, 6)
-    chunks = boxes[18:].reshape(10, 6)
+    np.testing.assert_allclose(boxes[0, 0], scale)
+    sup = boxes[1:3][:, [0, 1, 2, 4, 5, 6]]
+    chunks = boxes[3:][:, [0, 1, 2, 4, 5, 6]]
     verts = np.stack([np.asarray(jdata.prims["triangle"][k][:80])
                       for k in ("v1", "v2", "v3")], axis=1)
     for c in range(10):
@@ -233,18 +242,21 @@ def test_triangle_table_layout():
 
 
 def test_dead_and_padded_triangle_slots_are_inert():
-    """Dynamic counts: dead slots carry live 0 and leave their chunk's box;
-    a chunk of dead or padded slots has the inert box (BIG, -BIG)."""
+    """Dynamic counts: dead slots carry live 0, hold the inert triangle
+    and leave their chunk's box; a chunk of dead or padded slots has the
+    inert box (BIG, -BIG)."""
     jspec, jdata = build_chunked_scene(n_tris=80)
     tspec, tdata = _port(jspec, jdata)
     tspec = tspec.__class__(prims=tspec.prims, lights=tspec.lights,
                             max_dist=tspec.max_dist)
     tdata.prim_counts["triangle"] = torch.tensor(13, dtype=torch.int32)
     packed = TM.pack_scene(tspec, tdata)
-    assert packed.n_chunks == 10 and packed.tris.shape[0] == 80
-    live = packed.tris[:, TM.TRI_LIVE].numpy()
-    np.testing.assert_array_equal(live, [1.0] * 13 + [0.0] * 67)
-    chunks = packed.boxes.numpy()[18:].reshape(10, 6)
+    assert packed.n_chunks == 10 and packed.tri_live.shape[0] == 80
+    np.testing.assert_array_equal(packed.tri_live.numpy(),
+                                  [1.0] * 13 + [0.0] * 67)
+    dead = packed.triangle_rows().numpy()[13:]
+    assert (dead[:, 0] == TM.DEAD_TRIANGLE_X).all() and not dead[:, 1:].any()
+    chunks = packed.aabbs.numpy()[3:][:, [0, 1, 2, 4, 5, 6]]
     assert (chunks[2:, :3] == TM.BIG).all() and (chunks[2:, 3:] ==
                                                  -TM.BIG).all()
     verts = np.stack([np.asarray(jdata.prims["triangle"][k][8:13])
@@ -415,13 +427,13 @@ def test_pruning_emulation_gives_the_unpruned_minimum(tri_scene):
     counted = dict(TM.pruned_evals)
     TM.scene_dist(packed, p, tspec.max_dist)
     assert TM.pruned_evals == counted
-    n_tri = packed.tris.shape[0]
+    n_tri = packed.tri_live.shape[0]
     assert TM.scene_evals[TM.TRIANGLE_CODE] == 2 * p.shape[0] * n_tri
 
-    pts, b = _np(p), _np(packed.boxes)
+    pts, b = _np(p), _np(packed.aabbs)
     ns, nc = packed.n_supers, packed.n_chunks
     lim = _np(full) + np.float32(TM.PRUNE_REL) * (
-        b[0] + np.abs(pts[:, 0]) + np.abs(pts[:, 1]) + np.abs(pts[:, 2]))
+        b[0, 0] + np.abs(pts[:, 0]) + np.abs(pts[:, 1]) + np.abs(pts[:, 2]))
 
     def within(boxes):
         g = np.maximum(np.maximum(boxes[None, :, :3] - pts[:, None],
@@ -429,10 +441,10 @@ def test_pruning_emulation_gives_the_unpruned_minimum(tri_scene):
         return g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] \
             + g[..., 2] * g[..., 2] <= (lim * lim)[:, None]
 
-    boxes = b[6:].reshape(-1, 6)
+    boxes = b[1:][:, [0, 1, 2, 4, 5, 6]]
     sup = within(boxes[:ns])
     chunk = within(boxes[ns:]) & sup[:, np.arange(nc) // TM.SUPER]
-    live = _np(packed.tris[:, TM.TRI_LIVE]).reshape(nc, TM.CHUNK).sum(1)
+    live = _np(packed.tri_live).reshape(nc, TM.CHUNK).sum(1)
     per_super = np.bincount(np.arange(nc) // TM.SUPER)
     assert counted == {
         "aabb": len(pts) * ns + int((sup * per_super).sum()),

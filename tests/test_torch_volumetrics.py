@@ -173,7 +173,7 @@ def dynamic():
     jspec, jdata = build_scene()
     tdata = scene_data_from_numpy(jax.tree.map(np.asarray, jdata), "cpu")
     packed = TM.pack_scene(port_spec(jspec), tdata)
-    assert (packed.slots[:, 3] == 0).sum() > 0
+    assert (~TM.slot_live(packed)).sum() > 0
     return jspec, jdata, packed
 
 
