@@ -7,9 +7,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
 
 1. toolchain: the card's name and power limit (nvidia-smi), torch, CUDA
    and nvcc versions; fails without a CUDA device;
-2. builds the kernels (ops/csrc/march.cu, and geometry.cu once per lane
-   count, with FMA contraction and with COUNT_WORK; one nvcc each, started
-   together) from the
+2. builds the kernels (ops/csrc/march.cu generic and once per layout of
+   MARCH_LAYOUTS; geometry.cu once per lane count, with FMA contraction
+   and with COUNT_WORK; one nvcc each, started together) from the
    checkout and prints ptxas's register and spill lines for the geometry
    kernel;
 3. holds the geometry kernel against its plain PyTorch version
@@ -25,10 +25,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
    the geometry kernel ran twice per frame, and reports ms/frame (CUDA
    events) and rays/s;
 7. prints ptxas's register and spill lines for the raycast and
-   visibility kernels (march.cu);
-8. holds the raycast kernel against raycast_reference on the 62,500 rays
-   of light_shafts' 800x800 scattering pass, and the visibility kernel
-   against visibility_reference on its 1,000,000 froxel-to-light rays;
+   visibility kernels (each build of march.cu);
+8. prints the march steps of the plain versions (mean, largest, and the
+   SIMT efficiency of one thread a ray) on the 62,500 rays of
+   light_shafts' 800x800 scattering pass and its 1,000,000
+   froxel-to-light rays; holds the raycast kernel against
+   raycast_reference on the scattering rays, and the visibility kernel
+   against visibility_reference on the froxel rays, each in every build
+   of march_candidates (the generic build and the room's layout build on
+   the room, and both on the room padded to each of PADDED_LAYOUTS);
 9. renders light_shafts at 128x128 over 2 frames through
    Renderer(device="cuda") and holds it to the JAX golden;
 10. renders light_shafts at 800x800 (5 timed frames after a warm-up),
@@ -36,14 +41,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
    raycast kernel once and the visibility kernel once per live light
    slot, and reports ms/frame, rays/s and the per-pass split;
 11. times the raycast and visibility kernels against their plain
-   versions at those shapes;
+   versions at those shapes, and every candidate of each in turns beside
+   the bound;
 12. prints ptxas's register and spill lines for the softshadow kernel
-   (march.cu);
-13. holds, on the rays of a global_illumination specular-mode-1 800x800
-   screen pass, the raycast kernel against raycast_reference on its
-   640,000 masked reflection rays and the softshadow kernel against
+   (each build of march.cu);
+13. on the rays of a global_illumination specular-mode-1 800x800 screen
+   pass, prints the plain versions' march steps as in phase 8 and holds
+   the raycast kernel against raycast_reference on its 640,000 masked
+   reflection rays and the softshadow kernel against
    softshadows_reference on its 5,120,000 penumbra rays (8 per pixel,
-   k = 0.5);
+   k = 0.5), each at every candidate as in phase 8;
 14. holds the geometry kernel with a per-ray mask and no AO (specular
    mode 3's reflection launch) against geometry_reference on 16,384 and
    on all 640,000 of the mode-3 reflection rays;
@@ -63,7 +70,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    busy time per frame and its heaviest kernels;
 18. times the softshadow kernel against its plain version on the
    5,120,000 penumbra rays, and the raycast kernel on the 640,000
-   reflection rays;
+   reflection rays, and every candidate of each in turns beside the
+   bound;
 19. prints ptxas's register and spill lines for the triangle variants of
    the geometry kernel and of the march kernels;
 20. builds obj_mesh at 800x800 on the in-repo 968-triangle torus
@@ -101,6 +109,13 @@ TIMED_LANES is timed in turns beside the bound (phases 3, 16, 23); on
 obj_mesh a COUNT_WORK build reports the box tests and triangles the kernel
 itself evaluated, beside the plain version's count of what exact pruning
 needs (phase 23).
+
+The raycast, visibility and softshadow kernels run one thread a ray, in
+the build of march.cu for the scene's layout where it has one
+(ops/march.py:march_layout; the room scenes), else the generic build.
+The padded layouts time that choice at march_layout's limit and past it:
+the room with inert slots appended (pad_scene) marches as the room does,
+so either build's outputs are the plain version's on the room.
 
 (Phase 6 of earlier versions, the geometry kernel at the full shapes, is
 part of phase 3.)
@@ -192,11 +207,12 @@ def toolchain(torch, m):
 
 def build_all(m):
     """Builds every library this script launches at once (one nvcc each, in
-    parallel): march.cu; geometry.cu at each of TIMED_LANES and, at the
-    lane counts the wrapper can choose, with FMA contraction and with
-    COUNT_WORK."""
+    parallel): march.cu at each of MARCH_LAYOUTS; geometry.cu at each of
+    TIMED_LANES and, at the lane counts the wrapper can choose, with FMA
+    contraction and with COUNT_WORK."""
     M = m.M
-    builds = [("march.cu", M.march_library)]
+    builds = [(f"march.cu {' '.join(M.march_defines(c))}".strip(),
+               lambda c=c: M.march_library(c)) for c in MARCH_LAYOUTS]
     builds += [(f"geometry.cu {x} lanes", lambda x=x: M.geometry_library(x))
                for x in TIMED_LANES]
     for x in M.LANE_CHOICES:
@@ -215,14 +231,32 @@ def build_all(m):
 def ptxas_lines(m, name, kernel="", defines=()):
     """ptxas's register and spill lines of csrc/<name>.cu built with the
     macros ``defines``, each tagged with the kernel it reports on; only
-    the kernels whose (mangled) name holds ``kernel``."""
+    the kernels whose (mangled) name holds ``kernel`` (or one of them, a
+    tuple)."""
     entry = "?"
     tag = f"{name} {' '.join(defines)}".strip()
+    kernels = (kernel,) if isinstance(kernel, str) else kernel
     for line in m.build.build_log(name, defines).splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1] if "'" in line else line
-        elif ("registers" in line or "spill" in line) and kernel in entry:
+        elif ("registers" in line or "spill" in line) and any(
+                k in entry for k in kernels):
             print(f"ptxas {tag} {entry}: {line.strip()}")
+
+
+# march.cu's builds (march_library's layouts): the generic one (None), the
+# room scenes' layout (march_layout: 1 sphere, 6 planes, 1 box; 9 float4
+# rows), and the room padded with inert slots to march_layout's limit of
+# UNROLL_ROWS_MAX (20 rows: 4,8,4) and past it (32 rows: 8,8,8), each timed
+# against the generic build on the same padded scene.
+ROOM_LAYOUT = (1, 6, 1)
+PADDED_LAYOUTS = ((4, 8, 4), (8, 8, 8))
+MARCH_LAYOUTS = (None, ROOM_LAYOUT) + PADDED_LAYOUTS
+
+
+def march_ptxas(m, kernel):
+    for layout in MARCH_LAYOUTS:
+        ptxas_lines(m, "march", kernel, m.M.march_defines(layout))
 
 
 def lanes_def(lanes):
@@ -314,8 +348,10 @@ def check_geometry(torch, label, n_rays, k, ref):
 
 def cuda_ms(torch, fn, iters):
     """Mean ms of fn() over iters launches between two CUDA events, after
-    one warm-up call."""
-    fn()
+    as many warm-up calls: a launch of 0.07 ms read twice that after one
+    warm-up behind a plain version's run of many small ops."""
+    for _ in range(iters):
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -381,6 +417,149 @@ def time_lanes(torch, m, run, packed, n, label, bound_txt, card):
           + ", ".join(f"{x} lanes {t:.3f} ms" for x, t in ms.items())
           + f"; the wrapper launches {chosen}; {bound_txt}; [{card}]")
     return ms, chosen
+
+
+def step_stats(torch, label, steps):
+    """The march steps of a launch's rays (the plain version's count):
+    mean, largest, and the SIMT efficiency of one thread a ray, a warp of
+    32 consecutive rays waiting for its slowest: sum of steps / sum over
+    warps of 32 x the warp's largest.  Printed and returned."""
+    s = steps.to(torch.int64)
+    w = torch.nn.functional.pad(s, (0, -s.numel() % 32))
+    out = {"rays": s.numel(), "marched": int((s > 0).sum()),
+           "mean": float(s.float().mean()), "max": int(s.max()),
+           "total": int(s.sum())}
+    out["simt"] = out["total"] / (32 * int(w.reshape(-1, 32).amax(dim=1)
+                                             .sum()))
+    print(f"steps {label}: {out['rays']} rays, {out['marched']} marched, "
+          f"mean {out['mean']:.3f}, max {out['max']}, total "
+          f"{out['total']}; SIMT efficiency {out['simt']:.4f} at one lane "
+          f"a ray")
+    return out
+
+
+def pad_scene(torch, m, packed, counts):
+    """The packed scene (no triangles) with inert slots appended to its
+    typed runs up to counts (spheres, planes, boxes), each packed as
+    pack_scene packs a dead dynamic-count slot, and to the plain versions'
+    columns: the same scene distances from more slots a step."""
+    M = m.M
+    big = M.BIG
+    add = [c - have for c, have in zip(counts, packed.counts)]
+    if packed.n_chunks or min(add) < 0:
+        fail(f"cannot pad layout {packed.counts} to {counts}")
+    dev = packed.rows.device
+    dead = [((0.0, 0.0, 0.0, -big),), ((0.0, 0.0, 0.0, big),),
+            ((0.0, 0.0, 0.0, 0.0), (-big, -big, -big, 0.0))]
+    rows, info = [], []
+    row = slot = 0
+    for code, n in enumerate(packed.counts):
+        # a box's run is every center, then every half-side
+        for blank in dead[code]:
+            rows += [packed.rows[row:row + n],
+                     torch.tensor(blank, device=dev).expand(add[code], 4)]
+            row += n
+        info += [packed.info[slot:slot + n],
+                 torch.zeros((add[code], 2), dtype=torch.int32, device=dev)]
+        slot += n
+    first = [0, counts[0], counts[0] + counts[1]]
+    entries, gidx, mid = [], [], []
+    col = 0
+    for ptype, _, n, static in packed.entries:
+        code = M.KERNEL_TYPES[ptype][0]
+        entries.append((ptype, first[code], counts[code], static))
+        for out, cols in ((gidx, packed.col_gidx), (mid, packed.col_mid)):
+            out += [cols[col:col + n],
+                    torch.zeros(add[code], dtype=cols.dtype, device=dev)]
+        col += n
+    return dataclasses.replace(
+        packed, entries=tuple(entries), rows=torch.cat(rows).contiguous(),
+        counts=tuple(counts), info=torch.cat(info).contiguous(),
+        col_gidx=torch.cat(gidx), col_mid=torch.cat(mid))
+
+
+def layout_name(counts):
+    return ",".join(map(str, counts))
+
+
+def march_candidates(torch, m, packed):
+    """{name: (march.cu build, packed scene)}: the generic build and, on a
+    scene with a layout (march_layout), the layout's build the wrappers
+    launch, then the scene padded to each of PADDED_LAYOUTS in the generic
+    build and in the padded layout's."""
+    M = m.M
+    layout = M.march_layout(packed)
+    out = {"generic": (M.march_library(), packed)}
+    if layout is None:
+        return out
+    out[f"layout {layout_name(layout)}"] = (M.march_library(layout), packed)
+    for counts in PADDED_LAYOUTS:
+        padded = pad_scene(torch, m, packed, counts)
+        out[f"generic, padded to {layout_name(counts)}"] = (
+            M.march_library(), padded)
+        out[f"layout {layout_name(counts)}, padded"] = (
+            M.march_library(counts), padded)
+    return out
+
+
+def launched(m, packed):
+    """The candidate the wrappers launch on this scene."""
+    layout = m.M.march_layout(packed)
+    return "generic" if layout is None else f"layout {layout_name(layout)}"
+
+
+def check_raycast(torch, label, k, ref):
+    """The raycast kernel's (t, hit) against the plain version's; returns
+    the largest |t| difference on rays whose hit agrees."""
+    (kt, khit), (rt, rhit) = k[:2], ref[:2]
+    agree = khit == rhit
+    err = float(torch.where(agree, (kt - rt).abs(), 0.0).max())
+    check(label, kt.shape[0], int(rhit.sum()),
+          {"hit": 1.0 - agree.float().mean().item()}, {"t": err})
+    return err
+
+
+def check_visibility(torch, label, k, ref):
+    """The visibility kernel's 0/1 against the plain version's; returns
+    the largest difference."""
+    check(label, k.shape[0], int((ref == 0).sum()),
+          {"vis": 1.0 - (k == ref).float().mean().item()}, {})
+    return float((k - ref).abs().max())
+
+
+def check_softshadows(torch, label, k, ref):
+    """The softshadow kernel's factors against the plain version's;
+    returns the largest difference on rays blocked on both or neither."""
+    same = (k == 0) == (ref == 0)
+    err = float(torch.where(same, (k - ref).abs(), 0.0).max())
+    check(label, k.shape[0], int((ref == 0).sum()),
+          {"blocked": 1.0 - same.float().mean().item()}, {"res": err})
+    return err
+
+
+def hold_builds(torch, label, run, ref, check_fn, cands):
+    """Holds the kernel run(library, packed) at each of cands
+    (march_candidates) to the plain outputs ref; returns the largest
+    difference."""
+    err = 0.0
+    for name, (lib, packed) in cands.items():
+        k = run(lib, packed)
+        torch.cuda.synchronize()
+        err = max(err, check_fn(torch, f"{label}, {name}", k, ref))
+        del k
+    return err
+
+
+def time_builds(torch, m, run, label, n, b_ms, card, cands, packed):
+    """The kernel run(library, packed) at each of cands (march_candidates
+    on packed), timed in turns beside the bound: {name: ms}."""
+    ms = dict(zip(cands, time_turns(
+        torch, [lambda c=c: run(*c) for c in cands.values()])))
+    print(f"builds {label} ({n} rays): "
+          + ", ".join(f"{k} {t:.4f} ms" for k, t in ms.items())
+          + f"; the wrapper launches {launched(m, packed)}; bound "
+          f"{b_ms:.5f} ms; [{card}]")
+    return ms
 
 
 KERNELS = ("geometry", "raycast", "visibility", "softshadows")
@@ -695,31 +874,24 @@ def mesh_phases(torch, m, dev, card):
     mx = (torch.rand(CHECK_RAYS, generator=g) * 20.0).to(dev)
     mn = (torch.rand(CHECK_RAYS, generator=g) * 0.5).to(dev)
     en = torch.ones(CHECK_RAYS, dtype=torch.bool, device=dev)
-    kt, khit, _ = M.raycast(packed, o, d, r.spec.max_dist)
+    k = M.raycast(packed, o, d, r.spec.max_dist)
     torch.cuda.synchronize()
-    rt, rhit, _ = M.raycast_reference(packed, o, d, r.spec.max_dist)
-    agree = khit == rhit
-    rc_err = float(torch.where(agree, (kt - rt).abs(), 0.0).max())
-    check("raycast obj_mesh", CHECK_RAYS, int(rhit.sum()),
-          {"hit": 1.0 - agree.float().mean().item()}, {"t": rc_err})
+    rc_err = check_raycast(torch, "raycast obj_mesh", k,
+                           M.raycast_reference(packed, o, d,
+                                               r.spec.max_dist))
     kvis = M.visibility(packed, o, d, mx, enabled=en)
     torch.cuda.synchronize()
-    rvis = M.visibility_reference(packed, o, d, mx, enabled=en)
-    vis_err = float((kvis - rvis).abs().max())
-    check("visibility obj_mesh", CHECK_RAYS, int((rvis == 0).sum()),
-          {"vis": 1.0 - (kvis == rvis).float().mean().item()}, {})
+    vis_err = check_visibility(
+        torch, "visibility obj_mesh", kvis,
+        M.visibility_reference(packed, o, d, mx, enabled=en))
     sh_err = 0.0
     for k_pen in (64.0, 0.5):
         ksh = M.softshadows(packed, o, d, mn, mx, k_pen, enabled=en)
         torch.cuda.synchronize()
-        rsh = M.softshadows_reference(packed, o, d, mn, mx, k_pen,
-                                      enabled=en)
-        same = (ksh == 0) == (rsh == 0)
-        err = float(torch.where(same, (ksh - rsh).abs(), 0.0).max())
-        sh_err = max(sh_err, err)
-        check(f"softshadows obj_mesh k={k_pen}", CHECK_RAYS,
-              int((rsh == 0).sum()),
-              {"blocked": 1.0 - same.float().mean().item()}, {"res": err})
+        sh_err = max(sh_err, check_softshadows(
+            torch, f"softshadows obj_mesh k={k_pen}", ksh,
+            M.softshadows_reference(packed, o, d, mn, mx, k_pen,
+                                    enabled=en)))
 
     # ---- 22. card against CPU: 32x32, the tiny probes, 2 frames
     imgs = [S.obj_mesh(width=32, height=32, obj_path=S.TORUS_OBJ,
@@ -872,9 +1044,8 @@ def main():
     gi_launches = drive(torch, m, r, "GI 800x800", frames,
                            {"geometry": 2}, card)
 
-    # ---- 7. the raycast and visibility kernels' ptxas report
-    ptxas_lines(m, "march", "raycast_kernel")
-    ptxas_lines(m, "march", "visibility_kernel")
+    # ---- 7. the raycast and visibility kernels' ptxas report, each build
+    march_ptxas(m, ("raycast_kernel", "visibility_kernel"))
 
     # ---- 8. raycast and visibility vs plain versions at light_shafts'
     # full shapes
@@ -887,29 +1058,46 @@ def main():
     if (n_scat, n_frox) != (62_500, 1_000_000):
         fail(f"light_shafts rays: {n_scat} scattering, {n_frox} froxel")
     froxel_en = torch.ones(n_frox, dtype=torch.bool, device=dev)
+    scat_en = torch.ones(n_scat, dtype=torch.bool, device=dev)
+    ls_cands = march_candidates(torch, m, lctx.packed)
 
-    def raycast(fn):
-        return fn(lctx.packed, so, sd, vol.max_depth, max_steps=max_steps)
+    def raycast(fn, **kw):
+        return fn(lctx.packed, so, sd, vol.max_depth, max_steps=max_steps,
+                  **kw)
 
-    def visibility(fn):
+    def visibility(fn, **kw):
         return fn(lctx.packed, fp, fdir, fdist, max_steps=max_steps,
-                  enabled=froxel_en)
+                  enabled=froxel_en, **kw)
 
-    (rt, rhit, _), rc_flops = counted(torch, m,
-                                      lambda: raycast(M.raycast_reference))
-    kt, khit, _ = raycast(M.raycast)
+    def raycast_on(lib, packed):
+        return M._raycast(lib, packed, so, sd, vol.max_depth, scat_en,
+                          max_steps=max_steps)
+
+    def visibility_on(lib, packed):
+        return M._visibility(lib, packed, fp, fdir, fdist, froxel_en,
+                             max_steps=max_steps)
+
+    # the plain versions' step counts, then each kernel held to its plain
+    # version through the wrapper and in every build
+    (rt, rhit, _, rc_steps), rc_flops = counted(
+        torch, m, lambda: raycast(M.raycast_reference, return_steps=True))
+    steps = {"scattering": step_stats(torch, "raycast scattering",
+                                      rc_steps)}
+    k = raycast(M.raycast)
     torch.cuda.synchronize()
-    agree = khit == rhit
-    rc_err = float(torch.where(agree, (kt - rt).abs(), 0.0).max())
-    check("raycast full", n_scat, int(rhit.sum()),
-          {"hit": 1.0 - agree.float().mean().item()}, {"t": rc_err})
-    rvis, vis_flops = counted(torch, m,
-                              lambda: visibility(M.visibility_reference))
+    rc_err = max(check_raycast(torch, "raycast full", k, (rt, rhit)),
+                 hold_builds(torch, "raycast full", raycast_on, (rt, rhit),
+                             check_raycast, ls_cands))
+    (rvis, vis_steps), vis_flops = counted(
+        torch, m, lambda: visibility(M.visibility_reference,
+                                     return_steps=True))
+    steps["froxels"] = step_stats(torch, "visibility froxels", vis_steps)
     kvis = visibility(M.visibility)
     torch.cuda.synchronize()
-    vis_err = float((kvis - rvis).abs().max())
-    check("visibility full", n_frox, int((rvis == 0).sum()),
-          {"vis": 1.0 - (kvis == rvis).float().mean().item()}, {})
+    vis_err = max(check_visibility(torch, "visibility full", kvis, rvis),
+                  hold_builds(torch, "visibility full", visibility_on, rvis,
+                              check_visibility, ls_cands))
+    del k, kvis, rvis
 
     # ---- 9. light_shafts 128x128, 2 frames, against the JAX golden
     small = S.light_shafts(width=128, height=128, device=dev)
@@ -945,9 +1133,14 @@ def main():
         print(f"time {name} ({n} rays): kernel {ks[0]:.4f}/{ks[1]:.4f} ms, "
               f"plain {ps[0]:.1f}/{ps[1]:.1f} ms; bound {b_ms:.5f} ms "
               f"({b_by}: {flops:.4e} flops); [{card}]")
+    rc_builds = time_builds(torch, m, raycast_on, "raycast scattering",
+                            n_scat, rc_bound[0], card, ls_cands, lctx.packed)
+    vis_builds = time_builds(torch, m, visibility_on, "visibility froxels",
+                             n_frox, vis_bound[0], card, ls_cands,
+                             lctx.packed)
 
-    # ---- 12. the softshadow kernel's ptxas report
-    ptxas_lines(m, "march", "softshadow_kernel")
+    # ---- 12. the softshadow kernel's ptxas report, each build
+    march_ptxas(m, "softshadow_kernel")
 
     # ---- 13. raycast and softshadow kernels vs plain versions on the rays
     # of a GI specular-mode-1 800x800 screen pass
@@ -960,43 +1153,61 @@ def main():
     _, _, _, (o_scr, d_scr) = gi_rays(torch, m, g1, dev)
     pos, ro, rd, ren = reflection_rays(torch, m, g1, o_scr, d_scr)
     n_refl = ro.shape[0]
+    g1_cands = march_candidates(torch, m, g1ctx.packed)
 
-    def refl_raycast(fn):
+    def refl_raycast(fn, **kw):
         return fn(g1ctx.packed, ro, rd, g1.spec.max_dist, max_steps=max_steps,
-                  enabled=ren)
+                  enabled=ren, **kw)
 
-    (rt, rhit, spec_pos), rc1_flops = counted(
-        torch, m, lambda: refl_raycast(M.raycast_reference))
-    kt, khit, _ = refl_raycast(M.raycast)
+    def refl_raycast_on(lib, packed):
+        return M._raycast(lib, packed, ro, rd, g1.spec.max_dist, ren,
+                          max_steps=max_steps)
+
+    (rt, rhit, spec_pos, rc1_steps), rc1_flops = counted(
+        torch, m, lambda: refl_raycast(M.raycast_reference,
+                                       return_steps=True))
+    steps["reflections"] = step_stats(torch, "raycast mode-1 reflections",
+                                      rc1_steps)
+    k = refl_raycast(M.raycast)
     torch.cuda.synchronize()
-    agree = khit == rhit
-    rc_err = max(rc_err, float(torch.where(agree, (kt - rt).abs(),
-                                           0.0).max()))
-    check("raycast mode-1 reflections", n_refl, int(rhit.sum()),
-          {"hit": 1.0 - agree.float().mean().item()},
-          {"t": float(torch.where(agree, (kt - rt).abs(), 0.0).max())})
+    rc_err = max(rc_err, check_raycast(torch, "raycast mode-1 reflections",
+                                       k, (rt, rhit)),
+                 hold_builds(torch, "raycast mode-1 reflections",
+                             refl_raycast_on, (rt, rhit), check_raycast,
+                             g1_cands))
+    del k
     pen = m.shading.glossy_corners(g1.probes, pos, spec_pos, ren & rhit)[3]
     n_pen = pen["origins"].shape[0]
     if (n_refl, n_pen) != (640_000, 5_120_000):
         fail(f"GI mode-1 rays: {n_refl} reflection, {n_pen} penumbra")
 
-    def penumbra(fn):
+    def penumbra(fn, **kw):
         return fn(g1ctx.packed, pen["origins"], pen["dirs"], pen["min_dists"],
                   pen["max_dists"], m.shading.GLOSSY_K, max_steps=max_steps,
-                  enabled=pen["enabled"])
+                  enabled=pen["enabled"], **kw)
 
-    rsh, sh_flops = counted(torch, m,
-                            lambda: penumbra(M.softshadows_reference))
-    ksh = penumbra(M.softshadows)
+    def penumbra_on(lib, packed):
+        return M._softshadows(lib, packed, pen["origins"], pen["dirs"],
+                              pen["min_dists"], pen["max_dists"],
+                              m.shading.GLOSSY_K, pen["enabled"],
+                              max_steps=max_steps)
+
+    (rsh, sh_steps), sh_flops = counted(
+        torch, m, lambda: penumbra(M.softshadows_reference,
+                                   return_steps=True))
+    steps["penumbra"] = step_stats(torch, "softshadows mode-1 penumbras",
+                                   sh_steps)
+    k = penumbra(M.softshadows)
     torch.cuda.synchronize()
-    same = (ksh == 0) == (rsh == 0)
-    sh_err = float(torch.where(same, (ksh - rsh).abs(), 0.0).max())
-    check("softshadows mode-1 penumbras", n_pen, int((rsh == 0).sum()),
-          {"blocked": 1.0 - same.float().mean().item()}, {"res": sh_err})
+    sh_err = max(check_softshadows(torch, "softshadows mode-1 penumbras", k,
+                                   rsh),
+                 hold_builds(torch, "softshadows mode-1 penumbras",
+                             penumbra_on, rsh, check_softshadows, g1_cands))
+    del k
     print(f"mode-1 penumbras: {int(pen['enabled'].sum())} of {n_pen} "
           f"marched, {int((rsh == 0).sum())} blocked, "
           f"{int(((rsh > 0) & (rsh < 1)).sum())} soft")
-    del rsh, ksh
+    del rsh, rc_steps, rc1_steps, sh_steps, vis_steps
 
     # ---- 14. the masked geometry launch (mode 3's reflection rays, no AO)
     # vs its plain version
@@ -1086,6 +1297,9 @@ def main():
           f"{sh_t[0][0]:.4f}/{sh_t[0][1]:.4f} ms, plain "
           f"{sh_t[1][0]:.1f}/{sh_t[1][1]:.1f} ms; bound {sh_bound[0]:.5f} "
           f"ms ({sh_bound[1]}: {sh_flops:.4e} flops); [{card}]")
+    sh_builds = time_builds(torch, m, penumbra_on,
+                            "softshadows mode-1 penumbras", n_pen,
+                            sh_bound[0], card, g1_cands, g1ctx.packed)
     rc1_t = time_pair(torch, lambda: refl_raycast(M.raycast),
                       lambda: refl_raycast(M.raycast_reference))
     rc1_bound = bound(rc1_flops, n_refl * (24 + 1 + 4 + 1)
@@ -1095,6 +1309,9 @@ def main():
           f"{rc1_t[1][0]:.1f}/{rc1_t[1][1]:.1f} ms; bound "
           f"{rc1_bound[0]:.5f} ms ({rc1_bound[1]}: {rc1_flops:.4e} flops); "
           f"[{card}]")
+    rc1_builds = time_builds(torch, m, refl_raycast_on,
+                             "raycast mode-1 reflections", n_refl,
+                             rc1_bound[0], card, g1_cands, g1ctx.packed)
 
     # ---- 19-23. obj_mesh: the triangle path
     mesh, rc_mesh, vis_mesh, sh_mesh = mesh_phases(torch, m, dev, card)
@@ -1185,21 +1402,29 @@ def main():
          "ms": min(rc_t[0]), "plain_ms": min(rc_t[1]),
          "bound_ms": rc_bound[0], "bound_by": rc_bound[1],
          "library_ms": None,
+         "candidate": launched(m, lctx.packed),
+         "ms_by_build": rc_builds, "steps": steps["scattering"],
          "launches_gi_mode1": paths["GI mode 1"]["raycast"],
          "ms_gi_mode1": min(rc1_t[0]), "plain_ms_gi_mode1": min(rc1_t[1]),
-         "bound_ms_gi_mode1": rc1_bound[0]},
+         "bound_ms_gi_mode1": rc1_bound[0],
+         "candidate_gi_mode1": launched(m, g1ctx.packed),
+         "ms_by_build_gi_mode1": rc1_builds,
+         "steps_gi_mode1": steps["reflections"]},
         {"name": "visibility", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1127",
          "launches": launches["visibility"], "max_abs_err": vis_err,
          "ms": min(vis_t[0]), "plain_ms": min(vis_t[1]),
          "bound_ms": vis_bound[0], "bound_by": vis_bound[1],
-         "library_ms": None},
+         "library_ms": None, "candidate": launched(m, lctx.packed),
+         "ms_by_build": vis_builds, "steps": steps["froxels"]},
         {"name": "softshadows", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1144",
          "launches": paths["GI mode 1"]["softshadows"], "max_abs_err": sh_err,
          "ms": min(sh_t[0]), "plain_ms": min(sh_t[1]),
          "bound_ms": sh_bound[0], "bound_by": sh_bound[1],
-         "library_ms": None},
+         "library_ms": None,
+         "candidate": launched(m, g1ctx.packed),
+         "ms_by_build": sh_builds, "steps": steps["penumbra"]},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

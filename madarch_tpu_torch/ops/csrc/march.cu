@@ -1,5 +1,4 @@
-// Raycast, visibility and penumbra kernels for Hopper (sm_90a): one thread
-// per ray.
+// Raycast, visibility and penumbra kernels for Hopper (sm_90a).
 //
 // raycast_kernel replaces the Pallas TPU kernel
 // madarch_tpu/ops/march.py:_raycast_kernel (reached through
@@ -16,23 +15,45 @@
 // specular mode 1 marches 8 per pixel (k = 0.5) from the reflection hit
 // back toward the probe-cell corners.
 //
-// What bounds them: scene evaluations, not bytes.  A raycast ray reads 25
-// bytes and writes 5, a visibility ray reads 29 and writes 4, a penumbra
-// ray reads 33 and writes 4, but each runs up to max_steps march steps,
-// every step a loop over all live slots (the penumbra march, without
-// over-relaxation, takes the most).  The TPU kernels marched (8,128)
-// tiles until their slowest lane finished; here each thread leaves its
-// loop on its own (a warp still waits for its slowest lane): scene.cuh's
-// evaluation in its one-lane form (G = 1).  The typed slot runs (and the
-// triangle chunks' boxes) sit in shared memory, read by every thread at
-// the same address (a broadcast); triangles stay in device memory and are
-// pruned exactly by their boxes (scene.cuh:tri_min), so a march steps as
-// the unculled plain version does.  No kernel culls with a
-// margin: on the TPU the box-exit cap exists only for all-bounded plans,
-// and a scene with a plane has none; the TPU penumbra kernel's far-field
-// skip for k >= 32 used a margin (0.15) below max_dist/k and darkened
-// shadows, so any such culling here would need a margin of at least
-// max_dist/k.
+// What bounds them on this card.  A ray reads 25 to 33 bytes and writes 4
+// or 5, and a step is one scene evaluation (some 76 float operations in
+// the GI room); the bytes would take a few hundredths of a millisecond at
+// the path's shapes.  What the kernels spend instead is instruction issue
+// and latency: with -fmad=false a step issues some 150 instructions one by
+// one, and a ray takes 1 to max_steps steps.  Measured at the path's full
+// shapes (PERF.md §6), one thread a ray keeps 0.80 (5,120,000 penumbra
+// rays) and 0.86 (640,000 reflection rays) of its lanes busy, so
+// divergence costs the large launches a fifth at most; the 62,500-ray
+// scattering launch, a few warps an SM, lasts as long as its longest ray's
+// chain of dependent steps.
+//
+// The design: one thread a ray, each running scene.cuh's march
+// (march_primary, march_visibility, march_shadow; G = 1), and a build of
+// this file per scene layout.  For a scene without triangles whose typed
+// runs fill at most 20 float4 rows the wrappers launch the library built
+// with FIXED_SPHERES, FIXED_PLANES and FIXED_BOXES set to its counts
+// (ops/march.py:march_layout, UNROLL_ROWS_MAX): scene_dist's slot loops
+// unroll whole, with no loop control and no run-time counts, and ptxas
+// keeps the rows in registers (some four a row); they evaluate the same
+// slots in the same order, so the outputs are bit for bit the generic
+// build's.  That cut a third to a half off the room scenes' launches; at
+// 32 rows the registers (159 a thread) cost the penumbra launch more than
+// they won.  Two other
+// schedules were measured and lost at every shape (PERF.md §6): warps
+// that refill their lanes from a ray counter (their ballots and shuffles
+// cost more than the fifth of idle lanes they win back), and 8 lanes a ray
+// (each lane repeats the ray's arithmetic, and every step waits on the
+// shuffles).
+//
+// The typed slot runs (and the triangle chunks' boxes) sit in shared
+// memory, read by every thread at the same address (a broadcast);
+// triangles stay in device memory and are pruned exactly by their boxes
+// (scene.cuh:tri_min), so a march steps as the unculled plain version
+// does.  No kernel culls with a margin: on the TPU the box-exit cap exists
+// only for all-bounded plans, and a scene with a plane has none; the TPU
+// penumbra kernel's far-field skip for k >= 32 used a margin (0.15) below
+// max_dist/k and darkened shadows, so any such culling here would need a
+// margin of at least max_dist/k.
 //
 // Each launch passes its own scene-distance cap: raycast caps at its
 // max_dist, visibility and softshadows at 1e4 (as pallas_visibility and
@@ -135,6 +156,14 @@ template <typename Kernel>
 int launch(Kernel plain, Kernel with_tris, const MarchArgs* a,
            void* stream) {
   if (a->n == 0) return 0;
+#ifdef FIXED_SPHERES
+  // a layout's build runs only scenes of that layout
+  if (a->scene.n_spheres != FIXED_COUNTS[0] ||
+      a->scene.n_planes != FIXED_COUNTS[1] ||
+      a->scene.n_boxes != FIXED_COUNTS[2]) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#endif
   const int threads = 128;
   const int blocks = (a->n + threads - 1) / threads;
   const bool tris = a->scene.n_chunks > 0;

@@ -69,7 +69,16 @@ constexpr int SUPER = 8;      // chunks per super-chunk box
 constexpr int TRI_ROWS = 7;   // float4 rows of a triangle's 28 constants
 constexpr float PRUNE_REL = 1e-4f;
 constexpr float BIG = 1e9f;
+// FIXED_SPHERES, FIXED_PLANES and FIXED_BOXES, set together by a build for
+// one scene layout (ops/march.py:march_layout), fix scene_dist's loop
+// bounds at build time: the loops unroll whole and evaluate the same slots
+// in the same order.
+#ifdef FIXED_SPHERES
+constexpr int FIXED_COUNTS[3] = {FIXED_SPHERES, FIXED_PLANES, FIXED_BOXES};
+constexpr int SLOT_UNROLL_N = FIXED_SPHERES + FIXED_PLANES + FIXED_BOXES;
+#else
 constexpr int SLOT_UNROLL_N = SLOT_UNROLL;
+#endif
 
 // The scene's tables as the wrappers pass them; mirrored field for field
 // by ops/march.py:_SceneArgs (ctypes).
@@ -403,23 +412,30 @@ __device__ void tri_min(const Scene& sc, const Group<G>& g, float px,
 template <int G, bool TRIS>
 __device__ float scene_dist(const Scene& sc, const Group<G>& g, float px,
                             float py, float pz) {
+#ifdef FIXED_SPHERES
+  constexpr int n_spheres = FIXED_COUNTS[0], n_planes = FIXED_COUNTS[1],
+                n_boxes = FIXED_COUNTS[2];
+#else
+  const int n_spheres = sc.n_spheres, n_planes = sc.n_planes,
+            n_boxes = sc.n_boxes;
+#endif
   float best = sc.max_dist;
   const float4* r = sc.rows;
 #pragma unroll SLOT_UNROLL_N
-  for (int s = g.lane; s < sc.n_spheres; s += G) {
+  for (int s = g.lane; s < n_spheres; s += G) {
     best = fminf(best, sphere_dist(r[s], px, py, pz));
   }
-  r += sc.n_spheres;
+  r += n_spheres;
 #pragma unroll SLOT_UNROLL_N
-  for (int s = g.lane; s < sc.n_planes; s += G) {
+  for (int s = g.lane; s < n_planes; s += G) {
     best = fminf(best, plane_dist(r[s], px, py, pz));
   }
-  r += sc.n_planes;
+  r += n_planes;
 #pragma unroll SLOT_UNROLL_N
-  for (int s = g.lane; s < sc.n_boxes; s += G) {
-    best = fminf(best, box_dist(r[s], r[sc.n_boxes + s], px, py, pz));
+  for (int s = g.lane; s < n_boxes; s += G) {
+    best = fminf(best, box_dist(r[s], r[n_boxes + s], px, py, pz));
   }
-  if (G > 1 && sc.n_spheres + sc.n_planes + sc.n_boxes > 0) {
+  if (G > 1 && n_spheres + n_planes + n_boxes > 0) {
     best = g.min(best);
   }
   if (TRIS) {

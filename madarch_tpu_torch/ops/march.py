@@ -31,7 +31,9 @@ sphere of radius -1e9, a plane 1e9 away, a box of half-side -1e9, a
 triangle 3e9 away, so its distance never comes under a scene-distance cap.
 
 ``geometry`` picks the lanes per ray of its launch from the scene's layout
-and the ray count (``geometry_lanes``).
+and the ray count (``geometry_lanes``); ``raycast``, ``visibility`` and
+``softshadows`` launch the build of march.cu for the scene's layout when it
+has one (``march_layout``).
 """
 from __future__ import annotations
 
@@ -622,31 +624,39 @@ def geometry_reference(packed, lpos, n_lights, origins, dirs, max_dist, *,
 
 
 def raycast_reference(packed, origins, dirs, max_dist, *, eps=EPSILON,
-                      max_steps=300, enabled=None, omega=1.6):
+                      max_steps=300, enabled=None, omega=1.6,
+                      return_steps=False):
     """Plain PyTorch version of the raycast kernel: render/raymarch.py's
-    raycast over the packed scene, whose distances cap at max_dist."""
+    raycast over the packed scene, whose distances cap at max_dist; with
+    ``return_steps`` each ray's march steps i32[N] too."""
     return rm.raycast(lambda p: scene_dist(packed, p, max_dist), origins,
                       dirs, max_dist, eps=eps, max_steps=max_steps,
-                      enabled=enabled, omega=omega)
+                      enabled=enabled, omega=omega,
+                      return_steps=return_steps)
 
 
 def visibility_reference(packed, origins, dirs, max_dists, *, eps=EPSILON,
-                         max_steps=300, enabled=None, omega=1.6):
+                         max_steps=300, enabled=None, omega=1.6,
+                         return_steps=False):
     """Plain PyTorch version of the visibility kernel: render/raymarch.py's
     raycast_visibility over the packed scene, whose distances cap at
-    VIS_CAP."""
+    VIS_CAP; with ``return_steps`` each ray's march steps i32[N] too."""
     return rm.raycast_visibility(
         lambda p: scene_dist(packed, p, VIS_CAP), origins, dirs, max_dists,
-        eps=eps, max_steps=max_steps, enabled=enabled, omega=omega)
+        eps=eps, max_steps=max_steps, enabled=enabled, omega=omega,
+        return_steps=return_steps)
 
 
 def softshadows_reference(packed, origins, dirs, min_dists, max_dists, k, *,
-                          eps=EPSILON, max_steps=300, enabled=None):
+                          eps=EPSILON, max_steps=300, enabled=None,
+                          return_steps=False):
     """Plain PyTorch version of the softshadow kernel: render/raymarch.py's
-    softshadows over the packed scene, whose distances cap at VIS_CAP."""
+    softshadows over the packed scene, whose distances cap at VIS_CAP;
+    with ``return_steps`` each ray's march steps i32[N] too."""
     return rm.softshadows(
         lambda p: scene_dist(packed, p, VIS_CAP), origins, dirs, min_dists,
-        max_dists, k, eps=eps, max_steps=max_steps, enabled=enabled)
+        max_dists, k, eps=eps, max_steps=max_steps, enabled=enabled,
+        return_steps=return_steps)
 
 
 # ---------------------------------------------------------------------------
@@ -918,9 +928,20 @@ class _MarchArgs(ctypes.Structure):
     ]
 
 
-def march_library():
-    """The library of the raycast, visibility and softshadow kernels."""
-    lib = build.load("march")
+def march_defines(counts=None):
+    """The macros of march_library's build for layout ``counts``."""
+    if counts is None:
+        return ()
+    return tuple(f"FIXED_{name}={c}" for name, c in zip(
+        ("SPHERES", "PLANES", "BOXES"), counts))
+
+
+def march_library(counts=None):
+    """The library of the raycast, visibility and softshadow kernels:
+    generic, or with ``counts`` (spheres, planes, boxes: a march_layout)
+    the build for that scene layout, whose slot loops unroll whole
+    (csrc/scene.cuh)."""
+    lib = build.load("march", march_defines(counts))
     for fn in (lib.madarch_raycast, lib.madarch_visibility,
                lib.madarch_softshadows):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -928,9 +949,28 @@ def march_library():
     return lib
 
 
+# A scene without triangles whose typed runs fill at most this many float4
+# rows (a sphere and a plane one, a box two) gets a march.cu build of its
+# own layout.  Such a build keeps the rows in registers: at 20 rows (4,8,4)
+# it beat the generic build on every launch of the path, at 32 (8,8,8;
+# 159 registers a thread) it lost on the 5,120,000 penumbra rays (PERF.md
+# §6).  The cut-off sits at the last layout that won everywhere, not at a
+# fitted crossover: nothing between 20 and 32 rows has been timed.
+UNROLL_ROWS_MAX = 20
+
+
+def march_layout(packed):
+    """The (spheres, planes, boxes) layout the march kernels are built for
+    on this scene, or None for the generic build (triangles, or typed runs
+    of more than UNROLL_ROWS_MAX rows)."""
+    if packed.n_chunks or packed.rows.shape[0] > UNROLL_ROWS_MAX:
+        return None
+    return tuple(packed.counts)
+
+
 def _check_rays(packed, origins, dirs, enabled):
-    """Checks the arguments the raycast and visibility wrappers share and
-    returns the enable mask as a bool[N] tensor."""
+    """Checks the arguments the raycast, visibility and softshadow wrappers
+    share and returns the enable mask as a bool[N] tensor."""
     dev = origins.device
     n = origins.shape[0]
     _check("origins", origins, dev, torch.float32, (n, 3))
@@ -971,14 +1011,23 @@ def raycast(packed, origins, dirs, max_dist, *, eps=EPSILON, max_steps=300,
                                  enabled=enabled, **kwargs)
     if dev.type != "cuda":
         raise ValueError(f"raycast runs on cpu or cuda, not {dev}")
-    n = origins.shape[0]
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    hit = torch.empty(n, dtype=torch.bool, device=dev)
-    _launch_march(march_library().madarch_raycast, packed,
-                  origins, dirs, en, max_dist=max_dist, cap=max_dist,
-                  t=_ptr(t), hit=_ptr(hit), **kwargs)
+    t, hit = _raycast(march_library(march_layout(packed)), packed, origins,
+                      dirs, max_dist, en, **kwargs)
     raycast.launches += 1
     return t, hit, origins + t[:, None] * dirs
+
+
+def _raycast(lib, packed, origins, dirs, max_dist, en, *, eps=EPSILON,
+             max_steps=300, omega=1.6):
+    """raycast's launch on the march_library build ``lib``, en the enable
+    mask bool[N]: (t, hit)."""
+    n = origins.shape[0]
+    t = torch.empty(n, dtype=torch.float32, device=origins.device)
+    hit = torch.empty(n, dtype=torch.bool, device=origins.device)
+    _launch_march(lib.madarch_raycast, packed, origins, dirs, en,
+                  max_dist=max_dist, cap=max_dist, t=_ptr(t), hit=_ptr(hit),
+                  eps=eps, max_steps=max_steps, omega=omega)
+    return t, hit
 
 
 def visibility(packed, origins, dirs, max_dists, *, eps=EPSILON,
@@ -996,11 +1045,20 @@ def visibility(packed, origins, dirs, max_dists, *, eps=EPSILON,
                                     enabled=enabled, **kwargs)
     if dev.type != "cuda":
         raise ValueError(f"visibility runs on cpu or cuda, not {dev}")
-    vis = torch.empty(n, dtype=torch.float32, device=dev)
-    _launch_march(march_library().madarch_visibility, packed,
-                  origins, dirs, en, max_dists=_ptr(max_dists),
-                  max_dist=VIS_CAP, cap=VIS_CAP, vis=_ptr(vis), **kwargs)
+    vis = _visibility(march_library(march_layout(packed)), packed, origins,
+                      dirs, max_dists, en, **kwargs)
     visibility.launches += 1
+    return vis
+
+
+def _visibility(lib, packed, origins, dirs, max_dists, en, *, eps=EPSILON,
+                max_steps=300, omega=1.6):
+    """visibility's launch on the march_library build ``lib``."""
+    vis = torch.empty(origins.shape[0], dtype=torch.float32,
+                      device=origins.device)
+    _launch_march(lib.madarch_visibility, packed, origins, dirs, en,
+                  max_dists=_ptr(max_dists), max_dist=VIS_CAP, cap=VIS_CAP,
+                  vis=_ptr(vis), eps=eps, max_steps=max_steps, omega=omega)
     return vis
 
 
@@ -1022,12 +1080,21 @@ def softshadows(packed, origins, dirs, min_dists, max_dists, k, *,
                                      max_dists, k, enabled=enabled, **kwargs)
     if dev.type != "cuda":
         raise ValueError(f"softshadows runs on cpu or cuda, not {dev}")
-    res = torch.empty(n, dtype=torch.float32, device=dev)
-    _launch_march(march_library().madarch_softshadows, packed,
-                  origins, dirs, en, min_dists=_ptr(min_dists),
-                  max_dists=_ptr(max_dists), max_dist=VIS_CAP, cap=VIS_CAP,
-                  omega=1.0, k=k, vis=_ptr(res), **kwargs)
+    res = _softshadows(march_library(march_layout(packed)), packed, origins,
+                       dirs, min_dists, max_dists, k, en, **kwargs)
     softshadows.launches += 1
+    return res
+
+
+def _softshadows(lib, packed, origins, dirs, min_dists, max_dists, k, en, *,
+                 eps=EPSILON, max_steps=300):
+    """softshadows' launch on the march_library build ``lib``."""
+    res = torch.empty(origins.shape[0], dtype=torch.float32,
+                      device=origins.device)
+    _launch_march(lib.madarch_softshadows, packed, origins, dirs, en,
+                  min_dists=_ptr(min_dists), max_dists=_ptr(max_dists),
+                  max_dist=VIS_CAP, cap=VIS_CAP, omega=1.0, k=k,
+                  vis=_ptr(res), eps=eps, max_steps=max_steps)
     return res
 
 

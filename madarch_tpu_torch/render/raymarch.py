@@ -31,20 +31,26 @@ def _active0(origins, enabled):
 
 
 def _over_relaxed(sdf_b, origins, dirs, max_dists, active, eps, max_steps,
-                  omega):
+                  omega, count_steps=False):
     """The ω-relaxed march with the Keinert backtrack shared by raycast and
-    raycast_visibility.  ``max_dists`` is per ray.  Returns (t, blocked):
-    blocked marks lanes that stopped on a hit."""
+    raycast_visibility.  ``max_dists`` is per ray.  Returns (t, blocked,
+    steps): blocked marks lanes that stopped on a hit; with
+    ``count_steps``, steps i32[N] is each lane's march steps (its scene
+    evaluations), else None."""
     n = origins.shape[0]
     t = torch.zeros(n, dtype=torch.float32, device=origins.device)
     prev_r = torch.zeros_like(t)
     step_len = torch.zeros_like(t)
     om = torch.full_like(t, omega)
     blocked = torch.zeros_like(active)
+    steps = torch.zeros(n, dtype=torch.int32, device=origins.device) \
+        if count_steps else None
     for _ in range(max_steps):
         ids = active.nonzero().squeeze(1)
         if ids.numel() == 0:
             break
+        if steps is not None:
+            steps[ids] += 1
         ta = t[ids]
         d = sdf_b(origins[ids] + ta[:, None] * dirs[ids])
         pr, sl, o = prev_r[ids], step_len[ids], om[ids]
@@ -59,7 +65,7 @@ def _over_relaxed(sdf_b, origins, dirs, max_dists, active, eps, max_steps,
         step_len[ids] = torch.where(still, new_step, sl)
         blocked[ids] = hit
         active[ids] = still & (ta < max_dists[ids])
-    return t, blocked
+    return t, blocked, steps
 
 
 def raycast_distance(sdf_b, origins, dirs, max_dist, *, eps=EPSILON,
@@ -73,38 +79,54 @@ def raycast_distance(sdf_b, origins, dirs, max_dist, *, eps=EPSILON,
 
 
 def raycast(sdf_b, origins, dirs, max_dist, *, eps=EPSILON,
-            max_steps=MAX_STEPS, enabled=None, omega=RELAXATION):
+            max_steps=MAX_STEPS, enabled=None, omega=RELAXATION,
+            return_steps=False):
     """Sphere-trace a batch of rays.
 
     sdf_b: batched scene distance f32[N,3] -> f32[N]; origins, dirs
     f32[N,3]; enabled: optional bool[N], disabled lanes never march.
-    Returns (t f32[N], hit bool[N], pos f32[N,3]).
+    Returns (t f32[N], hit bool[N], pos f32[N,3]) and, with
+    ``return_steps``, each ray's march steps i32[N].  hit = sdf(pos) < eps
+    ∧ t < max_dist on enabled rays; a ray that stopped on a hit evaluated
+    pos in its last step, so only the others are evaluated there again.
     """
-    t = raycast_distance(sdf_b, origins, dirs, max_dist, eps=eps,
-                         max_steps=max_steps, enabled=enabled, omega=omega)
+    en = _active0(origins, enabled)
+    max_dists = torch.full((origins.shape[0],), max_dist,
+                           dtype=torch.float32, device=origins.device)
+    t, blocked, steps = _over_relaxed(sdf_b, origins, dirs, max_dists,
+                                      en.clone(), eps, max_steps, omega,
+                                      return_steps)
     pos = origins + t[:, None] * dirs
-    hit = (sdf_b(pos) < eps) & (t < max_dist)
-    if enabled is not None:
-        hit = hit & enabled.to(torch.bool)
-    return t, hit, pos
+    under = t < max_dist
+    hit = blocked & under
+    rest = (en & ~blocked & under).nonzero().squeeze(1)
+    if rest.numel():
+        hit[rest] = sdf_b(pos[rest]) < eps
+    return (t, hit, pos, steps) if return_steps else (t, hit, pos)
 
 
 def raycast_visibility(sdf_b, origins, dirs, max_dists, *, eps=EPSILON,
-                       max_steps=MAX_STEPS, enabled=None, omega=RELAXATION):
+                       max_steps=MAX_STEPS, enabled=None, omega=RELAXATION,
+                       return_steps=False):
     """1.0 if the ray reaches its own max distance unobstructed, else 0.0;
-    max_dists is per ray f32[N]."""
+    max_dists is per ray f32[N].  With ``return_steps`` also each ray's
+    march steps i32[N]."""
     active = _active0(origins, enabled) & (0.0 < max_dists)
-    _, blocked = _over_relaxed(sdf_b, origins, dirs, max_dists, active, eps,
-                               max_steps, omega)
-    return torch.where(blocked, 0.0, 1.0)
+    _, blocked, steps = _over_relaxed(sdf_b, origins, dirs, max_dists,
+                                      active, eps, max_steps, omega,
+                                      return_steps)
+    vis = torch.where(blocked, 0.0, 1.0)
+    return (vis, steps) if return_steps else vis
 
 
 def softshadows(sdf_b, origins, dirs, min_dists, max_dists, k, *,
-                eps=EPSILON, max_steps=MAX_STEPS, enabled=None):
+                eps=EPSILON, max_steps=MAX_STEPS, enabled=None,
+                return_steps=False):
     """Cone-approximation penumbra march with the improved-penumbra trick:
     y = d²/(2·prev), shadow = min(shadow, k·sqrt(d²−y²)/(t−y)), the sample
-    counted only where t−y > 1e-9.  Returns f32[N]; 0 where the shadow ray
-    hits geometry."""
+    counted only where t−y > 1e-9.  Returns f32[N], 0 where the shadow ray
+    hits geometry, and with ``return_steps`` each ray's march steps
+    i32[N]."""
     n = origins.shape[0]
     dev = origins.device
     t = torch.broadcast_to(torch.as_tensor(min_dists, dtype=torch.float32,
@@ -115,10 +137,14 @@ def softshadows(sdf_b, origins, dirs, min_dists, max_dists, k, *,
     prev = torch.full_like(res, 1e20)
     active = _active0(origins, enabled) & (t < max_dists)
     blocked = torch.zeros_like(active)
+    steps = torch.zeros(n, dtype=torch.int32, device=dev) \
+        if return_steps else None
     for _ in range(max_steps):
         ids = active.nonzero().squeeze(1)
         if ids.numel() == 0:
             break
+        if steps is not None:
+            steps[ids] += 1
         ta = t[ids]
         d = sdf_b(origins[ids] + ta[:, None] * dirs[ids])
         hit = d < eps
@@ -136,7 +162,8 @@ def softshadows(sdf_b, origins, dirs, min_dists, max_dists, k, *,
         t[ids] = ta
         blocked[ids] = hit
         active[ids] = still & (ta < max_dists[ids])
-    return torch.where(blocked, 0.0, res)
+    res = torch.where(blocked, 0.0, res)
+    return (res, steps) if return_steps else res
 
 
 def ambient_occlusion(sdf_b, pos, normal, *, steps=3, step_size=0.1):

@@ -1,7 +1,9 @@
 """The CUDA kernels (geometry, raycast, visibility, softshadows) against
 their plain PyTorch versions, on the card, on the room scenes and on
 obj_mesh's 968-triangle torus (the chunk-pruned triangle path); the
-geometry kernel at every lane count per ray its wrapper can choose.
+geometry kernel at every lane count per ray its wrapper can choose, the
+raycast, visibility and softshadow kernels in the build of the scene's
+layout and in the generic build.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs where JAX is absent:
@@ -14,6 +16,7 @@ continuous ones agree to 1e-5 (t) and 1e-4 (the rest), on the lanes where
 they are meaningful; penumbra factors agree to 1e-5 and are 0 (blocked)
 on the same rays.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -603,3 +606,136 @@ def test_the_wrapper_launches_its_choice_of_lanes(dev):
         k8, _ = _both(spec, data, o, d, False, 0, r.probes, 8)
         for key in ("t", "hit", "idx", "mid", "normal", "shadows", "vis8"):
             assert torch.equal(k[key], k8[key]), key
+
+
+# ---------------------------------------------------------------------------
+# The march.cu kernels' builds (ops/march.py:march_layout): the scene's
+# layout or generic
+# ---------------------------------------------------------------------------
+
+def _fan_scene(dev, n_tris=80):
+    """tests/test_march_kernels.py:build_chunked_scene (a fan of 80 seeded
+    triangles over a floor plane, one point light), built with the port:
+    that file imports JAX."""
+    spec = SceneSpec(prims=((P.Triangle, n_tris), (P.Plane, 2)),
+                     lights=((L.PointLight, 1),), max_dist=20.0)
+    spec = spec.specialized({"triangle": n_tris, "plane": 1},
+                            {"point_light": 1})
+    b = SceneBuilder(spec)
+    b.add_material((0.5, 0.5, 0.5), 0.0, 0.5)
+    rng = np.random.RandomState(3)
+    for _ in range(n_tris):
+        c = rng.uniform(-2.0, 2.0, 3) + np.array([0.0, 1.5, 5.0])
+        v = c + rng.uniform(-0.4, 0.4, (3, 3))
+        b.add_primitive(P.Triangle, v1=v[0], v2=v[1], v3=v[2],
+                        material_id=0)
+    b.add_primitive(P.Plane, normal=(0.0, 1.0, 0.0), offset=1.0,
+                    material_id=0)
+    b.add_light(L.PointLight, position=(0.0, 5.0, 3.0), color=(1.0,) * 3)
+    return spec, b.device_data(dev)
+
+
+def _march_rays(scene, dev, n):
+    """(packed scene, max_dist, n seeded rays): from the GI room's probe
+    positions in all directions, or from around (0, 1.5, 0) toward the
+    fan; runs of 4, 32 and 128 disabled rays; min dists up to 0.5, max
+    dists from -1 to 20 and equal to the min dist (never marched) on every
+    ninth ray."""
+    g = torch.Generator().manual_seed(67 + n)
+    if scene == "gi":
+        r = S.global_illumination(width=64, height=64, device=dev)
+        spec, data = r.spec, r.scene_data
+        starts = PR.probe_world_positions(r.probes, "cpu")
+        o = starts[torch.randint(0, starts.shape[0], (n,), generator=g)]
+        d = torch.randn(n, 3, generator=g)
+    else:
+        spec, data = _fan_scene(dev)
+        o = torch.rand(n, 3, generator=g) * 2.0 - 1.0
+        o[:, 1] += 1.5
+        d = torch.tensor([0.0, 1.5, 5.0]) + torch.rand(n, 3, generator=g) \
+            * 4.0 - 2.0 - o
+    d = d / d.norm(dim=1, keepdim=True).clamp_min(1e-6)
+    i = torch.arange(n)
+    en = ((i // 4) % 3 != 0) & ((i // 32) % 5 != 0) & ((i // 128) % 7 != 0)
+    mn = torch.rand(n, generator=g) * 0.5
+    mx = torch.rand(n, generator=g) * 21.0 - 1.0
+    mx[::9] = mn[::9]
+    rays = [x.to(dev).contiguous() for x in (o, d, en, mn, mx)]
+    return (M.pack_scene(spec, data), spec.max_dist, *rays)
+
+
+def _march_all(packed, max_dist, o, d, en, mn, mx, lib=None):
+    """(t, hit, vis, penumbra factors at k = 64 and 0.5) of the raycast,
+    visibility and softshadow kernels through the wrappers, or launched
+    from the march_library build ``lib``."""
+    if lib is None:
+        return (*M.raycast(packed, o, d, max_dist, enabled=en)[:2],
+                M.visibility(packed, o, d, mx, enabled=en),
+                *[M.softshadows(packed, o, d, mn, mx, k, enabled=en)
+                  for k in (64.0, 0.5)])
+    return (*M._raycast(lib, packed, o, d, max_dist, en),
+            M._visibility(lib, packed, o, d, mx, en),
+            *[M._softshadows(lib, packed, o, d, mn, mx, k, en)
+              for k in (64.0, 0.5)])
+
+
+def _march_plain(packed, max_dist, o, d, en, mn, mx):
+    return (*M.raycast_reference(packed, o, d, max_dist, enabled=en)[:2],
+            M.visibility_reference(packed, o, d, mx, enabled=en),
+            *[M.softshadows_reference(packed, o, d, mn, mx, k, enabled=en)
+              for k in (64.0, 0.5)])
+
+
+@pytest.mark.parametrize("scene", ["gi", "fan"])
+@pytest.mark.parametrize("n", [0, 1, 4099])
+def test_march_kernels_match_plain_in_each_build(dev, scene, n):
+    """The raycast, visibility and softshadow kernels bit-equal to their
+    plain versions on 0 and 1 rays and on 4,099 (a partly filled last
+    warp, runs of disabled rays, penumbra rays that start at their max
+    distance): through the wrappers (the GI room's layout build, the
+    80-triangle fan's generic build with chunk-pruned triangles) and, on
+    the room, in the generic build; only the wrappers' launches count."""
+    rays = _march_rays(scene, dev, n)
+    before = (M.raycast.launches, M.visibility.launches,
+              M.softshadows.launches)
+    got = [_march_all(*rays)]
+    assert (M.raycast.launches, M.visibility.launches,
+            M.softshadows.launches) == (before[0] + 1, before[1] + 1,
+                                        before[2] + 2)
+    if scene == "gi":
+        assert M.march_layout(rays[0]) == (1, 6, 1)
+        got.append(_march_all(*rays, lib=M.march_library()))
+    else:
+        assert M.march_layout(rays[0]) is None
+    torch.cuda.synchronize()
+    want = _march_plain(*rays)
+    for outs in got:
+        for name, a, b in zip(("t", "hit", "vis", "pen64", "pen05"), outs,
+                              want):
+            assert torch.equal(a, b), name
+    if n == 4099:
+        en, hit = rays[4], want[1]
+        assert not bool(hit[~en].any()) and bool(hit.any())
+        # the room is closed; the fan's rays miss as well
+        assert bool((~hit & en).any()) == (scene == "fan")
+
+
+def test_a_layout_build_holds_its_padded_room_and_refuses_others(dev):
+    """The room padded with inert slots to march_layout's limit (4,8,4, 20
+    rows; chip_smoke.pad_scene) marches as the room in its layout's build;
+    a layout's build refuses a scene of another layout."""
+    import chip_smoke
+    packed, *rest = _march_rays("gi", dev, 4099)
+    padded = chip_smoke.pad_scene(torch, chip_smoke.port_modules(), packed,
+                                  (4, 8, 4))
+    assert M.march_layout(padded) == (4, 8, 4)
+    lib = M.march_library(M.march_layout(padded))
+    got = _march_all(padded, *rest, lib=lib)
+    torch.cuda.synchronize()
+    for a, b in zip(got, _march_plain(packed, *rest)):
+        assert torch.equal(a, b)
+    with pytest.raises(RuntimeError):
+        _march_all(packed, *rest, lib=lib)
+    fan, max_dist, o, d, en, mn, mx = _march_rays("fan", dev, 64)
+    with pytest.raises(RuntimeError):
+        M._raycast(M.march_library((1, 6, 1)), fan, o, d, max_dist, en)

@@ -31,7 +31,7 @@ from madarch_tpu.scene.scene import scene_sdf as jscene_sdf
 from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG,
                                            PartitioningSettings, ProbeSettings,
                                            screen_shade_config)
-from madarch_tpu_torch.core.vecmath import reflect
+from madarch_tpu_torch.core.vecmath import dot, reflect
 from madarch_tpu_torch.ops import march as TM
 from madarch_tpu_torch.render import raymarch as trm
 from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
@@ -47,10 +47,16 @@ pytestmark = pytest.mark.usefixtures("torch_threads")
 N_RAYS = 256
 GRID = {"spacing": (2.0, 3.0, 3.0), "dims": (4, 3, 3)}
 # Reflection hits whose primary FD normal is not bit-equal between the
-# backends, counted on these seeded rays: 19 of the 256 GI screen rays (all
-# of which reflect to a hit) and none of build_scene()'s 7 reflection hits.
-# See test_geometry_reflection_matches_jax and test_loose_lanes_are_xla_fma.
-LOOSE_LANES = {"gi": 19, "basic": 0}
+# backends ("loose" lanes, held 10x looser): how many there are is the
+# host's XLA rounding, since XLA's CPU backend fuses multiply-adds as the
+# host's CPU allows.  Of the 256 GI screen rays (all of which reflect to a
+# hit) 19 were loose on one host and 29 on another; none of build_scene()'s
+# 7 reflection hits.  Each loose lane is proved to be XLA's FMA by
+# _fused_sphere_normal (_loose_lanes); their share of the reflection hits
+# is capped at a quarter, about twice the most measured, so that most hits
+# stay held at the primary tolerances.  See
+# test_geometry_reflection_matches_jax and test_loose_lanes_are_xla_fma.
+MAX_LOOSE_SHARE = 0.25
 TET = ((1.0, -1.0, -1.0), (-1.0, -1.0, 1.0), (-1.0, 1.0, -1.0),
        (1.0, 1.0, 1.0))
 
@@ -189,7 +195,7 @@ def test_geometry_surface_outputs_match_jax(geom):
 
 
 def test_geometry_reflection_matches_jax(geom):
-    (scene, variant), (j, t, (o, d, jspec, jdata, n_lights, _)) = geom
+    (scene, variant), (j, t, (o, d, jspec, jdata, n_lights, packed)) = geom
     if variant != "screen":
         assert t["refl"] is None and j["refl"] is None
         return
@@ -203,33 +209,50 @@ def test_geometry_reflection_matches_jax(geom):
     np.testing.assert_allclose(_np(tr["normal"])[r_hit], jr["normal"][r_hit],
                                atol=1e-4)
     # The reflected ray starts from the primary hit point and FD normal.
-    # On a few rays these are not bit-equal between the backends, because
-    # XLA's CPU backend fuses multiply-adds where the port rounds every
-    # operation (test_loose_lanes_are_xla_fma shows it), and a grazing
-    # reflection amplifies the last-bit difference along the bounce.  Rays
-    # with bit-equal primary normals march identical inputs and are held at
-    # the primary tolerances; the others, capped at the count measured on
-    # these rays (LOOSE_LANES: 19 of the 256 GI reflection hits), hold r_t,
-    # best_dir and the shadows 10x looser (largest seen: r_t 8.5e-5
-    # relative, best_dir 2.2e-4, shadows 1.4e-4).  Misses: both past
+    # On a few rays the normals are not bit-equal between the backends,
+    # because XLA's CPU backend fuses multiply-adds where the port rounds
+    # every operation; the FD normal's division by 2e-3 turns that into up
+    # to ~1e-4, and the bounce carries it on (a 3.6e-5 normal difference
+    # moved r_t by 1.2e-4 relative 6.8 units on).  The loose lanes are
+    # those whose JAX normal the fused recompute reproduces bit for bit
+    # (_loose_lanes), at most MAX_LOOSE_SHARE of the reflection hits.  Their
+    # JAX reflection starts from JAX's own rounding, so the port's bounce is
+    # held instead to JAX's bounce from the port's reflection rays
+    # (_jax_bounce), at the primary tolerances.  Every other reflection hit,
+    # a differing normal the witness does not explain included, is held to
+    # JAX's reflection at the primary tolerances.  Misses: both past
     # max_dist; rays not reflected: 0.
-    same_n = np.all(_np(t["normal"]) == j["normal"], axis=1)
-    assert (r_hit & ~same_n).sum() <= LOOSE_LANES[scene]
+    _, loose = _loose_lanes(j, t, o, d, packed)
+    assert loose.sum() <= MAX_LOOSE_SHARE * r_hit.sum()
     pos = o + j["t"][:, None] * d
     so = pos + j["normal"] * trm.SURFACE_OFFSET
     rd = d - (2.0 * (d * j["normal"]).sum(-1))[:, None] * j["normal"]
-    rpos = so + jr["t"][:, None] * rd
     lpos, _ = JM.pack_light_positions(jspec, jdata)
-    sh_on = _shadow_enabled(rpos, jr["normal"], r_hit, np.asarray(lpos),
-                            n_lights)
-    for lanes, scale in ((r_hit & same_n, 1.0), (r_hit & ~same_n, 10.0)):
-        np.testing.assert_allclose(_np(tr["t"])[lanes], jr["t"][lanes],
-                                   rtol=1e-5 * scale, atol=1e-5)
-        np.testing.assert_allclose(_np(tr["best_dir"])[lanes],
-                                   jr["best_dir"][lanes], atol=1e-4 * scale)
-        on = sh_on & lanes[None]
-        np.testing.assert_allclose(_np(tr["shadows"])[on], jr["shadows"][on],
-                                   atol=1e-4 * scale)
+    tight = r_hit & ~loose
+    sh_on = _shadow_enabled(so + jr["t"][:, None] * rd, jr["normal"], tight,
+                            np.asarray(lpos), n_lights)
+    np.testing.assert_allclose(_np(tr["t"])[tight], jr["t"][tight],
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(tr["best_dir"])[tight],
+                               jr["best_dir"][tight], atol=1e-4)
+    np.testing.assert_allclose(_np(tr["shadows"])[sh_on], jr["shadows"][sh_on],
+                               atol=1e-4)
+    if loose.any():
+        b, (bo, bd) = _jax_bounce(t, o, d, jspec, jdata, n_lights, loose)
+        sub = {k: _np(v)[..., loose] if k in ("shadows", "vis8")
+               else _np(v)[loose] for k, v in tr.items()}
+        np.testing.assert_array_equal(b["hit"], True)
+        np.testing.assert_array_equal(sub["mid"], b["mid"])
+        np.testing.assert_allclose(sub["t"], b["t"], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(sub["normal"], b["normal"], atol=1e-4)
+        b_on = _shadow_enabled(bo + b["t"][:, None] * bd, b["normal"],
+                               b["hit"], np.asarray(lpos), n_lights)
+        np.testing.assert_allclose(sub["shadows"][b_on], b["shadows"][b_on],
+                                   atol=1e-4)
+        np.testing.assert_array_equal(sub["vis8"], b["vis8"])
+        np.testing.assert_allclose(
+            sub["best_dir"], _best_dir(bo + b["t"][:, None] * bd,
+                                       sub["best_pid"]), atol=1e-4)
     rt, jt = _np(tr["t"]), jr["t"]
     on = jt > 0
     np.testing.assert_array_equal(rt[on & ~r_hit] >= jspec.max_dist,
@@ -237,6 +260,39 @@ def test_geometry_reflection_matches_jax(geom):
     np.testing.assert_array_equal(rt[~on], 0.0)
     np.testing.assert_array_equal(_np(tr["vis8"])[:, r_hit],
                                   jr["vis8"][:, r_hit])
+
+
+def _jax_bounce(t, o, d, jspec, jdata, n_lights, lanes):
+    """JAX's pallas_geometry (interpret mode, no AO) on the port's
+    reflection rays of ``lanes``, built as geometry_reference builds them
+    from the port's primary t and normal: (outputs, (origins, dirs))."""
+    to, td = torch.as_tensor(o), torch.as_tensor(d)
+    normal = t["normal"]
+    so = to + t["t"][:, None] * td + normal * trm.SURFACE_OFFSET
+    rd = td - (2.0 * dot(td, normal))[:, None] * normal
+    bo, bd = so[lanes].numpy(), rd[lanes].numpy()
+    plan = JM.build_plan(jspec)
+    lpos, _ = JM.pack_light_positions(jspec, jdata)
+    cfg = screen_shade_config(False)
+    out = JM.pallas_geometry(
+        plan, JM.pack_params(plan, jdata), lpos, n_lights, jnp.asarray(bo),
+        jnp.asarray(bd), jspec.max_dist, probe_spacing=GRID["spacing"],
+        probe_dims=GRID["dims"], surface_offset=trm.SURFACE_OFFSET,
+        ao_steps=cfg.ambient_occlusion_steps, want_ao=False,
+        max_steps=cfg.max_march_steps)
+    return jax.tree.map(np.asarray, out), (bo, bd)
+
+
+def _best_dir(p, pid):
+    """The direction from the probe id ``pid`` of GRID to p, as the mode-2
+    best-probe pick emits it."""
+    dims, sp = GRID["dims"], np.float32(GRID["spacing"])
+    pid = pid.astype(np.int64)
+    corner = np.stack([pid % dims[0], pid // dims[0] % dims[1],
+                       pid // (dims[0] * dims[1])], axis=1).astype(np.float32)
+    w = corner * sp - p
+    pdist = np.maximum(np.sqrt((w * w).sum(-1)), np.float32(1e-6))
+    return -(w * (np.float32(1.0) / pdist)[:, None])
 
 
 def _fma(a, b, c):
@@ -264,28 +320,41 @@ def _fused_sphere_normal(o, d, t, center, radius):
     return np.stack([gx / norm, gy / norm, gz / norm], axis=1)
 
 
+def _loose_lanes(j, t, o, d, packed):
+    """(differ, loose): the reflection hits whose primary normal is not
+    bit-equal between the backends, and those of them whose JAX normal is
+    XLA's rounding: the hit lies on a sphere and _fused_sphere_normal,
+    recomputed from JAX's t, reproduces JAX's normal bit for bit."""
+    differ = j["refl"]["hit"] & ~np.all(_np(t["normal"]) == j["normal"],
+                                        axis=1)
+    ids = np.flatnonzero(differ)
+    gidx = packed.info[:, 0].numpy()
+    slot = np.array([np.flatnonzero(gidx == i)[0] for i in j["idx"][ids]],
+                    dtype=int)
+    on_sphere = slot < packed.counts[0]    # the sphere run comes first
+    ids, slot = ids[on_sphere], slot[on_sphere]
+    rows = packed.rows.numpy()[slot]
+    fused = _fused_sphere_normal(o[ids], d[ids], j["t"][ids], rows[:, 0:3],
+                                 rows[:, 3])
+    loose = np.zeros_like(differ)
+    loose[ids[np.all(fused == j["normal"][ids], axis=1)]] = True
+    return differ, loose
+
+
 def test_loose_lanes_are_xla_fma(geom):
-    """Witness for the loose reflection lanes: the primary normals that are
-    not bit-equal between the backends all lie on a sphere, and recomputing
-    them from JAX's t with XLA's fused multiply-adds reproduces JAX's
-    normals bit for bit.  So the difference is the JAX reference's
+    """Witness for the loose reflection lanes: every primary normal that is
+    not bit-equal between the backends lies on a sphere, and recomputing
+    it from JAX's t with XLA's fused multiply-adds reproduces JAX's normal
+    bit for bit, lane by lane.  So the difference is the JAX reference's
     rounding, not the port's arithmetic (which the CUDA kernel, built with
-    -fmad=false, follows)."""
+    -fmad=false, follows).  How many lanes differ depends on the host
+    (MAX_LOOSE_SHARE)."""
     (scene, variant), (j, t, (o, d, _, _, _, packed)) = geom
     if variant != "screen":
         return
-    loose = j["refl"]["hit"] & ~np.all(_np(t["normal"]) == j["normal"],
-                                       axis=1)
-    assert loose.sum() == LOOSE_LANES[scene]
-    if not loose.any():
-        return
-    gidx = packed.info[:, 0].numpy()
-    slot = np.array([np.flatnonzero(gidx == i)[0] for i in j["idx"][loose]])
-    assert (slot < packed.counts[0]).all()      # the sphere run comes first
-    rows = packed.rows.numpy()[slot]
-    fused = _fused_sphere_normal(o[loose], d[loose], j["t"][loose],
-                                 rows[:, 0:3], rows[:, 3])
-    np.testing.assert_array_equal(fused, j["normal"][loose])
+    differ, loose = _loose_lanes(j, t, o, d, packed)
+    np.testing.assert_array_equal(loose, differ)
+    assert loose.sum() <= MAX_LOOSE_SHARE * j["refl"]["hit"].sum()
 
 
 # ---------------------------------------------------------------------------
@@ -593,12 +662,19 @@ def test_scene_evals_count_active_lanes_times_slots():
     assert TM.scene_evals == {c: 5 * n for c, n in slots.items()}
     assert TM.scene_eval_flops() == 5 * sum(TM.SLOT_FLOPS[c] * n
                                             for c, n in slots.items())
-    # one ray that starts inside the floor stops after one step; the final
-    # classification adds one more evaluation
+    # one ray that starts inside the floor stops on a hit after one step:
+    # that step evaluated its end point, so no classification follows
     with TM.counting():
         TM.raycast_reference(packed, torch.tensor([[0.0, -2.0, 0.0]]),
                              torch.tensor([[0.0, 1.0, 0.0]]), 10.0)
+    assert TM.scene_evals == {c: n for c, n in slots.items()}
+    # one ray cut short of any surface by max_steps is classified once more
+    o, d = torch.tensor([[0.0, 1.0, 0.0]]), torch.tensor([[0.0, 1.0, 0.0]])
+    assert float(TM.scene_dist(packed, o, 20.0)[0]) > 0.5
+    with TM.counting():
+        t, hit, _ = TM.raycast_reference(packed, o, d, 10.0, max_steps=1)
     assert TM.scene_evals == {c: 2 * n for c, n in slots.items()}
+    assert not bool(hit[0]) and 0.0 < float(t[0]) < 10.0
 
 
 def test_geometry_reference_spends_nothing_at_a_miss():
@@ -631,12 +707,11 @@ def test_geometry_reference_spends_nothing_at_a_miss():
     assert bool((out["ao"][hit] != 1.0).any())
     _, without_ao = evaluations(ao_steps=0)
     assert with_ao - without_ao == 3 * n_hit
-    # the missing rays alone cost what their march and one classification
-    # cost (raycast_reference's count): no normal, AO, shadow or visibility
-    # evaluation
+    # the missing rays alone cost their march steps (raycast_reference's
+    # count) and one classification each: no normal, AO, shadow or
+    # visibility evaluation
     o, d = o[~hit].contiguous(), d[~hit].contiguous()
     out, misses = evaluations(ao_steps=3)
     assert not bool(out["hit"].any())
-    with TM.counting():
-        TM.raycast_reference(packed, o, d, 20.0)
-    assert misses == TM.scene_evals[0] // packed.counts[0]
+    steps = TM.raycast_reference(packed, o, d, 20.0, return_steps=True)[3]
+    assert misses == int(steps.sum()) + o.shape[0]

@@ -13,8 +13,9 @@ same scene:
   order is a last bit's choice); for cpu_best a sample where two primitives are
   closest to within 1e-6 (a shared edge of the mesh), each package's
   rounding picking its own winner.  Both packages compute the same float32
-  distances up to XLA's fused multiply-adds.  Those cells are counted and
-  the count asserted;
+  distances up to XLA's fused multiply-adds, which the host's CPU decides,
+  so how many cells differ is the host's rounding: their share of the
+  grid's cells is capped;
 - grid_closest on the same grid at seeded points inside and outside it
   agrees to 1e-6, with the clamp and the fallback border behaviours.
 """
@@ -48,13 +49,19 @@ SMALL_GRID = PartitioningSettings(index_count=20, border_behavior="clamp",
 # cpu_best samples 27 points per cell against every triangle: on the torus
 # it runs on this 10×10×10 block of obj_mesh's grid (its spacing and K,
 # the block over the torus's near half), a twelfth of the cells, to keep
-# the test fast.
+# the test fast.  Its 27 samples meet many near-ties between the mesh's
+# neighbouring triangles, so a fair share of its cells differ.
 TORUS_BEST_BLOCK = dict(grid_dimensions=(10, 10, 10),
                         grid_offset=(0.5, 0.5, 0.2))
-# Cells whose candidate sets differ between the packages, every one
-# explained by a near-tie (see _explained), counted on these scenes.
-DIFFERING_CELLS = {("torus", "gpu_fast"): 3, ("torus", "cpu_fast"): 3,
-                   ("torus", "cpu_best"): 220}
+# The largest share of a grid's cells whose candidate sets may differ
+# between the packages, every one explained by a near-tie (_explained).
+# How many differ is the host's XLA rounding (XLA's CPU backend fuses
+# multiply-adds as the host's CPU allows): on the torus, 3 of the 12,000
+# cells for gpu_fast and cpu_fast on two hosts, and for cpu_best 220 of
+# the 1,000-cell block on one host and 233 on another; none on the
+# 80-triangle scene.  cpu_best's cap is about 1.3x the most measured, the
+# others one cell in a thousand, so most cells are still compared exactly.
+MAX_DIFFERING_SHARE = {"gpu_fast": 1e-3, "cpu_fast": 1e-3, "cpu_best": 0.3}
 
 
 def _jax_settings(s):
@@ -142,7 +149,8 @@ def test_build_grid_matches_jax(scene, grids, method):
             assert _explained(tspec, tdata, settings, method, c, tset,
                               jset), c
             differ.append(c)
-    assert len(differ) == DIFFERING_CELLS.get((name, method), 0), differ
+    assert len(differ) <= MAX_DIFFERING_SHARE[method] * settings.num_cells, \
+        differ
     same = np.ones(settings.num_cells, bool)
     same[differ] = False
     np.testing.assert_array_equal(tn[same], j.counts[same])
