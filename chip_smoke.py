@@ -23,7 +23,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    (tests/goldens/images.npz) under the golden gates;
 5. renders global_illumination at 800x800, checks the image, checks that
    the geometry kernel ran twice per frame, and reports ms/frame (CUDA
-   events) and rays/s;
+   events), rays/s and, under torch.profiler, the device's busy time per
+   frame and its heaviest kernels;
 7. prints ptxas's register and spill lines for the raycast and
    visibility kernels (each build of march.cu);
 8. prints the march steps of the plain versions (mean, largest, and the
@@ -39,7 +40,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
 10. renders light_shafts at 800x800 (5 timed frames after a warm-up),
    checks the image and that per frame the geometry kernel ran twice, the
    raycast kernel once and the visibility kernel once per live light
-   slot, and reports ms/frame, rays/s and the per-pass split;
+   slot, and reports ms/frame, rays/s, the per-pass split and the device
+   busy time under torch.profiler;
 11. times the raycast and visibility kernels against their plain
    versions at those shapes, and every candidate of each in turns beside
    the bound;
@@ -99,7 +101,25 @@ Phases, each printed on its own lines; any failure exits non-zero:
 24. the geometry kernel built with FMA contraction on (-fmad=true, which
    no path launches), at the six full shapes (GI, simple_scene and
    obj_mesh, radiance and screen) and the lane count the wrapper chooses
-   there: held to the shipped build and timed against it in turns.
+   there: held to the shipped build and timed against it in turns;
+25. the train step's loss gradient (parallel/spmd.py:make_value_and_grad:
+   the frame rendered differentiable, the kernels under stop gradient)
+   on the card and on the CPU from the same scene data and atlases, per
+   float leaf by relative norm within GRAD_REL_LIMIT: GI mode 2 at 64x64,
+   GI modes 1 and 3 and light_shafts (small volumetrics) at 32x32, with
+   test_examples.py's tiny probes; checks that each kernel of each path
+   launched;
+26. the GI train step (parallel/spmd.py:make_train_step) at bench.py's
+   sizes, 256x256 and 512x512, full width (36 probes x 32² texels): a
+   warm-up step, then 5 steps timed with CUDA events, and the
+   differentiable forward alone (no graph) as often; reports ms/step,
+   forward ms, backward+update ms, rays/s (the forward frame's rays),
+   each step's loss, the largest parameter change and peak memory, and
+   fails on a non-finite loss, unmoved parameters or other than 2
+   geometry launches a step;
+27. the 512x512 train step under torch.profiler: the device's busy ms per
+   step, its idle share and the heaviest device ops of the forward and of
+   the backward and update.
 
 The geometry kernel shares a ray among a group of lanes
 (ops/csrc/scene.cuh).  At every full shape above (phases 3, 16, 21) and on
@@ -126,11 +146,12 @@ over the same rays; for triangles, the super-chunk box tests, the chunk
 box tests inside the admitted super-chunks and the triangles of the
 chunks exact pruning must admit) over 67 TFLOP/s, the H100 SXM's
 published fp32 peak.
-It prints a kernels JSON line, the card line, then the last line
-{"ok": true, "device": {...}}.  Imports no JAX.
+It prints a train JSON line (phases 25-27), a kernels JSON line, the card
+line, then the last line {"ok": true, "device": {...}}.  Imports no JAX.
 """
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -165,11 +186,13 @@ def port_modules():
     """The port's modules this script drives, imported together (a test
     imports them with JAX blocked)."""
     from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG,
-                                               ProbeSettings, ShadeConfig)
+                                               ProbeSettings, ShadeConfig,
+                                               VolumetricsSettings)
     from madarch_tpu_torch.core.vecmath import reflect
     from madarch_tpu_torch.examples import scenes
     from madarch_tpu_torch.ops import build
     from madarch_tpu_torch.ops import march
+    from madarch_tpu_torch.parallel import spmd
     from madarch_tpu_torch.render import pipeline
     from madarch_tpu_torch.render import probes
     from madarch_tpu_torch.render import shading
@@ -177,19 +200,24 @@ def port_modules():
     from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
     from madarch_tpu_torch.render.context import SceneCtx
     from madarch_tpu_torch.render.raymarch import SURFACE_OFFSET
-    from madarch_tpu_torch.scene.scene import material_lookup
+    from madarch_tpu_torch.scene.scene import (material_lookup, tree_items,
+                                               tree_map)
     from madarch_tpu_torch.utils.golden import image_stats
     from madarch_tpu_torch.utils.profiling import (FrameTimer, device_busy,
+                                                   device_ops,
                                                    rays_per_frame)
     return SimpleNamespace(
         PROBE_SHADE_CONFIG=PROBE_SHADE_CONFIG, ProbeSettings=ProbeSettings,
-        ShadeConfig=ShadeConfig,
-        reflect=reflect, S=scenes, build=build, M=march, pipeline=pipeline,
+        ShadeConfig=ShadeConfig, VolumetricsSettings=VolumetricsSettings,
+        reflect=reflect, S=scenes, build=build, M=march, spmd=spmd,
+        pipeline=pipeline,
         probes=probes, shading=shading, vol=volumetrics,
         camera_rays=camera_rays, pixel_grid=pixel_grid, SceneCtx=SceneCtx,
         SURFACE_OFFSET=SURFACE_OFFSET, material_lookup=material_lookup,
+        tree_items=tree_items, tree_map=tree_map,
         image_stats=image_stats, FrameTimer=FrameTimer,
-        device_busy=device_busy, rays_per_frame=rays_per_frame)
+        device_busy=device_busy, device_ops=device_ops,
+        rays_per_frame=rays_per_frame)
 
 
 def toolchain(torch, m):
@@ -601,6 +629,17 @@ def drive(torch, m, r, label, frames, per_frame, card):
     return launches
 
 
+def profile_frames(m, r, label, card):
+    """Renderer r's frames under torch.profiler (3 frames): prints the
+    device's busy time per frame, the idle share and the heaviest ops."""
+    busy, wall, top = m.device_busy(r.render, 3)
+    print(f"{label} under torch.profiler (3 frames): device busy "
+          f"{busy:.3f} ms/frame of {wall:.3f} ms/frame, idle share "
+          f"{1.0 - busy / wall:.3f}; heaviest: "
+          + "; ".join(f"{name[:60]} {ms:.3f}" for name, ms in top[:5])
+          + f"; [{card}]")
+
+
 def ls_rays(torch, m, r):
     """light_shafts' scattering rays (o, d) and the froxel-to-light rays
     (pts, ldir, ldist) of its one light, built as the passes build them."""
@@ -914,12 +953,7 @@ def mesh_phases(torch, m, dev, card):
     print(f"obj_mesh 800x800 per pass (ms, CUDA events, mean of 3): "
           f"{json.dumps({k: round(v, 3) for k, v in split.items()})}; "
           f"[{card}]")
-    busy, wall, top = m.device_busy(r.render, 3)
-    print(f"obj_mesh 800x800 under torch.profiler (3 frames): device busy "
-          f"{busy:.3f} ms/frame of {wall:.3f} ms/frame, idle share "
-          f"{1.0 - busy / wall:.3f}; heaviest: "
-          + "; ".join(f"{name[:60]} {ms:.3f}" for name, ms in top[:5])
-          + f"; [{card}]")
+    profile_frames(m, r, "obj_mesh 800x800", card)
 
     # one box level, against which the second is timed: every super-chunk
     # box opened to all of space, so the same kernel tests every chunk box
@@ -1003,6 +1037,214 @@ def mesh_phases(torch, m, dev, card):
     return out, rc_err, vis_err, sh_err
 
 
+# Phase 25: card gradients against CPU gradients, per float leaf by
+# relative norm.  The kernels equal their plain versions (phases 3, 8, 13,
+# 14), so what differs is PyTorch's own arithmetic on the card: matmul and
+# reduction order, and the atomics of the gathers' backward (run to run).
+# Measured 1.6e-6 at most (GI mode 2; NVIDIA H100 80GB HBM3, 700.00 W);
+# the limit leaves room for a pixel whose discrete pick (the mode-2 probe,
+# a silhouette) flips at a near-tie between the two devices.
+GRAD_REL_LIMIT = 1e-3
+# test_torch_pipeline.py's small volumetrics, for light_shafts' gradients
+SMALL_VOL = dict(visibility_resolution=(8, 8, 8), visibility_step_size=0.5,
+                 scattering_resolution=(12, 12), scattering_step_size=0.5)
+# The train step's sizes, scene and target: bench.py:bench_train_step's.
+TRAIN_SIZES = (256, 512)
+TRAIN_STEPS = 5
+
+
+def rel_norm(torch, a, b):
+    """‖a − b‖ / ‖b‖ (‖a‖ where b is 0)."""
+    nb = float(torch.linalg.vector_norm(b.double()))
+    diff = float(torch.linalg.vector_norm((a - b).double()))
+    return diff / nb if nb > 0 else float(torch.linalg.vector_norm(
+        a.double()))
+
+
+def to_device(m, dev, data, camera, state):
+    """A scene's data, camera and feedback state moved to ``dev``."""
+    P = m.pipeline
+    return (m.tree_map(lambda x: x.to(dev), data),
+            P.Camera(position=camera.position.to(dev),
+                     orientation=camera.orientation.to(dev)),
+            P.FrameState(**{f.name: getattr(state, f.name).to(dev)
+                            for f in dataclasses.fields(P.FrameState)}))
+
+
+def gradient_phase(torch, m, dev, card):
+    """Phase 25: the train step's loss gradient on the card and on the CPU
+    from the same scene data and atlases (a frame rendered on the CPU with
+    test_examples.py's tiny probes), per float leaf; fails beyond
+    GRAD_REL_LIMIT, on a non-finite gradient, or unless each kernel of the
+    path launched as often as a frame launches it.  Returns {case:
+    numbers}."""
+    S, spmd = m.S, m.spmd
+    probes = m.ProbeSettings(**TINY_PROBES)
+    cases = (
+        ("GI mode 2 64x64", S.global_illumination, 64, {},
+         {"geometry": 2}),
+        ("GI mode 1 32x32", S.global_illumination, 32,
+         {"screen_cfg": m.ShadeConfig(indirect_specular_mode=1)},
+         {"geometry": 2, "raycast": 1, "softshadows": 1}),
+        ("GI mode 3 32x32", S.global_illumination, 32,
+         {"screen_cfg": m.ShadeConfig(indirect_specular_mode=3)},
+         {"geometry": 3}),
+        ("light_shafts 32x32", S.light_shafts, 32,
+         {"volumetrics": m.VolumetricsSettings(**SMALL_VOL)},
+         {"geometry": 2, "raycast": 1, "visibility": 1}))
+    out = {}
+    for label, build_scene, size, kw, per_step in cases:
+        r = build_scene(width=size, height=size, probes=probes,
+                        device="cpu", **kw)
+        r.render()
+        value_and_grad = spmd.make_value_and_grad(
+            r.spec, probes, r.volumetrics, size, size,
+            screen_cfg=r.screen_cfg, probe_cfg=r.probe_cfg)
+        target = torch.zeros((size, size, 3))
+        args = (r.scene_data, r.camera, r.state)
+        loss_c, grads_c, _ = value_and_grad(*args, target)
+        reset_launches(m)
+        loss_d, grads_d, _ = value_and_grad(*to_device(m, dev, *args),
+                                            target.to(dev))
+        torch.cuda.synchronize()
+        launches = {name: getattr(m.M, name).launches for name in KERNELS}
+        want = {name: per_step.get(name, 0) for name in KERNELS}
+        names = [path for path, leaf in m.tree_items(r.scene_data)
+                 if leaf.is_floating_point()]
+        rel = {name: rel_norm(torch, gd.cpu(), gc)
+               for name, gd, gc in zip(names, grads_d, grads_c)}
+        finite = all(bool(torch.isfinite(g).all())
+                     for g in grads_c + grads_d)
+        worst = max(rel.values())
+        print(f"gradients {label}, card vs cpu: loss {float(loss_d):.8f} / "
+              f"{float(loss_c):.8f}; largest relative norm {worst:.3e} "
+              f"(limit {GRAD_REL_LIMIT}); per leaf "
+              + json.dumps({k: float(f"{v:.3e}") for k, v in rel.items()})
+              + f"; launches {json.dumps(launches)}; [{card}]")
+        if not finite:
+            fail(f"gradients {label}: not finite")
+        if not worst <= GRAD_REL_LIMIT:
+            fail(f"gradients {label}: card vs CPU {worst:.3e} beyond "
+                 f"{GRAD_REL_LIMIT}")
+        if launches != want:
+            fail(f"gradients {label}: launches {launches}, expected {want}")
+        out[label] = dict(loss=float(loss_d), loss_cpu=float(loss_c),
+                          max_rel=worst, rel=rel, launches=launches)
+    return out
+
+
+def train_phase(torch, m, dev, card, size):
+    """Phase 26 at size²: bench.py's train step (global_illumination at
+    full width, its 36 probes x 32² texels, mode 2 with AO, a black
+    target, lr 0.01) timed with CUDA events over TRAIN_STEPS steps after a
+    warm-up, and the differentiable forward alone (no graph) over as many
+    frames.  Fails on a non-finite loss, on parameters that did not move,
+    or unless each step launched the geometry kernel twice and no other
+    kernel.  Returns the numbers and a function making one more step."""
+    S, spmd, P = m.S, m.spmd, m.pipeline
+    r = S.global_illumination(width=size, height=size, device=dev)
+    step = spmd.make_train_step(r.spec, r.probes, r.volumetrics, size, size,
+                                screen_cfg=r.screen_cfg)
+    target = torch.zeros((size, size, 3), device=dev)
+    cam = r.camera
+    run = {"data": r.scene_data, "state": r.state}
+
+    def one_step():
+        loss, run["data"], run["state"] = step(run["data"], cam,
+                                               run["state"], target)
+        return loss
+
+    one_step()
+    before = [x.clone() for x in spmd.split_float_leaves(run["data"])[0]]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    timer = m.FrameTimer(dev)
+    reset_launches(m)
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        with timer.frame():
+            loss = one_step()
+        losses.append(float(loss))
+    # the steps' own peak, above what the script already held
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    launches = {name: getattr(m.M, name).launches for name in KERNELS}
+    after = spmd.split_float_leaves(run["data"])[0]
+    moved = max(float((a - b).abs().max()) for a, b in zip(after, before))
+
+    screen = dataclasses.replace(r.screen_cfg, differentiable=True)
+    probe = dataclasses.replace(r.probe_cfg, differentiable=True)
+
+    def forward():
+        with torch.no_grad():
+            return P.render_frame(r.spec, r.probes, r.volumetrics, size,
+                                  size, run["data"], cam, run["state"],
+                                  screen_cfg=screen, probe_cfg=probe)[0]
+
+    forward()
+    fwd_timer = m.FrameTimer(dev)
+    for _ in range(TRAIN_STEPS):
+        with fwd_timer.frame():
+            forward()
+    ms, fwd_ms = timer.mean * 1e3, fwd_timer.mean * 1e3
+    rays = m.rays_per_frame(size, size, r.probes, 1, r.screen_cfg,
+                            r.volumetrics)
+    out = dict(ms_per_step=ms, forward_ms=fwd_ms,
+               backward_update_ms=ms - fwd_ms,
+               step_ms=[t * 1e3 for t in timer.times],
+               forward_each_ms=[t * 1e3 for t in fwd_timer.times],
+               rays_per_step=rays,
+               rays_per_s=rays / (ms / 1e3), losses=losses,
+               largest_change=moved, peak_mib=peak / 2 ** 20,
+               held_mib=held / 2 ** 20,
+               launches=launches)
+    print(f"train GI {size}x{size}: {ms:.3f} ms/step (forward {fwd_ms:.3f} "
+          f"ms, backward+update {ms - fwd_ms:.3f} ms; steps "
+          + ", ".join(f"{x:.1f}" for x in out["step_ms"]) + " ms, forwards "
+          + ", ".join(f"{x:.1f}" for x in out["forward_each_ms"])
+          + f" ms), {rays / (ms / 1e3) / 1e6:.1f} M rays/s ({rays} "
+          f"rays/step); losses {losses}; largest parameter change "
+          f"{moved:.3e}; peak memory {peak / 2 ** 20:.1f} MiB above the "
+          f"{held / 2 ** 20:.1f} MiB held before; launches "
+          f"{json.dumps(launches)} in {TRAIN_STEPS} steps; [{card}]")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train {size}x{size}: non-finite loss {losses}")
+    if not moved > 0.0 or not math.isfinite(moved):
+        fail(f"train {size}x{size}: parameters did not move ({moved})")
+    want = {name: (2 * TRAIN_STEPS if name == "geometry" else 0)
+            for name in KERNELS}
+    if launches != want:
+        fail(f"train {size}x{size}: launches {launches}, expected {want}")
+    return out, one_step, forward
+
+
+def train_profile(torch, m, one_step, forward, label, card):
+    """Phase 27: the train step under torch.profiler (3 steps): the
+    device's busy ms per step and idle share, and the heaviest device ops
+    of the forward (profiled alone) and of the rest of the step (the
+    step's time per op less the forward's)."""
+    busy, wall, ops = m.device_ops(one_step, 3)
+    f_busy, f_wall, f_ops = m.device_ops(forward, 3)
+    back = {k: v - f_ops.get(k, 0.0) for k, v in ops.items()}
+
+    def top(d):
+        return [(k[:60], round(v, 4))
+                for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:6]]
+
+    out = dict(busy_ms=busy, wall_ms=wall, idle_share=1.0 - busy / wall,
+               forward_busy_ms=f_busy, forward_wall_ms=f_wall,
+               top_forward=top(f_ops), top_backward=top(back))
+    print(f"train {label} under torch.profiler (3 steps): device busy "
+          f"{busy:.3f} ms/step of {wall:.3f} ms/step, idle share "
+          f"{1.0 - busy / wall:.3f}; forward alone {f_busy:.3f} of "
+          f"{f_wall:.3f} ms; heaviest forward: "
+          + "; ".join(f"{k} {v}" for k, v in out["top_forward"])
+          + "; heaviest backward+update: "
+          + "; ".join(f"{k} {v}" for k, v in out["top_backward"])
+          + f"; [{card}]")
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "madarch_tpu_torch")):
         fail("madarch_tpu_torch/ is not beside this script")
@@ -1043,6 +1285,7 @@ def main():
     frames = 5
     gi_launches = drive(torch, m, r, "GI 800x800", frames,
                            {"geometry": 2}, card)
+    profile_frames(m, r, "GI 800x800", card)
 
     # ---- 7. the raycast and visibility kernels' ptxas report, each build
     march_ptxas(m, ("raycast_kernel", "visibility_kernel"))
@@ -1116,6 +1359,7 @@ def main():
           f"screen includes the composite): "
           f"{json.dumps({k: round(v, 3) for k, v in split.items()})}; "
           f"[{card}]")
+    profile_frames(m, ls, "light_shafts 800x800", card)
 
     # ---- 11. raycast and visibility kernels vs plain versions, timed
     rc_t = time_pair(torch, lambda: raycast(M.raycast),
@@ -1280,12 +1524,7 @@ def main():
         print(f"{label} 800x800 per pass (ms, CUDA events, mean of 3): "
               f"{json.dumps({k: round(v, 3) for k, v in split.items()})}; "
               f"[{card}]")
-        busy, wall, top = m.device_busy(rr.render, 3)
-        print(f"{label} 800x800 under torch.profiler (3 frames): device "
-              f"busy {busy:.3f} ms/frame of {wall:.3f} ms/frame, idle share "
-              f"{1.0 - busy / wall:.3f}; heaviest: "
-              + "; ".join(f"{name[:60]} {ms:.3f}" for name, ms in top[:5])
-              + f"; [{card}]")
+        profile_frames(m, rr, f"{label} 800x800", card)
 
     # ---- 18. the softshadow kernel vs its plain version, timed
     sh_t = time_pair(torch, lambda: penumbra(M.softshadows),
@@ -1351,6 +1590,22 @@ def main():
             discrete=max(shares.values()), max_abs_err=max(errs.values()))
     print(json.dumps({"kernel_variants": ab}))
 
+    # ---- 25. gradients: card against CPU, per float leaf
+    grads = gradient_phase(torch, m, dev, card)
+
+    # ---- 26. the GI train step at 256x256 and 512x512
+    train = {}
+    for size in TRAIN_SIZES:
+        train[f"{size}x{size}"], one_step, forward = train_phase(
+            torch, m, dev, card, size)
+
+    # ---- 27. the 512x512 train step under torch.profiler
+    train[f"{size}x{size}"]["profile"] = train_profile(
+        torch, m, one_step, forward, f"GI {size}x{size}", card)
+    del one_step, forward
+    print(json.dumps({"train": dict(train, gradients=grads,
+                                    grad_rel_limit=GRAD_REL_LIMIT)}))
+
     src = "madarch_tpu_torch/ops/csrc/"
     print(json.dumps({"kernels": [
         {"name": "geometry", "route": "cuda", "source": src + "geometry.cu",
@@ -1366,6 +1621,9 @@ def main():
          "launches_gi_mode1": paths["GI mode 1"]["geometry"],
          "launches_gi_mode3": paths["GI mode 3"]["geometry"],
          "launches_simple_scene": paths["simple_scene"]["geometry"],
+         # geometry launches in the TRAIN_STEPS timed train steps
+         "launches_train": {k: t["launches"]["geometry"]
+                            for k, t in train.items()},
          "ms_simple_scene": geo_ss["screen"]["ms"],
          "plain_ms_simple_scene": geo_ss["screen"]["plain_ms"],
          "bound_ms_simple_scene": geo_ss["screen"]["bound_ms"],

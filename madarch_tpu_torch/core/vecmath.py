@@ -30,6 +30,15 @@ def cross(a, b):
                        dim=-1)
 
 
+def absolute(x):
+    """|x| with the JAX package's derivative, +1 at x = 0 (the JVP of
+    jnp.abs is select(x >= 0, g, -g); torch.abs's derivative is sign(x), 0
+    at 0).  The normal of an axis-aligned plane has exact zero components,
+    and the differentiable shade differentiates |n| there (the octahedral
+    lookup).  The value is |x| but for the sign of a zero."""
+    return torch.where(x >= 0.0, x, -x)
+
+
 def length(a):
     return torch.sqrt(torch.clamp_min(dot2(a), 1e-30))
 

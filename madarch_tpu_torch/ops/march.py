@@ -720,6 +720,13 @@ def geometry_library(lanes=1, count_work=False, fmad=False):
     return lib
 
 
+def _stop_gradient(*xs):
+    """Each tensor of xs detached from autograd (None and Python numbers as
+    they are): what a kernel launch and its plain version read."""
+    return tuple(x.detach() if isinstance(x, torch.Tensor) else x
+                 for x in xs)
+
+
 def _check(name, x, device, dtype, shape):
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
@@ -811,7 +818,14 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
     On the card the launch uses ``geometry_lanes`` lanes per ray;
     ``library`` (a ``geometry_library`` build) overrides the choice and
     ``work`` (i64[3] on the device) receives a COUNT_WORK build's counts:
-    both are for measurements."""
+    both are for measurements.
+
+    Every output is a constant to autograd: the wrapper detaches its
+    inputs, on either device (a ctypes launch would ignore autograd
+    silently; the plain version would record a graph through every march
+    step).  The same holds for raycast, visibility and softshadows."""
+    origins, dirs, enabled, lpos, mat_rough_vec = _stop_gradient(
+        origins, dirs, enabled, lpos, mat_rough_vec)
     dev = origins.device
     n = origins.shape[0]
     _check("origins", origins, dev, torch.float32, (n, 3))
@@ -1003,6 +1017,7 @@ def raycast(packed, origins, dirs, max_dist, *, eps=EPSILON, max_steps=300,
     max_dist (also the scene-distance cap): (t f32[N], max_dist or more
     on a miss and 0 where disabled; hit bool[N]; pos = o + t·d).
     ``enabled``: optional bool[N]; disabled rays never march."""
+    origins, dirs, enabled = _stop_gradient(origins, dirs, enabled)
     dev = origins.device
     en = _check_rays(packed, origins, dirs, enabled)
     kwargs = dict(eps=eps, max_steps=max_steps, omega=omega)
@@ -1035,6 +1050,8 @@ def visibility(packed, origins, dirs, max_dists, *, eps=EPSILON,
     """f32[N]: 1 where the ray origins/dirs f32[N, 3] reaches its own
     max_dists f32[N] unblocked, else 0; a ray starts only where
     0 < max_dist and ``enabled`` (optional bool[N]) holds."""
+    origins, dirs, max_dists, enabled = _stop_gradient(
+        origins, dirs, max_dists, enabled)
     dev = origins.device
     n = origins.shape[0]
     en = _check_rays(packed, origins, dirs, enabled)
@@ -1069,6 +1086,8 @@ def softshadows(packed, origins, dirs, min_dists, max_dists, k, *,
     f32[N], k the penumbra sharpness; 0 where the ray hits geometry, 1
     where it never starts (``enabled``, optional bool[N], false, or
     min_dist >= max_dist)."""
+    origins, dirs, min_dists, max_dists, enabled = _stop_gradient(
+        origins, dirs, min_dists, max_dists, enabled)
     dev = origins.device
     n = origins.shape[0]
     en = _check_rays(packed, origins, dirs, enabled)

@@ -1,12 +1,19 @@
 """SceneCtx: everything the march kernels need, packed once per pass
-(port of madarch_tpu/render/context.py)."""
+(port of madarch_tpu/render/context.py).
+
+The kernels and the plain marches see the scene detached from autograd
+(the JAX package packs stop-gradient data): their outputs are constants,
+and gradients re-enter only through ``sdf_b_diff``, the batched scene
+distance over the live data (render/raymarch.py: attach_hit_gradient,
+scene_normal)."""
 from __future__ import annotations
 
 import torch
 
 from madarch_tpu_torch.ops import march as march_ops
 from madarch_tpu_torch.render.raymarch import SURFACE_OFFSET
-from madarch_tpu_torch.scene.scene import SceneData, SceneSpec
+from madarch_tpu_torch.scene.scene import (SceneData, SceneSpec, scene_sdf,
+                                           tree_map)
 
 
 class SceneCtx:
@@ -14,14 +21,16 @@ class SceneCtx:
         self.spec = spec
         self.data = data
         self.max_dist = spec.max_dist
-        self.packed = march_ops.pack_scene(spec, data)
+        self.sdf_b_diff = lambda p: scene_sdf(spec, data, p)
+        data_sg = tree_map(torch.Tensor.detach, data)
+        self.packed = march_ops.pack_scene(spec, data_sg)
         self.lpos_vec, self.n_light_slots = \
-            march_ops.pack_light_positions(spec, data)
+            march_ops.pack_light_positions(spec, data_sg)
         if self.lpos_vec is None:
             raise NotImplementedError(
                 "geometry kernel needs a vec3 'position' on every light")
         # material roughness: the kernel's mode-2 reflection gate
-        self.rough_vec = data.materials["roughness"].to(
+        self.rough_vec = data_sg.materials["roughness"].to(
             torch.float32).contiguous()
 
     def geometry(self, origins, dirs, probes, cfg, want_reflection=False,

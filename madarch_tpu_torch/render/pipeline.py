@@ -146,7 +146,10 @@ def render_frame(spec: SceneSpec, probes: ProbeSettings,
                  data: SceneData, camera: Camera, state: FrameState,
                  screen_cfg: ShadeConfig = None,
                  probe_cfg: ShadeConfig = PROBE_SHADE_CONFIG):
-    """One full frame; returns (image f32[H,W,3], new FrameState)."""
+    """One full frame; returns (image f32[H,W,3], new FrameState).  The
+    image carries the frame's gradients (differentiable configs); the new
+    state is detached, the feedback that the next frame reads as data (the
+    JAX package returns it outside the gradient)."""
     if screen_cfg is None:
         screen_cfg = screen_shade_config(vol.enabled)
     radiance = radiance_pass(spec, data, probes, probe_cfg,
@@ -165,5 +168,6 @@ def render_frame(spec: SceneSpec, probes: ProbeSettings,
 
     image = screen_pass(spec, data, probes, vol, screen_cfg, width, height,
                         camera, irradiance, radiance, scattering)
-    return image, FrameState(radiance=radiance, irradiance=irradiance,
-                             scattering=scattering)
+    return image, FrameState(radiance=radiance.detach(),
+                             irradiance=irradiance.detach(),
+                             scattering=scattering.detach())

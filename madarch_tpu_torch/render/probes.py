@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from madarch_tpu_torch.core.config import ProbeSettings
-from madarch_tpu_torch.core.vecmath import dot, length, mix, sign_not_zero
+from madarch_tpu_torch.core.vecmath import (absolute, dot, length, mix,
+                                            sign_not_zero)
 
 # The 8 probe-cell corners, bit k of the corner index selecting +1 on axis k.
 CORNER_OFFSETS = tuple(((i >> 0) & 1, (i >> 1) & 1, (i >> 2) & 1)
@@ -29,10 +30,10 @@ def dir_to_oct(v):
     """Unit vec3 -> octahedral coords in [-1, 1]²; the clamp guards the
     zero vectors that masked-out lanes carry."""
     denom = torch.clamp_min(
-        torch.abs(v[..., 0]) + torch.abs(v[..., 1]) + torch.abs(v[..., 2]),
+        absolute(v[..., 0]) + absolute(v[..., 1]) + absolute(v[..., 2]),
         1e-12)
     p = v[..., :2] / denom[..., None]
-    folded = (1.0 - torch.abs(torch.flip(p, dims=[-1]))) * sign_not_zero(p)
+    folded = (1.0 - absolute(torch.flip(p, dims=[-1]))) * sign_not_zero(p)
     return torch.where((v[..., 2] <= 0.0)[..., None], folded, p)
 
 
@@ -297,8 +298,11 @@ def sample_irradiance(settings: ProbeSettings, irr_atlas, pos, normal, *,
         dims - 1)                                             # [8,N,3]
     probe_world = offseted.to(torch.float32) * spacing
     hit_to_probe = probe_world - pos[None]                    # [8,N,3]
-    probe_dist = torch.clamp_min(torch.sqrt(dot(hit_to_probe, hit_to_probe)),
-                                 1e-6)
+    # sqrt(max(|v|², 1e-12)) is max(|v|, 1e-6) bit for bit in f32 (sqrt
+    # rounds monotonically and sqrt(1e-12) rounds to 1e-6), and unlike it
+    # has a finite backward at v = 0 (a hit on a probe's own position)
+    probe_dist = torch.sqrt(torch.clamp_min(dot(hit_to_probe, hit_to_probe),
+                                            1e-12))
     dir_to_probe = hit_to_probe / probe_dist[..., None]
 
     # backface weight: ((dot+1)/2)² + 0.2

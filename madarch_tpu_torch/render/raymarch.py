@@ -1,17 +1,23 @@
-"""Batched sphere-tracing loops: raycast, visibility, soft shadows, AO
-(port of madarch_tpu/render/raymarch.py).
+"""Batched sphere-tracing loops: raycast, visibility, soft shadows, AO,
+and the two places where gradients re-enter (port of
+madarch_tpu/render/raymarch.py).
 
-These are the plain PyTorch marches: the CPU path and the oracles that
-``ops.march.geometry_reference`` composes.  Each step evaluates the scene
-only at the lanes still marching (gathered by index), which gives the same
-per-lane arithmetic as the reference's masked full-batch step at a
-fraction of the work; the loop ends when no lane is active.
+The marches are the plain PyTorch versions: the CPU path and the oracles
+that ``ops.march.geometry_reference`` composes.  Each step evaluates the
+scene only at the lanes still marching (gathered by index), which gives the
+same per-lane arithmetic as the reference's masked full-batch step at a
+fraction of the work; the loop ends when no lane is active.  A march is a
+non-differentiable estimator: it runs under no_grad (the JAX package
+stop-gradients its rays and closes its scene over stop-gradient data), so
+no autograd graph grows through its steps whatever it is given.
+Gradients come back through ``attach_hit_gradient`` (the implicit function
+theorem at the hit) and ``scene_normal`` (the autodiff SDF gradient).
 """
 from __future__ import annotations
 
 import torch
 
-from madarch_tpu_torch.core.vecmath import EPSILON
+from madarch_tpu_torch.core.vecmath import EPSILON, dot
 
 MAX_STEPS = 300
 MIN_STEP_SIZE = 0.05
@@ -68,6 +74,7 @@ def _over_relaxed(sdf_b, origins, dirs, max_dists, active, eps, max_steps,
     return t, blocked, steps
 
 
+@torch.no_grad()
 def raycast_distance(sdf_b, origins, dirs, max_dist, *, eps=EPSILON,
                      max_steps=MAX_STEPS, enabled=None, omega=RELAXATION):
     """The march of ``raycast`` alone: t f32[N], where each ray stopped (0
@@ -78,6 +85,7 @@ def raycast_distance(sdf_b, origins, dirs, max_dist, *, eps=EPSILON,
                          _active0(origins, enabled), eps, max_steps, omega)[0]
 
 
+@torch.no_grad()
 def raycast(sdf_b, origins, dirs, max_dist, *, eps=EPSILON,
             max_steps=MAX_STEPS, enabled=None, omega=RELAXATION,
             return_steps=False):
@@ -105,6 +113,7 @@ def raycast(sdf_b, origins, dirs, max_dist, *, eps=EPSILON,
     return (t, hit, pos, steps) if return_steps else (t, hit, pos)
 
 
+@torch.no_grad()
 def raycast_visibility(sdf_b, origins, dirs, max_dists, *, eps=EPSILON,
                        max_steps=MAX_STEPS, enabled=None, omega=RELAXATION,
                        return_steps=False):
@@ -119,6 +128,7 @@ def raycast_visibility(sdf_b, origins, dirs, max_dists, *, eps=EPSILON,
     return (vis, steps) if return_steps else vis
 
 
+@torch.no_grad()
 def softshadows(sdf_b, origins, dirs, min_dists, max_dists, k, *,
                 eps=EPSILON, max_steps=MAX_STEPS, enabled=None,
                 return_steps=False):
@@ -180,3 +190,44 @@ def ambient_occlusion(sdf_b, pos, normal, *, steps=3, step_size=0.1):
         ao_sum = ao_sum + factor * sdf_b(pos + normal * h)
         max_ao_sum = max_ao_sum + factor * h
     return 0.6 + 0.4 * ao_sum / max_ao_sum
+
+
+def attach_hit_gradient(sdf_b_diff, origins, dirs, t):
+    """Re-attach parameter gradients to a march distance t f32[N] that
+    carries none (a kernel's or a plain march's).
+
+    ``sdf_b_diff`` is the batched scene distance over the live scene data.
+    Returns t' equal to t in value whose derivative obeys the implicit
+    function theorem at the surface:
+        t' = t − (f(o + t·d; θ) − sg(f)) / sg(d·∇f).
+    Gradients flow to the scene parameters and to origins and dirs (camera
+    derivatives need them).  d·∇f is taken on detached copies, and a
+    grazing |d·∇f| < 1e-3 is pushed out to ±1e-3 (+1e-3 at exactly 0), bit
+    for bit the JAX package's guard."""
+    t_sg = t.detach()
+    p = origins + t_sg[:, None] * dirs
+    f = sdf_b_diff(p)
+    with torch.enable_grad():
+        q = p.detach().requires_grad_(True)
+        grad_q, = torch.autograd.grad(sdf_b_diff(q).sum(), q)
+    denom = dot(grad_q, dirs.detach())
+    denom = torch.where(torch.abs(denom) < 1e-3,
+                        torch.sign(denom) * 1e-3 + (denom == 0.0) * 1e-3,
+                        denom)
+    return t_sg - (f - f.detach()) / denom
+
+
+def scene_normal(sdf_b_diff, pos):
+    """Surface normal as the normalized scene-SDF gradient at pos f32[N,3]:
+    g = ∂(Σ f)/∂q, kept differentiable in the scene parameters (through
+    sdf_b_diff's data) and in pos when either carries gradients.  The
+    gradient is taken inside enable_grad, so under no_grad it returns the
+    same values without a graph.  g / sqrt(|g|² + 1e-24), the JAX form:
+    max(|g|, eps) has a 0·inf = NaN backward at g = 0 (far-miss lanes sit
+    on the constant max_dist cap)."""
+    outer = torch.is_grad_enabled()
+    with torch.enable_grad():
+        q = pos if pos.requires_grad and outer \
+            else pos.detach().requires_grad_(True)
+        g, = torch.autograd.grad(sdf_b_diff(q).sum(), q, create_graph=outer)
+    return g / torch.sqrt(dot(g, g) + 1e-24)[..., None]

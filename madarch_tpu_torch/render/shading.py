@@ -1,5 +1,5 @@
-"""Per-ray shading (port of madarch_tpu/render/shading.py, the
-non-differentiable path with specular modes 0 to 3).
+"""Per-ray shading (port of madarch_tpu/render/shading.py's kernel path,
+specular modes 0 to 3, plain and differentiable).
 
 One geometry-kernel launch per ray batch returns hit distance, material,
 FD normal, AO, per-light penumbra factors and the 8 probe-visibility bits
@@ -8,6 +8,15 @@ PyTorch then does materials, BRDF and the atlas contractions.  Mode 1
 marches its reflection rays through the raycast kernel and its 8 probe
 penumbras per point through the softshadow kernel; mode 3 shades the
 reflection hit from a second, masked geometry launch without AO.
+
+With ``cfg.differentiable`` the shade is differentiable in the primitive,
+material and light parameters and in the rays: the kernels still march
+(their outputs are constants to autograd), the hit distance is reattached
+by the implicit function theorem and the normals are the autodiff gradient
+of the scene distance (render/raymarch.py).  The kernel's material, AO,
+shadows, probe visibility and mode 2's best-probe pick stay discrete or
+constant; mode 3 keeps the masked launch's FD normal at reflection hits,
+as the JAX package's kernel path does.
 """
 from __future__ import annotations
 
@@ -21,7 +30,9 @@ from madarch_tpu_torch.render import probes as probes_mod
 from madarch_tpu_torch.render.context import SceneCtx
 from madarch_tpu_torch.render.lighting import (direct_lighting,
                                                indirect_lighting)
-from madarch_tpu_torch.render.raymarch import SURFACE_OFFSET
+from madarch_tpu_torch.render.raymarch import (SURFACE_OFFSET,
+                                               attach_hit_gradient,
+                                               scene_normal)
 from madarch_tpu_torch.scene.scene import (SceneData, SceneSpec,
                                            material_lookup)
 
@@ -62,8 +73,9 @@ def shade_hits(spec, data, probe_settings, cfg, ctx, irr_atlas, rad_atlas,
                 specular_dir, roughness, enabled=spec_enabled)
         elif cfg.indirect_specular_mode == 2:
             specular_col = sample_radiance_no_specular(
-                spec, data, probe_settings, cfg, rad_atlas, pos, normal,
-                specular_dir, enabled=spec_enabled, refl=geom["refl"])
+                spec, data, probe_settings, cfg, ctx, rad_atlas, pos,
+                normal, specular_dir, enabled=spec_enabled,
+                refl=geom["refl"])
         else:
             specular_col = compute_indirect_specular(
                 spec, data, probe_settings, cfg, ctx, irr_atlas, pos,
@@ -77,13 +89,16 @@ def shade_hits(spec, data, probe_settings, cfg, ctx, irr_atlas, rad_atlas,
     return geom["ao"][..., None] * (direct + indirect)
 
 
-def sample_radiance_no_specular(spec, data, probe_settings, cfg, rad_atlas,
-                                pos, normal, spec_dir, *, enabled, refl):
+def sample_radiance_no_specular(spec, data, probe_settings, cfg, ctx,
+                                rad_atlas, pos, normal, spec_dir, *, enabled,
+                                refl):
     """Indirect specular mode 2: the reflection ray's best probe (picked in
     the kernel by backface+visibility weight), radiance lookup at mip 1,
     plus the direct specular highlight at the reflection point when
     add_indirect_specular.  ``refl``: the kernel's folded reflection
-    geometry (geometry()'s "refl" dict)."""
+    geometry (geometry()'s "refl" dict).  Differentiable, the reflection
+    hit is a constant and its normal the autodiff one there (the JAX
+    package's XLA path); the pick stays the kernel's discrete one."""
     n_pts = pos.shape[0]
     settings = probe_settings
     from_ = pos + normal * SURFACE_OFFSET
@@ -102,9 +117,13 @@ def sample_radiance_no_specular(spec, data, probe_settings, cfg, rad_atlas,
         vals_all)
 
     if cfg.add_indirect_specular:
+        spec_normal = refl["normal"]
+        if cfg.differentiable:
+            spec_pos = spec_pos.detach()
+            spec_normal = scene_normal(ctx.sdf_b_diff, spec_pos)
         _, spec_metallic, spec_roughness = material_lookup(data, refl["mid"])
         highlight = direct_lighting(
-            spec, data, spec_pos, refl["normal"], spec_dir,
+            spec, data, spec_pos, spec_normal, spec_dir,
             torch.zeros((n_pts, 3), dtype=torch.float32, device=pos.device),
             spec_metallic, spec_roughness,
             compute_specular=cfg.direct_specular, enabled=enabled & hit,
@@ -136,8 +155,9 @@ def glossy_corners(settings: ProbeSettings, pos, spec_pos, enabled):
         torch.clamp_min(grid_pos[None] + offsets[:, None], 0), dims - 1)
     probe_world = offseted.to(torch.float32) * spacing
     probe_to_spec = (pos[None] - probe_world) + (spec_pos - pos)[None]
-    p_dist = torch.clamp_min(
-        torch.sqrt(dot(probe_to_spec, probe_to_spec)), 1e-6)
+    # max(|v|, 1e-6) with a finite backward at v = 0 (probes.py)
+    p_dist = torch.sqrt(torch.clamp_min(dot(probe_to_spec, probe_to_spec),
+                                        1e-12))
     probe_to_spec = probe_to_spec / p_dist[..., None]
     rays = {
         "origins": spec_pos[None].expand(8, n_pts, 3).reshape(-1, 3),
@@ -222,16 +242,22 @@ def pixel_color(spec: SceneSpec, data: SceneData,
                 probe_settings: ProbeSettings, cfg: ShadeConfig,
                 irr_atlas, rad_atlas, origins, dirs):
     """Shade a ray batch.  Returns (color f32[N,3], hit bool[N],
-    hit_pos f32[N,3]); hit_pos on a miss is the max_dist point."""
-    if cfg.differentiable:
-        raise NotImplementedError("the differentiable shade is not ported")
+    hit_pos f32[N,3]); hit_pos on a miss is the max_dist point.  With
+    ``cfg.differentiable`` the hit distance is reattached by the implicit
+    function theorem and the normal is the autodiff one, so color and
+    hit_pos carry gradients to the scene data and to origins and dirs."""
     ctx = SceneCtx(spec, data)
     geom = ctx.geometry(origins, dirs, probe_settings, cfg,
                         want_reflection=cfg.indirect_specular_mode == 2)
     t, hit = geom["t"], geom["hit"]
+    normal = geom["normal"]
+    if cfg.differentiable:
+        t = attach_hit_gradient(ctx.sdf_b_diff, origins, dirs, t)
     pos = origins + t[:, None] * dirs
+    if cfg.differentiable:
+        normal = scene_normal(ctx.sdf_b_diff, pos)
     lit = shade_hits(spec, data, probe_settings, cfg, ctx, irr_atlas,
-                     rad_atlas, pos, geom["normal"], dirs, hit, geom)
+                     rad_atlas, pos, normal, dirs, hit, geom)
     color = torch.where(hit[..., None], lit, sky_color(dirs))
 
     miss_pos = origins + spec.max_dist * dirs

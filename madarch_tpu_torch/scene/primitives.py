@@ -9,6 +9,17 @@ evaluates (vec3 fields split into name_x/name_y/name_z scalars); the plain
 geometry path in ops/march.py evaluates it too, operation for operation.
 A type with ``derive`` (the triangle) is evaluated instead through
 ``sdf_planar_derived`` on per-slot constants ``derive`` computes once.
+
+``sdf`` is what the differentiable shade differentiates twice (the normal
+is its gradient in p, and the loss's gradient runs through that).  Its
+guards are the JAX package's: ``length`` clamps |v|² at 1e-30 before the
+sqrt, so a zero vector (a point inside a box, where max(q, 0) is 0 on every
+axis) has finite first and second derivatives; the triangle clamps its
+edge parameter to [0, 1] and its divisors at 1e-30.  torch.clamp,
+clamp_min and clamp_max pass the whole gradient at an exact tie where
+jnp.clip and jnp.maximum pass half: the packages' gradients differ only
+at a point exactly on a clamp's edge (q exactly 0, an edge parameter
+exactly 0 or 1), which no marched point is in practice.
 """
 from __future__ import annotations
 
@@ -124,7 +135,7 @@ Plane = PrimitiveType(
 # ---------------------------------------------------------------------------
 
 def _box_sdf(params, p):
-    q = torch.abs(params["center"] - p) - params["side"]
+    q = vm.absolute(params["center"] - p) - params["side"]
     outside = vm.length(torch.clamp_min(q, 0.0))
     inside = torch.clamp_max(torch.amax(q, dim=-1), 0.0)
     return outside + inside

@@ -6,6 +6,8 @@ max_dist and, once ``specialized``, the live counts baked in as loop
 bounds.  ``SceneData`` is the dynamic half, a dataclass of tensors on one
 device.  Global primitive indices follow the reference convention: each
 type occupies a block of size == its *capacity*, in spec order.
+``tree_items``, ``tree_leaves`` and ``tree_map`` walk a SceneData's tensors
+in jax.tree.flatten's order.
 """
 from __future__ import annotations
 
@@ -84,6 +86,53 @@ class SceneData:
     grid: object = None  # GridData of scene/partitioning.py, or None
 
 
+def tree_items(tree, path=""):
+    """[(key path, tensor leaf)] of a SceneData (or any nest of
+    dataclasses, dicts and tensors) in jax.tree.flatten's order: dataclass
+    fields in declaration order, dict keys sorted, None holding no leaf.
+    So a leaf pairs by position with the JAX package's leaf of the same
+    scene.  Paths read like ``prims.sphere.radius``."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [(path, tree)]
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        children = [(k, tree[k]) for k in keys]
+    else:
+        children = [(f.name, getattr(tree, f.name))
+                    for f in dataclasses.fields(tree)]
+    return [item for k, child in children
+            for item in tree_items(child, f"{path}.{k}" if path else k)]
+
+
+def tree_leaves(tree):
+    """The tensor leaves of ``tree`` in tree_items' order."""
+    return [leaf for _, leaf in tree_items(tree)]
+
+
+def _rebuild(tree, leaves):
+    """``tree`` with its leaves taken in order from the iterator
+    ``leaves``."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return next(leaves)
+    if isinstance(tree, dict):
+        new = {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
+        return {k: new[k] for k in tree}
+    return dataclasses.replace(tree, **{
+        f.name: _rebuild(getattr(tree, f.name), leaves)
+        for f in dataclasses.fields(tree)})
+
+
+def tree_map(fn, tree):
+    """``tree`` with every tensor leaf x replaced by fn(x) (a scene
+    detached, or moved to another device), its dicts in their own key
+    order."""
+    return _rebuild(tree, iter([fn(x) for x in tree_leaves(tree)]))
+
+
 def _tensor(x, device):
     return torch.as_tensor(np.array(x)).to(device)
 
@@ -127,7 +176,12 @@ def _masked_type_dists(spec, data, ptype, n, static, p):
 
 def scene_sdf(spec: SceneSpec, data: SceneData, p):
     """closest_primitive: min distance over every live primitive, capped at
-    max_dist."""
+    max_dist.  Twice differentiable wherever the JAX package's is: the
+    normal of the differentiable shade is its gradient, and the loss's
+    gradient goes through that.  torch.minimum and torch.amin split the
+    gradient evenly at an exact tie, as jnp.minimum and jnp.min do; so a
+    miss lane sitting exactly on the max_dist cap gives the cap and the
+    nearest slot half each in both packages."""
     closest = torch.full(p.shape[:-1], spec.max_dist, dtype=torch.float32,
                          device=p.device)
     for ptype, cap, n, static in spec.prim_bounds():
@@ -167,11 +221,16 @@ def primitive_material_id(spec: SceneSpec, data: SceneData, index):
 
 
 def material_lookup(data: SceneData, material_id):
+    """(albedo, metallic, roughness) of each material id, clamped to the
+    table.  index_select, not advanced indexing: the gradient of the one
+    is an index_add, of the other an index_put that on the card sorts its
+    indices and sums each run serially, and a frame's ids are a few
+    distinct values repeated over every ray (81 of the 512x512 train
+    step's 102 ms of device time, PERF.md)."""
     m = data.materials["albedo"].shape[0]
     mid = torch.clamp(material_id, 0, m - 1).long()
-    return (data.materials["albedo"][mid],
-            data.materials["metallic"][mid],
-            data.materials["roughness"][mid])
+    return tuple(torch.index_select(data.materials[k], 0, mid)
+                 for k in ("albedo", "metallic", "roughness"))
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Frame timing on the GPU (port of madarch_tpu/utils/profiling.py).
 
 ``FrameTimer`` times frames with CUDA events on the device's own clock and
-refuses a device that is not a GPU; ``device_busy`` traces frames with
-torch.profiler for the device's busy time; ``rays_per_frame`` is the JAX
+refuses a device that is not a GPU; ``device_ops`` and ``device_busy``
+trace calls with torch.profiler for the device's busy time; ``rays_per_frame`` is the JAX
 package's ray accounting unchanged, so rays/s compare across packages.
 """
 from __future__ import annotations
@@ -46,27 +46,32 @@ class FrameTimer:
         return sum(self.times) / max(len(self.times), 1)
 
 
-def device_busy(render, frames):
-    """Trace ``frames`` calls of ``render()`` with torch.profiler: returns
-    (device ms per frame, summed over the kernels' own times; wall ms per
-    frame under the profiler; the op names with the most device time, as
-    [(name, ms per frame)]).  The device runs one stream, so its busy
-    time is the sum of its kernels' times."""
+def device_ops(fn, calls):
+    """Trace ``calls`` calls of ``fn()`` with torch.profiler: returns
+    (device ms per call, summed over the kernels' own times; wall ms per
+    call under the profiler; {op name: device ms per call}).  The device
+    runs one stream, so its busy time is the sum of its kernels' times."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        for _ in range(frames):
-            render()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    return (busy_us / 1e3 / frames, wall * 1e3 / frames,
-            [(e.key, e.self_device_time_total / 1e3 / frames) for e in top])
+    ops = {e.key: e.self_device_time_total / 1e3 / calls
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA}
+    return sum(ops.values()), wall * 1e3 / calls, ops
+
+
+def device_busy(render, frames):
+    """device_ops over ``frames`` calls of ``render()``, with the 8 op
+    names of the most device time as [(name, ms per frame)] in place of
+    the whole table."""
+    busy, wall, ops = device_ops(render, frames)
+    return busy, wall, sorted(ops.items(), key=lambda kv: -kv[1])[:8]
 
 
 def rays_per_frame(width, height, probes, n_lights, screen_cfg,

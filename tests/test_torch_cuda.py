@@ -739,3 +739,43 @@ def test_a_layout_build_holds_its_padded_room_and_refuses_others(dev):
     fan, max_dist, o, d, en, mn, mx = _march_rays("fan", dev, 64)
     with pytest.raises(RuntimeError):
         M._raycast(M.march_library((1, 6, 1)), fan, o, d, max_dist, en)
+
+
+@pytest.mark.parametrize("mode", [2, 3])
+def test_train_step_on_the_card_matches_the_cpu(dev, mode):
+    """One train step of the GI scene at 64x64 (test_examples.py's tiny
+    probes, the atlases of a frame rendered on the CPU) on the card and on
+    the CPU: the losses agree and every float leaf's gradient within
+    chip_smoke.GRAD_REL_LIMIT relative norm; the step launches the
+    geometry kernel twice (three times in mode 3) and moves the
+    parameters."""
+    import chip_smoke
+    from madarch_tpu_torch.parallel import spmd
+    m = chip_smoke.port_modules()
+    r = S.global_illumination(width=64, height=64, device="cpu",
+                              probes=ProbeSettings(**chip_smoke.TINY_PROBES),
+                              screen_cfg=ShadeConfig(
+                                  indirect_specular_mode=mode))
+    r.render()
+    args = (r.spec, r.probes, r.volumetrics, 64, 64)
+    kw = dict(screen_cfg=r.screen_cfg, probe_cfg=r.probe_cfg)
+    value_and_grad = spmd.make_value_and_grad(*args, **kw)
+    target = torch.zeros((64, 64, 3))
+    loss_c, grads_c, _ = value_and_grad(r.scene_data, r.camera, r.state,
+                                        target)
+    on_card = chip_smoke.to_device(m, dev, r.scene_data, r.camera, r.state)
+    before = M.geometry.launches
+    loss_d, grads_d, _ = value_and_grad(*on_card, target.to(dev))
+    torch.cuda.synchronize()
+    assert M.geometry.launches - before == (3 if mode == 3 else 2)
+    np.testing.assert_allclose(float(loss_d), float(loss_c), rtol=1e-5)
+    for gd, gc in zip(grads_d, grads_c):
+        assert bool(torch.isfinite(gd).all())
+        assert chip_smoke.rel_norm(torch, gd.cpu(), gc) \
+            <= chip_smoke.GRAD_REL_LIMIT
+    step = spmd.make_train_step(*args, **kw)
+    _, new, _ = step(*on_card, target.to(dev))
+    moved = [(a - b).abs().max() for a, b in zip(
+        spmd.split_float_leaves(new)[0],
+        spmd.split_float_leaves(on_card[0])[0])]
+    assert float(max(moved)) > 0.0
