@@ -24,7 +24,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
 5. renders global_illumination at 800x800, checks the image, checks that
    the geometry kernel ran twice per frame, and reports ms/frame (CUDA
    events), rays/s and, under torch.profiler, the device's busy time per
-   frame and its heaviest kernels;
+   frame and its heaviest kernels, and the same trace's busy time as
+   key_averages() sums it;
 7. prints ptxas's register and spill lines for the raycast and
    visibility kernels (each build of march.cu);
 8. prints the march steps of the plain versions (mean, largest, and the
@@ -119,7 +120,43 @@ Phases, each printed on its own lines; any failure exits non-zero:
    geometry launches a step;
 27. the 512x512 train step under torch.profiler: the device's busy ms per
    step, its idle share and the heaviest device ops of the forward and of
-   the backward and update.
+   the backward and update;
+28. renders bvh_test (16 BVH spheres, the default probes) at 128x128 over
+   2 frames through Renderer(device="cuda") and holds it to the JAX
+   golden; checks that the scene takes the generic route (the plain
+   marches over the batched scene distance) and that no hand-written
+   kernel launched;
+29. ball_game at 128x128 with the golden's script (a ball thrown, 2
+   physics steps through eval_distance_to, 2 frames) held to the JAX
+   golden, with 2 geometry launches a frame; then 12 more balls thrown
+   (live slots 8 to 20, past LANES_MIN_SLOTS), a step and 2 frames, and
+   fails if an nvcc build ran or a library was loaded after the first
+   frame;
+30. obj_mesh's baked mode on the torus: the 48^3 bake on the card, timed,
+   held to a CPU bake of the same grid (distances to BAKE_ATOL); the
+   scene at 32x32 with the tiny probes, 2 frames on the card and on the
+   CPU under the golden gates;
+31. ball_game at 800x800: a frame at 8 live slots (the screen pass at 1
+   lane a ray), 12 balls thrown, a frame at 20 slots (8 lanes, the build
+   the radiance pass loaded), failing on a build or a library load in
+   that frame; the geometry kernel held to its plain version on its
+   radiance and screen rays at 20 slots as in phase 3; then bvh_test,
+   obj_mesh baked and ball_game at 800x800: a warm-up frame, then 2
+   timed frames (the generic-route scenes) or 5 (ball_game), with
+   ms/frame, rays/s, the launches per frame (none for the generic route,
+   2 geometry launches for ball_game), the per-pass split, the device's
+   busy time and idle share under torch.profiler (for obj_mesh baked and
+   ball_game also as key_averages() sums the same trace) and, for the
+   generic route, the plain primary march's mean and largest step count
+   on the 640,000 screen rays;
+32. the global_illumination room lit by a light without a vec3
+   'position' at 800x800: the kernels take the scene, the geometry kernel
+   does not, so the shade takes its unfused branches; 2 timed frames with
+   3 raycast, 3 softshadows (k = 64) and 3 visibility (8 corners a
+   point) launches a frame and none of geometry; one frame's launches
+   recorded and each held to its plain version on its inputs, the screen
+   pass's three timed against their plain versions beside the bound;
+   prints a scenes JSON line (phases 28-32).
 
 The geometry kernel shares a ray among a group of lanes
 (ops/csrc/scene.cuh).  At every full shape above (phases 3, 16, 21) and on
@@ -146,8 +183,9 @@ over the same rays; for triangles, the super-chunk box tests, the chunk
 box tests inside the admitted super-chunks and the triangles of the
 chunks exact pruning must admit) over 67 TFLOP/s, the H100 SXM's
 published fp32 peak.
-It prints a train JSON line (phases 25-27), a kernels JSON line, the card
-line, then the last line {"ok": true, "device": {...}}.  Imports no JAX.
+It prints a train JSON line (phases 25-27), a scenes JSON line (phases
+28-32), a kernels JSON line, the card line, then the last line
+{"ok": true, "device": {...}}.  Imports no JAX.
 """
 import dataclasses
 import json
@@ -188,36 +226,43 @@ def port_modules():
     from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG,
                                                ProbeSettings, ShadeConfig,
                                                VolumetricsSettings)
-    from madarch_tpu_torch.core.vecmath import reflect
+    from madarch_tpu_torch.core.vecmath import length, reflect
     from madarch_tpu_torch.examples import scenes
     from madarch_tpu_torch.ops import build
     from madarch_tpu_torch.ops import march
     from madarch_tpu_torch.parallel import spmd
     from madarch_tpu_torch.render import pipeline
+    from madarch_tpu_torch.render import lighting
     from madarch_tpu_torch.render import probes
+    from madarch_tpu_torch.render import raymarch
     from madarch_tpu_torch.render import shading
     from madarch_tpu_torch.render import volumetrics
     from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
     from madarch_tpu_torch.render.context import SceneCtx
     from madarch_tpu_torch.render.raymarch import SURFACE_OFFSET
+    from madarch_tpu_torch.render.renderer import Renderer
+    from madarch_tpu_torch.scene import lights
+    from madarch_tpu_torch.scene import mesh
     from madarch_tpu_torch.scene.scene import (material_lookup, tree_items,
                                                tree_map)
     from madarch_tpu_torch.utils.golden import image_stats
-    from madarch_tpu_torch.utils.profiling import (FrameTimer, device_busy,
-                                                   device_ops,
-                                                   rays_per_frame)
+    from madarch_tpu_torch.utils.profiling import (FrameTimer,
+                                                   averaged_busy,
+                                                   device_ops, kernel_ops,
+                                                   rays_per_frame, trace)
     return SimpleNamespace(
         PROBE_SHADE_CONFIG=PROBE_SHADE_CONFIG, ProbeSettings=ProbeSettings,
         ShadeConfig=ShadeConfig, VolumetricsSettings=VolumetricsSettings,
-        reflect=reflect, S=scenes, build=build, M=march, spmd=spmd,
-        pipeline=pipeline,
-        probes=probes, shading=shading, vol=volumetrics,
+        length=length, reflect=reflect, S=scenes, build=build, M=march,
+        spmd=spmd, pipeline=pipeline, lighting=lighting,
+        probes=probes, rm=raymarch, shading=shading, vol=volumetrics,
+        Renderer=Renderer, lights=lights, mesh=mesh,
         camera_rays=camera_rays, pixel_grid=pixel_grid, SceneCtx=SceneCtx,
         SURFACE_OFFSET=SURFACE_OFFSET, material_lookup=material_lookup,
         tree_items=tree_items, tree_map=tree_map,
         image_stats=image_stats, FrameTimer=FrameTimer,
-        device_busy=device_busy, device_ops=device_ops,
-        rays_per_frame=rays_per_frame)
+        averaged_busy=averaged_busy, device_ops=device_ops,
+        kernel_ops=kernel_ops, trace=trace, rays_per_frame=rays_per_frame)
 
 
 def toolchain(torch, m):
@@ -598,19 +643,30 @@ def reset_launches(m):
         getattr(m.M, name).launches = 0
 
 
+def launch_counts(m):
+    return {name: getattr(m.M, name).launches for name in KERNELS}
+
+
+def hold_golden(m, img, goldens, name, label):
+    stats = m.image_stats(img, goldens[name])
+    print(f"golden {label}: {json.dumps(stats)}")
+    if stats["breached"]:
+        fail(f"{label} golden gates breached: {stats['breached']}")
+
+
 def drive(torch, m, r, label, frames, per_frame, card):
     """The main path of renderer r: a warm-up frame, then ``frames`` frames
     timed with CUDA events, the launch counts set to 0 just before and read
     just after.  Fails unless each kernel launched per_frame[name] (0 if
     absent) times per frame and the last image is finite with nonzero
-    variance.  Returns the launches."""
+    variance.  Returns (the launches, ms/frame, rays/s)."""
     r.render()
     timer = m.FrameTimer(r.device)
     reset_launches(m)
     for _ in range(frames):
         with timer.frame():
             img = r.render()
-    launches = {name: getattr(m.M, name).launches for name in KERNELS}
+    launches = launch_counts(m)
     img = img.cpu()
     want = {name: per_frame.get(name, 0) * frames for name in KERNELS}
     if launches != want:
@@ -626,18 +682,33 @@ def drive(torch, m, r, label, frames, per_frame, card):
           f"launches {json.dumps(launches)}; "
           f"image mean {float(img.mean()):.5f} var {float(img.var()):.6f}; "
           f"[{card}]")
-    return launches
+    return launches, timer.mean * 1e3, n_rays / timer.mean
 
 
-def profile_frames(m, r, label, card):
-    """Renderer r's frames under torch.profiler (3 frames): prints the
-    device's busy time per frame, the idle share and the heaviest ops."""
-    busy, wall, top = m.device_busy(r.render, 3)
-    print(f"{label} under torch.profiler (3 frames): device busy "
+def profile_frames(m, r, label, card, frames=3, averaged=False):
+    """Renderer r's frames under torch.profiler: prints the device's busy
+    time per frame (the trace's device events, utils/profiling.py:
+    kernel_ops), the idle share and the heaviest ops; with ``averaged``
+    also the same trace's busy time as key_averages() sums it.  Returns
+    (busy, wall, the key_averages busy or None) ms per frame."""
+    prof, wall = m.trace(r.render, frames)
+    ops = m.kernel_ops(prof, frames)
+    busy = sum(ops.values())
+    top = sorted(ops.items(), key=lambda kv: -kv[1])[:5]
+    print(f"{label} under torch.profiler ({frames} frames): device busy "
           f"{busy:.3f} ms/frame of {wall:.3f} ms/frame, idle share "
           f"{1.0 - busy / wall:.3f}; heaviest: "
-          + "; ".join(f"{name[:60]} {ms:.3f}" for name, ms in top[:5])
+          + "; ".join(f"{name[:60]} {ms:.3f}" for name, ms in top)
           + f"; [{card}]")
+    avg = None
+    if averaged:
+        t0 = time.perf_counter()
+        avg = m.averaged_busy(prof, frames)
+        print(f"{label}, the same trace summed by key_averages(): device "
+              f"busy {avg:.3f} ms/frame, idle share {1.0 - avg / wall:.3f} "
+              f"(the device events: {busy:.3f}, {1.0 - busy / wall:.3f}); "
+              f"the parse took {time.perf_counter() - t0:.1f} s")
+    return busy, wall, avg
 
 
 def ls_rays(torch, m, r):
@@ -944,7 +1015,7 @@ def mesh_phases(torch, m, dev, card):
     # ---- 23. obj_mesh 800x800: the main path, counted and timed
     frames = 5
     launches = drive(torch, m, r, "obj_mesh 800x800", frames,
-                     {"geometry": 2}, card)
+                     {"geometry": 2}, card)[0]
     n_rays = m.rays_per_frame(r.width, r.height, r.probes,
                               ctx.n_light_slots, r.screen_cfg, r.volumetrics)
     if n_rays != 15_088_640:
@@ -1245,6 +1316,354 @@ def train_profile(torch, m, one_step, forward, label, card):
     return out
 
 
+# Phases 28-31: the scenes the kernels do not take (bvh_test and
+# obj_mesh's baked mode, on the generic route) and ball_game.
+BAKE_DIMS = (48, 48, 48)
+# Card bake against CPU bake: both run the same float32 operations.
+BAKE_ATOL = 1e-5
+GENERIC_FRAMES = 2
+BALL_FRAMES = 5
+BALL_THROWS = 12
+
+
+def ball_game(m, size, dev):
+    """ball_game at size x size after the golden's script
+    (tools/make_goldens.py): a ball thrown, 2 physics steps.  Returns
+    (renderer, step_physics, throw_ball)."""
+    r, step, throw = m.S.ball_game(width=size, height=size, device=dev)
+    throw((2.0, 2.0, 0.0), (2.0, 2.0, 4.0))
+    for _ in range(2):
+        step()
+    return r, step, throw
+
+
+def throw_more(step, throw):
+    """BALL_THROWS more balls across the room, then a physics step."""
+    for k in range(BALL_THROWS):
+        throw((0.5 + 0.4 * k, 3.0 + 0.2 * (k % 3), 1.0 + 0.3 * k),
+              (0.5, 1.0, 1.0))
+    step()
+
+
+def on_cpu(m, r):
+    """Renderer r's scene on the CPU: its spec (a baked grid with it) and
+    its host mirror, without building the scene again."""
+    c = m.Renderer(r.base_spec, r.width, r.height, probes=r.probes,
+                   volumetrics=r.volumetrics, screen_cfg=r.screen_cfg,
+                   probe_cfg=r.probe_cfg, device="cpu")
+    c.builder = r.builder
+    c.camera_position = r.camera_position
+    c.camera_orientation = r.camera_orientation
+    return c
+
+
+def screen_steps(torch, m, r):
+    """(mean, largest) march steps of the generic route's primary raycast
+    (the plain march over SceneCtx.sdf_b) on renderer r's screen rays."""
+    cam = r.camera
+    o, d = m.camera_rays(m.pixel_grid(r.width, r.height, r.device),
+                         cam.position, cam.orientation)
+    ctx = m.SceneCtx(r.spec, r.scene_data)
+    steps = m.rm.raycast(ctx.sdf_b, o.reshape(-1, 3), d.reshape(-1, 3),
+                         r.spec.max_dist,
+                         max_steps=r.screen_cfg.max_march_steps,
+                         return_steps=True)[3]
+    return float(steps.float().mean()), int(steps.max())
+
+
+def scene_phases(torch, np, m, dev, card, goldens):
+    """Phases 28-31.  Returns (the scenes JSON's dict, geometry_passes'
+    dict and largest difference on ball_game's 800x800 rays)."""
+    M, S = m.M, m.S
+    out = {}
+
+    # ---- 28. bvh_test 128x128 against the JAX golden, generic route
+    r = S.bvh_test(width=128, height=128, device=dev)
+    if M.kernel_scene(r.spec):
+        fail("bvh_test: the kernels take the scene; expected the generic "
+             "route")
+    reset_launches(m)
+    t0 = time.perf_counter()
+    img = r.converge(frames=2).cpu().numpy()
+    secs = time.perf_counter() - t0
+    launches = launch_counts(m)
+    print(f"bvh_test 128x128: 2 frames in {secs:.2f} s (host clock, with "
+          f"the first frame's set-up), launches {json.dumps(launches)}; "
+          f"[{card}]")
+    if any(launches.values()):
+        fail(f"bvh_test launched a kernel: {launches}")
+    hold_golden(m, img, goldens, "bvh_test", "bvh_test 128x128")
+
+    # ---- 29. ball_game 128x128 against the JAX golden, then balls thrown
+    # past LANES_MIN_SLOTS with no build after the first frame
+    r, step, throw = ball_game(m, 128, dev)
+    reset_launches(m)
+    r.render()
+    torch.cuda.synchronize()
+    first = (m.build.load.builds, m.build.load.cache_info().misses)
+    img = r.render().cpu().numpy()
+    slots = [sum(r.spec.live_prims)]
+    launches = launch_counts(m)
+    if launches != {"geometry": 4, "raycast": 0, "visibility": 0,
+                    "softshadows": 0}:
+        fail(f"ball_game 128x128: launches {launches} in 2 frames")
+    hold_golden(m, img, goldens, "ball_game", "ball_game 128x128")
+    throw_more(step, throw)
+    reset_launches(m)
+    for _ in range(2):
+        img = r.render()
+    img = img.cpu()
+    slots.append(sum(r.spec.live_prims))
+    launches = launch_counts(m)
+    later = (m.build.load.builds, m.build.load.cache_info().misses)
+    print(f"ball_game 128x128: live slots {slots[0]} then {slots[1]}; "
+          f"launches {json.dumps(launches)} in 2 frames; nvcc builds and "
+          f"libraries loaded {first} after the first frame, {later} after "
+          f"the last")
+    if slots != [8, 8 + BALL_THROWS] or launches["geometry"] != 4 or not (
+            bool(torch.isfinite(img).all()) and float(img.var()) > 0.0):
+        fail(f"ball_game after {BALL_THROWS} throws: slots {slots}, "
+             f"launches {launches}")
+    if later != first:
+        fail(f"ball_game: a build or a library load after the first frame "
+             f"({first} -> {later})")
+    out["ball_game_128"] = dict(live_slots=slots, builds_after_first=[
+        later[0] - first[0], later[1] - first[1]])
+
+    # ---- 30. obj_mesh baked: the 48^3 bake on the card against the CPU,
+    # then 32x32 frames card against CPU
+    mesh = m.mesh.load_obj(S.TORUS_OBJ)
+    lo, hi = mesh.bounding_box()
+    margin = 0.1 * float(np.max(hi - lo))
+    lo, hi = lo - margin, hi + margin
+    bake_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d_card, n_card = m.mesh.bake_distance_map(mesh, BAKE_DIMS, lo, hi,
+                                                  device=dev)
+        bake_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    d_cpu, n_cpu = m.mesh.bake_distance_map(mesh, BAKE_DIMS, lo, hi,
+                                            device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(d_card - d_cpu).max())
+    other = float((np.abs(n_card - n_cpu).max(axis=-1) > 1e-6).mean())
+    print(f"bake {BAKE_DIMS} of {mesh.num_triangles} triangles: card "
+          f"{bake_ms[0]:.1f} / {bake_ms[1]:.1f} ms (host clock, to numpy), "
+          f"CPU {cpu_ms:.1f} ms; largest distance difference {err:.3e}; "
+          f"{other:.4f} of the points chose a face of another normal "
+          f"(equally close faces); [{card}]")
+    if not err <= BAKE_ATOL:
+        fail(f"baked distances: card against CPU {err} > {BAKE_ATOL}")
+    r = S.obj_mesh(width=32, height=32, obj_path=S.TORUS_OBJ, mode="baked",
+                   probes=m.ProbeSettings(**TINY_PROBES), device=dev)
+    imgs = [x.converge(frames=2).cpu().numpy() for x in (r, on_cpu(m, r))]
+    stats = m.image_stats(*imgs)
+    print(f"obj_mesh baked 32x32, cuda vs cpu: {json.dumps(stats)}")
+    if stats["breached"]:
+        fail(f"obj_mesh baked: card vs CPU gates breached: "
+             f"{stats['breached']}")
+    out["bake"] = dict(dims=list(BAKE_DIMS), card_ms=bake_ms, cpu_ms=cpu_ms,
+                       max_abs_err=err, other_face_share=other)
+
+    # ---- 31. the three scenes at 800x800: counted and timed.  ball_game
+    # first renders a frame at 8 live slots (the screen pass at 1 lane a
+    # ray, the radiance pass at 8), then takes the throws: at 20 slots the
+    # screen pass launches at 8 lanes, the build the radiance pass loaded
+    ball, step, throw = ball_game(m, 800, dev)
+    n_probe_rays = ball.probes.num_probes \
+        * ball.probes.radiance_resolution ** 2
+
+    def ball_lanes():
+        packed = m.SceneCtx(ball.spec, ball.scene_data).packed
+        return {"radiance": M.geometry_lanes(packed, n_probe_rays),
+                "screen": M.geometry_lanes(packed, 800 * 800)}
+
+    slots, lanes, loads = [], [], []
+    for throws in (False, True):
+        if throws:
+            throw_more(step, throw)
+        loads.append((m.build.load.builds,
+                      m.build.load.cache_info().misses))
+        ball.render()
+        torch.cuda.synchronize()
+        slots.append(sum(ball.spec.live_prims))
+        lanes.append(ball_lanes())
+    later = (m.build.load.builds, m.build.load.cache_info().misses)
+    print(f"ball_game 800x800: live slots {slots[0]} then {slots[1]}, "
+          f"lanes {json.dumps(lanes[0])} then {json.dumps(lanes[1])}; nvcc "
+          f"builds and libraries loaded {loads[1]} before the frame after "
+          f"the throws, {later} after it")
+    if slots != [8, 8 + BALL_THROWS] or lanes != [
+            {"radiance": 8, "screen": 1}, {"radiance": 8, "screen": 8}]:
+        fail(f"ball_game 800x800: slots {slots}, lanes {lanes}")
+    if later != loads[1]:
+        fail(f"ball_game 800x800: a build or a library load in the frame "
+             f"after the throws ({loads[1]} -> {later})")
+    # the geometry kernel against its plain version at the shapes ball_game
+    # gives it after the throws (20 slots, the mode-2 fold on the screen)
+    geo_ball, ball_err = geometry_passes(torch, m, ball, "ball_game ", card)
+    cells = (("bvh_test", S.bvh_test(width=800, height=800, device=dev),
+              GENERIC_FRAMES, {}),
+             ("obj_mesh baked", S.obj_mesh(
+                 width=800, height=800, obj_path=S.TORUS_OBJ, mode="baked",
+                 device=dev), GENERIC_FRAMES, {}),
+             ("ball_game", ball, BALL_FRAMES, {"geometry": 2}))
+    for label, rr, frames, per_frame in cells:
+        generic = not per_frame
+        launches, ms, rays_s = drive(torch, m, rr, f"{label} 800x800",
+                                     frames, per_frame, card)
+        split = pass_split(torch, m, rr, 1 if generic else 3)
+        print(f"{label} 800x800 per pass (ms, CUDA events, mean of "
+              f"{1 if generic else 3}): "
+              f"{json.dumps({k: round(v, 3) for k, v in split.items()})}; "
+              f"[{card}]")
+        # bvh_test's trace (~3 M events) is not read by key_averages():
+        # that parse would take minutes
+        busy, wall, avg = profile_frames(
+            m, rr, f"{label} 800x800", card, frames=1 if generic else 3,
+            averaged=label != "bvh_test")
+        cell = dict(ms_per_frame=ms, rays_per_s=rays_s, frames=frames,
+                    launches=launches,
+                    split_ms=split, busy_ms=busy, profiled_wall_ms=wall,
+                    idle_share=1.0 - busy / wall,
+                    averaged_busy_ms=avg,
+                    live_slots=sum(rr.spec.live_prims))
+        if generic:
+            mean, largest = screen_steps(torch, m, rr)
+            print(f"{label} 800x800 screen primary march: mean {mean:.2f} "
+                  f"steps, largest {largest}")
+            cell["screen_steps"] = dict(mean=mean, largest=largest)
+        else:
+            cell["lanes"] = lanes[1]
+            cell["lanes_at_8_slots"] = lanes[0]
+        out[label] = cell
+    return out, geo_ball, ball_err
+
+
+# Phase 32: a kernel scene that the geometry kernel does not take.
+LAMP_ORIGIN = (5.0, 3.0, 6.0)
+
+
+def lamp(m):
+    """A point light whose position field is named 'origin': it has no
+    vec3 'position', so no fused geometry launch takes a scene it lights
+    (SceneCtx.fused_available)."""
+    def sample(params, pos, normal):
+        to_l = params["origin"] - pos
+        dist = m.length(to_l)
+        radiance = params["color"] / (dist * dist * 0.03)[..., None]
+        return radiance, to_l / dist[..., None], dist
+    return m.lights.LightType(name="lamp", fields=(
+        ("origin", "vec3"), ("color", "vec3")), sample=sample)
+
+
+def lamp_room(np, m, size, dev, **kwargs):
+    """The global_illumination room at size x size, its spot light
+    replaced by lamp(m) at LAMP_ORIGIN: the kernels take the scene, the
+    geometry kernel does not, so the shade takes its unfused branches."""
+    r = m.S.global_illumination(width=size, height=size, device=dev,
+                                **kwargs)
+    ltype = lamp(m)
+    r.base_spec = dataclasses.replace(r.base_spec, lights=((ltype, 1),))
+    r.builder.spec = r.base_spec
+    r.builder._lights = {ltype.name: {
+        name: np.zeros((1, 3), np.float32) for name, _ in ltype.fields}}
+    r.builder._light_counts = {ltype.name: 0}
+    r.add_light(ltype, origin=LAMP_ORIGIN, color=(0.9, 0.9, 0.9))
+    return r
+
+
+# The unfused shade's launches per frame, in order, with the batch each
+# marches: the radiance pass's primaries (R rays), their shadow rays (one
+# light slot) and 8 probe corners a point; the screen pass's primaries
+# (S rays), shadows, corners; mode 2's reflection rays (S), their corners
+# and their shadow rays.
+LAMP_CALLS = ("raycast R", "softshadows R", "visibility 8R", "raycast S",
+              "softshadows S", "visibility 8S", "raycast S", "visibility 8S",
+              "softshadows S")
+
+
+def lamp_phase(torch, np, m, dev, card):
+    """Phase 32: the lamp room at 800x800 on the kernel route through the
+    unfused shade: 2 timed frames with the launches counted (3 raycast, 3
+    softshadows, 3 visibility and no geometry launch a frame), then one
+    frame's launches recorded with their inputs, and each held to its
+    plain version on those inputs; the screen pass's three launches timed
+    against their plain versions beside the bound.  Returns ({kernel:
+    {launches, max_abs_err, ms, plain_ms, bound_ms, bound_by}}, the
+    timed frames' launches)."""
+    M = m.M
+    r = lamp_room(np, m, 800, dev)
+    ctx = m.SceneCtx(r.spec, r.scene_data)
+    if not ctx.use_kernel or ctx.fused_available:
+        fail("the lamp room: expected a kernel scene without the geometry "
+             "kernel")
+    per_frame = {"raycast": 3, "softshadows": 3, "visibility": 3}
+    launches = drive(torch, m, r, "GI lamp 800x800", 2, per_frame, card)[0]
+    # each march of a frame recorded where SceneCtx hands it to its kernel
+    # wrapper: (name, the wrapper's arguments, its keywords, its outputs)
+    real = {name: getattr(m.SceneCtx, name) for name in per_frame}
+    calls = []
+
+    def recorder(name):
+        def record(ctx, *args, **kwargs):
+            out = real[name](ctx, *args, **kwargs)
+            calls.append((name, (ctx.packed,) + args, kwargs, out))
+            return out
+        return record
+
+    for name in real:
+        setattr(m.SceneCtx, name, recorder(name))
+    try:
+        r.render()
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in real.items():
+            setattr(m.SceneCtx, name, fn)
+    n_rad = r.probes.num_probes * r.probes.radiance_resolution ** 2
+    n_scr = r.width * r.height
+    sizes = {"R": n_rad, "8R": 8 * n_rad, "S": n_scr, "8S": 8 * n_scr}
+    want = [(c.split()[0], sizes[c.split()[1]]) for c in LAMP_CALLS]
+    got = [(name, args[1].shape[0]) for name, args, _, _ in calls]
+    if got != want:
+        fail(f"the lamp room's launches {got}, expected {want}")
+    ks = {args[5] for name, args, _, _ in calls if name == "softshadows"}
+    if ks != {m.lighting.SHADOW_K}:
+        fail(f"the lamp room's shadow marches at k {ks}")
+    checks = {"raycast": check_raycast, "visibility": check_visibility,
+              "softshadows": check_softshadows}
+    res = {name: dict(launches=launches[name], max_abs_err=0.0)
+           for name in per_frame}
+    for i, (name, args, kwargs, out) in enumerate(calls):
+        ref = getattr(M, f"{name}_reference")(*args, **kwargs)
+        torch.cuda.synchronize()
+        err = checks[name](torch, f"{name} lamp room {LAMP_CALLS[i]}", out,
+                           ref)
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        del ref
+    # the screen pass's launches, timed through the wrapper; per ray in:
+    # o, d, enabled and (visibility) max_dist or (softshadows) min_dist,
+    # max_dist; out: t, hit (raycast), vis or the factor
+    per_ray = {"raycast": 24 + 1 + 4 + 1, "visibility": 24 + 1 + 4 + 4,
+               "softshadows": 24 + 1 + 4 + 4 + 4}
+    for name, args, kwargs, _ in calls[3:6]:
+        plain = getattr(M, f"{name}_reference")
+        flops = counted(torch, m, lambda: plain(*args, **kwargs))[1]
+        (k1, k2), (p1, p2) = time_pair(
+            torch, lambda: getattr(M, name)(*args, **kwargs),
+            lambda: plain(*args, **kwargs), iters=5)
+        n = args[1].shape[0]
+        b_ms, b_by = bound(flops, n * per_ray[name] + scene_bytes(args[0]))
+        print(f"time {name} lamp room screen ({n} rays): kernel "
+              f"{k1:.4f}/{k2:.4f} ms, plain {p1:.1f}/{p2:.1f} ms; bound "
+              f"{b_ms:.5f} ms ({b_by}: {flops:.4e} flops); [{card}]")
+        res[name].update(ms=min(k1, k2), plain_ms=min(p1, p2),
+                         bound_ms=b_ms, bound_by=b_by)
+    return res, launches
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "madarch_tpu_torch")):
         fail("madarch_tpu_torch/ is not beside this script")
@@ -1276,16 +1695,14 @@ def main():
     goldens = np.load(os.path.join(REPO, "tests", "goldens", "images.npz"))
     small = S.global_illumination(width=128, height=128, device=dev)
     img = small.converge(frames=4).cpu().numpy()
-    stats = m.image_stats(img, goldens["global_illumination"])
-    print(f"golden global_illumination 128x128: {json.dumps(stats)}")
-    if stats["breached"]:
-        fail(f"golden gates breached: {stats['breached']}")
+    hold_golden(m, img, goldens, "global_illumination",
+                "global_illumination 128x128")
 
     # ---- 5. GI 800x800: counted and timed
     frames = 5
     gi_launches = drive(torch, m, r, "GI 800x800", frames,
-                           {"geometry": 2}, card)
-    profile_frames(m, r, "GI 800x800", card)
+                           {"geometry": 2}, card)[0]
+    gi_busy = profile_frames(m, r, "GI 800x800", card, averaged=True)
 
     # ---- 7. the raycast and visibility kernels' ptxas report, each build
     march_ptxas(m, ("raycast_kernel", "visibility_kernel"))
@@ -1345,15 +1762,13 @@ def main():
     # ---- 9. light_shafts 128x128, 2 frames, against the JAX golden
     small = S.light_shafts(width=128, height=128, device=dev)
     img = small.converge(frames=2).cpu().numpy()
-    stats = m.image_stats(img, goldens["light_shafts"])
-    print(f"golden light_shafts 128x128: {json.dumps(stats)}")
-    if stats["breached"]:
-        fail(f"light_shafts golden gates breached: {stats['breached']}")
+    hold_golden(m, img, goldens, "light_shafts",
+                "light_shafts 128x128")
 
     # ---- 10. light_shafts 800x800: the main path, counted and timed
     launches = drive(torch, m, ls, "light_shafts 800x800", frames,
                         {"geometry": 2, "raycast": 1,
-                         "visibility": lctx.n_light_slots}, card)
+                         "visibility": lctx.n_light_slots}, card)[0]
     split = pass_split(torch, m, ls, 3)
     print(f"light_shafts 800x800 per pass (ms, CUDA events, mean of 3; "
           f"screen includes the composite): "
@@ -1497,10 +1912,8 @@ def main():
     # geometry kernel vs plain on its rays (40 live slots)
     small = S.simple_scene(width=128, height=128, device=dev)
     img = small.converge(frames=2).cpu().numpy()
-    stats = m.image_stats(img, goldens["simple_scene"])
-    print(f"golden simple_scene 128x128: {json.dumps(stats)}")
-    if stats["breached"]:
-        fail(f"simple_scene golden gates breached: {stats['breached']}")
+    hold_golden(m, img, goldens, "simple_scene",
+                "simple_scene 128x128")
     ss = S.simple_scene(width=800, height=800, device=dev)
     ss_packed = m.SceneCtx(ss.spec, ss.scene_data).packed
     if ss_packed.n_slots != 40:
@@ -1519,7 +1932,7 @@ def main():
             ("GI mode 3", g3, {"geometry": 3}),
             ("simple_scene", ss, {"geometry": 2})):
         paths[label] = drive(torch, m, rr, f"{label} 800x800", frames,
-                                per_frame, card)
+                                per_frame, card)[0]
         split = pass_split(torch, m, rr, 3)
         print(f"{label} 800x800 per pass (ms, CUDA events, mean of 3): "
               f"{json.dumps({k: round(v, 3) for k, v in split.items()})}; "
@@ -1606,6 +2019,26 @@ def main():
     print(json.dumps({"train": dict(train, gradients=grads,
                                     grad_rel_limit=GRAD_REL_LIMIT)}))
 
+    # ---- 28-31. bvh_test and obj_mesh baked (the generic route), ball_game
+    scenes, geo_ball, ball_err = scene_phases(torch, np, m, dev, card,
+                                              goldens)
+    max_err = max(max_err, ball_err)
+    scenes["GI 800x800 busy"] = dict(zip(
+        ("busy_ms", "profiled_wall_ms", "averaged_busy_ms"), gi_busy))
+
+    # ---- 32. the lamp room: the unfused shade on the kernel route
+    lamp_k, lamp_launches = lamp_phase(torch, np, m, dev, card)
+    scenes["GI lamp"] = dict(launches=lamp_launches, kernels=lamp_k)
+
+    def lamp_keys(name):
+        """The kernel's numbers on the lamp room (phase 32)."""
+        k = lamp_k[name]
+        return {"launches_gi_lamp": k["launches"],
+                "ms_gi_lamp": k["ms"], "plain_ms_gi_lamp": k["plain_ms"],
+                "bound_ms_gi_lamp": k["bound_ms"],
+                "bound_by_gi_lamp": k["bound_by"]}
+    print(json.dumps({"scenes": scenes}))
+
     src = "madarch_tpu_torch/ops/csrc/"
     print(json.dumps({"kernels": [
         {"name": "geometry", "route": "cuda", "source": src + "geometry.cu",
@@ -1621,6 +2054,20 @@ def main():
          "launches_gi_mode1": paths["GI mode 1"]["geometry"],
          "launches_gi_mode3": paths["GI mode 3"]["geometry"],
          "launches_simple_scene": paths["simple_scene"]["geometry"],
+         # in the timed 800x800 frames of phase 31 (5 of ball_game, 2 of
+         # each generic-route scene, which launch no kernel)
+         "launches_ball_game": scenes["ball_game"]["launches"]["geometry"],
+         # at ball_game's 20 slots after the throws (phase 31)
+         "ms_ball_game": geo_ball["screen"]["ms"],
+         "plain_ms_ball_game": geo_ball["screen"]["plain_ms"],
+         "bound_ms_ball_game": geo_ball["screen"]["bound_ms"],
+         "ms_ball_game_radiance": geo_ball["radiance"]["ms"],
+         "plain_ms_ball_game_radiance": geo_ball["radiance"]["plain_ms"],
+         "bound_ms_ball_game_radiance": geo_ball["radiance"]["bound_ms"],
+         "launches_gi_lamp": lamp_launches["geometry"],
+         "launches_bvh_test": scenes["bvh_test"]["launches"]["geometry"],
+         "launches_obj_mesh_baked": scenes["obj_mesh baked"]["launches"][
+             "geometry"],
          # geometry launches in the TRAIN_STEPS timed train steps
          "launches_train": {k: t["launches"]["geometry"]
                             for k, t in train.items()},
@@ -1656,7 +2103,8 @@ def main():
              for name in ("radiance", "screen")}},
         {"name": "raycast", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1089",
-         "launches": launches["raycast"], "max_abs_err": rc_err,
+         "launches": launches["raycast"],
+         "max_abs_err": max(rc_err, lamp_k["raycast"]["max_abs_err"]),
          "ms": min(rc_t[0]), "plain_ms": min(rc_t[1]),
          "bound_ms": rc_bound[0], "bound_by": rc_bound[1],
          "library_ms": None,
@@ -1667,22 +2115,26 @@ def main():
          "bound_ms_gi_mode1": rc1_bound[0],
          "candidate_gi_mode1": launched(m, g1ctx.packed),
          "ms_by_build_gi_mode1": rc1_builds,
-         "steps_gi_mode1": steps["reflections"]},
+         "steps_gi_mode1": steps["reflections"], **lamp_keys("raycast")},
         {"name": "visibility", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1127",
-         "launches": launches["visibility"], "max_abs_err": vis_err,
+         "launches": launches["visibility"],
+         "max_abs_err": max(vis_err, lamp_k["visibility"]["max_abs_err"]),
          "ms": min(vis_t[0]), "plain_ms": min(vis_t[1]),
          "bound_ms": vis_bound[0], "bound_by": vis_bound[1],
          "library_ms": None, "candidate": launched(m, lctx.packed),
-         "ms_by_build": vis_builds, "steps": steps["froxels"]},
+         "ms_by_build": vis_builds, "steps": steps["froxels"],
+         **lamp_keys("visibility")},
         {"name": "softshadows", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1144",
-         "launches": paths["GI mode 1"]["softshadows"], "max_abs_err": sh_err,
+         "launches": paths["GI mode 1"]["softshadows"],
+         "max_abs_err": max(sh_err, lamp_k["softshadows"]["max_abs_err"]),
          "ms": min(sh_t[0]), "plain_ms": min(sh_t[1]),
          "bound_ms": sh_bound[0], "bound_by": sh_bound[1],
          "library_ms": None,
          "candidate": launched(m, g1ctx.packed),
-         "ms_by_build": sh_builds, "steps": steps["penumbra"]},
+         "ms_by_build": sh_builds, "steps": steps["penumbra"],
+         **lamp_keys("softshadows")},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

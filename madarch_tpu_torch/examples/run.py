@@ -6,9 +6,10 @@ Usage:
     python -m madarch_tpu_torch.examples.run SCENE [--device cuda] \\
         [--frames N] [--size WxH] [--out out.png] [--fast] [--obj PATH]
 
-SCENE: simple_scene | global_illumination | light_shafts | obj_mesh
-(obj_mesh reads the mesh at --obj; the repository carries
-madarch_tpu_torch/examples/media/torus968.obj).  The device
+SCENE: simple_scene | global_illumination | light_shafts | obj_mesh |
+ball_game | bvh_test (obj_mesh reads the mesh at --obj; the repository
+carries madarch_tpu_torch/examples/media/torus968.obj; ball_game throws
+one ball and steps its physics before each frame).  The device
 defaults to the CUDA card; ``--device cpu`` renders on the CPU (the plain
 versions of the kernels).
 
@@ -29,7 +30,8 @@ from madarch_tpu_torch.utils.profiling import FrameTimer, device_busy, sync
 def parser():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("scene", choices=["simple_scene", "global_illumination",
-                                      "light_shafts", "obj_mesh"])
+                                      "light_shafts", "obj_mesh",
+                                      "ball_game", "bvh_test"])
     ap.add_argument("--device", default="cuda",
                     help="torch device, e.g. cuda (the default), cuda:0 or "
                          "cpu")
@@ -60,7 +62,12 @@ def main(argv=None):
         if args.scene != "obj_mesh":
             raise SystemExit("--obj is obj_mesh's option")
         kwargs["obj_path"] = args.obj
-    r = getattr(S, args.scene)(**kwargs)
+    step_physics = None
+    if args.scene == "ball_game":
+        r, step_physics, throw_ball = S.ball_game(**kwargs)
+        throw_ball(origin=(2.0, 3.0, 2.0), velocity=(0.5, 1.0, 2.0))
+    else:
+        r = getattr(S, args.scene)(**kwargs)
     if args.profile and r.device.type != "cuda":
         raise SystemExit("--profile traces the CUDA card; the renderer is "
                          f"on {r.device}")
@@ -71,6 +78,8 @@ def main(argv=None):
     timer = FrameTimer(r.device) if r.device.type == "cuda" else None
     img = None
     for i in range(args.frames):
+        if step_physics is not None:
+            step_physics()
         if timer is not None:
             with timer.frame():
                 img = r.render()

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -81,7 +82,16 @@ def load(name, defines=(), fmad=False):
             raise RuntimeError(
                 f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, lib)   # atomic: a concurrent loader sees all or none
+        with _builds_lock:    # builds run in threads (chip_smoke.build_all)
+            load.builds += 1
     return ctypes.CDLL(lib)
+
+
+# nvcc runs since the count was last reset: lets a run show that a scene's
+# changes (thrown balls) ask for no new build.  load.cache_info().misses
+# counts the libraries loaded.
+load.builds = 0
+_builds_lock = threading.Lock()
 
 
 def build_log(name, defines=(), fmad=False):

@@ -230,9 +230,21 @@ def _pack_triangles(params, n, live):
     return table.contiguous(), tri_live, aabbs, n_chunks
 
 
+def kernel_scene(spec) -> bool:
+    """Whether the kernels take the scene (the JAX package's ``build_plan(
+    spec) is not None``): at least one primitive is live, and every live
+    type is a sphere, plane, box or triangle, each in one run.  Decided by
+    the spec's types alone, before anything runs; a scene it rejects renders
+    on the generic route (render/context.py)."""
+    live = [ptype for ptype, _, n, _ in spec.prim_bounds() if n]
+    return (bool(live) and len(set(live)) == len(live)
+            and all(pt in KERNEL_TYPES or pt is P.Triangle for pt in live))
+
+
 def pack_scene(spec, data) -> PackedScene:
-    """Pack every slot the scene loops evaluate.  Raises NotImplementedError
-    for a type the kernels do not take (custom types)."""
+    """Pack every slot the scene loops evaluate, for a scene kernel_scene
+    takes.  Raises NotImplementedError on any other (a custom type, a type
+    in two runs, no live primitive)."""
     dev = data.materials["albedo"].device
     runs = {}      # type code -> (row blocks, info rows) of the type's run
     entries = []

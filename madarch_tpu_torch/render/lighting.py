@@ -2,7 +2,10 @@
 
 The per-light penumbra factors come from the geometry kernel
 (``shadows_by_slot``), which marches every light slot's shadow ray in the
-same launch as the primary trace.
+same launch as the primary trace, where it serves the scene; otherwise
+each live light slot's shadow rays are one batched penumbra march of
+their own (``ctx.softshadows``: the softshadow kernel, or the plain march
+on the generic route).
 """
 from __future__ import annotations
 
@@ -10,16 +13,23 @@ import torch
 
 from madarch_tpu_torch.core.vecmath import EPSILON, PI, dot
 from madarch_tpu_torch.render.brdf import cook_torrance_coefficients
+from madarch_tpu_torch.render.raymarch import MAX_STEPS, SURFACE_OFFSET
+
+# Penumbra sharpness of the direct lights' shadow marches.
+SHADOW_K = 64.0
 
 
 def direct_lighting(spec, data, pos, normal, view_dir, albedo, metallic,
-                    roughness, *, compute_specular, shadows_by_slot,
-                    enabled=None):
+                    roughness, *, compute_specular, shadows_by_slot=None,
+                    ctx=None, max_steps=MAX_STEPS, enabled=None):
     """compute_direct_lighting for a batch of points.
 
     view_dir is the *incoming* ray direction; shading uses V = -dir.
     ``shadows_by_slot`` f32[L, N] holds one penumbra factor per light slot
-    in light_bounds order (ops.march.geometry's "shadows").
+    in light_bounds order (ops.march.geometry's "shadows"); without it
+    each slot marches its shadow rays through ``ctx`` (a SceneCtx): from
+    pos + normal·SURFACE_OFFSET toward the light, from 0 to the light's
+    distance, k = SHADOW_K, where the light faces the point.
     """
     n_pts = pos.shape[0]
     v = -view_dir
@@ -43,8 +53,18 @@ def direct_lighting(spec, data, pos, normal, view_dir, albedo, metallic,
                 else (ndotl > EPSILON) & live
             if enabled is not None:
                 shadow_on = shadow_on & enabled
-            shadows = torch.where(shadow_on, shadows_by_slot[slot_i], 0.0)
+            if shadows_by_slot is not None:
+                shadows = shadows_by_slot[slot_i]
+            else:
+                shadows = ctx.softshadows(
+                    (pos + normal * SURFACE_OFFSET).contiguous(),
+                    ldir.contiguous(),
+                    torch.zeros(n_pts, dtype=torch.float32,
+                                device=pos.device),
+                    torch.broadcast_to(ldist, (n_pts,)).contiguous(),
+                    SHADOW_K, max_steps=max_steps, enabled=shadow_on)
             slot_i += 1
+            shadows = torch.where(shadow_on, shadows, 0.0)
 
             contrib = ((kd * albedo / PI + ks)
                        * radiance * (ndotl * shadows)[..., None])

@@ -16,6 +16,7 @@ import torch
 from madarch_tpu_torch.core.config import ProbeSettings
 from madarch_tpu_torch.core.vecmath import (absolute, dot, length, mix,
                                             sign_not_zero)
+from madarch_tpu_torch.render.raymarch import MAX_STEPS, SURFACE_OFFSET
 
 # The 8 probe-cell corners, bit k of the corner index selecting +1 on axis k.
 CORNER_OFFSETS = tuple(((i >> 0) & 1, (i >> 1) & 1, (i >> 2) & 1)
@@ -276,34 +277,67 @@ def integrate_irradiance(settings: ProbeSettings, radiance_atlas):
 # Irradiance sampling
 # ---------------------------------------------------------------------------
 
-def sample_irradiance(settings: ProbeSettings, irr_atlas, pos, normal, *,
-                      vis8):
-    """8-corner trilinear, backface- and visibility-weighted probe lookup
-    (the matmul method).  pos/normal f32[N,3]; ``vis8`` f32[8,N] is the
-    geometry kernel's probe visibility.  Returns f32[N,3] irradiance
-    (sqrt-encoded blend, then squared)."""
-    dev = pos.device
+def probe_corners(settings: ProbeSettings, p):
+    """The 8 probe-cell corners around points p f32[N,3], clamped to the
+    grid: (grid positions i32[8,N,3], world positions f32[8,N,3], each
+    point's offset in its cell alpha f32[N,3])."""
+    dev = p.device
     spacing = torch.tensor(settings.grid_spacing, dtype=torch.float32,
                            device=dev)
     dims = torch.tensor(settings.grid_dimensions, dtype=torch.int32,
                         device=dev)
-    ir = settings.irradiance_resolution
-
-    grid_pos = torch.floor(pos / spacing).to(torch.int32)     # [N,3]
-    alpha = pos / spacing - grid_pos.to(torch.float32)        # [N,3]
+    grid_pos = torch.floor(p / spacing).to(torch.int32)       # [N,3]
+    alpha = p / spacing - grid_pos.to(torch.float32)          # [N,3]
     offsets = torch.tensor(CORNER_OFFSETS, dtype=torch.int32,
                            device=dev)                        # [8,3]
     offseted = torch.minimum(
         torch.clamp_min(grid_pos[None] + offsets[:, None], 0),
         dims - 1)                                             # [8,N,3]
-    probe_world = offseted.to(torch.float32) * spacing
-    hit_to_probe = probe_world - pos[None]                    # [8,N,3]
-    # sqrt(max(|v|², 1e-12)) is max(|v|, 1e-6) bit for bit in f32 (sqrt
-    # rounds monotonically and sqrt(1e-12) rounds to 1e-6), and unlike it
-    # has a finite backward at v = 0 (a hit on a probe's own position)
-    probe_dist = torch.sqrt(torch.clamp_min(dot(hit_to_probe, hit_to_probe),
-                                            1e-12))
-    dir_to_probe = hit_to_probe / probe_dist[..., None]
+    return offseted, offseted.to(torch.float32) * spacing, alpha
+
+
+def unit(v):
+    """(v / d, d) with d = sqrt(max(|v|², 1e-12)): max(|v|, 1e-6) bit for
+    bit in f32 (sqrt rounds monotonically and sqrt(1e-12) rounds to 1e-6),
+    and unlike it with a finite backward at v = 0 (a hit on a probe's own
+    position)."""
+    d = torch.sqrt(torch.clamp_min(dot(v, v), 1e-12))
+    return v / d[..., None], d
+
+
+def corner_visibility(ctx, p, normal, dir_to_probe, probe_dist, *,
+                      enabled=None, max_steps=MAX_STEPS):
+    """f32[8,N]: the 8·N corner visibility rays through ``ctx`` (a
+    SceneCtx) as one batched march, from p + normal·SURFACE_OFFSET toward
+    each corner (dir_to_probe f32[8,N,3]) to its distance probe_dist less
+    SURFACE_OFFSET, where ``enabled`` (optional bool[N]) holds."""
+    n_pts = p.shape[0]
+    return ctx.visibility(
+        (p + normal * SURFACE_OFFSET)[None].expand(8, n_pts, 3)
+        .reshape(-1, 3).contiguous(),
+        dir_to_probe.reshape(-1, 3).contiguous(),
+        (probe_dist - SURFACE_OFFSET).reshape(-1).contiguous(),
+        max_steps=max_steps,
+        enabled=None if enabled is None
+        else enabled[None].expand(8, n_pts).reshape(-1).contiguous(),
+    ).reshape(8, n_pts)
+
+
+def sample_irradiance(settings: ProbeSettings, irr_atlas, pos, normal, *,
+                      vis8=None, ctx=None, enabled=None,
+                      max_steps=MAX_STEPS):
+    """8-corner trilinear, backface- and visibility-weighted probe lookup
+    (the matmul method).  pos/normal f32[N,3]; ``vis8`` f32[8,N] is the
+    geometry kernel's probe visibility; without it the corners' visibility
+    is marched through ``ctx`` (corner_visibility) where ``enabled``
+    (optional bool[N]) holds.  Returns f32[N,3] irradiance (sqrt-encoded
+    blend, then squared)."""
+    ir = settings.irradiance_resolution
+    offseted, probe_world, alpha = probe_corners(settings, pos)
+    dir_to_probe, probe_dist = unit(probe_world - pos[None])  # [8,N,3]
+    if vis8 is None:
+        vis8 = corner_visibility(ctx, pos, normal, dir_to_probe, probe_dist,
+                                 enabled=enabled, max_steps=max_steps)
 
     # backface weight: ((dot+1)/2)² + 0.2
     angle = (dot(dir_to_probe, normal[None]) + 1.0) * 0.5
@@ -314,8 +348,9 @@ def sample_irradiance(settings: ProbeSettings, irr_atlas, pos, normal, *,
     weight = torch.where(weight < crush,
                          weight * weight * weight / (crush * crush), weight)
 
-    tri = mix(1.0 - alpha[None], alpha[None],
-              offsets[:, None].to(torch.float32))             # [8,N,3]
+    offsets = torch.tensor(CORNER_OFFSETS, dtype=torch.float32,
+                           device=pos.device)                 # [8,3]
+    tri = mix(1.0 - alpha[None], alpha[None], offsets[:, None])  # [8,N,3]
     weight = weight * tri[..., 0] * tri[..., 1] * tri[..., 2]
 
     pid = grid_position_to_probe_id(settings, offseted)       # [8,N]

@@ -1,5 +1,5 @@
-"""The engine facade: scene mutation API + frame loop (port of
-madarch_tpu/render/renderer.py, without eval_distance_to).  Volumetrics
+"""The engine facade: scene mutation API, frame loop and the physics query
+eval_distance_to (port of madarch_tpu/render/renderer.py).  Volumetrics
 are on by default, as in the JAX package; the renderer runs on the CUDA
 card unless the caller names another device.
 
@@ -8,7 +8,7 @@ snapshot to ``device`` once and reuses it until the next mutation.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,7 +20,9 @@ from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG,
 from madarch_tpu_torch.render.camera import orientation_from_angles
 from madarch_tpu_torch.render.pipeline import (Camera, initial_state,
                                                render_frame)
-from madarch_tpu_torch.scene.scene import SceneBuilder, SceneSpec
+from madarch_tpu_torch.render.raymarch import scene_normal
+from madarch_tpu_torch.scene.primitives import PrimitiveType
+from madarch_tpu_torch.scene.scene import SceneBuilder, SceneSpec, scene_sdf
 
 
 class Renderer:
@@ -54,6 +56,7 @@ class Renderer:
         self.camera_orientation = np.eye(3, dtype=np.float32)
         self._data = None  # device snapshot; invalidated on mutation
         self._grid = None  # partitioning grid of update_partitioning
+        self._eval_specs = {}  # eval_distance_to's spec per type subset
 
     # -- scene mutation (invalidates the device snapshot) --
     def add_primitive(self, ptype, **fields):
@@ -142,3 +145,34 @@ class Renderer:
         for _ in range(frames):
             img = self.render()
         return img
+
+    # -- physics query --
+    def eval_distance_to(self, position,
+                         prims: Optional[Sequence[PrimitiveType]] = None):
+        """(distance float, normal numpy f32[3]) of the closest primitive
+        among the types ``prims`` (all types if None) to a world position:
+        the scene distance over those types and its autograd normal, on
+        the renderer's device.  The spec of each type subset is kept; it
+        masks dead slots by the live counts, so it stays right as
+        primitives are added."""
+        names = (tuple(p.name for p in prims) if prims is not None
+                 else tuple(pt.name for pt, _ in self.base_spec.prims))
+        sub_spec = self._eval_specs.get(names)
+        if sub_spec is None:
+            base = self.base_spec
+            sub_spec = self._eval_specs[names] = SceneSpec(
+                prims=tuple((pt, c) for pt, c in base.prims
+                            if pt.name in names),
+                lights=base.lights, max_dist=base.max_dist,
+                max_materials=base.max_materials)
+        data = self.scene_data
+        pos = torch.as_tensor(np.asarray(position, np.float32)[None]).to(
+            self.device)
+
+        def sdf_b(p):
+            return scene_sdf(sub_spec, data, p)
+
+        with torch.no_grad():
+            dist = sdf_b(pos)
+            normal = scene_normal(sdf_b, pos)
+        return float(dist[0]), normal[0].cpu().numpy()

@@ -1,22 +1,32 @@
-"""Per-ray shading (port of madarch_tpu/render/shading.py's kernel path,
-specular modes 0 to 3, plain and differentiable).
+"""Per-ray shading (port of madarch_tpu/render/shading.py: specular modes 0
+to 3, plain and differentiable, on both of the scene's routes).
 
-One geometry-kernel launch per ray batch returns hit distance, material,
-FD normal, AO, per-light penumbra factors and the 8 probe-visibility bits
-(and, for mode 2, the folded reflection bounce with its best-probe pick);
-PyTorch then does materials, BRDF and the atlas contractions.  Mode 1
-marches its reflection rays through the raycast kernel and its 8 probe
-penumbras per point through the softshadow kernel; mode 3 shades the
-reflection hit from a second, masked geometry launch without AO.
+Where the geometry kernel serves the scene (``SceneCtx.fused_available``),
+one launch per ray batch returns hit distance, material, FD normal, AO,
+per-light penumbra factors and the 8 probe-visibility bits (and, for mode
+2, the folded reflection bounce with its best-probe pick); PyTorch then
+does materials, BRDF and the atlas contractions.  Mode 1 marches its
+reflection rays through the raycast kernel and its 8 probe penumbras per
+point through the softshadow kernel; mode 3 shades the reflection hit from
+a second, masked geometry launch without AO.
+
+Elsewhere (a scene the kernels do not take, or a light without a vec3
+position) the shade takes the JAX package's unfused branches: a raycast,
+the normal as the autodiff scene gradient, the material of the nearest
+primitive, AO by SDF probes, one shadow march per light slot and one
+batched march of the 8 probe-visibility rays (``ctx``'s marches: the
+kernels where the scene is packed, the plain marches on the generic route);
+modes 2 and 3 find the reflection hit with a raycast, its normal and
+material with ``primitive_info`` and pick mode 2's probe in PyTorch.
 
 With ``cfg.differentiable`` the shade is differentiable in the primitive,
-material and light parameters and in the rays: the kernels still march
+material and light parameters and in the rays: the marches still run
 (their outputs are constants to autograd), the hit distance is reattached
 by the implicit function theorem and the normals are the autodiff gradient
-of the scene distance (render/raymarch.py).  The kernel's material, AO,
-shadows, probe visibility and mode 2's best-probe pick stay discrete or
-constant; mode 3 keeps the masked launch's FD normal at reflection hits,
-as the JAX package's kernel path does.
+of the scene distance (render/raymarch.py).  The material, AO, shadows,
+probe visibility and mode 2's best-probe pick stay discrete or constant;
+mode 3 keeps the masked launch's FD normal at reflection hits, as the JAX
+package's kernel path does.
 """
 from __future__ import annotations
 
@@ -31,10 +41,13 @@ from madarch_tpu_torch.render.context import SceneCtx
 from madarch_tpu_torch.render.lighting import (direct_lighting,
                                                indirect_lighting)
 from madarch_tpu_torch.render.raymarch import (SURFACE_OFFSET,
+                                               ambient_occlusion,
                                                attach_hit_gradient,
                                                scene_normal)
 from madarch_tpu_torch.scene.scene import (SceneData, SceneSpec,
-                                           material_lookup)
+                                           material_lookup, primitive_info,
+                                           primitive_material_id,
+                                           scene_sdf_info, tree_map)
 
 
 def sky_color(dirs):
@@ -47,20 +60,38 @@ def sky_color(dirs):
 GLOSSY_K = 0.5
 
 
+def _nearest_index(spec, data, pos):
+    """Global index i32[N] of the primitive nearest each point, on the
+    scene detached (an index carries no gradient)."""
+    with torch.no_grad():
+        return scene_sdf_info(spec, tree_map(torch.Tensor.detach, data),
+                              pos.detach())[1]
+
+
 def shade_hits(spec, data, probe_settings, cfg, ctx, irr_atlas, rad_atlas,
-               pos, normal, dirs, hit, geom):
+               pos, normal, dirs, hit, geom=None):
     """Direct + indirect (+ specular) × AO for hit points; f32[N,3].
-    ``geom``: the geometry kernel's outputs for these rays; ``ctx``: the
-    SceneCtx whose kernels modes 1 and 3 launch."""
-    albedo, metallic, roughness = material_lookup(data, geom["mid"])
+    ``geom``: the geometry kernel's outputs for these rays (material, AO,
+    shadows, probe visibility), or None, and then those are found here;
+    ``ctx``: the SceneCtx whose marches they take."""
+    if geom is not None:
+        material_id = geom["mid"]
+        shadows_by_slot, vis8 = geom["shadows"], geom["vis8"]
+    else:
+        material_id = primitive_material_id(
+            spec, data, _nearest_index(spec, data, pos))
+        shadows_by_slot = vis8 = None
+    albedo, metallic, roughness = material_lookup(data, material_id)
 
     direct = direct_lighting(
         spec, data, pos, normal, dirs, albedo, metallic, roughness,
         compute_specular=cfg.direct_specular, enabled=hit,
-        shadows_by_slot=geom["shadows"])
+        shadows_by_slot=shadows_by_slot, ctx=ctx,
+        max_steps=cfg.max_march_steps)
 
     irradiance = probes_mod.sample_irradiance(
-        probe_settings, irr_atlas, pos, normal, vis8=geom["vis8"])
+        probe_settings, irr_atlas, pos, normal, vis8=vis8, ctx=ctx,
+        enabled=hit, max_steps=cfg.max_march_steps)
 
     specular_dir = reflect(dirs, normal)
     specular_col = torch.zeros_like(pos)
@@ -75,7 +106,7 @@ def shade_hits(spec, data, probe_settings, cfg, ctx, irr_atlas, rad_atlas,
             specular_col = sample_radiance_no_specular(
                 spec, data, probe_settings, cfg, ctx, rad_atlas, pos,
                 normal, specular_dir, enabled=spec_enabled,
-                refl=geom["refl"])
+                refl=None if geom is None else geom["refl"])
         else:
             specular_col = compute_indirect_specular(
                 spec, data, probe_settings, cfg, ctx, irr_atlas, pos,
@@ -86,27 +117,82 @@ def shade_hits(spec, data, probe_settings, cfg, ctx, irr_atlas, rad_atlas,
     indirect = indirect_lighting(
         irradiance, specular_col, -dirs, normal, specular_dir,
         albedo, metallic, roughness)
-    return geom["ao"][..., None] * (direct + indirect)
+    ao = geom["ao"] if geom is not None else ambient_occlusion(
+        ctx.sdf_b, pos, normal, steps=cfg.ambient_occlusion_steps)
+    return ao[..., None] * (direct + indirect)
+
+
+def _reflection_geometry(spec, data, probe_settings, cfg, ctx, from_,
+                         spec_dir, *, enabled):
+    """The reflection ray's geometry for specular modes 2 and 3: (hit,
+    spec_pos, normal, material id, vis8 f32[8,N] around the hit, shadows
+    f32[L,N] or None).  The masked geometry launch without AO where it
+    serves the scene; else a raycast, the nearest primitive's normal and
+    material (``primitive_info``; differentiable, its material and the
+    autodiff normal), the 8 corner visibility marches, and no shadows:
+    direct_lighting marches them."""
+    if ctx.fused_available:
+        g = ctx.geometry(from_, spec_dir, probe_settings, cfg,
+                         enabled=enabled, want_ao=False)
+        spec_pos = from_ + g["t"][:, None] * spec_dir
+        return (g["hit"], spec_pos, g["normal"], g["mid"], g["vis8"],
+                g["shadows"])
+
+    _, hit, spec_pos = ctx.raycast(from_.contiguous(), spec_dir.contiguous(),
+                                   spec.max_dist, enabled=enabled,
+                                   max_steps=cfg.max_march_steps)
+    index = _nearest_index(spec, data, spec_pos)
+    if cfg.differentiable:
+        s_mid = primitive_material_id(spec, data, index)
+        s_normal = scene_normal(ctx.sdf_b_diff, spec_pos)
+    else:
+        s_normal, s_mid = primitive_info(spec, data, index, spec_pos)
+
+    _, probe_world, _ = probes_mod.probe_corners(probe_settings, spec_pos)
+    dir_to_probe, p_dist = probes_mod.unit(probe_world - spec_pos[None])
+    vis = probes_mod.corner_visibility(
+        ctx, spec_pos, s_normal, dir_to_probe, p_dist, enabled=enabled & hit,
+        max_steps=cfg.max_march_steps)
+    return hit, spec_pos, s_normal, s_mid, vis, None
 
 
 def sample_radiance_no_specular(spec, data, probe_settings, cfg, ctx,
                                 rad_atlas, pos, normal, spec_dir, *, enabled,
-                                refl):
-    """Indirect specular mode 2: the reflection ray's best probe (picked in
-    the kernel by backface+visibility weight), radiance lookup at mip 1,
-    plus the direct specular highlight at the reflection point when
-    add_indirect_specular.  ``refl``: the kernel's folded reflection
-    geometry (geometry()'s "refl" dict).  Differentiable, the reflection
-    hit is a constant and its normal the autodiff one there (the JAX
-    package's XLA path); the pick stays the kernel's discrete one."""
+                                refl=None):
+    """Indirect specular mode 2: the reflection ray's best probe (by
+    backface+visibility weight, the first maximum winning), radiance lookup
+    at mip 1, plus the direct specular highlight at the reflection point
+    when add_indirect_specular.  ``refl``: the geometry kernel's folded
+    reflection geometry (geometry()'s "refl" dict), whose pick the kernel
+    made; without it ``_reflection_geometry`` finds the hit and the pick is
+    made here.  Differentiable, the reflection hit is a constant and its
+    normal the autodiff one there (the JAX package's XLA path); the pick
+    stays discrete."""
     n_pts = pos.shape[0]
     settings = probe_settings
     from_ = pos + normal * SURFACE_OFFSET
-    hit = refl["hit"]
-    spec_pos = from_ + refl["t"][:, None] * spec_dir
+    if refl is not None:
+        hit = refl["hit"]
+        spec_pos = from_ + refl["t"][:, None] * spec_dir
+        spec_normal, spec_mid = refl["normal"], refl["mid"]
+        shadows = refl["shadows"]
+        pid = refl["best_pid"].to(torch.int32)
+        best_dir = refl["best_dir"]
+    else:
+        hit, spec_pos, spec_normal, spec_mid, vis, shadows = \
+            _reflection_geometry(spec, data, probe_settings, cfg, ctx,
+                                 from_, spec_dir, enabled=enabled)
+        offseted, probe_world, _ = probes_mod.probe_corners(settings,
+                                                            spec_pos)
+        probe_to_spec, _ = probes_mod.unit(spec_pos[None] - probe_world)
+        weight = dot(probe_to_spec, -spec_normal[None]) * vis    # [8,N]
+        best = torch.argmax(weight, dim=0)
+        rows = torch.arange(n_pts, device=pos.device)
+        best_dir = probe_to_spec[best, rows]
+        pid = probes_mod.grid_position_to_probe_id(settings,
+                                                   offseted[best, rows])
 
-    pid = refl["best_pid"].to(torch.int32)
-    rad_ray_id = probes_mod.dir_to_ray_id(refl["best_dir"])
+    rad_ray_id = probes_mod.dir_to_ray_id(best_dir)
     mip1 = probes_mod.radiance_mip1(settings, rad_atlas)
     px_c, py_c = settings.probe_count
     vals_all = probes_mod.sample_all_tiles_bilinear(
@@ -117,17 +203,17 @@ def sample_radiance_no_specular(spec, data, probe_settings, cfg, ctx,
         vals_all)
 
     if cfg.add_indirect_specular:
-        spec_normal = refl["normal"]
-        if cfg.differentiable:
+        if refl is not None and cfg.differentiable:
             spec_pos = spec_pos.detach()
             spec_normal = scene_normal(ctx.sdf_b_diff, spec_pos)
-        _, spec_metallic, spec_roughness = material_lookup(data, refl["mid"])
+        _, spec_metallic, spec_roughness = material_lookup(data, spec_mid)
         highlight = direct_lighting(
             spec, data, spec_pos, spec_normal, spec_dir,
             torch.zeros((n_pts, 3), dtype=torch.float32, device=pos.device),
             spec_metallic, spec_roughness,
             compute_specular=cfg.direct_specular, enabled=enabled & hit,
-            shadows_by_slot=refl["shadows"])
+            shadows_by_slot=shadows, ctx=ctx,
+            max_steps=cfg.max_march_steps)
         radiance = radiance + highlight
 
     return torch.where(hit[..., None], radiance, 0.0)
@@ -142,28 +228,14 @@ def glossy_corners(settings: ProbeSettings, pos, spec_pos, enabled):
     SURFACE_OFFSET to the corner's distance less SURFACE_OFFSET, enabled
     where ``enabled`` holds)."""
     n_pts = pos.shape[0]
-    dev = pos.device
-    spacing = torch.tensor(settings.grid_spacing, dtype=torch.float32,
-                           device=dev)
-    dims = torch.tensor(settings.grid_dimensions, dtype=torch.int32,
-                        device=dev)
-    grid_pos = torch.floor(pos / spacing).to(torch.int32)
-    alpha = pos / spacing - grid_pos.to(torch.float32)
-    offsets = torch.tensor(probes_mod.CORNER_OFFSETS, dtype=torch.int32,
-                           device=dev)
-    offseted = torch.minimum(
-        torch.clamp_min(grid_pos[None] + offsets[:, None], 0), dims - 1)
-    probe_world = offseted.to(torch.float32) * spacing
-    probe_to_spec = (pos[None] - probe_world) + (spec_pos - pos)[None]
-    # max(|v|, 1e-6) with a finite backward at v = 0 (probes.py)
-    p_dist = torch.sqrt(torch.clamp_min(dot(probe_to_spec, probe_to_spec),
-                                        1e-12))
-    probe_to_spec = probe_to_spec / p_dist[..., None]
+    offseted, probe_world, alpha = probes_mod.probe_corners(settings, pos)
+    probe_to_spec, p_dist = probes_mod.unit(
+        (pos[None] - probe_world) + (spec_pos - pos)[None])
     rays = {
         "origins": spec_pos[None].expand(8, n_pts, 3).reshape(-1, 3),
         "dirs": (-probe_to_spec).reshape(-1, 3),
         "min_dists": torch.full((8 * n_pts,), SURFACE_OFFSET,
-                                dtype=torch.float32, device=dev),
+                                dtype=torch.float32, device=pos.device),
         "max_dists": (p_dist - SURFACE_OFFSET).reshape(-1),
         "enabled": enabled[None].expand(8, n_pts).reshape(-1),
     }
@@ -215,21 +287,22 @@ def compute_indirect_specular(spec, data, probe_settings, cfg, ctx,
                               irr_atlas, pos, normal, spec_dir, *, enabled):
     """Indirect specular mode 3: mirror.  A full secondary shade (direct +
     irradiance-lit indirect) at the reflection hit, whose geometry comes
-    from a masked geometry launch without AO; sky gradient on a miss."""
+    from ``_reflection_geometry`` (the masked geometry launch without AO
+    where it serves the scene); sky gradient on a miss."""
     from_ = pos + normal * SURFACE_OFFSET
-    g = ctx.geometry(from_, spec_dir, probe_settings, cfg, enabled=enabled,
-                     want_ao=False)
-    hit = g["hit"]
-    spec_pos = from_ + g["t"][:, None] * spec_dir
-    s_normal = g["normal"]
-    s_albedo, s_metallic, s_roughness = material_lookup(data, g["mid"])
+    hit, spec_pos, s_normal, s_mid, vis, shadows = _reflection_geometry(
+        spec, data, probe_settings, cfg, ctx, from_, spec_dir,
+        enabled=enabled)
+    s_albedo, s_metallic, s_roughness = material_lookup(data, s_mid)
 
     direct = direct_lighting(
         spec, data, spec_pos, s_normal, spec_dir, s_albedo, s_metallic,
         s_roughness, compute_specular=cfg.direct_specular,
-        enabled=enabled & hit, shadows_by_slot=g["shadows"])
+        enabled=enabled & hit, shadows_by_slot=shadows, ctx=ctx,
+        max_steps=cfg.max_march_steps)
     irradiance = probes_mod.sample_irradiance(
-        probe_settings, irr_atlas, spec_pos, s_normal, vis8=g["vis8"])
+        probe_settings, irr_atlas, spec_pos, s_normal, vis8=vis, ctx=ctx,
+        enabled=enabled & hit, max_steps=cfg.max_march_steps)
     sec_spec_dir = reflect(spec_dir, s_normal)
     indirect = indirect_lighting(
         irradiance, torch.zeros_like(spec_pos), -spec_dir, s_normal,
@@ -245,17 +318,27 @@ def pixel_color(spec: SceneSpec, data: SceneData,
     hit_pos f32[N,3]); hit_pos on a miss is the max_dist point.  With
     ``cfg.differentiable`` the hit distance is reattached by the implicit
     function theorem and the normal is the autodiff one, so color and
-    hit_pos carry gradients to the scene data and to origins and dirs."""
+    hit_pos carry gradients to the scene data and to origins and dirs.
+    The geometry kernel serves the batch where ``ctx.fused_available``;
+    otherwise a raycast and the autodiff normal (the JAX package's
+    ``_fused_ctx`` choice)."""
     ctx = SceneCtx(spec, data)
-    geom = ctx.geometry(origins, dirs, probe_settings, cfg,
-                        want_reflection=cfg.indirect_specular_mode == 2)
-    t, hit = geom["t"], geom["hit"]
-    normal = geom["normal"]
+    geom = None
+    if ctx.fused_available:
+        geom = ctx.geometry(origins, dirs, probe_settings, cfg,
+                            want_reflection=cfg.indirect_specular_mode == 2)
+        t, hit, normal = geom["t"], geom["hit"], geom["normal"]
+    else:
+        t, hit, _ = ctx.raycast(origins, dirs, spec.max_dist,
+                                max_steps=cfg.max_march_steps)
     if cfg.differentiable:
         t = attach_hit_gradient(ctx.sdf_b_diff, origins, dirs, t)
     pos = origins + t[:, None] * dirs
     if cfg.differentiable:
         normal = scene_normal(ctx.sdf_b_diff, pos)
+    elif geom is None:
+        with torch.no_grad():
+            normal = scene_normal(ctx.sdf_b_diff, pos)
     lit = shade_hits(spec, data, probe_settings, cfg, ctx, irr_atlas,
                      rad_atlas, pos, normal, dirs, hit, geom)
     color = torch.where(hit[..., None], lit, sky_color(dirs))

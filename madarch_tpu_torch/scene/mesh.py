@@ -1,12 +1,17 @@
-"""Triangle meshes: OBJ loading and Morton-ordered insertion into a
-renderer (port of madarch_tpu/scene/mesh.py: Mesh, load_obj, morton_order,
-add_mesh_to_renderer).  Host-side data is numpy, as in the JAX package.
+"""Triangle meshes: OBJ loading, voxels, baked distance maps and
+Morton-ordered insertion into a renderer (port of madarch_tpu/scene/mesh.py:
+Mesh, load_obj, voxelize, bake_distance_map, morton_order,
+add_mesh_to_renderer).  Host-side data is numpy, as in the JAX package; the
+distance bake runs in PyTorch on the device it is given.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
+
+from madarch_tpu_torch.core import vecmath as vm
 
 
 @dataclasses.dataclass
@@ -64,6 +69,94 @@ def load_obj(path: str) -> Mesh:
         triangles=np.asarray(tris, np.int32).reshape(-1, 3),
         tri_normals=np.asarray(tri_ns, np.int32).reshape(-1, 3),
     )
+
+
+def voxelize(mesh: Mesh, dims, lo=None, hi=None) -> np.ndarray:
+    """Vertex-sampling voxelization into a bool[W,H,D] grid over [lo, hi]
+    (the mesh's box by default): a voxel is set if any vertex falls in
+    it."""
+    lo0, hi0 = mesh.bounding_box()
+    lo = lo0 if lo is None else np.asarray(lo, np.float32)
+    hi = hi0 if hi is None else np.asarray(hi, np.float32)
+    dims = np.asarray(dims, np.int64)
+    extent = np.maximum(hi - lo, 1e-12)
+    cells = ((mesh.vertices - lo) / extent * dims).astype(np.int64)
+    cells = np.clip(cells, 0, dims - 1)
+    grid = np.zeros(tuple(dims), bool)
+    grid[cells[:, 0], cells[:, 1], cells[:, 2]] = True
+    return grid
+
+
+def _triangle_dist_and_closest(v1, v2, v3, p):
+    """Exact point-triangle distance² f32[T,N], closest point f32[T,N,3]
+    and unit face normal f32[T,3] of triangles v1, v2, v3 f32[T,3] against
+    points p f32[N,3] (the iq construction): the closest of the three edge
+    points unless the point projects inside the triangle, then the plane's
+    foot."""
+    v1, v2, v3 = v1[:, None], v2[:, None], v3[:, None]      # [T,1,3]
+    v21, v32, v13 = v2 - v1, v3 - v2, v1 - v3
+    p1, p2, p3 = p - v1, p - v2, p - v3                     # [T,N,3]
+    nor = vm.cross(v21, v13)
+
+    def edge_closest(v, q, base):
+        t = torch.clamp(vm.dot(q, v) / torch.clamp_min(vm.dot(v, v), 1e-30),
+                        0.0, 1.0)
+        c = base + t[..., None] * v
+        e = c - p
+        return c, vm.dot(e, e)
+
+    c1, d1 = edge_closest(v21, p1, v1)
+    c2, d2 = edge_closest(v32, p2, v2)
+    c3, d3 = edge_closest(v13, p3, v3)
+
+    inside = (torch.sign(vm.dot(p1, vm.cross(v21, nor)))
+              + torch.sign(vm.dot(p2, vm.cross(v32, nor)))
+              + torch.sign(vm.dot(p3, vm.cross(v13, nor)))) < 2.0
+
+    nn = nor / torch.clamp_min(torch.sqrt(vm.dot(nor, nor)), 1e-30)[..., None]
+    plane_off = vm.dot(p1, nn)
+    c_plane = p - plane_off[..., None] * nn
+    d_plane = plane_off * plane_off
+
+    edge_d = torch.minimum(torch.minimum(d1, d2), d3)
+    c_edge = torch.where(((d1 <= d2) & (d1 <= d3))[..., None], c1,
+                         torch.where((d2 <= d3)[..., None], c2, c3))
+    d2_final = torch.where(inside, edge_d, d_plane)
+    c_final = torch.where(inside[..., None], c_edge, c_plane)
+    return d2_final, c_final, nn[:, 0]
+
+
+def bake_distance_map(mesh: Mesh, dims, lo, hi, batch=8192, *,
+                      device="cuda"):
+    """Exact closest-triangle distance and face normal over a dense grid of
+    dims points spanning [lo, hi] (numpy linspace per axis), in batches of
+    ``batch`` points against every triangle on ``device`` (the CUDA card
+    unless the caller names another).  The first closest triangle wins, and
+    a point behind it (back-facing) gets distance 0.  Returns numpy
+    (dist f32[X,Y,Z], normal f32[X,Y,Z,3])."""
+    dims = tuple(int(x) for x in dims)
+    lo = np.asarray(lo, np.float32)
+    hi = np.asarray(hi, np.float32)
+    xs = [np.linspace(lo[i], hi[i], dims[i], dtype=np.float32)
+          for i in range(3)]
+    gx, gy, gz = np.meshgrid(*xs, indexing="ij")
+    pts = torch.as_tensor(np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
+                          ).to(device)
+    tv = torch.as_tensor(mesh.triangle_vertices()).to(device)   # [T,3,3]
+    out_d, out_n = [], []
+    with torch.no_grad():
+        for p in pts.split(batch):
+            d2s, _, nns = _triangle_dist_and_closest(
+                tv[:, 0], tv[:, 1], tv[:, 2], p)
+            best = torch.argmin(d2s, dim=0)                   # [N]
+            d = torch.sqrt(d2s[best, torch.arange(p.shape[0],
+                                                  device=p.device)])
+            n = nns[best]
+            back = vm.dot(p - tv[best, 0], n) < 0.0
+            out_d.append(torch.where(back, 0.0, d))
+            out_n.append(n)
+    return (torch.cat(out_d).cpu().numpy().reshape(dims),
+            torch.cat(out_n).cpu().numpy().reshape(dims + (3,)))
 
 
 def morton_order(points: np.ndarray, bits: int = 10) -> np.ndarray:

@@ -1,5 +1,6 @@
 """Primitive types: analytic signed-distance functions and normals
-(port of madarch_tpu/scene/primitives.py: Sphere, Plane, Box, Triangle).
+(port of madarch_tpu/scene/primitives.py: Sphere, Plane, Box, Triangle and
+``make_primitive`` for a user's own types).
 
 A ``PrimitiveType`` carries a field schema plus ``sdf``/``normal``
 callbacks on a dict of parameter tensors and query points ``p[..., 3]``;
@@ -65,9 +66,41 @@ class PrimitiveType:
     derived_fields: Optional[tuple] = None
     sdf_planar_derived: Optional[Callable] = None
 
+    def analytic_or_grad_normal(self, params, p):
+        """The type's analytic normal at p[..., 3], or else the normalised
+        autograd gradient of its sdf in p.  The gradient is taken inside
+        enable_grad, so it also runs under no_grad; it stays differentiable
+        in the params where they carry gradients and gradients are enabled
+        outside."""
+        if self.normal is not None:
+            return self.normal(params, p)
+        graph = torch.is_grad_enabled() and any(
+            v.requires_grad for v in params.values())
+        with torch.enable_grad():
+            q = p.detach().requires_grad_(True)
+            g, = torch.autograd.grad(self.sdf(params, q).sum(), q,
+                                     create_graph=graph)
+        return vm.normalize(g)
+
     @property
     def field_names(self):
         return tuple(n for n, _ in self.fields)
+
+
+class DeviceConstant:
+    """A float32 numpy array that a custom type's closure reads (a BVH's
+    boxes, a baked distance grid), copied to each device it is asked for
+    once and kept there, never host to device at every march step."""
+
+    def __init__(self, array):
+        self.array = np.ascontiguousarray(array, np.float32)
+        self._on = {}
+
+    def on(self, device):
+        t = self._on.get(device)
+        if t is None:
+            t = self._on[device] = torch.as_tensor(self.array).to(device)
+        return t
 
 
 # ---------------------------------------------------------------------------
@@ -337,3 +370,14 @@ Triangle = PrimitiveType(
     derived_fields=TRIANGLE_DERIVED_FIELDS,
     sdf_planar_derived=_triangle_sdf_planar_derived,
 )
+
+
+def make_primitive(name: str, fields: tuple, sdf: Callable,
+                   normal: Optional[Callable] = None) -> PrimitiveType:
+    """A user-defined primitive type: ``sdf`` (and ``normal``, else the
+    autograd gradient of sdf) on a dict of parameter tensors and points,
+    broadcasting as the built-in types do.  It has no planar form, so a
+    scene that holds it renders on the generic route (render/context.py),
+    never through the kernels."""
+    return PrimitiveType(name=name, fields=tuple(fields), sdf=sdf,
+                         normal=normal)

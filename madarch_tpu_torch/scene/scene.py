@@ -212,6 +212,30 @@ def scene_sdf_info(spec: SceneSpec, data: SceneData, p):
     return closest, index
 
 
+def primitive_info(spec: SceneSpec, data: SceneData, index, p):
+    """(surface normal f32[N, 3], material_id i32[N]) of the primitives
+    with global indices index i32[N], at points p f32[N, 3]: each type's
+    params gathered by the clamped local index, its analytic or autograd
+    normal evaluated, and the type whose block holds the index selected
+    (zeros and material 0 for an index in no live type's block)."""
+    normal = torch.zeros_like(p)
+    material_id = torch.zeros(index.shape, dtype=torch.int32,
+                              device=p.device)
+    for ptype, cap, n, _ in spec.prim_bounds():
+        if n == 0:
+            continue
+        off = spec.prim_offset(ptype)
+        in_type = (index >= off) & (index < off + cap)
+        local = torch.clamp(index - off, 0, cap - 1).long()
+        params = {k: v[local] for k, v in data.prims[ptype.name].items()}
+        nrm = ptype.analytic_or_grad_normal(params, p)
+        normal = torch.where(in_type[..., None], nrm, normal)
+        material_id = torch.where(in_type,
+                                  params["material_id"].to(torch.int32),
+                                  material_id)
+    return normal, material_id
+
+
 def primitive_material_id(spec: SceneSpec, data: SceneData, index):
     """material_id of a global primitive index via one capacity-order
     table."""

@@ -2,8 +2,10 @@
 
 ``FrameTimer`` times frames with CUDA events on the device's own clock and
 refuses a device that is not a GPU; ``device_ops`` and ``device_busy``
-trace calls with torch.profiler for the device's busy time; ``rays_per_frame`` is the JAX
-package's ray accounting unchanged, so rays/s compare across packages.
+trace calls with torch.profiler for the device's busy time (``trace``,
+read by ``kernel_ops``, or by ``averaged_busy`` through key_averages());
+``rays_per_frame`` is the JAX package's ray accounting unchanged, so
+rays/s compare across packages.
 """
 from __future__ import annotations
 
@@ -46,11 +48,9 @@ class FrameTimer:
         return sum(self.times) / max(len(self.times), 1)
 
 
-def device_ops(fn, calls):
-    """Trace ``calls`` calls of ``fn()`` with torch.profiler: returns
-    (device ms per call, summed over the kernels' own times; wall ms per
-    call under the profiler; {op name: device ms per call}).  The device
-    runs one stream, so its busy time is the sum of its kernels' times."""
+def trace(fn, calls):
+    """(the profiler, wall ms per call) of ``calls`` calls of ``fn()``
+    traced with torch.profiler, the host and the device."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -60,10 +60,37 @@ def device_ops(fn, calls):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-    ops = {e.key: e.self_device_time_total / 1e3 / calls
-           for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA}
-    return sum(ops.values()), wall * 1e3 / calls, ops
+    return prof, wall * 1e3 / calls
+
+
+def kernel_ops(prof, calls):
+    """{op name: device ms per call} of a trace, read from its device
+    events as recorded, without key_averages' parse into Python events,
+    which takes minutes for the ~10^6 kernels of a generic-route frame."""
+    ops = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ops[e.name()] = ops.get(e.name(), 0.0) \
+                + e.duration_ns() / 1e6 / calls
+    return ops
+
+
+def averaged_busy(prof, calls):
+    """Device ms per call of the same trace as key_averages() sums it (the
+    device ops' self times), to hold kernel_ops' sum against."""
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / calls
+
+
+def device_ops(fn, calls):
+    """Trace ``calls`` calls of ``fn()`` with torch.profiler: returns
+    (device ms per call, summed over the kernels' own times; wall ms per
+    call under the profiler; {op name: device ms per call}).  The device
+    runs one stream, so its busy time is the sum of its kernels' times."""
+    prof, wall = trace(fn, calls)
+    ops = kernel_ops(prof, calls)
+    return sum(ops.values()), wall, ops
 
 
 def device_busy(render, frames):

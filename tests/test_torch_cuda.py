@@ -779,3 +779,128 @@ def test_train_step_on_the_card_matches_the_cpu(dev, mode):
         spmd.split_float_leaves(new)[0],
         spmd.split_float_leaves(on_card[0])[0])]
     assert float(max(moved)) > 0.0
+
+
+# ---------------------------------------------------------------------------
+# The generic route (bvh_test, obj_mesh baked) and ball_game on the card
+# ---------------------------------------------------------------------------
+
+def _launches():
+    return {k: getattr(M, k).launches
+            for k in ("geometry", "raycast", "visibility", "softshadows")}
+
+
+def _card_and_cpu(make, dev, frames=2, between=None):
+    """The frames of renderer make(device) on the card and on the CPU
+    (between(renderer) runs before each frame), the card's kernel
+    launches per frame, and its nvcc builds and libraries loaded after
+    the first frame."""
+    from madarch_tpu_torch.ops import build
+    from madarch_tpu_torch.utils.golden import image_stats
+    imgs, per_frame, later = [], [], None
+    for d in (dev, "cpu"):
+        r = make(d)
+        for i in range(frames):
+            if between is not None:
+                between(r)
+            before = _launches()
+            img = r.render()
+            if d == dev:
+                torch.cuda.synchronize()
+                per_frame.append({k: v - before[k]
+                                  for k, v in _launches().items()})
+                if i == 0:
+                    later = (build.load.builds,
+                             build.load.cache_info().misses)
+        imgs.append(img.cpu().numpy())
+        if d == dev:
+            later = (build.load.builds - later[0],
+                     build.load.cache_info().misses - later[1])
+    stats = image_stats(*imgs)
+    assert not stats["breached"], stats
+    assert np.isfinite(imgs[0]).all() and imgs[0].var() > 0
+    return per_frame, later
+
+
+TINY = ProbeSettings(radiance_resolution=8, irradiance_resolution=4,
+                     probe_count=(4, 2), grid_dimensions=(2, 2, 2),
+                     grid_spacing=(4.0, 4.0, 4.0))
+
+
+@pytest.mark.parametrize("scene", ["bvh_test", "obj_mesh_baked"])
+def test_generic_route_frames_match_the_cpu_without_kernels(dev, scene):
+    """bvh_test and obj_mesh's baked torus at 32², two frames on the card
+    and on the CPU under the golden gates: the generic route launches no
+    hand-written kernel."""
+    def make(d):
+        if scene == "bvh_test":
+            return S.bvh_test(width=32, height=32, probes=TINY, device=d)
+        return S.obj_mesh(width=32, height=32, obj_path=S.TORUS_OBJ,
+                          mode="baked", bake_dims=(16, 16, 16), device=d)
+
+    per_frame, _ = _card_and_cpu(make, dev)
+    assert all(not any(f.values()) for f in per_frame), per_frame
+
+
+def test_ball_game_matches_the_cpu_and_builds_nothing_new(dev):
+    """ball_game at 32² with the tiny probes: the golden's throw, then the
+    physics stepped and three balls thrown before each of four frames, the
+    live slots 11, 14, 17 and 20 (past LANES_MIN_SLOTS); card and CPU
+    under the golden gates, two geometry launches a frame, and after the
+    first frame no nvcc build and no library loaded."""
+    def make(d):
+        r, step, throw = S.ball_game(width=32, height=32, probes=TINY,
+                                     device=d)
+        throw((2.0, 2.0, 0.0), (2.0, 2.0, 4.0))
+        r.step, r.throw = step, throw
+        return r
+
+    def between(r):
+        r.step()
+        for k in range(3):
+            r.throw((1.0 + k, 4.0, 1.0), (0.5, 0.0, 1.0))
+
+    per_frame, later = _card_and_cpu(make, dev, frames=4, between=between)
+    assert all(f == {"geometry": 2, "raycast": 0, "visibility": 0,
+                     "softshadows": 0} for f in per_frame), per_frame
+    assert later == (0, 0), later
+
+
+def test_a_light_without_position_launches_the_march_kernels(dev,
+                                                             monkeypatch):
+    """The GI room lit by chip_smoke.lamp, a light without a vec3
+    'position', at 32² with the tiny probes: the kernels take the scene,
+    the geometry kernel does not.  Card against CPU under the golden
+    gates; a frame launches raycast, softshadows and visibility three
+    times each and geometry never, in chip_smoke.LAMP_CALLS's order and
+    batch sizes: the shadow marches one per light slot from distance 0 at
+    k = SHADOW_K, the visibility marches 8 corners a point."""
+    import chip_smoke
+    from madarch_tpu_torch.render import context as C
+    from madarch_tpu_torch.render.lighting import SHADOW_K
+    calls = []
+
+    def recorder(name, real):
+        def record(self, *args, **kwargs):
+            if args[0].is_cuda:
+                calls.append((name, args[0].shape[0], args))
+            return real(self, *args, **kwargs)
+        return record
+
+    for name in ("raycast", "visibility", "softshadows"):
+        monkeypatch.setattr(C.SceneCtx, name,
+                            recorder(name, getattr(C.SceneCtx, name)))
+    m = chip_smoke.port_modules()
+    per_frame, _ = _card_and_cpu(
+        lambda d: chip_smoke.lamp_room(np, m, 32, d, probes=TINY), dev)
+    assert per_frame == [{"geometry": 0, "raycast": 3, "visibility": 3,
+                          "softshadows": 3}] * 2, per_frame
+    n_rad = TINY.num_probes * TINY.radiance_resolution ** 2
+    sizes = {"R": n_rad, "8R": 8 * n_rad, "S": 32 * 32, "8S": 8 * 32 * 32}
+    want = [(c.split()[0], sizes[c.split()[1]])
+            for c in chip_smoke.LAMP_CALLS]
+    assert [(name, n) for name, n, _ in calls] == want * 2
+    for name, _, args in calls:
+        if name == "softshadows":
+            assert args[4] == SHADOW_K
+            assert not bool(args[2].any())

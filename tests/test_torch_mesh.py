@@ -125,8 +125,11 @@ def test_add_mesh_to_renderer_matches_jax(mesh_renderers):
 
 
 def test_obj_mesh_refuses_baked_mode_and_missing_file(tmp_path):
-    with pytest.raises(NotImplementedError, match="A15"):
-        tscenes.obj_mesh(width=8, height=8, obj_path=TORUS, mode="baked",
+    """obj_mesh refuses a mode other than its exact and baked ones (the
+    baked mode renders: tests/test_torch_baked_sdf.py) and a missing
+    mesh file."""
+    with pytest.raises(ValueError, match="baked"):
+        tscenes.obj_mesh(width=8, height=8, obj_path=TORUS, mode="voxels",
                          device="cpu")
     with pytest.raises(FileNotFoundError, match="--obj"):
         tscenes.obj_mesh(width=8, height=8,

@@ -9,7 +9,6 @@ statistics.  The JAX package runs its XLA path here (its Pallas kernels
 serve the TPU only), the port the plain versions of its kernels.  Each
 package gets its own settings dataclasses, built from the same fields.
 """
-import dataclasses
 import inspect
 import os
 from functools import partial
@@ -167,27 +166,6 @@ def test_rays_per_frame_matches_jax():
         assert rays_per_frame(w, h, probes, n_lights, cfg) == \
             j_rays_per_frame(w, h, jax_config(probes), n_lights,
                              jax_config(cfg))
-
-
-def test_unported_options_raise(gi):
-    """The options still unported raise (the differentiable shade, which
-    raised here before, is ported: tests/test_torch_differentiability.py):
-    obj_mesh's baked mode, and a scene whose light has no vec3 position
-    for the geometry kernel's shadow rays."""
-    _, tr, data, state = gi
-    with pytest.raises(NotImplementedError):
-        tscenes.obj_mesh(width=8, height=8, device="cpu", mode="baked")
-    from madarch_tpu_torch.render.context import SceneCtx
-    from madarch_tpu_torch.scene.lights import LightType
-    sun = LightType(name="sun", fields=(("color", "vec3"),),
-                    sample=lambda params, pos, normal: None)
-    spec = dataclasses.replace(tr.spec, lights=((sun, 1),),
-                               live_lights=(1,))
-    sun_data = dataclasses.replace(
-        data, lights={"sun": {"color": torch.ones((1, 3))}},
-        light_counts={"sun": torch.tensor(1, dtype=torch.int32)})
-    with pytest.raises(NotImplementedError):
-        SceneCtx(spec, sun_data)
 
 
 def test_run_cli_writes_png(tmp_path):
