@@ -156,7 +156,26 @@ Phases, each printed on its own lines; any failure exits non-zero:
    point) launches a frame and none of geometry; one frame's launches
    recorded and each held to its plain version on its inputs, the screen
    pass's three timed against their plain versions beside the bound;
-   prints a scenes JSON line (phases 28-32).
+   prints a scenes JSON line (phases 28-32);
+33. the path tracers (render/pathtrace.py) on the global_illumination
+   room at 800x800 at the reference's defaults (AO 3 steps, 100 samples,
+   3 bounces, 300 steps): direct, many and path each a warm-up call, 2
+   timed calls with the launches counted (raycast and softshadows 1,
+   1 + 100 and 3 + 1 times per live light slot, no other kernel) and one
+   call under torch.profiler; one call's launches recorded at SceneCtx
+   and held to the plain versions on their inputs (every launch of direct
+   and path, of many the primary query's and two seeded samples'), with
+   the plain marches' steps and SIMT efficiency; one bounce launch of
+   each kernel per mode timed against its plain version beside the
+   bound; direct, and many at 4 samples from one CPU generator, at 32x32
+   on the card and on the CPU under the golden gates;
+34. a torch.distributed world of 1 over NCCL on the card: the GI frame at
+   800x800 through make_sharded_render and through a RaySharder, both
+   equal to Renderer.render()'s; the GI train step at 256x256 with and
+   without the mesh, equal in loss and updated leaves; the GI scene, state
+   and camera saved from the card and loaded back bit-equal, rendering
+   the same next frame; a second process on the one card is not
+   attempted; prints a pathtrace JSON line (phases 33-34).
 
 The geometry kernel shares a ray among a group of lanes
 (ops/csrc/scene.cuh).  At every full shape above (phases 3, 16, 21) and on
@@ -184,7 +203,8 @@ box tests inside the admitted super-chunks and the triangles of the
 chunks exact pruning must admit) over 67 TFLOP/s, the H100 SXM's
 published fp32 peak.
 It prints a train JSON line (phases 25-27), a scenes JSON line (phases
-28-32), a kernels JSON line, the card line, then the last line
+28-32), a pathtrace JSON line (phases 33-34), a kernels JSON line, the
+card line, then the last line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 import dataclasses
@@ -233,6 +253,7 @@ def port_modules():
     from madarch_tpu_torch.parallel import spmd
     from madarch_tpu_torch.render import pipeline
     from madarch_tpu_torch.render import lighting
+    from madarch_tpu_torch.render import pathtrace
     from madarch_tpu_torch.render import probes
     from madarch_tpu_torch.render import raymarch
     from madarch_tpu_torch.render import shading
@@ -243,8 +264,10 @@ def port_modules():
     from madarch_tpu_torch.render.renderer import Renderer
     from madarch_tpu_torch.scene import lights
     from madarch_tpu_torch.scene import mesh
-    from madarch_tpu_torch.scene.scene import (material_lookup, tree_items,
-                                               tree_map)
+    from madarch_tpu_torch.scene.scene import (SceneBuilder,
+                                               material_lookup, tree_items,
+                                               tree_leaves, tree_map)
+    from madarch_tpu_torch.utils import checkpoint
     from madarch_tpu_torch.utils.golden import image_stats
     from madarch_tpu_torch.utils.profiling import (FrameTimer,
                                                    averaged_busy,
@@ -254,7 +277,9 @@ def port_modules():
         PROBE_SHADE_CONFIG=PROBE_SHADE_CONFIG, ProbeSettings=ProbeSettings,
         ShadeConfig=ShadeConfig, VolumetricsSettings=VolumetricsSettings,
         length=length, reflect=reflect, S=scenes, build=build, M=march,
-        spmd=spmd, pipeline=pipeline, lighting=lighting,
+        spmd=spmd, pipeline=pipeline, lighting=lighting, PT=pathtrace,
+        checkpoint=checkpoint, SceneBuilder=SceneBuilder,
+        tree_leaves=tree_leaves,
         probes=probes, rm=raymarch, shading=shading, vol=volumetrics,
         Renderer=Renderer, lights=lights, mesh=mesh,
         camera_rays=camera_rays, pixel_grid=pixel_grid, SceneCtx=SceneCtx,
@@ -1664,6 +1689,324 @@ def lamp_phase(torch, np, m, dev, card):
     return res, launches
 
 
+# Phase 33: the path tracers (render/pathtrace.py) at full width, the
+# reference's defaults: AO 3 steps, 100 samples, 3 bounces, 300 steps.
+PT_SIZE = 800
+PT_SAMPLES = 100
+PT_BOUNCES = 3
+PT_STEPS = 300
+PT_TIMED = 2
+# the many-sample launches held to the plain version: the primary query's
+# and two seeded samples' (all 202 would cost ~40 s of plain marches)
+PT_HELD_SAMPLES = 2
+PT_SMALL = 32
+PT_SMALL_SAMPLES = 4
+# per ray in and out of a launch, bytes: o, d, enabled, then (raycast) t,
+# hit or (softshadows) min_dist, max_dist, the factor
+PT_PER_RAY = {"raycast": 24 + 1 + 4 + 1, "softshadows": 24 + 1 + 4 + 4 + 4}
+PT_CHECKS = {"raycast": check_raycast, "softshadows": check_softshadows}
+
+
+def pt_modes(m, generator=None, samples=PT_SAMPLES):
+    """{mode: (its function of (spec, data, o, d), its queries a call)}."""
+    PT = m.PT
+    return {
+        "direct": (lambda s, dt, o, d: PT.pixel_color_direct(
+            s, dt, o, d, max_steps=PT_STEPS), 1),
+        "many": (lambda s, dt, o, d: PT.pixel_color_many(
+            s, dt, o, d, generator, gi_samples=samples,
+            max_steps=PT_STEPS), 1 + samples),
+        "path": (lambda s, dt, o, d: PT.pixel_color_path(
+            s, dt, o, d, generator, gi_bounces=PT_BOUNCES,
+            max_steps=PT_STEPS), PT_BOUNCES + 1)}
+
+
+def pt_rays(m, r, dev):
+    """The renderer's camera rays, flat in scanline order."""
+    cam = r.camera
+    o, d = m.camera_rays(m.pixel_grid(r.width, r.height, dev),
+                         cam.position, cam.orientation)
+    return o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+
+
+def record_marches(m, fn, keep):
+    """fn() with each SceneCtx.raycast and SceneCtx.softshadows launch
+    recorded where keep(name, i) (i counts that method's calls): [(name,
+    i, the wrapper's arguments, its keywords, its outputs)]."""
+    real = {name: getattr(m.SceneCtx, name) for name in PT_CHECKS}
+    calls = []
+    seen = dict.fromkeys(real, 0)
+
+    def recorder(name):
+        def record(ctx, *args, **kwargs):
+            out = real[name](ctx, *args, **kwargs)
+            if keep(name, seen[name]):
+                calls.append((name, seen[name], (ctx.packed,) + args,
+                              kwargs, out))
+            seen[name] += 1
+            return out
+        return record
+
+    for name in real:
+        setattr(m.SceneCtx, name, recorder(name))
+    try:
+        fn()
+    finally:
+        for name, f in real.items():
+            setattr(m.SceneCtx, name, f)
+    return calls
+
+
+def pathtrace_phase(torch, np, m, dev, card):
+    """Phase 33: pixel_color_direct, _many and _path on the GI room at
+    800x800 (640,000 camera rays): per mode a warm-up call, then 2 calls
+    timed with CUDA events and the launches counted (raycast and
+    softshadows 1, 1 + 100 and 3 + 1 times per live light slot, no other
+    kernel), one call under torch.profiler, and one call's launches
+    recorded and held to the plain versions on their own inputs (every
+    launch of direct and path; of many the primary query's and two
+    seeded samples'), with the plain marches' steps; one held bounce
+    launch of each kernel per mode timed against its plain version beside
+    the bound.  Then direct, and many at 4 samples from one CPU generator,
+    at 32x32 on the card and on the CPU under the golden gates.  Returns
+    ({mode: numbers}, {kernel: {launches_pathtrace_<mode>, max_abs_err,
+    <mode> timings}})."""
+    M = m.M
+    r = m.S.global_illumination(width=PT_SIZE, height=PT_SIZE, device=dev)
+    spec, data = r.spec, r.scene_data
+    o, d = pt_rays(m, r, dev)
+    n = o.shape[0]
+    slots = M.pack_light_positions(spec, data)[1]
+    rng = np.random.RandomState(SEED)
+    held = set(1 + rng.choice(PT_SAMPLES, PT_HELD_SAMPLES, replace=False))
+    out, kern = {}, {name: {"max_abs_err": 0.0} for name in PT_CHECKS}
+    for mode, (fn, queries) in pt_modes(m).items():
+        call = lambda fn=fn: fn(spec, data, o, d)          # noqa: E731
+        img = call()
+        timer = m.FrameTimer(dev)
+        reset_launches(m)
+        for _ in range(PT_TIMED):
+            with timer.frame():
+                img = call()
+        launches = launch_counts(m)
+        want = {name: 0 for name in KERNELS}
+        want.update(raycast=queries * PT_TIMED,
+                    softshadows=queries * slots * PT_TIMED)
+        if launches != want:
+            fail(f"pathtrace {mode}: launches {launches} in {PT_TIMED} "
+                 f"calls, expected {want}")
+        img = img.cpu()
+        if img.shape != (n, 3) or not bool(torch.isfinite(img).all()):
+            fail(f"pathtrace {mode}: output not finite of shape ({n}, 3)")
+        rays = (want["raycast"] + want["softshadows"]) // PT_TIMED * n
+        prof, wall = m.trace(call, 1)
+        busy = sum(m.kernel_ops(prof, 1).values())
+        del prof
+        cell = dict(ms=timer.mean * 1e3, each_ms=[t * 1e3
+                                                  for t in timer.times],
+                    rays_per_call=rays, rays_per_s=rays / timer.mean,
+                    launches=launches, busy_ms=busy, profiled_wall_ms=wall,
+                    idle_share=1.0 - busy / wall,
+                    image_mean=float(img.mean()))
+        print(f"pathtrace {mode} {PT_SIZE}x{PT_SIZE}: "
+              f"{cell['ms']:.3f} ms/call ("
+              + ", ".join(f"{x:.1f}" for x in cell["each_ms"])
+              + f"), {rays / timer.mean / 1e6:.1f} M rays/s ({rays} rays a "
+              f"call through the kernels); launches "
+              f"{json.dumps(launches)} in {PT_TIMED} calls; under "
+              f"torch.profiler device busy {busy:.3f} of {wall:.3f} ms, "
+              f"idle share {1.0 - busy / wall:.3f}; image mean "
+              f"{cell['image_mean']:.6f}; [{card}]")
+        for name in PT_CHECKS:
+            kern[name][f"launches_pathtrace_{mode}"] = launches[name]
+
+        # one call's launches held to the plain versions
+        def keep(name, i, mode=mode):
+            q = i if name == "raycast" else i // slots
+            return mode != "many" or q == 0 or q in held
+        calls = record_marches(m, call, keep)
+        torch.cuda.synchronize()
+        bounce = 0 if mode == "direct" else 1
+        cell["held"] = {}
+        for name, i, args, kwargs, k_out in calls:
+            q = i if name == "raycast" else i // slots
+            plain = getattr(M, f"{name}_reference")
+            ref, flops = counted(torch, m, lambda: plain(
+                *args, return_steps=True, **kwargs))
+            label = f"{name} pathtrace {mode} query {q}"
+            err = PT_CHECKS[name](torch, label, k_out, ref[:-1] if
+                                  name == "raycast" else ref[0])
+            kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], err)
+            entry = dict(max_abs_err=err,
+                         steps=step_stats(torch, label, ref[-1]))
+            if q == (bounce if mode != "many" else min(held)) and \
+                    i == q * (1 if name == "raycast" else slots):
+                (k1, k2), (p1, p2) = time_pair(
+                    torch, lambda: getattr(M, name)(*args, **kwargs),
+                    lambda: plain(*args, **kwargs), iters=5)
+                b_ms, b_by = bound(flops, args[1].shape[0]
+                                   * PT_PER_RAY[name] + scene_bytes(args[0]))
+                print(f"time {label} ({args[1].shape[0]} rays): kernel "
+                      f"{k1:.4f}/{k2:.4f} ms, plain {p1:.1f}/{p2:.1f} ms; "
+                      f"bound {b_ms:.5f} ms ({b_by}: {flops:.4e} flops); "
+                      f"[{card}]")
+                entry.update(ms=min(k1, k2), plain_ms=min(p1, p2),
+                             bound_ms=b_ms, bound_by=b_by)
+                kern[name].update({f"{k}_pathtrace_{mode}": v for k, v in
+                                   entry.items() if k != "steps"})
+                kern[name][f"steps_pathtrace_{mode}"] = entry["steps"]
+            cell["held"][f"{name} {q}"] = entry
+            del ref
+        del calls
+        out[mode] = cell
+
+    # card against CPU at 32x32, one CPU generator for both
+    small = {}
+    for mode in ("direct", "many"):
+        imgs = []
+        for device in (dev, "cpu"):
+            rs = m.S.global_illumination(width=PT_SMALL, height=PT_SMALL,
+                                         device=device)
+            gen = torch.Generator().manual_seed(SEED)
+            fn = pt_modes(m, gen, PT_SMALL_SAMPLES)[mode][0]
+            c = fn(rs.spec, rs.scene_data, *pt_rays(m, rs, device))
+            c = c.clamp_min(0.0).reshape(PT_SMALL, PT_SMALL, 3).cpu()
+            imgs.append((((c + 1e-8) / (c + 1.0)) ** 0.4545).numpy())
+        stats = m.image_stats(*imgs)
+        print(f"pathtrace {mode} {PT_SMALL}x{PT_SMALL}, cuda vs cpu: "
+              f"{json.dumps(stats)}")
+        if stats["breached"]:
+            fail(f"pathtrace {mode} {PT_SMALL}x{PT_SMALL}: gates breached "
+                 f"{stats['breached']}")
+        small[mode] = stats
+    out["cuda_vs_cpu_32"] = small
+    return out, kern
+
+
+# Phase 34: the multi-device layer and checkpoints on the one card.
+SHARD_SIZE = 800
+SHARD_TRAIN_SIZE = 256
+# the sharded step's updated leaves against the unsharded step's, relative
+# to each leaf's update: the gathers reorder the backward's sums
+SHARD_STEP_REL = 1e-5
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def multidevice_phase(torch, m, dev, card):
+    """Phase 34: a torch.distributed world of 1 (NCCL) on the card.  The
+    GI frame at 800x800 through make_sharded_render (a world of 1 skips
+    the sharder) and through render_frame with a RaySharder (each pass's
+    rays gathered by an NCCL all-gather), both equal to
+    Renderer.render()'s; phase 26's GI train step at 256x256 with and
+    without the mesh (gathers and the gradient all-reduce over NCCL),
+    equal in loss and updated leaves; the GI scene, state and camera
+    saved from the card and loaded back, bit-equal, rendering the same
+    next frame.  Returns the numbers."""
+    spmd, P = m.spmd, m.pipeline
+    if not spmd.init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0,
+                                 backend="nccl"):
+        fail("init_distributed did not join the world of 1")
+    out = {}
+    try:
+        mesh = spmd.make_mesh(device=dev)
+        r = m.S.global_illumination(width=SHARD_SIZE, height=SHARD_SIZE,
+                                    device=dev)
+        args = (r.scene_data, r.camera, r.state)
+        run = spmd.make_sharded_render(r.spec, r.probes, r.volumetrics,
+                                       SHARD_SIZE, SHARD_SIZE, mesh,
+                                       screen_cfg=r.screen_cfg,
+                                       probe_cfg=r.probe_cfg)
+        img_run = run(*args)[0]
+        sharder = spmd.RaySharder(mesh)
+        img_shard, rep = spmd.collective_report(
+            sharder, lambda: P.render_frame(
+                r.spec, r.probes, r.volumetrics, SHARD_SIZE, SHARD_SIZE,
+                *args, screen_cfg=r.screen_cfg, probe_cfg=r.probe_cfg,
+                shard=sharder)[0])
+        ref = r.render()
+        torch.cuda.synchronize()
+        same = (run.sharder is None and torch.equal(img_run, ref)
+                and torch.equal(img_shard, ref))
+        skips = "skips" if run.sharder is None else "keeps"
+        print(f"sharded GI {SHARD_SIZE}x{SHARD_SIZE}, world of 1 (NCCL): "
+              f"make_sharded_render {skips} the sharder; the RaySharder "
+              f"frame's collectives "
+              f"{rep['n_collectives']} ({rep['bytes']} bytes, "
+              f"{rep['in_loops']} inside a march); both frames "
+              f"{'equal' if same else 'DIFFER from'} Renderer.render()'s")
+        if not same or rep["in_loops"] or rep["n_collectives"] != 3:
+            fail("the world-of-1 sharded frame")
+        out["frame"] = dict(equal=same, collectives=rep["n_collectives"],
+                            bytes=rep["bytes"])
+
+        size = SHARD_TRAIN_SIZE
+        rt = m.S.global_illumination(width=size, height=size, device=dev)
+        target = torch.zeros((size, size, 3), device=dev)
+        steps = {}
+        for name, mesh_arg in (("unsharded", None), ("sharded", mesh)):
+            step = spmd.make_train_step(rt.spec, rt.probes, rt.volumetrics,
+                                        size, size,
+                                        screen_cfg=rt.screen_cfg,
+                                        mesh=mesh_arg)
+            steps[name] = step(rt.scene_data, rt.camera, rt.state, target)
+        (l0, d0, _), (l1, d1, _) = steps["unsharded"], steps["sharded"]
+        # each leaf's difference relative to its update
+        diff = max(rel_norm(torch, b - a0, a - a0) for a, b, a0 in zip(
+            *(spmd.split_float_leaves(x)[0] for x in (d0, d1,
+                                                        rt.scene_data))))
+        print(f"sharded GI train step {size}x{size}, world of 1: loss "
+              f"{float(l1):.8f} against {float(l0):.8f} unsharded; largest "
+              f"updated-leaf difference {diff:.3e} of its update (limit "
+              f"{SHARD_STEP_REL})")
+        if float(l0) != float(l1) or not diff <= SHARD_STEP_REL:
+            fail("the world-of-1 sharded train step differs")
+        out["train"] = dict(loss=float(l1), loss_unsharded=float(l0),
+                            max_leaf_diff=diff)
+
+        import tempfile
+        trees = {"scene": r.scene_data, "state": r.state,
+                 "camera": r.camera}
+        templates = {
+            "scene": m.SceneBuilder(r.base_spec).device_data(dev),
+            "state": P.initial_state(r.probes, r.volumetrics, dev),
+            "camera": P.Camera(position=torch.zeros(3, device=dev),
+                               orientation=torch.zeros((3, 3), device=dev))}
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "gi.npz")
+            m.checkpoint.save(path, **trees)
+            back = m.checkpoint.load(path, device=dev, **templates)
+        bit = all(torch.equal(a, b) and a.device == b.device
+                  for name in trees for a, b in zip(
+                      m.tree_leaves(trees[name]), m.tree_leaves(back[name])))
+        nxt = [P.render_frame(r.spec, r.probes, r.volumetrics, SHARD_SIZE,
+                              SHARD_SIZE, t["scene"], t["camera"],
+                              t["state"], screen_cfg=r.screen_cfg,
+                              probe_cfg=r.probe_cfg)[0]
+               for t in (trees, back)]
+        same_next = torch.equal(*nxt)
+        print(f"checkpoint GI {SHARD_SIZE}x{SHARD_SIZE} from cuda: "
+              f"{len(m.tree_leaves(trees['scene']))} scene leaves, state, "
+              f"camera; loaded back {'bit-equal' if bit else 'DIFFERENT'}; "
+              f"next frame {'equal' if same_next else 'DIFFERENT'}")
+        if not (bit and same_next):
+            fail("the checkpoint round trip on the card")
+        out["checkpoint"] = dict(bit_equal=bit, next_frame_equal=same_next)
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"multi-device: a world of 1 on this host's one card; a second "
+          f"process on the same card is not attempted and scaling is not "
+          f"measured; [{card}]")
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "madarch_tpu_torch")):
         fail("madarch_tpu_torch/ is not beside this script")
@@ -2030,6 +2373,12 @@ def main():
     lamp_k, lamp_launches = lamp_phase(torch, np, m, dev, card)
     scenes["GI lamp"] = dict(launches=lamp_launches, kernels=lamp_k)
 
+    # ---- 33. the path tracers at full width
+    pt, pt_k = pathtrace_phase(torch, np, m, dev, card)
+
+    # ---- 34. the multi-device layer and checkpoints on the one card
+    multi = multidevice_phase(torch, m, dev, card)
+
     def lamp_keys(name):
         """The kernel's numbers on the lamp room (phase 32)."""
         k = lamp_k[name]
@@ -2038,6 +2387,12 @@ def main():
                 "bound_ms_gi_lamp": k["bound_ms"],
                 "bound_by_gi_lamp": k["bound_by"]}
     print(json.dumps({"scenes": scenes}))
+    print(json.dumps({"pathtrace": pt, "multidevice": multi}))
+
+    def pt_keys(name):
+        """The kernel's numbers in the path tracers (phase 33), its
+        largest error folded into max_abs_err."""
+        return {k: v for k, v in pt_k[name].items() if k != "max_abs_err"}
 
     src = "madarch_tpu_torch/ops/csrc/"
     print(json.dumps({"kernels": [
@@ -2104,7 +2459,8 @@ def main():
         {"name": "raycast", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1089",
          "launches": launches["raycast"],
-         "max_abs_err": max(rc_err, lamp_k["raycast"]["max_abs_err"]),
+         "max_abs_err": max(rc_err, lamp_k["raycast"]["max_abs_err"],
+                            pt_k["raycast"]["max_abs_err"]),
          "ms": min(rc_t[0]), "plain_ms": min(rc_t[1]),
          "bound_ms": rc_bound[0], "bound_by": rc_bound[1],
          "library_ms": None,
@@ -2115,7 +2471,8 @@ def main():
          "bound_ms_gi_mode1": rc1_bound[0],
          "candidate_gi_mode1": launched(m, g1ctx.packed),
          "ms_by_build_gi_mode1": rc1_builds,
-         "steps_gi_mode1": steps["reflections"], **lamp_keys("raycast")},
+         "steps_gi_mode1": steps["reflections"], **lamp_keys("raycast"),
+         **pt_keys("raycast")},
         {"name": "visibility", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1127",
          "launches": launches["visibility"],
@@ -2128,13 +2485,14 @@ def main():
         {"name": "softshadows", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1144",
          "launches": paths["GI mode 1"]["softshadows"],
-         "max_abs_err": max(sh_err, lamp_k["softshadows"]["max_abs_err"]),
+         "max_abs_err": max(sh_err, lamp_k["softshadows"]["max_abs_err"],
+                            pt_k["softshadows"]["max_abs_err"]),
          "ms": min(sh_t[0]), "plain_ms": min(sh_t[1]),
          "bound_ms": sh_bound[0], "bound_by": sh_bound[1],
          "library_ms": None,
          "candidate": launched(m, g1ctx.packed),
          "ms_by_build": sh_builds, "steps": steps["penumbra"],
-         **lamp_keys("softshadows")},
+         **lamp_keys("softshadows"), **pt_keys("softshadows")},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 PI = 3.14159265358
+PI_2 = 6.28318530718
 # GLSL epsilon used as the hit threshold of the sphere tracer.
 EPSILON = 1e-3
 

@@ -1,21 +1,37 @@
-"""The differentiable-rendering train step on one device (port of
-madarch_tpu/parallel/spmd.py's make_train_step, split_float_leaves and
-merge_float_leaves; make_value_and_grad is the step without its update).
+"""The differentiable-rendering train step and ray sharding over processes
+(port of madarch_tpu/parallel/spmd.py).
 
-The JAX package shards the step's rays over a device mesh and all-reduces
-the gradients; the port runs it on one device, with no mesh argument and
-no all-reduce.  The loss is the mean squared error between the rendered
+The JAX package shards rays over a device mesh inside one process; the
+port runs one process per device under ``torch.distributed``.  A
+``RaySharder`` pads each flat ray batch of a pass (radiance texels,
+screen pixels, froxel and scattering rays) to a multiple of the world
+size, each rank marches its contiguous share, and the outputs are
+all-gathered, differentiably; scene data and probe atlases are
+replicated.  A march runs inside one rank's share and holds no
+collective.  The sharder records every collective it issues
+(``collective_report``).
+
+The train step's loss is the mean squared error between the rendered
 frame and a target image, its gradient is taken with respect to every
 float leaf of the scene data (primitive fields, materials, lights), and
-the update is plain SGD.  The marches run in the kernels as in any frame;
-gradients re-enter through the implicit-function-theorem hit distance and
-the autodiff normals (render/shading.py).
+the update is plain SGD.  Sharded, every rank forms the same full-image
+loss from the gathered image; the backward of each all-gather already
+sums the ranks' gradients of its shares, so each rank differentiates
+loss / world size and the parameter gradients are all-reduced with SUM:
+the one-process gradient, not world size times it.  The marches run in
+the kernels as in any frame; gradients re-enter through the
+implicit-function-theorem hit distance and the autodiff normals
+(render/shading.py).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 
 from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG,
                                            ProbeSettings, ShadeConfig,
@@ -23,6 +39,184 @@ from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG,
                                            screen_shade_config)
 from madarch_tpu_torch.render.pipeline import render_frame
 from madarch_tpu_torch.scene.scene import SceneSpec, tree_leaves, tree_map
+
+ENV_VARS = ("MASTER_ADDR", "RANK", "WORLD_SIZE")
+
+
+def init_distributed(init_method=None, world_size=None, rank=None,
+                     backend=None):
+    """Join a torch.distributed process group; True when one exists
+    after the call.  With ``init_method`` (``tcp://host:port``) it joins
+    that group as ``rank`` of ``world_size``; without, it joins by the
+    environment (MASTER_ADDR, RANK, WORLD_SIZE) and returns False where
+    that is absent.  A no-op when a group already exists.  ``backend``:
+    nccl where CUDA is available, else gloo, unless named."""
+    if dist.is_initialized():
+        return True
+    if init_method is None:
+        if not all(os.environ.get(k) for k in ENV_VARS):
+            return False
+        init_method = "env://"
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    kwargs = {k: v for k, v in (("world_size", world_size), ("rank", rank))
+              if v is not None}
+    dist.init_process_group(backend, init_method=init_method, **kwargs)
+    return True
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The processes rays are shared over, one device each: the world's
+    size, this process's rank, its device and the process group (None:
+    the default group)."""
+
+    world_size: int
+    rank: int
+    device: torch.device
+    group: object = None
+
+
+def make_mesh(device=None, group=None) -> Mesh:
+    """This process's mesh: the group's size and rank (a world of 1 where
+    no group exists) and ``device``, by default the CUDA card of the
+    process's LOCAL_RANK (else its rank) among the host's cards."""
+    if dist.is_initialized():
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+    else:
+        world, rank = 1, 0
+    if device is None:
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        device = torch.device("cuda", local % max(torch.cuda.device_count(),
+                                                  1))
+    return Mesh(world, rank, torch.device(device), group)
+
+
+class RaySharder:
+    """Sharding of flat ray batches over a mesh.  ``pad`` zero-pads the
+    leading (ray) dimension to a multiple of the world size, ``share``
+    takes this rank's contiguous part of it, ``gather`` concatenates every
+    rank's part in rank order and ``unpad`` slices back to the true
+    count; ``map_rays`` runs a pass's function through all four.
+    ``record`` lists each collective issued: {"op", "bytes" (of the
+    gathered or reduced tensor), "in_loop" (issued while a map_rays
+    function ran, where the marches run)}."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.record = []
+        self._in_fn = 0
+
+    @property
+    def n(self) -> int:
+        return self.mesh.world_size
+
+    def pad(self, arr):
+        rem = (-arr.shape[0]) % self.n
+        if rem == 0:
+            return arr
+        return torch.cat([arr, arr.new_zeros((rem,) + arr.shape[1:])])
+
+    def unpad(self, arr, n_true: int):
+        return arr[:n_true] if arr.shape[0] != n_true else arr
+
+    def share(self, arr):
+        """This rank's contiguous share of the padded batch."""
+        arr = self.pad(arr)
+        k = arr.shape[0] // self.n
+        return arr[self.mesh.rank * k:(self.mesh.rank + 1) * k]
+
+    def _log(self, op, x, ranks=1):
+        self.record.append({"op": op, "bytes": x.numel() * x.element_size()
+                            * ranks, "in_loop": self._in_fn > 0})
+
+    def gather(self, x):
+        """Every rank's x (its share's output) in rank order; the backward
+        sums each rank's gradient of this rank's part (a reduce-scatter,
+        recorded when it runs)."""
+        self._log("all-gather", x, self.n)
+        if x.requires_grad:
+            x.register_hook(
+                lambda g: self._log("reduce-scatter", g, self.n))
+        return torch.cat(dist_nn.all_gather(x.contiguous(),
+                                            group=self.mesh.group))
+
+    def map_rays(self, fn, sharded, replicated=()):
+        """fn(*shares, *replicated) on this rank's share of each ray batch
+        of ``sharded`` (all of one length), its output (a tensor or a
+        tuple of them) gathered over the ranks and sliced back to the
+        batches' true length: the sharded counterpart of fn(*sharded,
+        *replicated).  fn marches its rays alone and issues no
+        collective."""
+        n = sharded[0].shape[0]
+        shares = [self.share(a) for a in sharded]
+        self._in_fn += 1
+        try:
+            out = fn(*shares, *replicated)
+        finally:
+            self._in_fn -= 1
+        if isinstance(out, tuple):
+            return tuple(self.unpad(self.gather(o), n) for o in out)
+        return self.unpad(self.gather(out), n)
+
+    def all_reduce(self, tensors):
+        """The tensors summed over the ranks, in one collective."""
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        self._log("all-reduce", flat)
+        dist.all_reduce(flat, group=self.mesh.group)
+        return [part.view_as(t) for part, t in
+                zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def ray_sharder(mesh: Mesh) -> RaySharder:
+    return RaySharder(mesh)
+
+
+def replicate(mesh: Mesh, tree):
+    """``tree`` (a SceneData, FrameState, Camera) on mesh.device with rank
+    0's values on every rank: one broadcast a leaf."""
+    src = 0 if mesh.group is None else dist.get_global_rank(mesh.group, 0)
+
+    def bcast(x):
+        x = x.detach().to(mesh.device).clone()
+        if mesh.world_size > 1:
+            dist.broadcast(x, src=src, group=mesh.group)
+        return x
+    return tree_map(bcast, tree)
+
+
+def collective_report(sharder: RaySharder, fn, *args):
+    """(fn(*args), the collectives it issued through ``sharder``): the
+    counterpart of the JAX package's scan of XLA's HLO, read from the
+    sharder's record.  {"in_loops": issued inside a map_rays function
+    (where the marches run; 0 for a sound frame), "n_collectives",
+    "bytes", "ops"}."""
+    start = len(sharder.record)
+    out = fn(*args)
+    ops = sharder.record[start:]
+    return out, {"in_loops": sum(op["in_loop"] for op in ops),
+                 "n_collectives": len(ops),
+                 "bytes": sum(op["bytes"] for op in ops), "ops": ops}
+
+
+def make_sharded_render(spec: SceneSpec, probes: ProbeSettings,
+                        vol: VolumetricsSettings, width: int, height: int,
+                        mesh: Mesh, screen_cfg: ShadeConfig = None,
+                        probe_cfg: ShadeConfig = PROBE_SHADE_CONFIG):
+    """Frame function run(data, camera, state) -> (image, new state) with
+    rays sharded over the mesh; every rank returns the whole image.  A
+    world of 1 skips the sharder, as the JAX package skips shard_map on
+    one device.  ``run.sharder`` is the sharder (None at a world of
+    1)."""
+    shard = ray_sharder(mesh) if mesh.world_size > 1 else None
+
+    def run(data, camera, state):
+        return render_frame(spec, probes, vol, width, height, data, camera,
+                            state, screen_cfg=screen_cfg,
+                            probe_cfg=probe_cfg, shard=shard)
+
+    run.sharder = shard
+    return run
 
 
 def split_float_leaves(tree):
@@ -47,18 +241,24 @@ def merge_float_leaves(aux, floats):
 def make_value_and_grad(spec: SceneSpec, probes: ProbeSettings,
                         vol: VolumetricsSettings, width: int, height: int,
                         screen_cfg: ShadeConfig = None,
-                        probe_cfg: ShadeConfig = PROBE_SHADE_CONFIG):
+                        probe_cfg: ShadeConfig = PROBE_SHADE_CONFIG,
+                        mesh: Mesh = None):
     """The train step's loss and gradient: fn(data, camera, state, target)
     -> (loss, grads, new state).  Both passes render differentiable;
     ``target`` is an f32[H, W, 3] image on the data's device; the loss is
     mean((image − target)²), detached; grads holds d loss / d leaf for
     every float leaf of data in split_float_leaves' order (zeros for a
     leaf the frame does not reach); the new state is the frame's detached
-    feedback."""
+    feedback.  With a ``mesh`` the frame's rays are sharded over it (at
+    any world size: at 1 the collectives are copies) and the gradients
+    are summed over the ranks; ``value_and_grad.sharder`` is the
+    sharder."""
     if screen_cfg is None:
         screen_cfg = screen_shade_config(vol.enabled)
     screen_cfg = dataclasses.replace(screen_cfg, differentiable=True)
     probe_cfg = dataclasses.replace(probe_cfg, differentiable=True)
+    shard = None if mesh is None else ray_sharder(mesh)
+    scale = 1 if shard is None else shard.n
 
     def value_and_grad(data, camera, state, target):
         floats, aux = split_float_leaves(data)
@@ -67,26 +267,31 @@ def make_value_and_grad(spec: SceneSpec, probes: ProbeSettings,
             image, new_state = render_frame(
                 spec, probes, vol, width, height,
                 merge_float_leaves(aux, params), camera, state,
-                screen_cfg=screen_cfg, probe_cfg=probe_cfg)
+                screen_cfg=screen_cfg, probe_cfg=probe_cfg, shard=shard)
             loss = torch.mean((image - target) ** 2)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = torch.autograd.grad(loss / scale, params,
+                                        allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        if shard is not None:
+            grads = shard.all_reduce(grads)
         return loss.detach(), grads, new_state
 
+    value_and_grad.sharder = shard
     return value_and_grad
 
 
 def make_train_step(spec: SceneSpec, probes: ProbeSettings,
                     vol: VolumetricsSettings, width: int, height: int,
                     lr: float = 0.01, screen_cfg: ShadeConfig = None,
-                    probe_cfg: ShadeConfig = PROBE_SHADE_CONFIG):
+                    probe_cfg: ShadeConfig = PROBE_SHADE_CONFIG,
+                    mesh: Mesh = None):
     """The train step: step(data, camera, state, target) -> (loss, new
     data, new state), make_value_and_grad's loss and state with new data
     holding the updated float leaves p − lr·g and the integer leaves as
-    they were."""
+    they were; sharded over ``mesh`` when given (``step.sharder``)."""
     value_and_grad = make_value_and_grad(spec, probes, vol, width, height,
-                                         screen_cfg, probe_cfg)
+                                         screen_cfg, probe_cfg, mesh)
 
     def step(data, camera, state, target):
         loss, grads, new_state = value_and_grad(data, camera, state, target)
@@ -95,4 +300,44 @@ def make_train_step(spec: SceneSpec, probes: ProbeSettings,
             new = [p - lr * g for p, g in zip(floats, grads)]
         return loss, merge_float_leaves(aux, new), new_state
 
+    step.sharder = value_and_grad.sharder
     return step
+
+
+def measure_scaling(builder=None, width: int = 256, height: int = 256,
+                    frames: int = 4, mesh: Mesh = None, **builder_kw):
+    """Frame time of the sharded render on the whole world against a
+    world of 1 (each rank rendering the whole frame alone), same scene
+    and shapes: {"devices", "t1_s", "tN_s", "efficiency" = t1 / (tN·N)}.
+    Every rank of the world must call it."""
+    if builder is None:
+        from madarch_tpu_torch.examples.scenes import global_illumination
+        builder = global_illumination
+    mesh = mesh or make_mesh()
+    one = dataclasses.replace(mesh, world_size=1, rank=0)
+    results = {}
+    for m in (one, mesh) if mesh.world_size > 1 else (mesh,):
+        r = builder(width=width, height=height, device=mesh.device,
+                    **builder_kw)
+        run = make_sharded_render(r.spec, r.probes, r.volumetrics, width,
+                                  height, m, screen_cfg=r.screen_cfg,
+                                  probe_cfg=r.probe_cfg)
+        data, cam, state = r.scene_data, r.camera, r.state
+        img, state = run(data, cam, state)
+        _barrier(mesh, img)
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            img, state = run(data, cam, state)
+        _barrier(mesh, img)
+        results[m.world_size] = (time.perf_counter() - t0) / frames
+    n = mesh.world_size
+    return {"devices": n, "t1_s": results[1], "tN_s": results[n],
+            "efficiency": results[1] / (results[n] * n)}
+
+
+def _barrier(mesh, x):
+    """Wait for this rank's device, then for every rank."""
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    if mesh.world_size > 1:
+        dist.barrier(group=mesh.group)

@@ -62,11 +62,12 @@ def initial_state(probes: ProbeSettings, vol: VolumetricsSettings,
 
 
 def radiance_pass(spec: SceneSpec, data: SceneData, probes: ProbeSettings,
-                  cfg: ShadeConfig, irr_atlas, rad_atlas):
+                  cfg: ShadeConfig, irr_atlas, rad_atlas, shard=None):
     """Trace every probe's octahedral ray set and shade it: one batch of
     num_probes·radiance_resolution² rays in direction-major order (rays
     of one texel direction across probes sit together; a permutation,
-    inverted below)."""
+    inverted below).  ``shard``: a parallel.spmd.RaySharder splitting the
+    batch over its ranks, or None."""
     dev = irr_atlas.device
     rr = probes.radiance_resolution
     p_world = probes_mod.probe_world_positions(probes, dev)   # [P,3]
@@ -75,8 +76,12 @@ def radiance_pass(spec: SceneSpec, data: SceneData, probes: ProbeSettings,
 
     origins = p_world.repeat(rr * rr, 1)                     # [rr²·P,3]
     ray_dirs = dirs.repeat_interleave(n_probes, dim=0)
-    color, _, _ = pixel_color(spec, data, probes, cfg, irr_atlas, rad_atlas,
-                              origins, ray_dirs)
+
+    def shade(o, d):
+        return pixel_color(spec, data, probes, cfg, irr_atlas, rad_atlas, o,
+                           d)[0]
+    color = shade(origins, ray_dirs) if shard is None \
+        else shard.map_rays(shade, (origins, ray_dirs))
     tiles = color.reshape(rr * rr, n_probes, 3).transpose(0, 1)
     px, py = probes.probe_count
     if px * py != n_probes:
@@ -110,10 +115,10 @@ def _from_blocks(arr, height, width):
 def screen_pass(spec: SceneSpec, data: SceneData, probes: ProbeSettings,
                 vol: VolumetricsSettings, cfg: ShadeConfig, width: int,
                 height: int, camera: Camera, irr_atlas, rad_atlas,
-                scattering):
+                scattering, shard=None):
     """Primary rays -> shade -> volumetric composite (when
     cfg.render_volumetrics) -> Reinhard tonemap + gamma.  Returns
-    f32[H, W, 3], row 0 = bottom."""
+    f32[H, W, 3], row 0 = bottom.  ``shard``: as radiance_pass's."""
     frag = pixel_grid(width, height, irr_atlas.device)
     origins, dirs = camera_rays(frag, camera.position, camera.orientation)
     origins_f = origins.reshape(-1, 3)
@@ -122,8 +127,13 @@ def screen_pass(spec: SceneSpec, data: SceneData, probes: ProbeSettings,
     if blocked:
         origins_f = _to_blocks(origins_f, height, width).contiguous()
         dirs_f = _to_blocks(dirs_f, height, width).contiguous()
-    color, _, hit_pos = pixel_color(spec, data, probes, cfg, irr_atlas,
-                                    rad_atlas, origins_f, dirs_f)
+
+    def shade(o, d):
+        c, _, hp = pixel_color(spec, data, probes, cfg, irr_atlas, rad_atlas,
+                               o, d)
+        return c, hp
+    color, hit_pos = shade(origins_f, dirs_f) if shard is None \
+        else shard.map_rays(shade, (origins_f, dirs_f))
     if blocked:
         color = _from_blocks(color, height, width)
     if cfg.render_volumetrics:
@@ -145,15 +155,17 @@ def render_frame(spec: SceneSpec, probes: ProbeSettings,
                  vol: VolumetricsSettings, width: int, height: int,
                  data: SceneData, camera: Camera, state: FrameState,
                  screen_cfg: ShadeConfig = None,
-                 probe_cfg: ShadeConfig = PROBE_SHADE_CONFIG):
+                 probe_cfg: ShadeConfig = PROBE_SHADE_CONFIG, shard=None):
     """One full frame; returns (image f32[H,W,3], new FrameState).  The
     image carries the frame's gradients (differentiable configs); the new
     state is detached, the feedback that the next frame reads as data (the
-    JAX package returns it outside the gradient)."""
+    JAX package returns it outside the gradient).  ``shard``: a
+    parallel.spmd.RaySharder that splits every pass's rays over its
+    ranks (each rank gets the whole image and state), or None."""
     if screen_cfg is None:
         screen_cfg = screen_shade_config(vol.enabled)
     radiance = radiance_pass(spec, data, probes, probe_cfg,
-                             state.irradiance, state.radiance)
+                             state.irradiance, state.radiance, shard)
     irradiance = probes_mod.integrate_irradiance(probes, radiance)
 
     scattering = state.scattering
@@ -161,13 +173,14 @@ def render_frame(spec: SceneSpec, probes: ProbeSettings,
         ctx = SceneCtx(spec, data)
         visibility = vol_mod.visibility_pass(
             spec, data, vol, ctx, camera.position, camera.orientation,
-            max_steps=screen_cfg.max_march_steps)
+            max_steps=screen_cfg.max_march_steps, shard=shard)
         scattering = vol_mod.scattering_pass(
             spec, data, vol, ctx, visibility, camera.position,
-            camera.orientation, max_steps=screen_cfg.max_march_steps)
+            camera.orientation, max_steps=screen_cfg.max_march_steps,
+            shard=shard)
 
     image = screen_pass(spec, data, probes, vol, screen_cfg, width, height,
-                        camera, irradiance, radiance, scattering)
+                        camera, irradiance, radiance, scattering, shard)
     return image, FrameState(radiance=radiance.detach(),
                              irradiance=irradiance.detach(),
                              scattering=scattering.detach())

@@ -36,11 +36,13 @@ def rayleigh_phase(in_dir, out_dir):
 
 
 def visibility_pass(spec, data, vol: VolumetricsSettings, ctx,
-                    camera_position, camera_orientation, *, max_steps=300):
+                    camera_position, camera_orientation, *, max_steps=300,
+                    shard=None):
     """In-scattered light per froxel: froxel (z, y, x) samples the camera
     ray through pixel (x, y) at distance z·step, and sums over the light
-    slots exp(−d·τ)·vis·radiance·τ·HG.  ``ctx``: the scene's SceneCtx.
-    Returns f32[vz, vy, vx, 3]."""
+    slots exp(−d·τ)·vis·radiance·τ·HG.  ``ctx``: the scene's SceneCtx;
+    ``shard``: a parallel.spmd.RaySharder splitting the froxels over its
+    ranks, or None.  Returns f32[vz, vy, vx, 3]."""
     dev = camera_position.device
     vx, vy, vz = vol.visibility_resolution
     frag = pixel_grid(vx, vy, dev)                              # [vy,vx,2]
@@ -51,33 +53,44 @@ def visibility_pass(spec, data, vol: VolumetricsSettings, ctx,
     pts = origins[None] + dirs[None] * depths[:, None, None, None]
     pts_f = pts.reshape(-1, 3).contiguous()
     dirs_f = dirs[None].expand(vz, vy, vx, 3).reshape(-1, 3)
-    n = pts_f.shape[0]
-    result = torch.zeros_like(pts_f)
-    dummy_normal = torch.tensor([1.0, 0.0, 0.0], device=dev).expand(n, 3)
-    for ltype, cap, n_slots, static in spec.light_bounds():
-        count = None if static else data.light_counts[ltype.name]
-        for slot in range(n_slots):
-            live = torch.ones((), dtype=torch.bool, device=dev) if static \
-                else slot < count
-            params = {k: v[slot] for k, v in data.lights[ltype.name].items()}
-            radiance, ldir, ldist = ltype.sample(params, pts_f, dummy_normal)
-            vis = ctx.visibility(pts_f, ldir.contiguous(), ldist.contiguous(),
-                                 enabled=live.expand(n).contiguous(),
-                                 max_steps=max_steps)
-            l_in = (torch.exp(-ldist * TAU_SCATTERING) * vis)[..., None] \
-                * radiance
-            contrib = l_in * TAU_SCATTERING \
-                * henyey_greenstein_phase(ldir, dirs_f)[..., None]
-            result = result + (contrib if static
-                               else torch.where(live, contrib, 0.0))
+
+    def froxel_light(pts_f, dirs_f):
+        n = pts_f.shape[0]
+        result = torch.zeros_like(pts_f)
+        dummy_normal = torch.tensor([1.0, 0.0, 0.0], device=dev).expand(n, 3)
+        for ltype, cap, n_slots, static in spec.light_bounds():
+            count = None if static else data.light_counts[ltype.name]
+            for slot in range(n_slots):
+                live = torch.ones((), dtype=torch.bool, device=dev) \
+                    if static else slot < count
+                params = {k: v[slot]
+                          for k, v in data.lights[ltype.name].items()}
+                radiance, ldir, ldist = ltype.sample(params, pts_f,
+                                                     dummy_normal)
+                vis = ctx.visibility(pts_f, ldir.contiguous(),
+                                     ldist.contiguous(),
+                                     enabled=live.expand(n).contiguous(),
+                                     max_steps=max_steps)
+                l_in = (torch.exp(-ldist * TAU_SCATTERING) * vis)[..., None] \
+                    * radiance
+                contrib = l_in * TAU_SCATTERING \
+                    * henyey_greenstein_phase(ldir, dirs_f)[..., None]
+                result = result + (contrib if static
+                                   else torch.where(live, contrib, 0.0))
+        return result
+
+    result = froxel_light(pts_f, dirs_f) if shard is None \
+        else shard.map_rays(froxel_light, (pts_f, dirs_f))
     return result.reshape(vz, vy, vx, 3)
 
 
 def scattering_pass(spec, data, vol: VolumetricsSettings, ctx, visibility,
-                    camera_position, camera_orientation, *, max_steps=300):
+                    camera_position, camera_orientation, *, max_steps=300,
+                    shard=None):
     """Per-texel in-scatter integral along the view ray: raycast to
     max_depth, then n_steps weighted taps of the froxel column under the
-    texel.  Returns f32[sy, sx, 4] = (L, length)."""
+    texel.  ``shard``: a parallel.spmd.RaySharder splitting the raycast
+    over its ranks, or None.  Returns f32[sy, sx, 4] = (L, length)."""
     dev = camera_position.device
     sx, sy = vol.scattering_resolution
     vx, vy, vz = vol.visibility_resolution
@@ -87,9 +100,13 @@ def scattering_pass(spec, data, vol: VolumetricsSettings, ctx, visibility,
     dirs_f = dirs.reshape(-1, 3).contiguous()
     n = origins_f.shape[0]
     max_depth = vol.max_depth
-    t, hit, _ = ctx.raycast(origins_f, dirs_f, max_depth,
-                            max_steps=max_steps)
-    length = torch.clamp_max(torch.where(hit, t, max_depth), max_depth)
+
+    def ray_length(o, d):
+        t, hit, _ = ctx.raycast(o, d, max_depth, max_steps=max_steps)
+        return torch.clamp_max(torch.where(hit, t, max_depth), max_depth)
+
+    length = ray_length(origins_f, dirs_f) if shard is None \
+        else shard.map_rays(ray_length, (origins_f, dirs_f))
 
     # froxel column per scattering texel: (x·vx)//sx, (y·vy)//sy
     vis_up = take_static(visibility, floor_map(sy, vy, offset=0.0), axis=1)

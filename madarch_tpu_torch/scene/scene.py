@@ -236,6 +236,34 @@ def primitive_info(spec: SceneSpec, data: SceneData, index, p):
     return normal, material_id
 
 
+def sample_light(spec: SceneSpec, data: SceneData, index, p, n):
+    """(radiance f32[..., 3], direction to the light f32[..., 3], distance
+    f32[...]) of the light with global index ``index`` (an int or i32
+    broadcasting with p's leading dims) at points p f32[..., 3] with
+    normals n.  The index runs over live-count blocks in spec order, not
+    capacity blocks: point lights [0, point_count), then spot lights, and
+    so on; an index past every live light samples nothing (zero radiance,
+    distance 1)."""
+    index = torch.as_tensor(index, device=p.device)
+    radiance = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    ldir = torch.zeros_like(radiance)
+    ldist = torch.ones(p.shape[:-1], dtype=torch.float32, device=p.device)
+    offset = 0
+    for ltype, cap, nlive, static in spec.light_bounds():
+        if nlive == 0:
+            continue
+        count = nlive if static else data.light_counts[ltype.name]
+        in_type = (index >= offset) & (index < offset + count)
+        local = torch.clamp(index - offset, 0, cap - 1).long()
+        params = {k: v[local] for k, v in data.lights[ltype.name].items()}
+        rad, d, dist = ltype.sample(params, p, n)
+        radiance = torch.where(in_type[..., None], rad, radiance)
+        ldir = torch.where(in_type[..., None], d, ldir)
+        ldist = torch.where(in_type, dist, ldist)
+        offset = offset + count
+    return radiance, ldir, ldist
+
+
 def primitive_material_id(spec: SceneSpec, data: SceneData, index):
     """material_id of a global primitive index via one capacity-order
     table."""

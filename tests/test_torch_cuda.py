@@ -904,3 +904,81 @@ def test_a_light_without_position_launches_the_march_kernels(dev,
         if name == "softshadows":
             assert args[4] == SHADOW_K
             assert not bool(args[2].any())
+
+
+def _gi_camera_rays(r, dev):
+    cam = r.camera
+    o, d = camera_rays(pixel_grid(r.width, r.height, dev), cam.position,
+                       cam.orientation)
+    return o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+
+
+def test_path_tracers_launch_their_kernels(dev):
+    """The GI room at 64²: pixel_color_direct launches raycast and
+    softshadows once each (one live light slot), pixel_color_many 1 + 100
+    times, pixel_color_path 3 + 1 times, at the reference's defaults, and
+    no other kernel; direct, and many at 4 samples from one CPU generator,
+    equal the CPU's under the golden gates."""
+    from madarch_tpu_torch.render import pathtrace as PT
+    from madarch_tpu_torch.utils.golden import image_stats
+    r = S.global_illumination(width=64, height=64, device=dev)
+    o, d = _gi_camera_rays(r, dev)
+    cases = (("direct", lambda: PT.pixel_color_direct(
+                 r.spec, r.scene_data, o, d), 1),
+             ("many", lambda: PT.pixel_color_many(
+                 r.spec, r.scene_data, o, d), 101),
+             ("path", lambda: PT.pixel_color_path(
+                 r.spec, r.scene_data, o, d), 4))
+    for name, run, n in cases:
+        before = _launches()
+        out = run()
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in _launches().items()}
+        assert got == {"geometry": 0, "raycast": n, "visibility": 0,
+                       "softshadows": n}, (name, got)
+        assert out.shape == (64 * 64, 3) and bool(torch.isfinite(out).all())
+    c = S.global_illumination(width=64, height=64, device="cpu")
+    oc, dc = _gi_camera_rays(c, "cpu")
+
+    def tone(x):
+        x = x.clamp_min(0.0).cpu().numpy()
+        return ((x + 1e-8) / (x + 1.0)) ** 0.4545
+
+    def small(mode, r, o, d):
+        if mode == "direct":
+            return PT.pixel_color_direct(r.spec, r.scene_data, o, d)
+        return PT.pixel_color_many(r.spec, r.scene_data, o, d,
+                                   torch.Generator().manual_seed(9),
+                                   gi_samples=4)
+
+    for mode in ("direct", "many"):
+        stats = image_stats(tone(small(mode, r, o, d)),
+                            tone(small(mode, c, oc, dc)))
+        assert not stats["breached"], (mode, stats)
+
+
+def test_a_world_of_one_renders_over_nccl(dev):
+    """A torch.distributed group of one process on the card (NCCL): the
+    GI frame at 64² with every pass's rays through a RaySharder (each
+    gather an NCCL all-gather of one rank) equals Renderer.render()'s."""
+    import socket
+    from madarch_tpu_torch.parallel import spmd
+    from madarch_tpu_torch.render.pipeline import render_frame
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    assert spmd.init_distributed(f"tcp://127.0.0.1:{port}", 1, 0,
+                                 backend="nccl")
+    try:
+        mesh = spmd.make_mesh(device=dev)
+        r = S.global_illumination(width=64, height=64, device=dev)
+        args = (r.scene_data, r.camera, r.state)
+        sharder = spmd.RaySharder(mesh)
+        img, _ = render_frame(r.spec, r.probes, r.volumetrics, 64, 64,
+                              *args, screen_cfg=r.screen_cfg,
+                              probe_cfg=r.probe_cfg, shard=sharder)
+        assert [op["op"] for op in sharder.record] == ["all-gather"] * 3
+        assert torch.equal(img, r.render())
+    finally:
+        torch.distributed.destroy_process_group()

@@ -237,7 +237,8 @@ def test_port_never_imports_jax():
     names = proc.stdout.split()
     assert len(names) >= 20
     for module in ("scene.bvh", "scene.baked_sdf", "scene.mesh",
-                   "render.context"):
+                   "render.context", "render.pathtrace", "render.sampling",
+                   "utils.checkpoint", "parallel.spmd"):
         assert "madarch_tpu_torch." + module in names
 
 
@@ -269,3 +270,87 @@ def test_port_sources_import_nothing_of_jax():
             bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {m}"
                     for m in mods if m.split(".")[0] in JAX_SIDE]
     assert not bad, bad
+
+
+def _light_scene(pkg_p, pkg_l, pkg_s):
+    """tests/test_scene.py's make_scene in one package: a point light and
+    a spot light, each type with capacity 2 and one live."""
+    spec = pkg_s.SceneSpec(prims=((pkg_p.Sphere, 4), (pkg_p.Plane, 4)),
+                           lights=((pkg_l.PointLight, 2),
+                                   (pkg_l.SpotLight, 2)))
+    b = pkg_s.SceneBuilder(spec)
+    b.add_material(albedo=(1.0, 0.0, 0.0), metallic=0.0, roughness=0.6)
+    b.add_primitive(pkg_p.Sphere, center=(0.0, 0.0, 5.0), radius=1.0,
+                    material_id=0)
+    b.add_light(pkg_l.PointLight, position=(0.0, 3.0, 0.0),
+                color=(0.9, 0.9, 0.9))
+    b.add_light(pkg_l.SpotLight, position=(3.5, 5.0, 2.0),
+                direction=(1.0, 0.0, 0.0), aperture=np.pi / 4,
+                color=(0.9, 0.9, 0.8))
+    return spec, b
+
+
+def test_sample_light_dispatch_like_jax():
+    """tests/test_scene.py:test_sample_light_dispatch on the port: index 0
+    is the point light, index 1 the spot light (a live-count offset, not
+    the point lights' capacity of 2)."""
+    spec, b = _light_scene(TP, TL, TS)
+    data = b.device_data("cpu")
+    p = torch.zeros((1, 3))
+    n = torch.tensor([[0.0, 1.0, 0.0]])
+    rad, ldir, ldist = TS.sample_light(spec, data, 0, p, n)
+    np.testing.assert_allclose(ldir.numpy(), [[0.0, 1.0, 0.0]], atol=1e-6)
+    np.testing.assert_allclose(ldist.numpy(), [3.0], atol=1e-6)
+    np.testing.assert_allclose(rad.numpy(), [[0.9 / (9.0 * 0.03)] * 3],
+                               rtol=1e-5)
+    _, _, ldist2 = TS.sample_light(spec, data, 1, p, n)
+    np.testing.assert_allclose(ldist2.numpy(),
+                               [np.linalg.norm([3.5, 5.0, 2.0])], rtol=1e-5)
+
+
+@pytest.mark.parametrize("specialized", [False, True])
+def test_sample_light_matches_jax_per_index(specialized):
+    """Every index, the live ones and those past them (zero radiance,
+    distance 1), at seeded points, batched on the port and vmapped in the
+    JAX package; with dynamic counts and with the counts baked in, which
+    pick the same light for the same index."""
+    jspec, jb = _light_scene(JP, JL, JS)
+    tspec, tb = _light_scene(TP, TL, TS)
+    if specialized:
+        counts = {"point_light": 1, "spot_light": 1}
+        jspec = jspec.specialized({}, counts)
+        tspec = tspec.specialized({}, counts)
+    jdata, tdata = jb.device_data(), tb.device_data("cpu")
+    rng = np.random.RandomState(21)
+    pts = _points(rng, 32)
+    nrm = rng.randn(32, 3).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    idx = np.arange(32, dtype=np.int32) % 4
+    ref = jax.vmap(lambda i, p, n: JS.sample_light(jspec, jdata, i, p, n))(
+        jnp.asarray(idx), jnp.asarray(pts), jnp.asarray(nrm))
+    got = TS.sample_light(tspec, tdata, _t(idx), _t(pts), _t(nrm))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=ATOL,
+                                   rtol=1e-6)
+    past = idx >= 2
+    assert (got[0].numpy()[past] == 0.0).all()
+    assert (got[2].numpy()[past] == 1.0).all()
+
+
+def test_sample_light_passes_surface_normal_through():
+    """tests/test_scene.py's light whose radiance reads the normal."""
+    def sample(params, pos, normal):
+        to_l = params["position"] - pos
+        dist = torch.linalg.vector_norm(to_l, dim=-1)
+        return (params["color"] * (normal * normal).sum(-1, keepdim=True),
+                to_l / dist[..., None], dist)
+
+    normal_lit = TL.LightType(name="normal_lit", fields=(
+        ("position", TP.VEC3), ("color", TP.VEC3)), sample=sample)
+    spec = TS.SceneSpec(prims=((TP.Sphere, 2),), lights=((normal_lit, 2),))
+    b = TS.SceneBuilder(spec)
+    b.add_light(normal_lit, position=(0.0, 3.0, 0.0), color=(1.0, 1.0, 1.0))
+    rad, _, _ = TS.sample_light(spec, b.device_data("cpu"), 0,
+                                torch.zeros((1, 3)),
+                                torch.tensor([[0.0, 1.0, 0.0]]))
+    np.testing.assert_allclose(rad.numpy(), [[1.0, 1.0, 1.0]], atol=1e-6)

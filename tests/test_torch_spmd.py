@@ -152,3 +152,51 @@ def test_one_step_matches_jax():
     for a, b in zip(j_floats, floats):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
                                    atol=1e-6)
+
+
+def test_init_distributed_without_environment_is_false(monkeypatch):
+    """tests/test_spmd.py:test_init_distributed_is_guarded_noop on the
+    port: no group, no arguments and no MASTER_ADDR/RANK/WORLD_SIZE."""
+    for k in tspmd.ENV_VARS:
+        monkeypatch.delenv(k, raising=False)
+    assert not torch.distributed.is_initialized()
+    assert tspmd.init_distributed() is False
+    assert not torch.distributed.is_initialized()
+    mesh = tspmd.make_mesh(device="cpu")
+    assert (mesh.world_size, mesh.rank) == (1, 0)
+
+
+@pytest.mark.parametrize("n,world", [(12, 3), (11, 3), (1, 4), (9, 1)])
+def test_pad_share_unpad(n, world):
+    """Zero padding to a multiple of the world size, contiguous shares in
+    rank order that cover the padded batch, and unpad back to the true
+    count (no process group needed)."""
+    arr = torch.arange(n * 3, dtype=torch.float32).reshape(n, 3) + 1.0
+    shares = []
+    for rank in range(world):
+        s = tspmd.RaySharder(tspmd.Mesh(world, rank, torch.device("cpu")))
+        padded = s.pad(arr)
+        assert padded.shape[0] % world == 0
+        assert padded.shape[0] - n < world
+        assert torch.equal(padded[:n], arr) and not bool(padded[n:].any())
+        shares.append(s.share(arr))
+    assert len({x.shape for x in shares}) == 1
+    assert torch.equal(torch.cat(shares), padded)
+    assert torch.equal(s.unpad(padded, n), arr)
+    assert s.unpad(arr, n) is arr
+
+
+def test_a_world_of_one_skips_the_sharder():
+    """make_sharded_render on a world of 1 renders without a sharder, the
+    very frame of render_frame."""
+    from madarch_tpu_torch.render.pipeline import render_frame
+    r = tscenes.global_illumination(width=8, height=8, probes=PROBES,
+                                    device="cpu")
+    mesh = tspmd.make_mesh(device="cpu")
+    run = tspmd.make_sharded_render(r.spec, PROBES, NO_VOLUMETRICS, 8, 8,
+                                    mesh, screen_cfg=CFG)
+    assert run.sharder is None
+    img, _ = run(r.scene_data, r.camera, r.state)
+    ref, _ = render_frame(r.spec, PROBES, NO_VOLUMETRICS, 8, 8,
+                          r.scene_data, r.camera, r.state, screen_cfg=CFG)
+    assert torch.equal(img, ref)
