@@ -256,9 +256,10 @@ def test_raycast_and_visibility_match_plain_with_dead_slots(dev):
 
 
 def test_visibility_tail_block_at_a_million_rays(dev):
-    """The froxel pass's launch size: 7,813 blocks of 128 threads, the
-    last one holding 64 rays: every one of the 1,000,000 outputs equals
-    the plain version's."""
+    """The froxel pass's launch size: phase A in 7,813 blocks of 128
+    threads, the last one holding 64 rays, and phase B on the rays still
+    marching: every one of the 1,000,000 outputs equals the plain
+    version's."""
     r, _, (pts, ldir, ldist) = _light_shafts_rays(dev, n=4096)
     packed = M.pack_scene(r.spec, r.scene_data)
     n = 1_000_000
@@ -268,7 +269,9 @@ def test_visibility_tail_block_at_a_million_rays(dev):
     mx = ldist.repeat(reps)[:n].contiguous()
     v = M.visibility(packed, o, d, mx)
     torch.cuda.synchronize()
-    ref = M.visibility_reference(packed, pts, ldir, ldist)
+    ref, steps = M.visibility_reference(packed, pts, ldir, ldist,
+                                        return_steps=True)
+    assert bool((steps > M.VIS_SPLIT).any())   # phase B has rays
     assert torch.equal(v, ref.repeat(reps)[:n])
 
 
@@ -739,6 +742,133 @@ def test_a_layout_build_holds_its_padded_room_and_refuses_others(dev):
     fan, max_dist, o, d, en, mn, mx = _march_rays("fan", dev, 64)
     with pytest.raises(RuntimeError):
         M._raycast(M.march_library((1, 6, 1)), fan, o, d, max_dist, en)
+
+
+# ---------------------------------------------------------------------------
+# The visibility kernel's two phases (csrc/march.cu): phase A marches every
+# ray at most VIS_SPLIT steps, phase B the rays still marching
+# ---------------------------------------------------------------------------
+
+def _grazing_rays(scene, dev, n, seed=0):
+    """(packed scene, origins, dirs, max_dists, enabled): n seeded rays
+    from 1 to 5 cm above the floor (y = -1) of the GI room ("room"), of the
+    room padded with inert slots to the 4,8,4 layout ("padded") or of the
+    80-triangle fan ("fan"; a third of them aimed into the fan), rising 0.1
+    to 1 degree, max dists up to 30 m: marches of tens of steps, most of
+    them past VIS_SPLIT.  Every seventh
+    ray disabled, every eleventh with a max dist of 0 or below."""
+    if scene == "fan":
+        packed = M.pack_scene(*_fan_scene(dev))
+    else:
+        r = S.global_illumination(width=16, height=16, device=dev)
+        packed = M.pack_scene(r.spec, r.scene_data)
+        if scene == "padded":
+            import chip_smoke
+            packed = chip_smoke.pad_scene(
+                torch, chip_smoke.port_modules(), packed, (4, 8, 4))
+    rng = np.random.RandomState(seed)
+    o = np.stack([rng.uniform(-0.5, 6.5, n),
+                  -1.0 + rng.uniform(0.01, 0.05, n),
+                  rng.uniform(-5.5, 6.5, n)], axis=1)
+    phi = rng.uniform(0.0, 2.0 * np.pi, n)
+    rise = np.radians(rng.uniform(0.1, 1.0, n))
+    d = np.stack([np.cos(phi) * np.cos(rise), np.sin(rise),
+                  np.sin(phi) * np.cos(rise)], axis=1)
+    if scene == "fan":
+        # a third aimed into the fan, most of them blocked
+        aim = np.array([0.0, 1.5, 5.0]) + rng.uniform(-1.0, 1.0, (n, 3)) - o
+        d[::3] = (aim / np.linalg.norm(aim, axis=1, keepdims=True))[::3]
+    mx = rng.uniform(0.5, 30.0, n)
+    mx[::11] = rng.uniform(-1.0, 0.0, mx[::11].shape)
+    en = np.arange(n) % 7 != 3
+    return (packed, *[torch.as_tensor(x, dtype=torch.float32).to(dev)
+                      for x in (o, d, mx)], torch.as_tensor(en).to(dev))
+
+
+def _short_rays(dev, n):
+    """The GI room's rays of _grazing_rays with max dists of at most 5 cm:
+    every march ends within VIS_SPLIT steps."""
+    packed, o, d, mx, en = _grazing_rays("room", dev, n, seed=5)
+    return packed, o, d, mx.clamp(max=0.05), en
+
+
+def _stragglers(packed, o, d, mx, en):
+    """(the plain version's 0/1, its rays marching past VIS_SPLIT)."""
+    ref, steps = M.visibility_reference(packed, o, d, mx, enabled=en,
+                                        return_steps=True)
+    return ref, int((steps > M.VIS_SPLIT).sum())
+
+
+@pytest.mark.parametrize("scene", ["room", "padded", "fan"])
+@pytest.mark.parametrize("n", [0, 1, 4099])
+def test_visibility_phases_match_plain_on_grazing_rays(dev, scene, n):
+    """The two-phase visibility kernel bit-equal to the plain version on
+    rays that graze a floor, with disabled rays and max dists <= 0: through
+    the wrapper (the room's layout build; the fan's generic build, with
+    triangles), in the room's generic build and in the 4,8,4 build of the
+    padded room; at the wrapper's split, at split 1 (every ray still
+    marching goes to phase B) and in one phase (split = max_steps)."""
+    packed, o, d, mx, en = _grazing_rays(scene, dev, n)
+    ref, stragglers = _stragglers(packed, o, d, mx, en)
+    if n == 4099:
+        assert stragglers > n // 4
+        assert bool((~en).any()) and bool((en & (mx <= 0.0)).any())
+    got = []
+    if scene != "padded":
+        before = M.visibility.launches
+        got.append(M.visibility(packed, o, d, mx, enabled=en))
+        assert M.visibility.launches == before + 1
+    layout = (4, 8, 4) if scene == "padded" else None
+    for split in (M.VIS_SPLIT, 1, 300):
+        got.append(M._visibility(M.march_library(layout), packed, o, d, mx,
+                                 en, split=split))
+    torch.cuda.synchronize()
+    for v in got:
+        assert torch.equal(v, ref)
+
+
+def test_visibility_without_stragglers_matches_plain(dev):
+    """Rays that all end within VIS_SPLIT steps: phase B finds an empty
+    queue."""
+    packed, o, d, mx, en = _short_rays(dev, 4099)
+    ref, stragglers = _stragglers(packed, o, d, mx, en)
+    assert stragglers == 0 and bool((ref == 0.0).any())
+    v = M.visibility(packed, o, d, mx, enabled=en)
+    torch.cuda.synchronize()
+    assert torch.equal(v, ref)
+
+
+def test_visibility_back_to_back_calls_keep_their_queues(dev):
+    """Three calls on one stream with no wait between them, the second of
+    the same size as the first (the allocator hands it the first's queue)
+    and without stragglers: each equals its plain version, so no call saw
+    another's count or rays."""
+    calls = [_grazing_rays("room", dev, 4099, seed=1),
+             _short_rays(dev, 4099), _grazing_rays("room", dev, 2000, seed=2)]
+    got = [M.visibility(p, o, d, mx, enabled=en)
+           for p, o, d, mx, en in calls]
+    torch.cuda.synchronize()
+    for (p, o, d, mx, en), v in zip(calls, got):
+        assert torch.equal(v, M.visibility_reference(p, o, d, mx,
+                                                     enabled=en))
+
+
+def test_visibility_does_not_synchronise(dev):
+    """The wrapper launches both phases without waiting for the card: no
+    host read of the queue's count (sync debug mode "error" raises on a
+    synchronising call)."""
+    packed, o, d, mx, en = _grazing_rays("room", dev, 4099, seed=3)
+    ref, stragglers = _stragglers(packed, o, d, mx, en)
+    assert stragglers > 0
+    M.visibility(packed, o, d, mx, enabled=en)   # builds and loads first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        v = M.visibility(packed, o, d, mx, enabled=en)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(v, ref)
 
 
 @pytest.mark.parametrize("mode", [2, 3])

@@ -231,3 +231,53 @@ def test_padded_room_marches_as_the_room(counts, layout):
             lambda s: TM.scene_dist_info(s, o, TM.VIS_CAP)):
         for a, b in zip(scene_run(padded), scene_run(room)):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The visibility kernel's two phases: the card tests' rays reach phase B
+# ---------------------------------------------------------------------------
+
+def test_card_tests_rays_march_past_the_split():
+    """The plain version's steps leave rays marching past VIS_SPLIT (phase
+    B's work on the card) on the light_shafts froxel rays of
+    test_torch_cuda.py's tail test and on most of its grazing rays, and
+    none on its short rays."""
+    from test_torch_cuda import (_grazing_rays, _light_shafts_rays,
+                                 _short_rays)
+    r, _, (pts, ldir, ldist) = _light_shafts_rays("cpu", n=4096)
+    packed = TM.pack_scene(r.spec, r.scene_data)
+    _, steps = TM.visibility_reference(packed, pts, ldir, ldist,
+                                       return_steps=True)
+    past = int((steps > TM.VIS_SPLIT).sum())
+    assert 0 < past < steps.numel() // 10
+    for scene in ("room", "padded", "fan"):
+        packed, o, d, mx, en = _grazing_rays(scene, "cpu", 4099)
+        _, steps = TM.visibility_reference(packed, o, d, mx, enabled=en,
+                                           return_steps=True)
+        assert int((steps > TM.VIS_SPLIT).sum()) > 4099 // 4, scene
+    packed, o, d, mx, en = _short_rays("cpu", 4099)
+    _, steps = TM.visibility_reference(packed, o, d, mx, enabled=en,
+                                       return_steps=True)
+    assert 0 < int(steps.max()) <= TM.VIS_SPLIT
+
+
+@pytest.mark.parametrize("split", [1, 16, 300])
+def test_visibility_on_the_cpu_is_the_plain_version_at_any_split(
+        monkeypatch, split):
+    """On CPU tensors visibility() runs visibility_reference and counts no
+    launch, whatever the kernel's split."""
+    monkeypatch.setattr(TM, "VIS_SPLIT", split)
+    packed = _room()
+    rng = np.random.RandomState(11)
+    o = torch.as_tensor(rng.uniform([-0.5, -0.99, -5], [6.5, 6, 6], (64, 3))
+                        .astype(np.float32))
+    d = torch.as_tensor(rng.randn(64, 3).astype(np.float32))
+    d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+    mx = torch.as_tensor(rng.uniform(-1.0, 20.0, 64).astype(np.float32))
+    en = torch.as_tensor(rng.rand(64) > 0.2)
+    before = TM.visibility.launches
+    got = TM.visibility(packed, o, d, mx, enabled=en)
+    assert TM.visibility.launches == before
+    torch.testing.assert_close(
+        got, TM.visibility_reference(packed, o, d, mx, enabled=en), rtol=0,
+        atol=0)
