@@ -27,21 +27,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
    frame and its heaviest kernels, and the same trace's busy time as
    key_averages() sums it;
 7. prints ptxas's register and spill lines for the raycast and
-   visibility kernels (each build of march.cu; the visibility kernel's
-   two phases, visibility_kernel and visibility_finish_kernel);
-8. prints the march steps of the plain versions (mean, largest, and the
-   SIMT efficiency of one thread a ray) on the 62,500 rays of
-   light_shafts' 800x800 scattering pass and its 1,000,000
-   froxel-to-light rays, and of the froxel rays the quantiles, the share
-   of rays still marching after each split of SPLIT_CANDIDATES (phase B's
-   stragglers; fails if the wrapper's split leaves none) and the two
-   phases' SIMT efficiency; holds the raycast kernel against
+   visibility kernels (each build of march.cu);
+8. prints the march steps of the plain versions (mean, quantiles,
+   largest, and the SIMT efficiency of one thread a ray) on the 62,500
+   rays of light_shafts' 800x800 scattering pass and its 1,000,000
+   froxel-to-light rays; holds the raycast kernel against
    raycast_reference on the scattering rays, and the visibility kernel
    against visibility_reference on the froxel rays, each in every build
    of march_candidates (the generic build and the room's layout build on
-   the room, and both on the room padded to each of PADDED_LAYOUTS), the
-   visibility kernel there at the wrapper's split and in one phase, and
-   in the build the wrapper launches at every split;
+   the room, and both on the room padded to each of PADDED_LAYOUTS);
 9. renders light_shafts at 128x128 over 2 frames through
    Renderer(device="cuda") and holds it to the JAX golden;
 10. renders light_shafts at 800x800 (5 timed frames after a warm-up),
@@ -51,10 +45,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
    busy time under torch.profiler;
 11. times the raycast and visibility kernels against their plain
    versions at those shapes, and every candidate of each in turns beside
-   the bound; the visibility kernel at every split and in one phase
-   (split = max_steps) in turns, then at the wrapper's split every
-   phase-A block, phase-B block and phase-B lanes a ray of VIS_BLOCKS and
-   FINISH_LANES;
+   the bound;
 12. prints ptxas's register and spill lines for the softshadow kernel
    (each build of march.cu);
 13. on the rays of a global_illumination specular-mode-1 800x800 screen
@@ -164,11 +155,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
    3 raycast, 3 softshadows (k = 64) and 3 visibility (8 corners a
    point) launches a frame and none of geometry; one frame's launches
    recorded and each held to its plain version on its inputs (the three
-   visibility launches also in every build of march_candidates and at
-   every split, with their steps as in phase 8), the screen pass's three
-   timed against their plain versions beside the bound, and its
-   visibility launch at every split and in one phase, in turns; prints a
-   scenes JSON line (phases 28-32);
+   visibility launches also in every build of march_candidates, with
+   their steps as in phase 8), the screen pass's three timed against
+   their plain versions beside the bound; prints a scenes JSON line
+   (phases 28-32);
 33. the path tracers (render/pathtrace.py) on the global_illumination
    room at 800x800 at the reference's defaults (AO 3 steps, 100 samples,
    3 bounces, 300 steps): direct, many and path each a warm-up call, 2
@@ -531,18 +521,23 @@ def time_lanes(torch, m, run, packed, n, label, bound_txt, card):
 
 def step_stats(torch, label, steps):
     """The march steps of a launch's rays (the plain version's count):
-    mean, largest, and the SIMT efficiency of one thread a ray, a warp of
-    32 consecutive rays waiting for its slowest: sum of steps / sum over
-    warps of 32 x the warp's largest.  Printed and returned."""
+    mean, the 50/90/95/99% quantiles, largest, and the SIMT efficiency of
+    one thread a ray, a warp of 32 consecutive rays waiting for its
+    slowest: sum of steps / sum over warps of 32 x the warp's largest.
+    Printed and returned."""
     s = steps.to(torch.int64)
     w = torch.nn.functional.pad(s, (0, -s.numel() % 32))
+    qs = torch.quantile(s.float(), torch.tensor(
+        [0.5, 0.9, 0.95, 0.99], device=s.device)).tolist()
     out = {"rays": s.numel(), "marched": int((s > 0).sum()),
-           "mean": float(s.float().mean()), "max": int(s.max()),
-           "total": int(s.sum())}
+           "mean": float(s.float().mean()),
+           "quantiles": dict(zip(("50", "90", "95", "99"), qs)),
+           "max": int(s.max()), "total": int(s.sum())}
     out["simt"] = out["total"] / (32 * int(w.reshape(-1, 32).amax(dim=1)
                                              .sum()))
     print(f"steps {label}: {out['rays']} rays, {out['marched']} marched, "
-          f"mean {out['mean']:.3f}, max {out['max']}, total "
+          f"mean {out['mean']:.3f}, quantiles 50/90/95/99% "
+          + "/".join(f"{q:g}" for q in qs) + f", max {out['max']}, total "
           f"{out['total']}; SIMT efficiency {out['simt']:.4f} at one lane "
           f"a ray")
     return out
@@ -670,122 +665,6 @@ def time_builds(torch, m, run, label, n, b_ms, card, cands, packed):
           + f"; the wrapper launches {launched(m, packed)}; bound "
           f"{b_ms:.5f} ms; [{card}]")
     return ms
-
-
-# The visibility kernel's schedule (csrc/march.cu): the splits K (phase A's
-# steps a ray) held and timed beside the one-phase schedule, split =
-# max_steps; the block sizes of phase A and of phase B, and phase B's lanes
-# a ray, timed at the wrapper's split on the froxel rays.
-SPLIT_CANDIDATES = (4, 8, 12, 16, 24, 32, 48)
-VIS_BLOCKS = (64, 128, 256)
-FINISH_LANES = (1, 8)
-
-
-def split_stats(torch, label, steps, max_steps):
-    """The plain version's march steps of a visibility launch: quantiles
-    (50, 90, 95, 99%) and the largest; at each split K of SPLIT_CANDIDATES
-    the share of rays still marching after K steps (phase B's stragglers)
-    and the two phases' SIMT efficiency at one lane a ray: steps over the
-    lane-steps issued, a warp of phase A (32 consecutive rays) to the
-    least of K and its longest ray, a warp of phase B (32 stragglers in ray
-    order) to its longest ray from step 0.  Printed and returned."""
-    s = steps.to(torch.int64)
-
-    def lane_steps(x, cap=None):
-        w = torch.nn.functional.pad(x, (0, -x.numel() % 32)).reshape(-1, 32)
-        top = w.amax(dim=1)
-        return 32 * int((top if cap is None else top.clamp(max=cap)).sum())
-
-    qs = torch.quantile(s.float(), torch.tensor(
-        [0.5, 0.9, 0.95, 0.99], device=s.device)).tolist()
-    out = {"quantiles": dict(zip(("50", "90", "95", "99"), qs)),
-           "max": int(s.max()), "total": int(s.sum()), "by_split": {}}
-    for k in SPLIT_CANDIDATES + (max_steps,):
-        rest = s[s > k]
-        issued = lane_steps(s, k) + (lane_steps(rest) if rest.numel()
-                                     else 0)
-        out["by_split"][str(k)] = {
-            "stragglers": int(rest.numel()),
-            "share": rest.numel() / s.numel(),
-            "simt": out["total"] / issued}
-    print(f"split {label}: steps quantiles 50/90/95/99% "
-          + "/".join(f"{q:g}" for q in qs) + f", max {out['max']}; "
-          + ", ".join(f"K {k}: {v['stragglers']} stragglers "
-                      f"({v['share']:.4f}), SIMT {v['simt']:.4f}"
-                      for k, v in out["by_split"].items()))
-    return out
-
-
-def hold_schedule(torch, m, label, run, ref, steps, cands, max_steps,
-                  need_stragglers=False):
-    """The visibility kernel's two phases on one launch's rays; run(lib,
-    packed, **kw) launches M._visibility.  The plain version's steps
-    (split_stats); the kernel held to the plain outputs ref in every build
-    of cands (march_candidates) at the wrapper's split and one-phase, and
-    in the build the wrapper launches at every split of SPLIT_CANDIDATES.
-    With need_stragglers, fails if the wrapper's split leaves phase B no
-    ray.  Returns (largest difference, a dict for the kernels JSON
-    line)."""
-    M = m.M
-    stats = split_stats(torch, label, steps, max_steps)
-    at_split = stats["by_split"][str(M.VIS_SPLIT)]
-    if need_stragglers and not at_split["stragglers"]:
-        fail(f"{label}: no ray marches past K {M.VIS_SPLIT}")
-    name = launched(m, cands["generic"][1])
-    lib, packed = cands[name]
-    err = 0.0
-    for split in (M.VIS_SPLIT, max_steps):
-        err = max(err, hold_builds(
-            torch, f"{label}, split {split}",
-            lambda lib, packed: run(lib, packed, split=split), ref,
-            check_visibility, cands))
-    for split in SPLIT_CANDIDATES:
-        err = max(err, check_visibility(
-            torch, f"{label}, {name}, split {split}",
-            run(lib, packed, split=split), ref))
-    return err, {"split": M.VIS_SPLIT, "stragglers": at_split["stragglers"],
-                 "straggler_share": at_split["share"], "steps": stats}
-
-
-def time_schedule(torch, m, label, run, cands, max_steps, b_ms, card,
-                  blocks=False):
-    """The visibility kernel at every split of SPLIT_CANDIDATES and one
-    phase (split = max_steps), timed in turns beside the bound b_ms, in the
-    build the wrapper launches (cands: march_candidates); with ``blocks``,
-    then at the wrapper's split every phase-A block, phase-B block and
-    phase-B lanes a ray of VIS_BLOCKS and FINISH_LANES.  Returns a dict
-    for the kernels JSON line."""
-    M = m.M
-    lib, packed = cands[launched(m, cands["generic"][1])]
-    splits = SPLIT_CANDIDATES + (max_steps,)
-    ms = dict(zip(splits, time_turns(torch, [
-        lambda k=k: run(lib, packed, split=k) for k in splits])))
-    print(f"splits {label}: "
-          + ", ".join(f"K {k} {t:.4f} ms" for k, t in ms.items())
-          + f" (K {max_steps}: one phase); the wrapper's K {M.VIS_SPLIT}; "
-          f"bound {b_ms:.5f} ms; [{card}]")
-    out = {"ms_split": ms[M.VIS_SPLIT], "ms_one_phase": ms[max_steps],
-           "ms_by_split": {str(k): t for k, t in ms.items()}}
-    if not blocks:
-        return out
-    configs = [(a, b, g) for a in VIS_BLOCKS for b in VIS_BLOCKS
-               for g in FINISH_LANES] + [(a, 0, 0) for a in VIS_BLOCKS]
-    bms = dict(zip(configs, time_turns(torch, [
-        lambda c=c: run(lib, packed, block=c[0], finish_block=c[1],
-                        finish_lanes=c[2]) if c[1] else
-        run(lib, packed, block=c[0], split=max_steps) for c in configs])))
-    print(f"blocks {label} (phase A threads/phase B threads/lanes a ray, "
-          f"K {M.VIS_SPLIT}; /0/0: one phase): "
-          + ", ".join(f"{a}/{b}/{g} {t:.4f} ms"
-                      for (a, b, g), t in bms.items())
-          + f"; the wrapper's {M.MARCH_BLOCK}/{M.VIS_FINISH_BLOCK}/"
-          f"{M.VIS_FINISH_LANES}; [{card}]")
-    out.update(block={"phase_a": M.MARCH_BLOCK,
-                      "phase_b": M.VIS_FINISH_BLOCK,
-                      "lanes_b": M.VIS_FINISH_LANES},
-               ms_by_block={f"{a}/{b}/{g}": t
-                            for (a, b, g), t in bms.items()})
-    return out
 
 
 KERNELS = ("geometry", "raycast", "visibility", "softshadows")
@@ -1790,14 +1669,14 @@ def lamp_phase(torch, np, m, dev, card):
     res = {name: dict(launches=launches[name], max_abs_err=0.0)
            for name in per_frame}
     cands = march_candidates(torch, m, ctx.packed)
-    res["visibility"]["schedule"] = {}
+    res["visibility"]["steps"] = {}
 
     def vis_run(args, kwargs):
-        """run(lib, packed, **kw) of the recorded visibility call."""
+        """run(lib, packed) of the recorded visibility call."""
         _, o, d, mx = args
         en = M._check_rays(args[0], o, d, kwargs.get("enabled"))
-        return lambda lib, packed, **kw: M._visibility(
-            lib, packed, o, d, mx, en, max_steps=kwargs["max_steps"], **kw)
+        return lambda lib, packed: M._visibility(
+            lib, packed, o, d, mx, en, max_steps=kwargs["max_steps"])
 
     for i, (name, args, kwargs, out) in enumerate(calls):
         label = f"{name} lamp room {LAMP_CALLS[i]}"
@@ -1809,11 +1688,10 @@ def lamp_phase(torch, np, m, dev, card):
         torch.cuda.synchronize()
         err = checks[name](torch, label, out, ref)
         if name == "visibility":
-            held, sched = hold_schedule(
-                torch, m, label, vis_run(args, kwargs), ref, steps, cands,
-                kwargs["max_steps"])
-            res[name]["schedule"][f"{i}: {LAMP_CALLS[i]}"] = sched
-            err = max(err, held)
+            res[name]["steps"][f"{i}: {LAMP_CALLS[i]}"] = step_stats(
+                torch, label, steps)
+            err = max(err, hold_builds(torch, label, vis_run(args, kwargs),
+                                       ref, check_visibility, cands))
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
         del ref
     # the screen pass's launches, timed through the wrapper; per ray in:
@@ -1834,11 +1712,6 @@ def lamp_phase(torch, np, m, dev, card):
               f"{b_ms:.5f} ms ({b_by}: {flops:.4e} flops); [{card}]")
         res[name].update(ms=min(k1, k2), plain_ms=min(p1, p2),
                          bound_ms=b_ms, bound_by=b_by)
-        if name == "visibility":
-            res[name]["schedule"][f"5: {LAMP_CALLS[5]}"].update(
-                time_schedule(torch, m, f"visibility lamp room screen ({n} "
-                              "rays)", vis_run(args, kwargs), cands,
-                              kwargs["max_steps"], b_ms, card))
     return res, launches
 
 
@@ -2201,8 +2074,7 @@ def main():
     gi_busy = profile_frames(m, r, "GI 800x800", card, averaged=True)
 
     # ---- 7. the raycast and visibility kernels' ptxas report, each build
-    march_ptxas(m, ("raycast_kernel", "visibility_kernel",
-                   "visibility_finish_kernel"))
+    march_ptxas(m, ("raycast_kernel", "visibility_kernel"))
 
     # ---- 8. raycast and visibility vs plain versions at light_shafts'
     # full shapes
@@ -2230,9 +2102,9 @@ def main():
         return M._raycast(lib, packed, so, sd, vol.max_depth, scat_en,
                           max_steps=max_steps)
 
-    def visibility_on(lib, packed, **kw):
+    def visibility_on(lib, packed):
         return M._visibility(lib, packed, fp, fdir, fdist, froxel_en,
-                             max_steps=max_steps, **kw)
+                             max_steps=max_steps)
 
     # the plain versions' step counts, then each kernel held to its plain
     # version through the wrapper and in every build
@@ -2251,11 +2123,9 @@ def main():
     steps["froxels"] = step_stats(torch, "visibility froxels", vis_steps)
     kvis = visibility(M.visibility)
     torch.cuda.synchronize()
-    vis_err, vis_sched = hold_schedule(
-        torch, m, "visibility froxels", visibility_on, rvis, vis_steps,
-        ls_cands, max_steps, need_stragglers=True)
-    vis_err = max(vis_err, check_visibility(torch, "visibility full", kvis,
-                                            rvis))
+    vis_err = max(check_visibility(torch, "visibility full", kvis, rvis),
+                  hold_builds(torch, "visibility full", visibility_on, rvis,
+                              check_visibility, ls_cands))
     del k, kvis, rvis
 
     # ---- 9. light_shafts 128x128, 2 frames, against the JAX golden
@@ -2296,9 +2166,6 @@ def main():
     vis_builds = time_builds(torch, m, visibility_on, "visibility froxels",
                              n_frox, vis_bound[0], card, ls_cands,
                              lctx.packed)
-    vis_sched.update(time_schedule(
-        torch, m, "visibility froxels", visibility_on, ls_cands, max_steps,
-        vis_bound[0], card, blocks=True))
 
     # ---- 12. the softshadow kernel's ptxas report, each build
     march_ptxas(m, "softshadow_kernel")
@@ -2640,18 +2507,7 @@ def main():
          "bound_ms": vis_bound[0], "bound_by": vis_bound[1],
          "library_ms": None, "candidate": launched(m, lctx.packed),
          "ms_by_build": vis_builds, "steps": steps["froxels"],
-         # the two-phase schedule on the froxel rays (phases 8, 11): the
-         # wrapper's split, phase B's rays there, the kernel alone at that
-         # split and one-phase (split = max_steps), the block sizes
-         "split": vis_sched["split"], "stragglers": vis_sched["stragglers"],
-         "straggler_share": vis_sched["straggler_share"],
-         "ms_split": vis_sched["ms_split"],
-         "ms_one_phase": vis_sched["ms_one_phase"],
-         "block": vis_sched["block"],
-         "ms_by_split": vis_sched["ms_by_split"],
-         "ms_by_block": vis_sched["ms_by_block"],
-         "split_steps": vis_sched["steps"],
-         "schedule_gi_lamp": lamp_k["visibility"]["schedule"],
+         "steps_gi_lamp": lamp_k["visibility"]["steps"],
          **lamp_keys("visibility")},
         {"name": "softshadows", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1144",

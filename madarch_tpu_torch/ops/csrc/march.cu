@@ -45,6 +45,32 @@
 // (each lane repeats the ray's arithmetic, and every step waits on the
 // shuffles).
 //
+// The visibility kernel (replacing _visibility_kernel).  Its marches are
+// short and uneven: on light_shafts' 1,000,000 froxel rays 4.9 steps on
+// average, 3 at the median, 11 at the 90th percentile and 143 at most,
+// so one thread a ray keeps 0.51 of its lanes busy; on the lamp room's
+// 294,912 radiance-corner rays (8 a probe point) 0.34, with quantiles
+// 3/6/8/14 and 117 at most; on its 5,120,000 screen-corner rays 0.75 to
+// 0.78 (PERF.md §6).  A ray reads 33 bytes and writes 4, and the froxel
+// launch (0.06 ms) sits six times above that bound: what holds it is
+// issue at that efficiency, not the bytes.  A two-phase schedule was
+// built and timed against this one-phase kernel on the froxel rays and
+// on one screen-corner launch (PERF.md §6): phase A marched every ray K
+// steps and queued the rays still marching (one atomic a warp), phase B,
+// a second launch sized to the card, marched them from step 0.  On the
+// froxel rays it lost at every K from 4 to 48, by 0.012 to 0.032 ms
+// (0.019 at K 48, with 1,214 rays in phase B); on the screen corners it
+// tied at best (K 24).  There the step histogram promised little: half
+// the lanes idle within the first 11 steps, where no compaction reaches,
+// so the lane-steps issued fall by a tenth at best (K 16 to 24), while
+// phase B lasts as long as its longest straggler's chain of some 140
+// dependent steps on a card that is nearly empty, which the one-phase
+// launch hides under the other warps' work.  The radiance-corner launch,
+// where the histogram promised most (0.34 to 0.51 at K 4), was not timed
+// with the split.  So the kernel stays one thread a ray in the layout's
+// build, as raycast, in blocks of 128 threads (64 and 256 timed within a
+// few per cent of it, PERF.md §6).
+//
 // The typed slot runs (and the triangle chunks' boxes) sit in shared
 // memory, read by every thread at the same address (a broadcast);
 // triangles stay in device memory and are pruned exactly by their boxes
@@ -85,16 +111,6 @@ struct MarchArgs {
   float* t;                      // f32[n] (raycast)
   unsigned char* hit;            // bool[n] (raycast)
   float* vis;                    // f32[n] (visibility: 0/1; softshadows)
-  int block;                     // threads a block (visibility: phase A)
-  // visibility's two phases: phase A marches every ray at most `split`
-  // steps (split >= max_steps: one phase, no queue) and appends the rays
-  // still marching to `queue`, int32[1 + n]: their count, then their
-  // indices; phase B marches those from step 0 in blocks of finish_block
-  // threads, finish_lanes lanes a ray
-  int split;
-  int finish_block;
-  int finish_lanes;
-  int* queue;
 };
 
 namespace {
@@ -135,57 +151,17 @@ __global__ void raycast_kernel(const MarchArgs a) {
   a.hit[i] = hit ? 1 : 0;
 }
 
-// Phase A: one thread a ray, at most a.split steps.  A ray that ends writes
-// vis; one still marching joins the queue, a warp's rays with one atomic.
 template <bool TRIS>
 __global__ void visibility_kernel(const MarchArgs a) {
   extern __shared__ float4 smem[];
   const Scene sc = load_scene<TRIS>(a, smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
   const March m{a.cap, a.eps, a.omega, a.one_minus_omega, 0.f, a.max_steps};
-  // every lane of the warp reaches the ballot; those past n march nothing
-  float v = 1.f;
-  if (i < a.n) {
-    v = march_visibility<1, TRIS, true>(
-        sc, Group<1>(), m, a.origins[3 * i + 0], a.origins[3 * i + 1],
-        a.origins[3 * i + 2], a.dirs[3 * i + 0], a.dirs[3 * i + 1],
-        a.dirs[3 * i + 2], a.max_dists[i], a.enabled[i] != 0, a.split);
-  }
-  const bool more = v == MARCHING;
-  if (i < a.n && !more) a.vis[i] = v;
-  const unsigned marching = __ballot_sync(0xffffffffu, more);
-  if (marching == 0u) return;
-  const int lane = threadIdx.x & 31;
-  int base = 0;
-  if (lane == 0) base = atomicAdd(a.queue, __popc(marching));
-  base = __shfl_sync(0xffffffffu, base, 0);
-  if (more) {
-    a.queue[1 + base + __popc(marching & ((1u << lane) - 1u))] = i;
-  }
-}
-
-// Phase B: a grid sized to the card (visibility_finish) walks the queue,
-// G lanes a ray, each ray marched from step 0 to its end.  The count is
-// read here, on the card: the host never waits for it.
-template <int G, bool TRIS>
-__global__ void visibility_finish_kernel(const MarchArgs a) {
-  const int count = a.queue[0];
-  const int rays_per_block = blockDim.x / G;
-  if (blockIdx.x * rays_per_block >= count) return;  // the whole block
-  extern __shared__ float4 smem[];
-  const Scene sc = load_scene<TRIS>(a, smem);
-  const Group<G> g;
-  const March m{a.cap, a.eps, a.omega, a.one_minus_omega, 0.f, a.max_steps};
-  const int stride = gridDim.x * rays_per_block;
-  for (int q = blockIdx.x * rays_per_block + threadIdx.x / G; q < count;
-       q += stride) {
-    const int i = a.queue[1 + q];
-    const float v = march_visibility<G, TRIS>(
-        sc, g, m, a.origins[3 * i + 0], a.origins[3 * i + 1],
-        a.origins[3 * i + 2], a.dirs[3 * i + 0], a.dirs[3 * i + 1],
-        a.dirs[3 * i + 2], a.max_dists[i], a.enabled[i] != 0);
-    if (g.lane == 0) a.vis[i] = v;
-  }
+  a.vis[i] = march_visibility<1, TRIS>(
+      sc, Group<1>(), m, a.origins[3 * i + 0], a.origins[3 * i + 1],
+      a.origins[3 * i + 2], a.dirs[3 * i + 0], a.dirs[3 * i + 1],
+      a.dirs[3 * i + 2], a.max_dists[i], a.enabled[i] != 0);
 }
 
 template <bool TRIS>
@@ -201,101 +177,42 @@ __global__ void softshadow_kernel(const MarchArgs a) {
       a.dirs[3 * i + 2], a.min_dists[i], a.max_dists[i], a.enabled[i] != 0);
 }
 
-size_t scene_smem(const MarchArgs* a) {
-  return sizeof(float4) * (scene_row4(a->scene) + scene_aabb4(a->scene));
-}
-
-// 0, or cudaErrorInvalidValue for a scene that a layout's build does not
-// run.
-int check_layout(const MarchArgs* a) {
+// Launches the triangle variant when the scene has triangle chunks.
+template <typename Kernel>
+int launch(Kernel plain, Kernel with_tris, const MarchArgs* a,
+           void* stream) {
+  if (a->n == 0) return 0;
 #ifdef FIXED_SPHERES
+  // a layout's build runs only scenes of that layout
   if (a->scene.n_spheres != FIXED_COUNTS[0] ||
       a->scene.n_planes != FIXED_COUNTS[1] ||
       a->scene.n_boxes != FIXED_COUNTS[2]) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #endif
-  return 0;
-}
-
-// One thread a ray in blocks of a->block threads; the triangle variant when
-// the scene has triangle chunks.
-template <typename Kernel>
-int launch(Kernel plain, Kernel with_tris, const MarchArgs* a,
-           cudaStream_t stream) {
-  const int threads = a->block;
+  const int threads = 128;
   const int blocks = (a->n + threads - 1) / threads;
   const bool tris = a->scene.n_chunks > 0;
-  (tris ? with_tris : plain)<<<blocks, threads, scene_smem(a), stream>>>(*a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename Kernel>
-int launch_checked(Kernel plain, Kernel with_tris, const MarchArgs* a,
-                   void* stream) {
-  if (a->n == 0) return 0;
-  if (const int err = check_layout(a)) return err;
-  return launch(plain, with_tris, a, static_cast<cudaStream_t>(stream));
-}
-
-// Phase B: as many blocks as the card holds at once, no more than the
-// queue could fill.
-template <int G>
-int visibility_finish(const MarchArgs* a, cudaStream_t stream) {
-  const bool tris = a->scene.n_chunks > 0;
-  const auto kernel = tris ? visibility_finish_kernel<G, true>
-                           : visibility_finish_kernel<G, false>;
-  const int threads = a->finish_block;
-  const size_t smem = scene_smem(a);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, smem);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long rays_per_block = threads / G;
-  const long long fill = (a->n + rays_per_block - 1) / rays_per_block;
-  const int blocks = static_cast<int>(
-      fill < 1LL * sms * per_sm ? fill : 1LL * sms * per_sm);
-  kernel<<<blocks, threads, smem, stream>>>(*a);
+  const size_t smem =
+      sizeof(float4) * (scene_row4(a->scene) + scene_aabb4(a->scene));
+  (tris ? with_tris : plain)<<<blocks, threads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Each launches on `stream` and returns the first CUDA error (0 on
-// success); none synchronises.
+// Each launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int madarch_raycast(const MarchArgs* a, void* stream) {
-  return launch_checked(raycast_kernel<false>, raycast_kernel<true>, a,
-                        stream);
+  return launch(raycast_kernel<false>, raycast_kernel<true>, a, stream);
 }
 
-// Phase A, then (a->split < a->max_steps) phase B on the queue it leaves.
 extern "C" int madarch_visibility(const MarchArgs* a, void* stream) {
-  if (a->n == 0) return 0;
-  if (const int err = check_layout(a)) return err;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const bool two_phases = a->split < a->max_steps;
-  if (two_phases) {
-    if (a->queue == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaError_t err = cudaMemsetAsync(a->queue, 0, sizeof(int), s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int err = launch(visibility_kernel<false>, visibility_kernel<true>,
-                         a, s);
-  if (err != 0 || !two_phases) return err;
-  switch (a->finish_lanes) {
-    case 1: return visibility_finish<1>(a, s);
-    case 8: return visibility_finish<8>(a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch(visibility_kernel<false>, visibility_kernel<true>, a,
+                stream);
 }
 
 extern "C" int madarch_softshadows(const MarchArgs* a, void* stream) {
-  return launch_checked(softshadow_kernel<false>, softshadow_kernel<true>, a,
-                        stream);
+  return launch(softshadow_kernel<false>, softshadow_kernel<true>, a,
+                stream);
 }

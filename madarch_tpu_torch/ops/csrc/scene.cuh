@@ -505,23 +505,15 @@ __device__ float march_primary(const Scene& sc, const Group<G>& g,
   return t;
 }
 
-// What march_visibility<G, TRIS, true> returns for a ray still marching
-// after its `limit` steps.
-constexpr float MARCHING = -1.f;
-
 // 1 if the ray reaches mx unobstructed, else 0; starts only if 0 < mx.
-// SPLIT: at most `limit` of the march's steps, and MARCHING where the ray
-// stopped there short of mx, of a hit and of max_steps.
-template <int G, bool TRIS, bool SPLIT = false>
+template <int G, bool TRIS>
 __device__ float march_visibility(const Scene& sc, const Group<G>& g,
                                   const March& m, float ox, float oy,
                                   float oz, float dx, float dy, float dz,
-                                  float mx, bool active, int limit = 0) {
+                                  float mx, bool active) {
   float t = 0.f, prev_r = 0.f, step_len = 0.f, om = m.omega;
   active = active && 0.f < mx;
-  const int steps = SPLIT ? min(limit, m.max_steps) : m.max_steps;
-  int step = 0;
-  for (; step < steps && active; ++step) {
+  for (int step = 0; step < m.max_steps && active; ++step) {
     const float dist =
         scene_dist<G, TRIS>(sc, g, ox + t * dx, oy + t * dy, oz + t * dz);
     const bool fail = om > 1.f && fabsf(dist) + prev_r <= step_len;
@@ -533,7 +525,7 @@ __device__ float march_visibility(const Scene& sc, const Group<G>& g,
     step_len = new_step;
     active = t < mx;
   }
-  return SPLIT && active && step < m.max_steps ? MARCHING : 1.f;
+  return 1.f;
 }
 
 // Penumbra march (omega = 1) from t = t0: res starts at 1, prev at 1e20;

@@ -950,9 +950,7 @@ class _MarchArgs(ctypes.Structure):
         ("omega", ctypes.c_float), ("one_minus_omega", ctypes.c_float),
         ("k", ctypes.c_float),
         ("t", ctypes.c_void_p), ("hit", ctypes.c_void_p),
-        ("vis", ctypes.c_void_p), ("block", ctypes.c_int),
-        ("split", ctypes.c_int), ("finish_block", ctypes.c_int),
-        ("finish_lanes", ctypes.c_int), ("queue", ctypes.c_void_p),
+        ("vis", ctypes.c_void_p),
     ]
 
 
@@ -987,17 +985,6 @@ def march_library(counts=None):
 UNROLL_ROWS_MAX = 20
 
 
-# Threads a block of the raycast and softshadow launches and of the
-# visibility kernel's phase A.
-MARCH_BLOCK = 128
-# The visibility kernel's schedule (csrc/march.cu): phase A marches every
-# ray at most VIS_SPLIT steps, phase B the rays still marching, in blocks
-# of VIS_FINISH_BLOCK threads, VIS_FINISH_LANES lanes a ray.
-VIS_SPLIT = 16
-VIS_FINISH_BLOCK = 128
-VIS_FINISH_LANES = 1
-
-
 def march_layout(packed):
     """The (spheres, planes, boxes) layout the march kernels are built for
     on this scene, or None for the generic build (triangles, or typed runs
@@ -1021,16 +1008,13 @@ def _check_rays(packed, origins, dirs, enabled):
     return enabled
 
 
-def _launch_march(fn, packed, origins, dirs, enabled, block=MARCH_BLOCK,
-                  **fields):
-    """Launches one of csrc/march.cu's kernels on the current stream, in
-    blocks of ``block`` threads."""
+def _launch_march(fn, packed, origins, dirs, enabled, **fields):
+    """Launches one of csrc/march.cu's kernels on the current stream."""
     scene = _scene_args(packed, 0, "march")
     omega = fields.pop("omega")
     args = _MarchArgs(scene=scene, origins=_ptr(origins), dirs=_ptr(dirs),
                       enabled=_ptr(enabled), n=origins.shape[0],
-                      omega=omega, one_minus_omega=1.0 - omega, block=block,
-                      **fields)
+                      omega=omega, one_minus_omega=1.0 - omega, **fields)
     dev = origins.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1097,24 +1081,13 @@ def visibility(packed, origins, dirs, max_dists, *, eps=EPSILON,
 
 
 def _visibility(lib, packed, origins, dirs, max_dists, en, *, eps=EPSILON,
-                max_steps=300, omega=1.6, split=VIS_SPLIT, block=MARCH_BLOCK,
-                finish_block=VIS_FINISH_BLOCK,
-                finish_lanes=VIS_FINISH_LANES):
-    """visibility's launches on the march_library build ``lib``: phase A
-    marches every ray at most ``split`` steps in blocks of ``block``
-    threads, phase B the rays it leaves marching (none when split >=
-    max_steps) in blocks of ``finish_block``, ``finish_lanes`` lanes a
-    ray.  Nothing here waits for the card."""
-    n = origins.shape[0]
-    vis = torch.empty(n, dtype=torch.float32, device=origins.device)
-    queue = None
-    if split < max_steps:
-        queue = torch.empty(1 + n, dtype=torch.int32, device=origins.device)
+                max_steps=300, omega=1.6):
+    """visibility's launch on the march_library build ``lib``."""
+    vis = torch.empty(origins.shape[0], dtype=torch.float32,
+                      device=origins.device)
     _launch_march(lib.madarch_visibility, packed, origins, dirs, en,
-                  block=block, max_dists=_ptr(max_dists), max_dist=VIS_CAP,
-                  cap=VIS_CAP, vis=_ptr(vis), eps=eps, max_steps=max_steps,
-                  omega=omega, split=split, finish_block=finish_block,
-                  finish_lanes=finish_lanes, queue=_ptr(queue))
+                  max_dists=_ptr(max_dists), max_dist=VIS_CAP, cap=VIS_CAP,
+                  vis=_ptr(vis), eps=eps, max_steps=max_steps, omega=omega)
     return vis
 
 

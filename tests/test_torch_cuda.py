@@ -256,10 +256,9 @@ def test_raycast_and_visibility_match_plain_with_dead_slots(dev):
 
 
 def test_visibility_tail_block_at_a_million_rays(dev):
-    """The froxel pass's launch size: phase A in 7,813 blocks of 128
-    threads, the last one holding 64 rays, and phase B on the rays still
-    marching: every one of the 1,000,000 outputs equals the plain
-    version's."""
+    """The froxel pass's launch size: 7,813 blocks of 128 threads, the
+    last one holding 64 rays: every one of the 1,000,000 outputs equals
+    the plain version's."""
     r, _, (pts, ldir, ldist) = _light_shafts_rays(dev, n=4096)
     packed = M.pack_scene(r.spec, r.scene_data)
     n = 1_000_000
@@ -269,9 +268,7 @@ def test_visibility_tail_block_at_a_million_rays(dev):
     mx = ldist.repeat(reps)[:n].contiguous()
     v = M.visibility(packed, o, d, mx)
     torch.cuda.synchronize()
-    ref, steps = M.visibility_reference(packed, pts, ldir, ldist,
-                                        return_steps=True)
-    assert bool((steps > M.VIS_SPLIT).any())   # phase B has rays
+    ref = M.visibility_reference(packed, pts, ldir, ldist)
     assert torch.equal(v, ref.repeat(reps)[:n])
 
 
@@ -745,18 +742,22 @@ def test_a_layout_build_holds_its_padded_room_and_refuses_others(dev):
 
 
 # ---------------------------------------------------------------------------
-# The visibility kernel's two phases (csrc/march.cu): phase A marches every
-# ray at most VIS_SPLIT steps, phase B the rays still marching
+# The visibility kernel on long and short marches (csrc/march.cu)
 # ---------------------------------------------------------------------------
+
+# March steps past which a ray is a tail: 97% of light_shafts' froxel rays
+# end within them.
+TAIL = 16
+
 
 def _grazing_rays(scene, dev, n, seed=0):
     """(packed scene, origins, dirs, max_dists, enabled): n seeded rays
     from 1 to 5 cm above the floor (y = -1) of the GI room ("room"), of the
     room padded with inert slots to the 4,8,4 layout ("padded") or of the
     80-triangle fan ("fan"; a third of them aimed into the fan), rising 0.1
-    to 1 degree, max dists up to 30 m: marches of tens of steps, most of
-    them past VIS_SPLIT.  Every seventh
-    ray disabled, every eleventh with a max dist of 0 or below."""
+    to 1 degree, max dists up to 30 m: marches of tens to hundreds of
+    steps, most of them tails.  Every seventh ray disabled, every eleventh
+    with a max dist of 0 or below."""
     if scene == "fan":
         packed = M.pack_scene(*_fan_scene(dev))
     else:
@@ -775,7 +776,7 @@ def _grazing_rays(scene, dev, n, seed=0):
     d = np.stack([np.cos(phi) * np.cos(rise), np.sin(rise),
                   np.sin(phi) * np.cos(rise)], axis=1)
     if scene == "fan":
-        # a third aimed into the fan, most of them blocked
+        # a third aimed into the fan, some of them blocked
         aim = np.array([0.0, 1.5, 5.0]) + rng.uniform(-1.0, 1.0, (n, 3)) - o
         d[::3] = (aim / np.linalg.norm(aim, axis=1, keepdims=True))[::3]
     mx = rng.uniform(0.5, 30.0, n)
@@ -787,31 +788,31 @@ def _grazing_rays(scene, dev, n, seed=0):
 
 def _short_rays(dev, n):
     """The GI room's rays of _grazing_rays with max dists of at most 5 cm:
-    every march ends within VIS_SPLIT steps."""
+    every march ends within a few steps."""
     packed, o, d, mx, en = _grazing_rays("room", dev, n, seed=5)
     return packed, o, d, mx.clamp(max=0.05), en
 
 
-def _stragglers(packed, o, d, mx, en):
-    """(the plain version's 0/1, its rays marching past VIS_SPLIT)."""
+def _tails(packed, o, d, mx, en):
+    """(the plain version's 0/1, its rays marching more than TAIL
+    steps)."""
     ref, steps = M.visibility_reference(packed, o, d, mx, enabled=en,
                                         return_steps=True)
-    return ref, int((steps > M.VIS_SPLIT).sum())
+    return ref, int((steps > TAIL).sum())
 
 
 @pytest.mark.parametrize("scene", ["room", "padded", "fan"])
 @pytest.mark.parametrize("n", [0, 1, 4099])
-def test_visibility_phases_match_plain_on_grazing_rays(dev, scene, n):
-    """The two-phase visibility kernel bit-equal to the plain version on
-    rays that graze a floor, with disabled rays and max dists <= 0: through
-    the wrapper (the room's layout build; the fan's generic build, with
+def test_visibility_matches_plain_on_grazing_rays(dev, scene, n):
+    """The visibility kernel bit-equal to the plain version on rays that
+    graze a floor, with disabled rays and max dists <= 0: through the
+    wrapper (the room's layout build; the fan's generic build, with
     triangles), in the room's generic build and in the 4,8,4 build of the
-    padded room; at the wrapper's split, at split 1 (every ray still
-    marching goes to phase B) and in one phase (split = max_steps)."""
+    padded room."""
     packed, o, d, mx, en = _grazing_rays(scene, dev, n)
-    ref, stragglers = _stragglers(packed, o, d, mx, en)
+    ref, tails = _tails(packed, o, d, mx, en)
     if n == 4099:
-        assert stragglers > n // 4
+        assert tails > n // 4
         assert bool((~en).any()) and bool((en & (mx <= 0.0)).any())
     got = []
     if scene != "padded":
@@ -819,30 +820,26 @@ def test_visibility_phases_match_plain_on_grazing_rays(dev, scene, n):
         got.append(M.visibility(packed, o, d, mx, enabled=en))
         assert M.visibility.launches == before + 1
     layout = (4, 8, 4) if scene == "padded" else None
-    for split in (M.VIS_SPLIT, 1, 300):
-        got.append(M._visibility(M.march_library(layout), packed, o, d, mx,
-                                 en, split=split))
+    got.append(M._visibility(M.march_library(layout), packed, o, d, mx, en))
     torch.cuda.synchronize()
     for v in got:
         assert torch.equal(v, ref)
 
 
-def test_visibility_without_stragglers_matches_plain(dev):
-    """Rays that all end within VIS_SPLIT steps: phase B finds an empty
-    queue."""
+def test_visibility_matches_plain_on_short_marches(dev):
+    """Rays that all end within a few steps, blocked or not."""
     packed, o, d, mx, en = _short_rays(dev, 4099)
-    ref, stragglers = _stragglers(packed, o, d, mx, en)
-    assert stragglers == 0 and bool((ref == 0.0).any())
+    ref, tails = _tails(packed, o, d, mx, en)
+    assert tails == 0 and bool((ref == 0.0).any())
     v = M.visibility(packed, o, d, mx, enabled=en)
     torch.cuda.synchronize()
     assert torch.equal(v, ref)
 
 
-def test_visibility_back_to_back_calls_keep_their_queues(dev):
+def test_visibility_back_to_back_calls_are_independent(dev):
     """Three calls on one stream with no wait between them, the second of
-    the same size as the first (the allocator hands it the first's queue)
-    and without stragglers: each equals its plain version, so no call saw
-    another's count or rays."""
+    the same size as the first (the allocator may hand it the first's
+    memory) and with short marches: each equals its plain version."""
     calls = [_grazing_rays("room", dev, 4099, seed=1),
              _short_rays(dev, 4099), _grazing_rays("room", dev, 2000, seed=2)]
     got = [M.visibility(p, o, d, mx, enabled=en)
@@ -854,12 +851,10 @@ def test_visibility_back_to_back_calls_keep_their_queues(dev):
 
 
 def test_visibility_does_not_synchronise(dev):
-    """The wrapper launches both phases without waiting for the card: no
-    host read of the queue's count (sync debug mode "error" raises on a
-    synchronising call)."""
+    """The wrapper launches without waiting for the card (sync debug mode
+    "error" raises on a synchronising call)."""
     packed, o, d, mx, en = _grazing_rays("room", dev, 4099, seed=3)
-    ref, stragglers = _stragglers(packed, o, d, mx, en)
-    assert stragglers > 0
+    ref = M.visibility_reference(packed, o, d, mx, enabled=en)
     M.visibility(packed, o, d, mx, enabled=en)   # builds and loads first
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")

@@ -12,6 +12,9 @@ on the CPU at small sizes.
 - chip_smoke.py's padded scenes, on which it times a layout's build
   against the generic one: the room with inert slots appended marches
   as the room does in every plain version, bit for bit.
+- The rays of test_torch_cuda.py's visibility tests march the long tails
+  (or, the short rays, none) they are meant to put on the card, and the
+  visibility wrapper on CPU tensors is its plain version, uncounted.
 """
 import numpy as np
 import pytest
@@ -234,39 +237,37 @@ def test_padded_room_marches_as_the_room(counts, layout):
 
 
 # ---------------------------------------------------------------------------
-# The visibility kernel's two phases: the card tests' rays reach phase B
+# The visibility kernel's card tests: their rays' marches
 # ---------------------------------------------------------------------------
 
-def test_card_tests_rays_march_past_the_split():
-    """The plain version's steps leave rays marching past VIS_SPLIT (phase
-    B's work on the card) on the light_shafts froxel rays of
-    test_torch_cuda.py's tail test and on most of its grazing rays, and
-    none on its short rays."""
-    from test_torch_cuda import (_grazing_rays, _light_shafts_rays,
+def test_card_tests_rays_march_long_tails():
+    """The plain version's steps: test_torch_cuda.py's grazing rays march
+    tails of tens to hundreds of steps (most past TAIL), as a few of the
+    light_shafts froxel rays of its tail-block test do; its short rays end
+    within TAIL steps."""
+    from test_torch_cuda import (TAIL, _grazing_rays, _light_shafts_rays,
                                  _short_rays)
     r, _, (pts, ldir, ldist) = _light_shafts_rays("cpu", n=4096)
     packed = TM.pack_scene(r.spec, r.scene_data)
     _, steps = TM.visibility_reference(packed, pts, ldir, ldist,
                                        return_steps=True)
-    past = int((steps > TM.VIS_SPLIT).sum())
-    assert 0 < past < steps.numel() // 10
+    assert 0 < int((steps > TAIL).sum()) < steps.numel() // 10
     for scene in ("room", "padded", "fan"):
         packed, o, d, mx, en = _grazing_rays(scene, "cpu", 4099)
         _, steps = TM.visibility_reference(packed, o, d, mx, enabled=en,
                                            return_steps=True)
-        assert int((steps > TM.VIS_SPLIT).sum()) > 4099 // 4, scene
+        assert int((steps > TAIL).sum()) > 4099 // 4, scene
+        assert int(steps.max()) > 100, scene
     packed, o, d, mx, en = _short_rays("cpu", 4099)
     _, steps = TM.visibility_reference(packed, o, d, mx, enabled=en,
                                        return_steps=True)
-    assert 0 < int(steps.max()) <= TM.VIS_SPLIT
+    assert 0 < int(steps.max()) <= TAIL
 
 
-@pytest.mark.parametrize("split", [1, 16, 300])
-def test_visibility_on_the_cpu_is_the_plain_version_at_any_split(
-        monkeypatch, split):
+@pytest.mark.parametrize("max_steps", [1, 16, 300])
+def test_visibility_on_the_cpu_is_the_plain_version(max_steps):
     """On CPU tensors visibility() runs visibility_reference and counts no
-    launch, whatever the kernel's split."""
-    monkeypatch.setattr(TM, "VIS_SPLIT", split)
+    launch, whatever the step budget."""
     packed = _room()
     rng = np.random.RandomState(11)
     o = torch.as_tensor(rng.uniform([-0.5, -0.99, -5], [6.5, 6, 6], (64, 3))
@@ -276,8 +277,8 @@ def test_visibility_on_the_cpu_is_the_plain_version_at_any_split(
     mx = torch.as_tensor(rng.uniform(-1.0, 20.0, 64).astype(np.float32))
     en = torch.as_tensor(rng.rand(64) > 0.2)
     before = TM.visibility.launches
-    got = TM.visibility(packed, o, d, mx, enabled=en)
+    got = TM.visibility(packed, o, d, mx, enabled=en, max_steps=max_steps)
     assert TM.visibility.launches == before
     torch.testing.assert_close(
-        got, TM.visibility_reference(packed, o, d, mx, enabled=en), rtol=0,
-        atol=0)
+        got, TM.visibility_reference(packed, o, d, mx, enabled=en,
+                                     max_steps=max_steps), rtol=0, atol=0)
