@@ -177,7 +177,18 @@ Phases, each printed on its own lines; any failure exits non-zero:
    without the mesh, equal in loss and updated leaves; the GI scene, state
    and camera saved from the card and loaded back bit-equal, rendering
    the same next frame; a second process on the one card is not
-   attempted; prints a pathtrace JSON line (phases 33-34).
+   attempted; prints a pathtrace JSON line (phases 33-34);
+35. the functions the port gained last, on the global_illumination room at
+   800x800 after 4 frames: render/probes.py:sample_irradiance by its
+   gather and by its matmul method on the screen pass's 640,000 points
+   (pos = o + t·d and the normals of one geometry launch, its vis8, the
+   converged irradiance atlas), held together to LOOKUP_ATOL and timed in
+   turns; utils/profiling.py:trace(log_dir) around one frame, its
+   *.pt.trace.json read back and its device events required to name the
+   geometry kernel, with 2 geometry launches in that frame; a checkpoint
+   of the scene loaded with spec.empty_data(device) as the template,
+   bit-equal, rendering the same frame; FrameTimer.time_fn's ms/frame
+   beside frame()'s; prints an api JSON line.
 
 The geometry kernel shares a ray among a group of lanes
 (ops/csrc/scene.cuh).  At every full shape above (phases 3, 16, 21) and on
@@ -205,11 +216,12 @@ box tests inside the admitted super-chunks and the triangles of the
 chunks exact pruning must admit) over 67 TFLOP/s, the H100 SXM's
 published fp32 peak.
 It prints a train JSON line (phases 25-27), a scenes JSON line (phases
-28-32), a pathtrace JSON line (phases 33-34), a kernels JSON line, the
-card line, then the last line
+28-32), a pathtrace JSON line (phases 33-34), an api JSON line (phase 35),
+a kernels JSON line, the card line, then the last line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -274,7 +286,8 @@ def port_modules():
     from madarch_tpu_torch.utils.profiling import (FrameTimer,
                                                    averaged_busy,
                                                    device_ops, kernel_ops,
-                                                   rays_per_frame, trace)
+                                                   rays_per_frame, trace,
+                                                   trace_calls)
     return SimpleNamespace(
         PROBE_SHADE_CONFIG=PROBE_SHADE_CONFIG, ProbeSettings=ProbeSettings,
         ShadeConfig=ShadeConfig, VolumetricsSettings=VolumetricsSettings,
@@ -289,7 +302,8 @@ def port_modules():
         tree_items=tree_items, tree_map=tree_map,
         image_stats=image_stats, FrameTimer=FrameTimer,
         averaged_busy=averaged_busy, device_ops=device_ops,
-        kernel_ops=kernel_ops, trace=trace, rays_per_frame=rays_per_frame)
+        kernel_ops=kernel_ops, trace=trace, trace_calls=trace_calls,
+        rays_per_frame=rays_per_frame)
 
 
 def toolchain(torch, m):
@@ -723,7 +737,7 @@ def profile_frames(m, r, label, card, frames=3, averaged=False):
     kernel_ops), the idle share and the heaviest ops; with ``averaged``
     also the same trace's busy time as key_averages() sums it.  Returns
     (busy, wall, the key_averages busy or None) ms per frame."""
-    prof, wall = m.trace(r.render, frames)
+    prof, wall = m.trace_calls(r.render, frames)
     ops = m.kernel_ops(prof, frames)
     busy = sum(ops.values())
     top = sorted(ops.items(), key=lambda kv: -kv[1])[:5]
@@ -1825,7 +1839,7 @@ def pathtrace_phase(torch, np, m, dev, card):
         if img.shape != (n, 3) or not bool(torch.isfinite(img).all()):
             fail(f"pathtrace {mode}: output not finite of shape ({n}, 3)")
         rays = (want["raycast"] + want["softshadows"]) // PT_TIMED * n
-        prof, wall = m.trace(call, 1)
+        prof, wall = m.trace_calls(call, 1)
         busy = sum(m.kernel_ops(prof, 1).values())
         del prof
         cell = dict(ms=timer.mean * 1e3, each_ms=[t * 1e3
@@ -2031,6 +2045,114 @@ def multidevice_phase(torch, m, dev, card):
           f"process on the same card is not attempted and scaling is not "
           f"measured; [{card}]")
     return out
+
+
+# Phase 35: the functions the port gained last (the parity of its public
+# names with the JAX package's).
+API_SIZE = 800
+API_FRAMES = 5
+# sample_irradiance's gather against its matmul method: the tolerance
+# tests/test_probes.py holds the JAX package's two methods to
+LOOKUP_ATOL = 1e-5
+
+
+def read_trace(log_dir):
+    """The device kernels' names in the one *.pt.trace.json that
+    trace(log_dir) wrote."""
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"trace wrote {len(files)} trace files in {log_dir}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    return [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+def api_phase(torch, m, dev, card):
+    """Phase 35 on the GI room at 800x800 after 4 frames: the gather and
+    matmul lookups held together and timed; trace(log_dir) around one
+    frame (launches counted: 2 geometry, no other kernel), its trace file
+    naming the geometry kernel; the scene's checkpoint loaded into
+    spec.empty_data(device), bit-equal and rendering the same frame;
+    FrameTimer.time_fn beside frame().  Returns (the numbers, the traced
+    frame's launches)."""
+    import tempfile
+    r = m.S.global_illumination(width=API_SIZE, height=API_SIZE, device=dev)
+    r.converge(frames=4)
+    o, d = gi_rays(torch, m, r, dev)[3]
+    g = m.SceneCtx(r.spec, r.scene_data).geometry(o, d, r.probes,
+                                                  r.screen_cfg)
+    pos = (o + d * g["t"][:, None]).contiguous()
+    irr = r.state.irradiance
+
+    def lookup(method):
+        return m.probes.sample_irradiance(r.probes, irr, pos, g["normal"],
+                                          vis8=g["vis8"], method=method)
+    methods = ("gather", "matmul")
+    vals = {k: lookup(k) for k in methods}
+    err = (vals["gather"] - vals["matmul"]).abs().max().item()
+    finite = all(bool(torch.isfinite(v).all()) for v in vals.values())
+    ms = dict(zip(methods, time_turns(
+        torch, [lambda k=k: lookup(k) for k in methods], iters=5)))
+    n = pos.shape[0]
+    print(f"sample_irradiance GI {API_SIZE}x{API_SIZE} ({n} points, "
+          f"{int(g['hit'].sum())} hits): gather {ms['gather']:.3f} ms, "
+          f"matmul {ms['matmul']:.3f} ms (PyTorch ops, no kernel of the "
+          f"port); max abs difference {err:.3e} (limit {LOOKUP_ATOL}); "
+          f"[{card}]")
+    if n != API_SIZE * API_SIZE or not finite or not err <= LOOKUP_ATOL:
+        fail("sample_irradiance: gather and matmul disagree")
+    out = dict(points=n, gather_ms=ms["gather"], matmul_ms=ms["matmul"],
+               max_abs_diff=err)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches(m)
+        with m.trace(tmp) as log_dir:
+            r.render()
+        launches = launch_counts(m)
+        kernels = read_trace(log_dir)
+        path = os.path.join(tmp, "gi.npz")
+        m.checkpoint.save(path, scene=r.scene_data)
+        back = m.checkpoint.load(
+            path, scene=r.base_spec.empty_data(dev))["scene"]
+    geo = [k for k in kernels if "geometry_kernel" in k]
+    print(f"trace GI {API_SIZE}x{API_SIZE}: {len(kernels)} device kernels "
+          f"in the trace file, {len(geo)} of them the geometry kernel "
+          f"({geo[0] if geo else 'none'}); launches {json.dumps(launches)}")
+    if len(geo) != 2 or launches != dict.fromkeys(KERNELS, 0) | \
+            {"geometry": 2}:
+        fail("the traced GI frame: expected 2 geometry launches, named in "
+             "the trace")
+    out["trace"] = dict(device_kernels=len(kernels), geometry=len(geo),
+                        launches=launches)
+
+    bit = all(a.device == b.device and torch.equal(a, b) for a, b in zip(
+        m.tree_leaves(r.scene_data), m.tree_leaves(back), strict=True))
+    frames = [m.pipeline.render_frame(
+        r.spec, r.probes, r.volumetrics, API_SIZE, API_SIZE, data,
+        r.camera, r.state, screen_cfg=r.screen_cfg,
+        probe_cfg=r.probe_cfg)[0] for data in (r.scene_data, back)]
+    same = torch.equal(*frames)
+    print(f"checkpoint into spec.empty_data({dev}): "
+          f"{len(m.tree_leaves(back))} leaves "
+          f"{'bit-equal' if bit else 'DIFFERENT'}; the frame "
+          f"{'equal' if same else 'DIFFERENT'}")
+    if not (bit and same):
+        fail("the empty_data checkpoint template")
+    out["checkpoint"] = dict(bit_equal=bit, frame_equal=same)
+
+    sec, img = m.FrameTimer(dev).time_fn(r.render, warmup=1,
+                                         iters=API_FRAMES)
+    timer = m.FrameTimer(dev)
+    for _ in range(API_FRAMES):
+        with timer.frame():
+            r.render()
+    if not bool(torch.isfinite(img).all()):
+        fail("time_fn's frame is not finite")
+    print(f"GI {API_SIZE}x{API_SIZE}: FrameTimer.time_fn {sec * 1e3:.3f} "
+          f"ms/frame over {API_FRAMES} frames, frame() "
+          f"{timer.mean * 1e3:.3f} ms/frame; [{card}]")
+    out.update(time_fn_ms=sec * 1e3, frame_ms=timer.mean * 1e3)
+    return out, launches
 
 
 def main():
@@ -2405,6 +2527,9 @@ def main():
     # ---- 34. the multi-device layer and checkpoints on the one card
     multi = multidevice_phase(torch, m, dev, card)
 
+    # ---- 35. the functions the port gained last
+    api, api_launches = api_phase(torch, m, dev, card)
+
     def lamp_keys(name):
         """The kernel's numbers on the lamp room (phase 32)."""
         k = lamp_k[name]
@@ -2414,6 +2539,7 @@ def main():
                 "bound_by_gi_lamp": k["bound_by"]}
     print(json.dumps({"scenes": scenes}))
     print(json.dumps({"pathtrace": pt, "multidevice": multi}))
+    print(json.dumps({"api": api}))
 
     def pt_keys(name):
         """The kernel's numbers in the path tracers (phase 33), its
@@ -2446,6 +2572,8 @@ def main():
          "plain_ms_ball_game_radiance": geo_ball["radiance"]["plain_ms"],
          "bound_ms_ball_game_radiance": geo_ball["radiance"]["bound_ms"],
          "launches_gi_lamp": lamp_launches["geometry"],
+         # in phase 35's frame under trace(log_dir)
+         "launches_api_trace": api_launches["geometry"],
          "launches_bvh_test": scenes["bvh_test"]["launches"]["geometry"],
          "launches_obj_mesh_baked": scenes["obj_mesh baked"]["launches"][
              "geometry"],

@@ -52,6 +52,10 @@ def clamp(x, lo, hi):
     return torch.clamp(x, lo, hi)
 
 
+def saturate(x):
+    return torch.clamp(x, 0.0, 1.0)
+
+
 def mix(a, b, t):
     """GLSL mix == lerp."""
     return a + (b - a) * t

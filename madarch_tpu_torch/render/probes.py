@@ -325,13 +325,15 @@ def corner_visibility(ctx, p, normal, dir_to_probe, probe_dist, *,
 
 def sample_irradiance(settings: ProbeSettings, irr_atlas, pos, normal, *,
                       vis8=None, ctx=None, enabled=None,
-                      max_steps=MAX_STEPS):
-    """8-corner trilinear, backface- and visibility-weighted probe lookup
-    (the matmul method).  pos/normal f32[N,3]; ``vis8`` f32[8,N] is the
-    geometry kernel's probe visibility; without it the corners' visibility
-    is marched through ``ctx`` (corner_visibility) where ``enabled``
-    (optional bool[N]) holds.  Returns f32[N,3] irradiance (sqrt-encoded
-    blend, then squared)."""
+                      max_steps=MAX_STEPS, method="matmul"):
+    """8-corner trilinear, backface- and visibility-weighted probe lookup.
+    pos/normal f32[N,3]; ``vis8`` f32[8,N] is the geometry kernel's probe
+    visibility; without it the corners' visibility is marched through
+    ``ctx`` (corner_visibility) where ``enabled`` (optional bool[N]) holds.
+    Returns f32[N,3] irradiance (sqrt-encoded blend, then squared).
+    ``method``: 'matmul' contracts every tile's sample against the corner
+    weights (the render path); 'gather' fetches each corner's tile
+    bilinearly, the reference's texture fetch."""
     ir = settings.irradiance_resolution
     offseted, probe_world, alpha = probe_corners(settings, pos)
     dir_to_probe, probe_dist = unit(probe_world - pos[None])  # [8,N,3]
@@ -356,10 +358,22 @@ def sample_irradiance(settings: ProbeSettings, irr_atlas, pos, normal, *,
     pid = grid_position_to_probe_id(settings, offseted)       # [8,N]
     irr_ray_id = dir_to_ray_id(normal)                        # [N,2]
     total_w = torch.clamp_min(weight.sum(dim=0), 1e-9)
-    px, py = settings.probe_count
-    vals_all = sample_all_tiles_bilinear(settings, irr_atlas, irr_ray_id, ir)
     # 1e-12 floor: the atlas starts all-zero
-    vals_all = torch.sqrt(torch.clamp_min(vals_all, 1e-12))
-    irr = probe_one_hot_combine(px * py, pid, weight, vals_all) \
-        / total_w[..., None]
+    if method == "matmul":
+        px, py = settings.probe_count
+        vals_all = sample_all_tiles_bilinear(settings, irr_atlas, irr_ray_id,
+                                             ir)
+        vals_all = torch.sqrt(torch.clamp_min(vals_all, 1e-12))
+        irr = probe_one_hot_combine(px * py, pid, weight, vals_all) \
+            / total_w[..., None]
+    elif method == "gather":
+        n_pts = pos.shape[0]
+        tx, ty = probe_id_to_tile(settings, pid)
+        vals = sample_tile_bilinear(
+            irr_atlas, tx.reshape(-1), ty.reshape(-1),
+            irr_ray_id[None].expand(8, n_pts, 2).reshape(-1, 2), ir)
+        vals = torch.sqrt(torch.clamp_min(vals, 1e-12)).reshape(8, n_pts, 3)
+        irr = (vals * weight[..., None]).sum(dim=0) / total_w[..., None]
+    else:
+        raise ValueError(f"unknown method {method!r}")
     return irr * irr

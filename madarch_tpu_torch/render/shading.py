@@ -47,7 +47,15 @@ from madarch_tpu_torch.render.raymarch import (SURFACE_OFFSET,
 from madarch_tpu_torch.scene.scene import (SceneData, SceneSpec,
                                            material_lookup, primitive_info,
                                            primitive_material_id,
-                                           scene_sdf_info, tree_map)
+                                           scene_sdf, scene_sdf_info,
+                                           tree_map)
+
+
+def make_sdf_b(spec: SceneSpec, data: SceneData, *, stop_grad: bool):
+    """The batched scene distance f32[N,3] -> f32[N]; with ``stop_grad``
+    over the scene detached, so no gradient reaches its leaves."""
+    d = tree_map(torch.Tensor.detach, data) if stop_grad else data
+    return lambda p: scene_sdf(spec, d, p)
 
 
 def sky_color(dirs):

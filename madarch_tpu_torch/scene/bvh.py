@@ -81,6 +81,16 @@ class BVHNode:
     def is_leaf(self):
         return self.indices is not None
 
+    def dump(self, depth=0):
+        """Print the tree, a line a node, indented by depth."""
+        pad = "  " * depth
+        if self.is_leaf:
+            print(f"{pad}leaf {list(self.indices)} bb {self.lo}..{self.hi}")
+        else:
+            print(f"{pad}node axis={self.axis} bb {self.lo}..{self.hi}")
+            self.left.dump(depth + 1)
+            self.right.dump(depth + 1)
+
 
 def build_bvh(bboxes: Sequence, leaf_size: int = 1) -> BVHNode:
     """Sweep-SAH over all 3 axes: at each node, every split of the

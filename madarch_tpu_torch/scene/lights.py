@@ -8,7 +8,7 @@ distance) for shading points ``pos[..., 3]``: the point light is
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -23,10 +23,17 @@ class LightType:
     name: str
     fields: tuple
     sample: Callable      # (params, pos, normal) -> (radiance, dir, dist)
+    # params -> f32[3], the light's position; the marches read the vec3
+    # 'position' field (ops/march.py:pack_light_positions), not this
+    position: Optional[Callable] = None
 
     @property
     def field_names(self):
         return tuple(n for n, _ in self.fields)
+
+
+def _position(params):
+    return params["position"]
 
 
 def _to_light(params, pos):
@@ -46,6 +53,7 @@ PointLight = LightType(
     name="point_light",
     fields=(("position", VEC3), ("color", VEC3)),
     sample=_point_sample,
+    position=_position,
 )
 
 
@@ -66,4 +74,13 @@ SpotLight = LightType(
     fields=(("position", VEC3), ("direction", VEC3), ("aperture", FLOAT),
             ("color", VEC3)),
     sample=_spot_sample,
+    position=_position,
 )
+
+
+def make_light(name, fields, sample, position) -> LightType:
+    """A user-defined light type: ``sample(params, pos, normal)`` returns
+    (radiance, direction to the light, distance) and broadcasts over the
+    points as the built-in types do."""
+    return LightType(name=name, fields=tuple(fields), sample=sample,
+                     position=position)

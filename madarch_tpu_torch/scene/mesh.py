@@ -36,6 +36,11 @@ class Mesh:
         """(lo f32[3], hi f32[3])."""
         return self.vertices.min(axis=0), self.vertices.max(axis=0)
 
+    def dump_info(self):
+        lo, hi = self.bounding_box()
+        print(f"mesh: {len(self.vertices)} vertices, "
+              f"{self.num_triangles} triangles, bb {lo} .. {hi}")
+
 
 def load_obj(path: str) -> Mesh:
     """Minimal OBJ parser: ``v``, ``vn`` and ``f`` lines (``v``, ``v/t``,

@@ -84,9 +84,31 @@ def all_slot_dists(spec: SceneSpec, data: SceneData, p):
     return torch.cat(out, dim=1)
 
 
-def candidate_dists(spec: SceneSpec, data: SceneData, cand, p):
+def planar_prims(spec: SceneSpec, data: SceneData):
+    """{type name: {field: f32[cap]}} for every type with a planar form:
+    each vec3 field split into its components ``name_x/y/z``, each float
+    field as it is (material ids are no distance input)."""
+    out = {}
+    for ptype, _ in spec.prims:
+        if ptype.sdf_planar is None:
+            continue
+        s = {}
+        for fname, kind in ptype.fields:
+            arr = data.prims[ptype.name][fname]
+            if kind == "vec3":
+                for i, ax in enumerate("xyz"):
+                    s[f"{fname}_{ax}"] = arr[:, i]
+            elif kind == "float":
+                s[fname] = arr
+        out[ptype.name] = s
+    return out
+
+
+def candidate_dists(spec: SceneSpec, data: SceneData, cand, p, planar=None):
     """f32[N, K]: the distance from each point p[N, 3] to its K primitives
-    cand i32[N, K] (global indices; -1 entries at max_dist)."""
+    cand i32[N, K] (global indices; -1 entries at max_dist).  With
+    ``planar`` (planar_prims' split) a type found there is evaluated by its
+    planar form on the components gathered from it."""
     dists = torch.full(cand.shape, spec.max_dist, dtype=torch.float32,
                        device=p.device)
     for ptype, cap in spec.prims:
@@ -95,8 +117,12 @@ def candidate_dists(spec: SceneSpec, data: SceneData, cand, p):
         off = spec.prim_offset(ptype)
         in_type = (cand >= off) & (cand < off + cap)
         local = torch.clamp(cand - off, 0, cap - 1).long()
-        params = {k: v[local] for k, v in data.prims[ptype.name].items()}
-        d = ptype.sdf(params, p[:, None, :])
+        if planar is not None and ptype.name in planar:
+            s = {k: v[local] for k, v in planar[ptype.name].items()}
+            d = ptype.sdf_planar(s, *p[:, None, :].unbind(-1))
+        else:
+            params = {k: v[local] for k, v in data.prims[ptype.name].items()}
+            d = ptype.sdf(params, p[:, None, :])
         dists = torch.where(in_type, d, dists)
     return dists
 
@@ -140,10 +166,11 @@ def build_grid(spec: SceneSpec, settings: PartitioningSettings,
 
 
 def grid_closest(spec: SceneSpec, settings: PartitioningSettings,
-                 data: SceneData, grid: GridData, p):
+                 data: SceneData, grid: GridData, p, planar=None):
     """f32[N]: the closest distance at points p[N, 3] over their cell's
     candidates, capped at max_dist; outside the grid the border cell's
-    ('clamp') or the whole scene's ('fallback')."""
+    ('clamp') or the whole scene's ('fallback').  ``planar``: as
+    candidate_dists'."""
     dev = p.device
     off = torch.tensor(settings.grid_offset, dtype=torch.float32, device=dev)
     sp = torch.tensor(settings.grid_spacing, dtype=torch.float32, device=dev)
@@ -155,7 +182,7 @@ def grid_closest(spec: SceneSpec, settings: PartitioningSettings,
                                           dims - 1)).long()
     cand = grid.cells[cid]
     count = grid.counts[cid]
-    dists = candidate_dists(spec, data, cand, p)
+    dists = candidate_dists(spec, data, cand, p, planar=planar)
     dists = torch.where(torch.arange(cand.shape[1], device=dev)
                         < count[:, None], dists, spec.max_dist)
     dmin = torch.clamp_max(torch.amin(dists, dim=1), spec.max_dist)

@@ -66,6 +66,9 @@ class PrimitiveType:
     derived_fields: Optional[tuple] = None
     sdf_planar_derived: Optional[Callable] = None
 
+    def distance(self, params, p):
+        return self.sdf(params, p)
+
     def analytic_or_grad_normal(self, params, p):
         """The type's analytic normal at p[..., 3], or else the normalised
         autograd gradient of its sdf in p.  The gradient is taken inside

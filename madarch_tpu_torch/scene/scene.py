@@ -73,6 +73,12 @@ class SceneSpec:
     def total_prim_capacity(self) -> int:
         return sum(cap for _, cap in self.prims)
 
+    def empty_data(self, device) -> "SceneData":
+        """A SceneData of zeros at full capacity on ``device``, no live
+        slot and no grid (a template for utils/checkpoint.py:load): the
+        snapshot of a builder nothing was added to."""
+        return SceneBuilder(self).device_data(device)
+
 
 @dataclasses.dataclass
 class SceneData:
@@ -84,6 +90,14 @@ class SceneData:
     light_counts: dict  # type name -> i32[]
     materials: dict     # albedo f32[M,3], metallic f32[M], roughness f32[M]
     grid: object = None  # GridData of scene/partitioning.py, or None
+
+    def total_light_count(self):
+        """i32[]: the live lights of every type, on the scene's device."""
+        counts = list(self.light_counts.values())
+        if not counts:
+            return torch.zeros((), dtype=torch.int32,
+                               device=self.materials["albedo"].device)
+        return torch.stack(counts).sum().to(torch.int32)
 
 
 def tree_items(tree, path=""):

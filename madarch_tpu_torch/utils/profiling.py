@@ -1,15 +1,18 @@
 """Frame timing on the GPU (port of madarch_tpu/utils/profiling.py).
 
-``FrameTimer`` times frames with CUDA events on the device's own clock and
-refuses a device that is not a GPU; ``device_ops`` and ``device_busy``
-trace calls with torch.profiler for the device's busy time (``trace``,
-read by ``kernel_ops``, or by ``averaged_busy`` through key_averages());
-``rays_per_frame`` is the JAX package's ray accounting unchanged, so
-rays/s compare across packages.
+``FrameTimer`` times frames and calls with CUDA events on the device's own
+clock and refuses a device that is not a GPU; ``trace`` is a context
+manager that writes a torch.profiler trace for TensorBoard; ``device_ops``
+and ``device_busy`` trace calls with torch.profiler for the device's busy
+time (``trace_calls``, read by ``kernel_ops``, or by ``averaged_busy``
+through key_averages()); ``rays_per_frame`` is the JAX package's ray
+accounting unchanged, so rays/s compare across packages.
 """
 from __future__ import annotations
 
 import contextlib
+import os
+import tempfile
 import time
 
 import torch
@@ -43,12 +46,50 @@ class FrameTimer:
         end.synchronize()
         self.times.append(start.elapsed_time(end) / 1e3)
 
+    def time_fn(self, fn, *args, warmup=1, iters=3):
+        """(seconds per call, the last output) of ``iters`` calls of
+        ``fn(*args)`` between two CUDA events, after ``warmup`` calls."""
+        out = None
+        with torch.cuda.device(self.device):
+            for _ in range(warmup):
+                out = fn(*args)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                out = fn(*args)
+            end.record()
+        end.synchronize()
+        dt = start.elapsed_time(end) / 1e3 / iters
+        self.times.append(dt)
+        return dt, out
+
     @property
     def mean(self):
         return sum(self.times) / max(len(self.times), 1)
 
 
-def trace(fn, calls):
+@contextlib.contextmanager
+def trace(log_dir=None):
+    """torch.profiler around the block, its trace written on exit into
+    ``log_dir`` (default: madarch_trace in the temporary directory) as
+    ``*.pt.trace.json`` for TensorBoard; yields log_dir.  It records the
+    host, and the device where a CUDA card is present."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), "madarch_trace")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield log_dir
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+
+def trace_calls(fn, calls):
     """(the profiler, wall ms per call) of ``calls`` calls of ``fn()``
     traced with torch.profiler, the host and the device."""
     from torch.profiler import ProfilerActivity, profile
@@ -88,7 +129,7 @@ def device_ops(fn, calls):
     (device ms per call, summed over the kernels' own times; wall ms per
     call under the profiler; {op name: device ms per call}).  The device
     runs one stream, so its busy time is the sum of its kernels' times."""
-    prof, wall = trace(fn, calls)
+    prof, wall = trace_calls(fn, calls)
     ops = kernel_ops(prof, calls)
     return sum(ops.values()), wall, ops
 

@@ -163,3 +163,18 @@ def test_bvh_test_frame_matches_jax():
     stats = image_stats(img, ref)
     assert stats["mean_absdiff"] < GOLDEN_GATES["mean_absdiff"], stats
     assert float(ref.var()) > 0.0
+
+
+@pytest.mark.parametrize("boxes", ["test_bvh", "bvh_test"])
+def test_dump_prints_jaxs_text(boxes, capsys):
+    """BVHNode.dump: the JAX package's text exactly, a line a node."""
+    bb = sphere_boxes(CENTERS, R) if boxes == "test_bvh" \
+        else bvh_test_boxes()
+    JB.build_bvh(bb).dump()
+    want = capsys.readouterr().out
+    TB.build_bvh(bb).dump(depth=1)
+    assert capsys.readouterr().out == "".join(
+        "  " + line + "\n" for line in want.splitlines())
+    TB.build_bvh(bb).dump()
+    got = capsys.readouterr().out
+    assert got == want and got.count("\n") == 2 * len(bb) - 1

@@ -20,7 +20,9 @@ from madarch_tpu.utils import checkpoint as jckpt
 from madarch_tpu_torch.core.config import NO_VOLUMETRICS, ProbeSettings
 from madarch_tpu_torch.examples import scenes as tscenes
 from madarch_tpu_torch.render.pipeline import Camera, initial_state
-from madarch_tpu_torch.scene.scene import SceneBuilder, tree_leaves
+from madarch_tpu_torch.scene.scene import (SceneBuilder,
+                                           scene_data_from_numpy,
+                                           tree_leaves)
 from madarch_tpu_torch.utils import checkpoint as tckpt
 from test_torch_config import jax_config
 
@@ -41,7 +43,7 @@ def _port_trees():
 
 
 def _port_templates(r):
-    return {"scene": SceneBuilder(r.base_spec).device_data("cpu"),
+    return {"scene": r.base_spec.empty_data("cpu"),
             "state": initial_state(PROBES, NO_VOLUMETRICS, "cpu"),
             "camera": Camera(position=torch.zeros(3),
                              orientation=torch.zeros((3, 3)))}
@@ -88,6 +90,35 @@ def test_round_trip(tmp_path):
     # onto a device the caller names
     meta = tckpt.load(path, device="meta", **_port_templates(r))
     assert all(x.is_meta for t in meta.values() for x in tree_leaves(t))
+
+
+def test_round_trip_into_a_builder_template(tmp_path):
+    """A builder's snapshot serves as the scene's template as well as
+    empty_data does."""
+    r, trees = _port_trees()
+    path = os.path.join(tmp_path, "ckpt.npz")
+    tckpt.save(path, scene=trees["scene"])
+    back = tckpt.load(path, scene=SceneBuilder(r.base_spec)
+                      .device_data("cpu"))["scene"]
+    for x, y in zip(tree_leaves(back), tree_leaves(trees["scene"]),
+                    strict=True):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def test_empty_data_template_restores_a_jax_matching_scene(tmp_path):
+    """The port saves the JAX package's GI scene (handed over by
+    scene_data_from_numpy); its load with spec.empty_data("cpu") as the
+    template gives JAX's leaves back, bit for bit."""
+    jr = jscenes.global_illumination(width=8, height=8,
+                                     probes=jax_config(PROBES))
+    data = scene_data_from_numpy(jax.tree.map(np.asarray, jr.scene_data),
+                                 "cpu")
+    path = os.path.join(tmp_path, "scene.npz")
+    tckpt.save(path, scene=data)
+    r, _ = _port_trees()
+    back = tckpt.load(path, scene=r.base_spec.empty_data("cpu"))["scene"]
+    _equal_leaves(back, jr.scene_data)
+    assert back.grid is None
 
 
 def test_a_jax_file_loads_into_the_port(tmp_path):

@@ -27,6 +27,7 @@ from madarch_tpu_torch.ops import march as M
 from madarch_tpu_torch.render import probes as PR
 from madarch_tpu_torch.render import shading as SH
 from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
+from madarch_tpu_torch.render.context import SceneCtx
 from madarch_tpu_torch.render.raymarch import SURFACE_OFFSET
 from madarch_tpu_torch.scene import lights as L
 from madarch_tpu_torch.scene import primitives as P
@@ -1107,3 +1108,86 @@ def test_a_world_of_one_renders_over_nccl(dev):
         assert torch.equal(img, r.render())
     finally:
         torch.distributed.destroy_process_group()
+
+
+def test_frame_timer_time_fn_on_the_card(dev):
+    """FrameTimer.time_fn: seconds per call between CUDA events after the
+    warm-up calls, the last output returned, the time kept."""
+    from madarch_tpu_torch.utils.profiling import FrameTimer
+    timer = FrameTimer(dev)
+    x = torch.ones((256, 256), device=dev)
+    calls = []
+
+    def fn(y):
+        calls.append(1)
+        return y * 2.0
+
+    dt, out = timer.time_fn(fn, x, warmup=2, iters=3)
+    assert dt > 0 and timer.times == [dt] and len(calls) == 5
+    assert out.is_cuda and bool((out == 2.0).all())
+
+
+def test_sample_irradiance_gather_matches_matmul_on_the_card(dev):
+    """The gather method against the matmul method on the card at atol
+    1e-5, and each against the same call on the CPU, on the GI scene's
+    hit points with the geometry kernel's visibility."""
+    r = S.global_illumination(width=64, height=64, device=dev)
+    r.converge(frames=2)
+    o, d = _gi_rays(r, dev, "screen", n=4096)
+    ctx = SceneCtx(r.spec, r.scene_data)
+    g = ctx.geometry(o, d, r.probes, r.screen_cfg)
+    hit = g["hit"].bool()
+    pos = (o + d * g["t"][:, None])[hit].contiguous()
+    nrm, vis8 = g["normal"][hit].contiguous(), g["vis8"][:, hit].contiguous()
+    irr = r.state.irradiance
+    out = {}
+    for method in ("gather", "matmul"):
+        card = PR.sample_irradiance(r.probes, irr, pos, nrm, vis8=vis8,
+                                    method=method)
+        cpu = PR.sample_irradiance(r.probes, irr.cpu(), pos.cpu(), nrm.cpu(),
+                                   vis8=vis8.cpu(), method=method)
+        np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(),
+                                   atol=1e-5, rtol=0)
+        out[method] = card
+    assert pos.shape[0] > 1000 and float(out["matmul"].abs().max()) > 0
+    np.testing.assert_allclose(out["gather"].cpu().numpy(),
+                               out["matmul"].cpu().numpy(), atol=1e-5, rtol=0)
+
+
+def test_trace_names_the_geometry_kernel(dev, tmp_path):
+    """trace(log_dir) around a GI frame on the card writes a trace whose
+    device events name the geometry kernel."""
+    import glob
+    import json
+    from madarch_tpu_torch.utils.profiling import trace
+    r = S.global_illumination(width=32, height=32, device=dev)
+    r.render()
+    with trace(str(tmp_path)):
+        r.render()
+    files = glob.glob(str(tmp_path / "*.pt.trace.json"))
+    assert len(files) == 1
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("geometry_kernel" in name for name in kernels), kernels[:20]
+
+
+def test_an_empty_data_template_restores_a_card_checkpoint(dev, tmp_path):
+    """checkpoint.load with spec.empty_data(dev) as the scene's template
+    gives the saved GI scene back bit for bit, and the same frame."""
+    from madarch_tpu_torch.render.pipeline import render_frame
+    from madarch_tpu_torch.scene.scene import tree_leaves
+    from madarch_tpu_torch.utils import checkpoint
+    r = S.global_illumination(width=32, height=32, device=dev)
+    r.converge(frames=2)
+    path = str(tmp_path / "gi.npz")
+    checkpoint.save(path, scene=r.scene_data)
+    back = checkpoint.load(path, scene=r.base_spec.empty_data(dev))["scene"]
+    for a, b in zip(tree_leaves(r.scene_data), tree_leaves(back),
+                    strict=True):
+        assert b.device == a.device and torch.equal(a, b)
+    frames = [render_frame(r.spec, r.probes, r.volumetrics, 32, 32, data,
+                           r.camera, r.state, screen_cfg=r.screen_cfg,
+                           probe_cfg=r.probe_cfg)[0]
+              for data in (r.scene_data, back)]
+    assert torch.equal(*frames)

@@ -134,3 +134,14 @@ def test_obj_mesh_refuses_baked_mode_and_missing_file(tmp_path):
     with pytest.raises(FileNotFoundError, match="--obj"):
         tscenes.obj_mesh(width=8, height=8,
                          obj_path=str(tmp_path / "absent.obj"), device="cpu")
+
+
+def test_dump_info_prints_jaxs_text(capsys):
+    """Mesh.dump_info: the JAX package's text exactly (numpy's format of
+    the box)."""
+    jmesh.load_obj(TORUS).dump_info()
+    want = capsys.readouterr().out
+    tmesh.load_obj(TORUS).dump_info()
+    got = capsys.readouterr().out
+    assert got == want and got.startswith("mesh: 484 vertices, 968 "
+                                          "triangles, bb [")

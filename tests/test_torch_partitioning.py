@@ -221,3 +221,77 @@ def test_renderer_carries_the_grid():
                                  "cpu")
     np.testing.assert_array_equal(data.grid.counts.numpy(),
                                   g.counts.numpy())
+
+
+def test_planar_prims_matches_jax(scene):
+    """planar_prims leaf for leaf, exactly: each vec3 field split into
+    name_x/y/z, floats as they are, no material ids."""
+    name, jspec, jdata, tspec, tdata, _ = scene
+    want = jax.tree.map(np.asarray, JPT.planar_prims(jspec, jdata))
+    got = TPT.planar_prims(tspec, tdata)
+    assert sorted(got) == sorted(want)
+    for tname, fields in want.items():
+        assert sorted(got[tname]) == sorted(fields)
+        for f, arr in fields.items():
+            assert got[tname][f].dtype == torch.float32
+            np.testing.assert_array_equal(got[tname][f].numpy(), arr,
+                                          err_msg=f"{tname}.{f}")
+
+
+@pytest.mark.parametrize("method", ["gpu_fast", "cpu_best"])
+def test_planar_queries_are_bit_equal(scene, grids, method):
+    """candidate_dists and grid_closest read the parameters from
+    planar_prims' split when given it: bit-equal to the same queries
+    without it, and grid_closest within 1e-6 of JAX's planar query."""
+    name, jspec, jdata, tspec, tdata, _ = scene
+    settings, j, t = grids[method]
+    planar = TPT.planar_prims(tspec, tdata)
+    p = torch.as_tensor(_points(settings, 256, seed=83))
+    for fb in ("clamp", "fallback"):
+        s = dataclasses.replace(settings, border_behavior=fb)
+        plain = TPT.grid_closest(tspec, s, tdata, t, p)
+        assert torch.equal(TPT.grid_closest(tspec, s, tdata, t, p,
+                                            planar=planar), plain)
+    cells = np.random.RandomState(85).randint(0, settings.num_cells, 256)
+    cand = t.cells[torch.as_tensor(cells)]
+    assert torch.equal(
+        TPT.candidate_dists(tspec, tdata, cand, p, planar=planar),
+        TPT.candidate_dists(tspec, tdata, cand, p))
+    jg = JPT.GridData(cells=jnp.asarray(j.cells), counts=jnp.asarray(j.counts))
+    js = _jax_settings(settings)
+    jplanar = JPT.planar_prims(jspec, jdata)
+    jd = jax.vmap(lambda q: JPT.grid_closest(jspec, js, jdata, jg, q,
+                                             planar=jplanar))(
+        jnp.asarray(p.numpy()))
+    tg = TPT.GridData(cells=torch.as_tensor(np.array(j.cells)),
+                      counts=torch.as_tensor(np.array(j.counts)))
+    np.testing.assert_allclose(
+        TPT.grid_closest(tspec, settings, tdata, tg, p, planar=planar)
+        .numpy(), np.asarray(jd), rtol=1e-6, atol=1e-6)
+
+
+def test_planar_candidate_dists_on_the_room_types_are_bit_equal():
+    """Spheres, planes and boxes (the GI room), seeded candidates with
+    dead (-1) entries, seeded points: bit-equal with and without planar,
+    and JAX's planar candidate distances within 1e-6."""
+    jr = jscenes.global_illumination(width=8, height=8)
+    tr = tscenes.global_illumination(width=8, height=8, device="cpu")
+    jspec, tspec = jr.base_spec, tr.base_spec
+    jdata = jr.scene_data
+    tdata = scene_data_from_numpy(jax.tree.map(np.asarray, jdata), "cpu")
+    rng = np.random.RandomState(84)
+    total = tspec.total_prim_capacity
+    cand = rng.randint(-1, total, (200, 12)).astype(np.int32)
+    p = rng.uniform([-1, -1, -6], [7, 7, 7], (200, 3)).astype(np.float32)
+    planar = TPT.planar_prims(tspec, tdata)
+    assert sorted(planar) == ["box", "plane", "sphere"]
+    got = TPT.candidate_dists(tspec, tdata, torch.as_tensor(cand),
+                              torch.as_tensor(p), planar=planar)
+    assert torch.equal(got, TPT.candidate_dists(
+        tspec, tdata, torch.as_tensor(cand), torch.as_tensor(p)))
+    jplanar = JPT.planar_prims(jspec, jdata)
+    ref = jax.vmap(lambda c, q: JPT.candidate_dists(
+        jspec, jdata, c, q, planar=jplanar))(jnp.asarray(cand),
+                                             jnp.asarray(p))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6,
+                               atol=1e-6)

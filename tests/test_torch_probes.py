@@ -170,3 +170,40 @@ def test_radiance_mips_and_sample_tile_lod_match_jax(name):
                               torch.as_tensor(lod)),
            JP.sample_tile_lod(js, jm, jtx, jty, jnp.asarray(ray_id),
                               jnp.asarray(lod)), atol=1e-6)
+
+
+def _lookup_inputs(s, seed, n=128):
+    rng = np.random.RandomState(seed)
+    irr = _atlas(rng, s.irradiance_atlas_shape)
+    hi = np.array(s.grid_dimensions) * np.array(s.grid_spacing)
+    pos = rng.uniform(-1.0, hi + 1.0, (n, 3)).astype(np.float32)
+    vis8 = (rng.rand(8, n) > 0.3).astype(np.float32)
+    return irr, pos, _dirs(rng, n), vis8
+
+
+@pytest.mark.parametrize("name", sorted(SETTINGS))
+def test_sample_irradiance_gather_matches_jax(name):
+    """The gather method (each corner's tile fetched bilinearly) against
+    JAX's gather at atol 1e-5, and against the port's matmul method at
+    atol 1e-5 (tests/test_probes.py's tolerance between JAX's two)."""
+    s = SETTINGS[name]
+    irr, pos, normal, vis8 = _lookup_inputs(s, 9)
+    ref = JP.sample_irradiance(jax_config(s), None, jnp.asarray(irr),
+                               jnp.asarray(pos), jnp.asarray(normal),
+                               vis8=jnp.asarray(vis8), method="gather")
+    args = (s, torch.as_tensor(irr), torch.as_tensor(pos),
+            torch.as_tensor(normal))
+    got = TP.sample_irradiance(*args, vis8=torch.as_tensor(vis8),
+                               method="gather")
+    _close(got, ref)
+    matmul = TP.sample_irradiance(*args, vis8=torch.as_tensor(vis8))
+    np.testing.assert_allclose(got.numpy(), matmul.numpy(), atol=1e-5,
+                               rtol=0)
+
+
+def test_sample_irradiance_rejects_an_unknown_method():
+    s = SETTINGS["fast"]
+    irr, pos, normal, vis8 = (torch.as_tensor(x)
+                              for x in _lookup_inputs(s, 10, n=4))
+    with pytest.raises(ValueError):
+        TP.sample_irradiance(s, irr, pos, normal, vis8=vis8, method="nearest")

@@ -21,6 +21,7 @@ from madarch_tpu_torch.examples import scenes as tscenes
 from madarch_tpu_torch.scene import lights as TL
 from madarch_tpu_torch.scene import primitives as TP
 from madarch_tpu_torch.scene import scene as TS
+from madarch_tpu_torch.utils.checkpoint import key_paths
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-6
@@ -238,7 +239,10 @@ def test_port_never_imports_jax():
     assert len(names) >= 20
     for module in ("scene.bvh", "scene.baked_sdf", "scene.mesh",
                    "render.context", "render.pathtrace", "render.sampling",
-                   "utils.checkpoint", "parallel.spmd"):
+                   "utils.checkpoint", "parallel.spmd", "core.vecmath",
+                   "core.resample", "io.image", "scene.primitives",
+                   "scene.lights", "scene.scene", "scene.partitioning",
+                   "render.shading", "render.probes", "utils.profiling"):
         assert "madarch_tpu_torch." + module in names
 
 
@@ -354,3 +358,121 @@ def test_sample_light_passes_surface_normal_through():
                                 torch.zeros((1, 3)),
                                 torch.tensor([[0.0, 1.0, 0.0]]))
     np.testing.assert_allclose(rad.numpy(), [[1.0, 1.0, 1.0]], atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["sphere", "plane", "box"])
+def test_primitive_distance_is_its_sdf_like_jax(name):
+    """PrimitiveType.distance equals the type's sdf exactly, and JAX's
+    distance at atol 1e-6."""
+    rng = np.random.RandomState({"sphere": 31, "plane": 32, "box": 33}[name])
+    jp, tp = getattr(JP, name.capitalize()), getattr(TP, name.capitalize())
+    prm, pts = _params(rng, jp), _points(rng)
+    tprm = {k: _t(v) for k, v in prm.items()}
+    got = tp.distance(tprm, _t(pts))
+    assert torch.equal(got, tp.sdf(tprm, _t(pts)))
+    ref = jax.vmap(lambda p: jp.distance(
+        {k: jnp.asarray(v) for k, v in prm.items()}, p))(jnp.asarray(pts))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("lights", ["both", "point only", "none"])
+def test_total_light_count_matches_jax(lights):
+    """An i32[] on the scene's device, equal to JAX's; zero with no light
+    type."""
+    def scene(pkg_p, pkg_l, pkg_s, device=()):
+        types = {"both": ((pkg_l.PointLight, 2), (pkg_l.SpotLight, 3)),
+                 "point only": ((pkg_l.PointLight, 2),),
+                 "none": ()}[lights]
+        spec = pkg_s.SceneSpec(prims=((pkg_p.Sphere, 2),), lights=types)
+        b = pkg_s.SceneBuilder(spec)
+        for ltype, cap in types:
+            for _ in range(cap - 1):
+                b.add_light(ltype, position=(0.0, 3.0, 0.0))
+        return b.device_data(*device)
+
+    got = scene(TP, TL, TS, ("cpu",)).total_light_count()
+    ref = scene(JP, JL, JS).total_light_count()
+    assert got.dtype == torch.int32 and got.shape == () \
+        and got.device.type == "cpu"
+    assert int(got) == int(ref) == {"both": 3, "point only": 1,
+                                    "none": 0}[lights]
+
+
+def _empty_pair():
+    spec_j = jscenes.global_illumination(width=8, height=8).base_spec
+    spec_t = tscenes.global_illumination(width=8, height=8,
+                                         device="cpu").base_spec
+    return spec_j.empty_data(), spec_t.empty_data("cpu")
+
+
+def test_empty_data_matches_jax_leaf_for_leaf():
+    """SceneSpec.empty_data: the leaves in jax.tree.flatten's order with
+    JAX's key paths, shapes and dtypes, all zero, and no grid."""
+    jdata, tdata = _empty_pair()
+    want = [("/".join(str(k) for k in path), np.asarray(leaf)) for path, leaf
+            in jax.tree_util.tree_flatten_with_path(jdata)[0]]
+    got = key_paths(tdata)
+    assert len(got) == len(want) > 0
+    for (tpath, t), (jpath, j) in zip(got, want):
+        assert tpath == jpath
+        assert t.numpy().dtype == j.dtype and t.shape == j.shape, tpath
+        assert t.device.type == "cpu"
+        assert not t.any() and not j.any()
+    assert tdata.grid is None and jdata.grid is None
+
+
+def test_empty_data_is_a_builders_snapshot():
+    """Leaf for leaf the dtypes and shapes SceneBuilder(spec).device_data
+    gives, on the device asked for."""
+    _, tdata = _empty_pair()
+    spec = tscenes.global_illumination(width=8, height=8,
+                                       device="cpu").base_spec
+    built = TS.SceneBuilder(spec).device_data("cpu")
+    for (pa, a), (pb, b) in zip(TS.tree_items(tdata), TS.tree_items(built)):
+        assert pa == pb and a.dtype == b.dtype and a.shape == b.shape
+    assert all(x.is_meta for x in TS.tree_leaves(spec.empty_data("meta")))
+
+
+def test_make_light_normal_lit_matches_jax():
+    """tests/test_scene.py's normal_lit light, built with each package's
+    make_light: the radiance reads the surface normal, and the port's
+    sample_light gives JAX's at atol 1e-6."""
+    def sample_t(params, pos, normal):
+        to_l = params["position"] - pos
+        dist = torch.linalg.vector_norm(to_l, dim=-1)
+        return (params["color"] * (normal * normal).sum(-1, keepdim=True),
+                to_l / dist[..., None], dist)
+
+    def sample_j(params, pos, normal):
+        to_l = params["position"] - pos
+        dist = jnp.linalg.norm(to_l)
+        return (params["color"] * jnp.sum(normal * normal, -1, keepdims=True),
+                to_l / dist, dist)
+
+    lights = {}
+    for pkg_p, pkg_l, pkg_s, sample, dev in (
+            (TP, TL, TS, sample_t, ("cpu",)), (JP, JL, JS, sample_j, ())):
+        normal_lit = pkg_l.make_light(
+            "normal_lit", fields=(("position", pkg_p.VEC3),
+                                  ("color", pkg_p.VEC3)),
+            sample=sample, position=lambda params: params["position"])
+        assert isinstance(normal_lit, pkg_l.LightType)
+        assert normal_lit.field_names == ("position", "color")
+        spec = pkg_s.SceneSpec(prims=((pkg_p.Sphere, 2),),
+                               lights=((normal_lit, 2),))
+        b = pkg_s.SceneBuilder(spec)
+        b.add_light(normal_lit, position=(0.0, 3.0, 0.0),
+                    color=(1.0, 1.0, 1.0))
+        lights[pkg_s] = (spec, b.device_data(*dev), normal_lit)
+    spec, data, light = lights[TS]
+    p = torch.zeros((1, 3))
+    n = torch.tensor([[0.0, 1.0, 0.0]])
+    got = TS.sample_light(spec, data, 0, p, n)
+    np.testing.assert_allclose(got[0].numpy(), [[1.0, 1.0, 1.0]], atol=1e-6)
+    np.testing.assert_array_equal(light.position(data.lights["normal_lit"])
+                                  [0].numpy(), [0.0, 3.0, 0.0])
+    jspec, jdata, _ = lights[JS]
+    ref = JS.sample_light(jspec, jdata, jnp.int32(0), jnp.zeros(3),
+                          jnp.asarray([0.0, 1.0, 0.0]))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy()[0], np.asarray(r), atol=1e-6)
