@@ -188,7 +188,21 @@ Phases, each printed on its own lines; any failure exits non-zero:
    geometry kernel, with 2 geometry launches in that frame; a checkpoint
    of the scene loaded with spec.empty_data(device) as the template,
    bit-equal, rendering the same frame; FrameTimer.time_fn's ms/frame
-   beside frame()'s; prints an api JSON line.
+   beside frame()'s; prints an api JSON line;
+36. the geometry kernel's want_shadows / want_vis on the bench's
+   global_illumination and obj_mesh at 800x800: with each flag off and
+   with both, held to geometry_reference with the same flags on a seeded
+   16,384-ray subset of the screen rays and on all radiance rays, at each
+   lane count geometry_lanes picks for the scene, the skipped outputs all
+   ones; the flags on bit-equal to the call without them; then
+   tools/geom_probe.py's four variants timed on all 640,000 screen rays
+   and their split (primary march + normal, AO, shadows, probe
+   visibility); prints a geometry_flags JSON line;
+37. python -m madarch_tpu_torch.bench in a subprocess (the builds of
+   phase 2 reused): fails if it exits non-zero, if its JSON line lacks a
+   key, if a configuration's frame_ms is not finite and positive, or if
+   GI's launches per frame are not phase 5's; prints its line as
+   {"bench": ...}.
 
 The geometry kernel shares a ray among a group of lanes
 (ops/csrc/scene.cuh).  At every full shape above (phases 3, 16, 21) and on
@@ -217,7 +231,8 @@ chunks exact pruning must admit) over 67 TFLOP/s, the H100 SXM's
 published fp32 peak.
 It prints a train JSON line (phases 25-27), a scenes JSON line (phases
 28-32), a pathtrace JSON line (phases 33-34), an api JSON line (phase 35),
-a kernels JSON line, the card line, then the last line
+a geometry_flags JSON line (phase 36), a bench JSON line (phase 37), a
+kernels JSON line, the card line, then the last line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 import dataclasses
@@ -257,6 +272,7 @@ def fail(msg):
 def port_modules():
     """The port's modules this script drives, imported together (a test
     imports them with JAX blocked)."""
+    from madarch_tpu_torch import bench
     from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG,
                                                ProbeSettings, ShadeConfig,
                                                VolumetricsSettings)
@@ -281,6 +297,7 @@ def port_modules():
     from madarch_tpu_torch.scene.scene import (SceneBuilder,
                                                material_lookup, tree_items,
                                                tree_leaves, tree_map)
+    from madarch_tpu_torch.tools import geom_probe
     from madarch_tpu_torch.utils import checkpoint
     from madarch_tpu_torch.utils.golden import image_stats
     from madarch_tpu_torch.utils.profiling import (FrameTimer,
@@ -303,7 +320,7 @@ def port_modules():
         image_stats=image_stats, FrameTimer=FrameTimer,
         averaged_busy=averaged_busy, device_ops=device_ops,
         kernel_ops=kernel_ops, trace=trace, trace_calls=trace_calls,
-        rays_per_frame=rays_per_frame)
+        rays_per_frame=rays_per_frame, bench=bench, geom_probe=geom_probe)
 
 
 def toolchain(torch, m):
@@ -2155,6 +2172,135 @@ def api_phase(torch, m, dev, card):
     return out, launches
 
 
+# Phase 36: the geometry kernel's want_shadows / want_vis.
+MARCHES_OFF = {"no_shadows": {"want_shadows": False},
+               "no_vis": {"want_vis": False},
+               "neither": {"want_shadows": False, "want_vis": False}}
+FLAG_SIZE = 800
+
+
+def same_outputs(torch, a, b):
+    """Every output of two geometry calls bit-equal, the reflection's
+    too."""
+    if (a["refl"] is None) != (b["refl"] is None):
+        return False
+    pairs = [(a, b)] + ([(a["refl"], b["refl"])] if a["refl"] else [])
+    return all(torch.equal(x[k], y[k]) for x, y in pairs for k in y
+               if k != "refl")
+
+
+def flags_phase(torch, m, dev, card):
+    """Phase 36 on the bench's global_illumination and obj_mesh
+    configurations at FLAG_SIZE².  Returns ({config: geom_probe's ms,
+    split, lanes, rays, the holds' largest difference}, the largest
+    difference of every hold)."""
+    M = m.M
+    out, max_err = {}, 0.0
+    for label in ("global_illumination", "obj_mesh"):
+        r = m.bench.make_config(label, FLAG_SIZE, dev)
+        ctx = m.SceneCtx(r.spec, r.scene_data)
+        _, scr_sub, rad_full, scr_full = gi_rays(torch, m, r, dev)
+        lanes = sorted({M.geometry_lanes(ctx.packed, rays[0].shape[0])
+                        for rays in (rad_full, scr_full)})
+        passes = {"radiance": (m.PROBE_SHADE_CONFIG, False, rad_full),
+                  "screen": (r.screen_cfg,
+                             r.screen_cfg.indirect_specular_mode == 2,
+                             scr_sub)}
+
+        def run(fn, name, **kw):
+            cfg, refl, rays = passes[name]
+            return fn(ctx.packed, ctx.lpos_vec, ctx.n_light_slots, rays[0],
+                      rays[1], ctx.max_dist,
+                      probe_spacing=r.probes.grid_spacing,
+                      probe_dims=r.probes.grid_dimensions,
+                      surface_offset=m.SURFACE_OFFSET,
+                      ao_steps=cfg.ambient_occlusion_steps,
+                      max_steps=cfg.max_march_steps,
+                      mat_rough_vec=ctx.rough_vec if refl else None,
+                      refl_shadows=cfg.add_indirect_specular, **kw)
+
+        errs = {}
+        for name, (_, _, rays) in passes.items():
+            n = rays[0].shape[0]
+            base = run(M.geometry, name)
+            on = run(M.geometry, name, want_shadows=True, want_vis=True)
+            torch.cuda.synchronize()
+            if not same_outputs(torch, on, base):
+                fail(f"{label} {name}: the flags on differ from the call "
+                     f"without them")
+            del base, on
+            for off, flags in MARCHES_OFF.items():
+                ref = run(M.geometry_reference, name, **flags)
+                torch.cuda.synchronize()
+                for x in lanes:
+                    k = run(M.geometry, name,
+                            library=M.geometry_library(x), **flags)
+                    torch.cuda.synchronize()
+                    for key, want in (("shadows", "want_shadows"),
+                                      ("vis8", "want_vis")):
+                        if not flags.get(want, True) and not bool(
+                                (k[key] == 1).all()):
+                            fail(f"{label} {name} {off}: {key} not all ones")
+                    tag = f"{label} {name} {off}, {x} lanes"
+                    errs[tag] = check_geometry(torch, f"flags {tag}", n, k,
+                                               ref)
+                    del k
+                del ref
+        ms, chosen, n = m.geom_probe.time_variants(r)
+        split = m.geom_probe.split(ms)
+        print(f"geom_probe {label} {FLAG_SIZE}x{FLAG_SIZE} ({n} screen "
+              f"rays, {chosen} lanes, no reflection fold, lower of 2 turns "
+              f"of {m.geom_probe.REPS} launches): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+              + f"; [{card}]")
+        print(f"split {label}: " + ", ".join(
+            f"{k} {v:.4f} ms ({v / ms['full']:.1%})" for k, v in split.items())
+              + f"; [{card}]")
+        worst = max(errs.values())
+        max_err = max(max_err, worst)
+        out[label] = dict(ms=ms, split=split, lanes=chosen, rays=n,
+                          held_lanes=lanes, max_abs_err=worst)
+    return out, max_err
+
+
+# Phase 37: the bench entry point.
+BENCH_TIMEOUT_S = 900
+BENCH_KEYS = ("metric", "value", "unit", "configs", "train_step",
+              "per_pass_ms", "golden_breaches", "scaling_efficiency",
+              "gpu_vs_golden", "device")
+
+
+def bench_phase(torch, gi_per_frame):
+    """Phase 37: python -m madarch_tpu_torch.bench in a subprocess, its
+    progress on this script's stderr; returns (its JSON line, the wall
+    seconds).  gi_per_frame: phase 5's launches per frame."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "madarch_tpu_torch.bench"], cwd=REPO,
+        stdout=subprocess.PIPE, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if not lines:
+        fail(f"bench printed nothing (exit {proc.returncode})")
+    print(f"bench: exit {proc.returncode} in {wall:.1f} s")
+    if proc.returncode != 0:
+        fail(f"bench exited {proc.returncode}: {lines[-1][:4000]}")
+    out = json.loads(lines[-1])
+    missing = [k for k in BENCH_KEYS if k not in out]
+    if missing:
+        fail(f"bench's line lacks {missing}")
+    for name, cfg in out["configs"].items():
+        ms = cfg.get("frame_ms")
+        if not (isinstance(ms, (int, float)) and math.isfinite(ms)
+                and ms > 0.0):
+            fail(f"bench {name}: frame_ms {ms}")
+    gi = out["configs"]["global_illumination"]["launches_per_frame"]
+    if gi != gi_per_frame:
+        fail(f"bench GI launches per frame {gi}, phase 5's {gi_per_frame}")
+    return out, wall
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "madarch_tpu_torch")):
         fail("madarch_tpu_torch/ is not beside this script")
@@ -2530,6 +2676,14 @@ def main():
     # ---- 35. the functions the port gained last
     api, api_launches = api_phase(torch, m, dev, card)
 
+    # ---- 36. the geometry kernel's want_shadows / want_vis
+    flags, flags_err = flags_phase(torch, m, dev, card)
+    max_err = max(max_err, flags_err)
+
+    # ---- 37. the bench entry point
+    bench_out, bench_s = bench_phase(
+        torch, {k: v / frames for k, v in gi_launches.items()})
+
     def lamp_keys(name):
         """The kernel's numbers on the lamp room (phase 32)."""
         k = lamp_k[name]
@@ -2540,6 +2694,8 @@ def main():
     print(json.dumps({"scenes": scenes}))
     print(json.dumps({"pathtrace": pt, "multidevice": multi}))
     print(json.dumps({"api": api}))
+    print(json.dumps({"geometry_flags": flags}))
+    print(json.dumps({"bench": bench_out, "bench_wall_s": bench_s}))
 
     def pt_keys(name):
         """The kernel's numbers in the path tracers (phase 33), its
@@ -2586,6 +2742,9 @@ def main():
          "ms_simple_scene_radiance": geo_ss["radiance"]["ms"],
          "plain_ms_simple_scene_radiance": geo_ss["radiance"]["plain_ms"],
          "bound_ms_simple_scene_radiance": geo_ss["radiance"]["bound_ms"],
+         # geom_probe's four variants and their split (phase 36)
+         "ms_want_variants": {k: v["ms"] for k, v in flags.items()},
+         "split_want_variants": {k: v["split"] for k, v in flags.items()},
          "launches_obj_mesh": mesh["launches"],
          "ms_obj_mesh": mesh["screen"]["ms"],
          "ms_obj_mesh_radiance": mesh["radiance"]["ms"],

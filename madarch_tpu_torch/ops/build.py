@@ -18,6 +18,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -72,6 +73,7 @@ def load(name, defines=(), fmad=False):
         os.makedirs(out_dir, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
+        start = time.perf_counter()
         proc = subprocess.run(
             [nvcc_path(), *_flags(defines, fmad), "-o", tmp, src],
             capture_output=True, text=True)
@@ -84,13 +86,16 @@ def load(name, defines=(), fmad=False):
         os.replace(tmp, lib)   # atomic: a concurrent loader sees all or none
         with _builds_lock:    # builds run in threads (chip_smoke.build_all)
             load.builds += 1
+            load.build_s += time.perf_counter() - start
     return ctypes.CDLL(lib)
 
 
 # nvcc runs since the count was last reset: lets a run show that a scene's
 # changes (thrown balls) ask for no new build.  load.cache_info().misses
-# counts the libraries loaded.
+# counts the libraries loaded; load.build_s sums the runs' seconds (the
+# bench reports it beside each configuration's first frame).
 load.builds = 0
+load.build_s = 0.0
 _builds_lock = threading.Lock()
 
 

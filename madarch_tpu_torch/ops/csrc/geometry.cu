@@ -86,6 +86,8 @@ struct GeomArgs {
   float spx, spy, spz;
   int dimx, dimy, dimz;
   int refl_shadows;
+  int want_shadows;     // 0: skip the primary's penumbra marches (ones)
+  int want_vis;         // 0: skip its 8 probe-visibility marches (ones)
   // primary outputs
   float* t;
   float* hit;
@@ -302,10 +304,18 @@ __global__ void geometry_kernel(const GeomArgs a) {
   const float soy = py + ny * a.surf_off;
   const float soz = pz + nz * a.surf_off;
 
-  shadow_block<G, TRIS>(sc, g, m, a, s_lpos, px, py, pz, sox, soy, soz, nx,
-                        ny, nz, hit, a.shadows, i);
-  vis_block<false, G, TRIS>(sc, g, m, a, px, py, pz, sox, soy, soz, nx, ny,
-                            nz, hit, a.vis8, i, nullptr, nullptr);
+  if (a.want_shadows) {
+    shadow_block<G, TRIS>(sc, g, m, a, s_lpos, px, py, pz, sox, soy, soz, nx,
+                          ny, nz, hit, a.shadows, i);
+  } else if (writer) {
+    for (int li = 0; li < a.n_lights; ++li) a.shadows[li * a.n + i] = 1.f;
+  }
+  if (a.want_vis) {
+    vis_block<false, G, TRIS>(sc, g, m, a, px, py, pz, sox, soy, soz, nx, ny,
+                              nz, hit, a.vis8, i, nullptr, nullptr);
+  } else if (writer) {
+    for (int k = 0; k < 8; ++k) a.vis8[k * a.n + i] = 1.f;
+  }
 
   if (writer) {
     a.t[i] = t;

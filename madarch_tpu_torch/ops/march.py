@@ -570,9 +570,12 @@ def geometry_reference(packed, lpos, n_lights, origins, dirs, max_dist, *,
                        probe_spacing, probe_dims, surface_offset, ao_steps,
                        ao_step_size=0.1, shadow_k=64.0, eps=EPSILON,
                        max_steps=300, omega=1.6, mat_rough_vec=None,
-                       refl_shadows=True, enabled=None):
+                       refl_shadows=True, enabled=None, want_shadows=True,
+                       want_vis=True):
     """Plain PyTorch version of the geometry kernel: the same marches,
-    offsets, masks, FD normal and in-order pick, in batched tensor ops."""
+    offsets, masks, FD normal and in-order pick, in batched tensor ops;
+    ``want_shadows`` / ``want_vis`` False skip the primary hit's penumbra /
+    probe-visibility marches, as the kernel does, and give ones."""
     n = origins.shape[0]
     dev = origins.device
     if enabled is None:
@@ -605,9 +608,11 @@ def geometry_reference(packed, lpos, n_lights, origins, dirs, max_dist, *,
             sdf_b, p[rows], normal[rows], steps=ao_steps,
             step_size=ao_step_size)
     shadows = _shadows(sdf_b, lpos, n_lights, p, so, normal, hit, shadow_k,
-                       **march)
+                       **march) if want_shadows \
+        else torch.ones((n_lights, n), dtype=torch.float32, device=dev)
     vis8 = _vis8(sdf_b, p, so, hit, probe_spacing, probe_dims,
-                 surface_offset, omega=omega, **march)[0]
+                 surface_offset, omega=omega, **march)[0] if want_vis \
+        else torch.ones((8, n), dtype=torch.float32, device=dev)
     out = {"t": t, "hit": hit, "idx": torch.where(hit, idx, -1), "mid": mid,
            "normal": normal, "ao": ao, "shadows": shadows, "vis8": vis8,
            "refl": None}
@@ -708,6 +713,7 @@ class _GeomArgs(ctypes.Structure):
         ("dimx", ctypes.c_int), ("dimy", ctypes.c_int),
         ("dimz", ctypes.c_int),
         ("refl_shadows", ctypes.c_int),
+        ("want_shadows", ctypes.c_int), ("want_vis", ctypes.c_int),
         ("t", ctypes.c_void_p), ("hit", ctypes.c_void_p),
         ("idx", ctypes.c_void_p), ("mid", ctypes.c_void_p),
         ("normal", ctypes.c_void_p), ("ao", ctypes.c_void_p),
@@ -813,7 +819,8 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
              probe_spacing, probe_dims, surface_offset, ao_steps,
              ao_step_size=0.1, shadow_k=64.0, eps=EPSILON, max_steps=300,
              omega=1.6, mat_rough_vec=None, refl_shadows=True,
-             enabled=None, library=None, work=None):
+             enabled=None, want_shadows=True, want_vis=True, library=None,
+             work=None):
     """Fused geometry pass over rays origins/dirs f32[N, 3]: a dict with t,
     hit (bool), idx (i32 global index, -1 where not hit), mid (i32),
     normal f32[N,3], ao f32[N], shadows f32[L,N], vis8 f32[8,N], and
@@ -823,7 +830,10 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
     Outputs other than t/hit are meaningful only where hit holds (shadows
     and vis8 also only where their march was enabled); with
     ``refl_shadows`` False the reflection's shadows are all ones;
-    ``ao_steps`` 0 gives ao 1.  ``enabled``: optional bool[N]; a disabled
+    ``ao_steps`` 0 gives ao 1; ``want_shadows`` / ``want_vis`` False skip
+    the primary hit's penumbra / probe-visibility marches and give ones
+    (the reflection's marches stay: its visibility feeds the best-probe
+    pick).  ``enabled``: optional bool[N]; a disabled
     ray does not march (t 0), is no hit and enables no other march.  At a
     miss the normal is the reversed ray direction and the ao 1.
 
@@ -856,7 +866,8 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
                   ao_step_size=ao_step_size, shadow_k=shadow_k, eps=eps,
                   max_steps=max_steps, omega=omega,
                   mat_rough_vec=mat_rough_vec, refl_shadows=refl_shadows,
-                  enabled=enabled)
+                  enabled=enabled, want_shadows=want_shadows,
+                  want_vis=want_vis)
     if dev.type == "cpu":
         return geometry_reference(packed, lpos, n_lights, origins, dirs,
                                   max_dist, **kwargs)
@@ -873,7 +884,7 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
 def _launch(lib, work, packed, lpos, n_lights, origins, dirs, max_dist, *,
             probe_spacing, probe_dims, surface_offset, ao_steps,
             ao_step_size, shadow_k, eps, max_steps, omega, mat_rough_vec,
-            refl_shadows, enabled):
+            refl_shadows, enabled, want_shadows, want_vis):
     dev = origins.device
     n = origins.shape[0]
     refl = mat_rough_vec is not None
@@ -910,7 +921,8 @@ def _launch(lib, work, packed, lpos, n_lights, origins, dirs, max_dist, *,
         ao_max_sum=ao_max,
         spx=probe_spacing[0], spy=probe_spacing[1], spz=probe_spacing[2],
         dimx=probe_dims[0], dimy=probe_dims[1], dimz=probe_dims[2],
-        refl_shadows=int(refl_shadows),
+        refl_shadows=int(refl_shadows), want_shadows=int(want_shadows),
+        want_vis=int(want_vis),
         t=_ptr(out["t"]), hit=_ptr(out["hit"]), idx=_ptr(out["idx"]),
         mid=_ptr(out["mid"]), normal=_ptr(out["normal"]),
         ao=_ptr(out["ao"]), shadows=_ptr(out["shadows"]),

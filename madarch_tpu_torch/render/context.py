@@ -67,13 +67,16 @@ class SceneCtx:
         return self.use_kernel and self.lpos_vec is not None
 
     def geometry(self, origins, dirs, probes, cfg, want_reflection=False,
-                 enabled=None, want_ao=True):
+                 enabled=None, want_ao=True, want_shadows=True,
+                 want_vis=True):
         """Run the fused march+classify+shadow+probe-visibility kernel;
         ``want_reflection`` folds the specular mode-2 bounce into the
         launch (the result's "refl" key); ``enabled`` (bool[N]) keeps rays
         from marching; ``want_ao`` False skips the AO probes (ao 1), as the
-        reflection launch of specular mode 3 does.  Only where
-        ``fused_available``."""
+        reflection launch of specular mode 3 does; ``want_shadows`` and
+        ``want_vis`` False skip the primary hit's penumbra and
+        probe-visibility marches (ones), as a measurement that attributes
+        the kernel's time does.  Only where ``fused_available``."""
         if not self.fused_available:
             raise ValueError("the geometry kernel does not take this scene "
                              "(SceneCtx.fused_available is false)")
@@ -85,7 +88,8 @@ class SceneCtx:
             ao_steps=cfg.ambient_occlusion_steps if want_ao else 0,
             max_steps=cfg.max_march_steps,
             mat_rough_vec=self.rough_vec if want_reflection else None,
-            refl_shadows=cfg.add_indirect_specular, enabled=enabled)
+            refl_shadows=cfg.add_indirect_specular, enabled=enabled,
+            want_shadows=want_shadows, want_vis=want_vis)
 
     def raycast(self, origins, dirs, max_dist, *, max_steps, enabled=None):
         """(t, hit, pos) of the raycast kernel over this scene, or on the

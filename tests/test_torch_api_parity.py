@@ -99,12 +99,6 @@ DEVIATIONS = {
         "renamed", "madarch_tpu_torch/ops/march.py:GRID_CHUNK"),
     "madarch_tpu/render/context.py:CHUNK_SLOT_THRESHOLD": (
         "renamed", "madarch_tpu_torch/ops/march.py:CHUNK_SLOT_THRESHOLD"),
-    "madarch_tpu/render/context.py:SceneCtx.geometry(want_shadows)": (
-        "by design", "no ported caller turns the shadow marches off "
-        "(ROADMAP B-4)"),
-    "madarch_tpu/render/context.py:SceneCtx.geometry(want_vis)": (
-        "by design", "no ported caller turns the probe-visibility marches "
-        "off (ROADMAP B-4)"),
     # -- render/: the march closures became the SceneCtx
     "madarch_tpu/render/lighting.py:direct_lighting(sdf_b)": (
         "renamed", "madarch_tpu_torch/render/lighting.py:direct_lighting(ctx)"),

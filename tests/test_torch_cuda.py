@@ -110,16 +110,18 @@ def _assert_match(k, r):
     assert torch.equal(kr["vis8"][:, rhit], rr["vis8"][:, rhit])
 
 
-def _both(spec, data, o, d, refl, ao_steps, grid, lanes=None, enabled=None):
+def _both(spec, data, o, d, refl, ao_steps, grid, lanes=None, enabled=None,
+          **flags):
     """(kernel, plain version) on the same rays; ``lanes``: the kernel
-    built for that many lanes per ray in place of the wrapper's choice."""
+    built for that many lanes per ray in place of the wrapper's choice;
+    ``flags``: want_shadows / want_vis for both."""
     packed = M.pack_scene(spec, data)
     lpos, n_lights = M.pack_light_positions(spec, data)
     kw = dict(probe_spacing=grid.grid_spacing,
               probe_dims=grid.grid_dimensions,
               surface_offset=SURFACE_OFFSET, ao_steps=ao_steps,
               mat_rough_vec=data.materials["roughness"] if refl else None,
-              enabled=enabled)
+              enabled=enabled, **flags)
     before = M.geometry.launches
     k = M.geometry(packed, lpos, n_lights, o, d, spec.max_dist,
                    library=lanes and M.geometry_library(lanes), **kw)
@@ -463,6 +465,41 @@ def test_geometry_matches_plain_on_the_mesh(dev, refl):
     k, ref = _both(spec, data, o, d, refl, 3 if refl else 0, r.probes)
     assert ref["hit"].float().mean() > 0.5
     _assert_match(k, ref)
+
+
+@pytest.mark.parametrize("flags", [
+    {"want_shadows": False}, {"want_vis": False},
+    {"want_shadows": False, "want_vis": False}],
+    ids=["no-shadows", "no-vis", "neither"])
+@pytest.mark.parametrize("case", ["gi-radiance", "gi-screen", "mesh-screen"])
+def test_kernel_matches_plain_with_marches_off(dev, case, flags):
+    """want_shadows / want_vis False: the kernel skips the primary hit's
+    penumbra / probe-visibility marches as its plain version does, both
+    give ones there, and every other output is the flags-on launch's bit
+    for bit."""
+    scene, variant = case.split("-")
+    refl = variant == "screen"
+    if scene == "gi":
+        r = S.global_illumination(width=256, height=256, device=dev)
+        spec, data = r.spec, r.scene_data
+        o, d = _gi_rays(r, dev, variant)
+    else:
+        r, spec, data = _mesh_scene(dev)
+        o, d = _mesh_rays(r, dev)
+    ao = 3 if refl else 0
+    k, ref = _both(spec, data, o, d, refl, ao, r.probes, **flags)
+    _assert_match(k, ref)
+    on = _both(spec, data, o, d, refl, ao, r.probes)[0]
+    for key, want in (("shadows", "want_shadows"), ("vis8", "want_vis")):
+        if not flags.get(want, True):
+            assert bool((k[key] == 1).all()) and bool((ref[key] == 1).all())
+            on.pop(key)
+    k_refl, on_refl = k.pop("refl"), on.pop("refl")
+    for key, val in on.items():
+        assert torch.equal(k[key], val), key
+    if refl:
+        for key, val in on_refl.items():
+            assert torch.equal(k_refl[key], val), key
 
 
 def test_geometry_matches_plain_with_dead_triangle_slots(dev):

@@ -17,6 +17,7 @@ are don't-care outputs.
 """
 import ctypes
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -106,7 +107,9 @@ def _scene(name):
     return jspec, jdata, port_spec(jspec), tdata
 
 
-def _run_both(scene, variant):
+def _run_both(scene, variant, **flags):
+    """Both packages' geometry outputs on one case; ``flags``
+    (want_shadows, want_vis) go to both."""
     jspec, jdata, tspec, tdata = _scene(scene)
     if scene == "gi":
         o, d = _gi_rays(variant)
@@ -121,7 +124,7 @@ def _run_both(scene, variant):
               surface_offset=trm.SURFACE_OFFSET,
               ao_steps=cfg.ambient_occlusion_steps,
               max_steps=cfg.max_march_steps,
-              refl_shadows=cfg.add_indirect_specular)
+              refl_shadows=cfg.add_indirect_specular, **flags)
 
     plan = JM.build_plan(jspec)
     packed = JM.pack_params(plan, jdata)
@@ -146,11 +149,17 @@ CASES = [("gi", "radiance"), ("gi", "screen"), ("basic", "radiance"),
          ("basic", "screen")]
 
 
+@functools.cache
+def _run_once(case, flags=()):
+    """_run_both, each (case, flags) run once per module: the JAX run is
+    the slow part."""
+    return _run_both(*case, **dict(flags))
+
+
 @pytest.fixture(scope="module", params=CASES, ids=lambda c: "-".join(c))
 def geom(request):
-    """JAX interpret-mode and port outputs for one (scene, variant); the
-    JAX run is the slow part, so each case runs once per module."""
-    return request.param, _run_both(*request.param)
+    """JAX interpret-mode and port outputs for one (scene, variant)."""
+    return request.param, _run_once(request.param)
 
 
 def _np(x):
@@ -355,6 +364,90 @@ def test_loose_lanes_are_xla_fma(geom):
     differ, loose = _loose_lanes(j, t, o, d, packed)
     np.testing.assert_array_equal(loose, differ)
     assert loose.sum() <= MAX_LOOSE_SHARE * j["refl"]["hit"].sum()
+
+
+# ---------------------------------------------------------------------------
+# want_shadows / want_vis: the primary hit's marches skipped
+# ---------------------------------------------------------------------------
+
+MARCHES_OFF = {"no-shadows": {"want_shadows": False},
+               "no-vis": {"want_vis": False},
+               "neither": {"want_shadows": False, "want_vis": False}}
+
+
+@pytest.fixture(scope="module",
+                params=[(c, f) for c in CASES for f in MARCHES_OFF],
+                ids=lambda p: "-".join(p[0]) + "-" + p[1])
+def geom_off(request):
+    """The cases of ``geom`` rerun in both packages with marches turned
+    off: (flags, the same tuple as ``geom``, the case's flags-on run)."""
+    case, name = request.param
+    flags = MARCHES_OFF[name]
+    return (flags, (case, _run_once(case, tuple(sorted(flags.items())))),
+            (case, _run_once(case)))
+
+
+def test_geometry_with_marches_off_matches_jax(geom_off):
+    """JAX's interpret-mode kernel and the port's plain version with the
+    same want_* flags, under the tolerances of the three tests above."""
+    _, run, _ = geom_off
+    test_geometry_primary_matches_jax(run)
+    test_geometry_surface_outputs_match_jax(run)
+    test_geometry_reflection_matches_jax(run)
+
+
+def test_marches_off_give_ones_and_leave_the_rest(geom_off):
+    """A skipped march's output is exactly one on every ray, in both
+    packages (the port keeps its f32[L, N] shape); every other output,
+    the reflection's included, is bit-equal to the flags-on call."""
+    flags, (_, (j, t, _)), (_, (_, t_on, _)) = geom_off
+    off = [k for k, want in (("shadows", "want_shadows"), ("vis8", "want_vis"))
+           if not flags.get(want, True)]
+    for key in off:
+        np.testing.assert_array_equal(_np(t[key]), 1.0)
+        np.testing.assert_array_equal(j[key], 1.0)
+        assert t[key].shape == t_on[key].shape
+    for key in ("t", "hit", "idx", "mid", "normal", "ao", "shadows",
+                "vis8"):
+        if key not in off:
+            assert torch.equal(t[key], t_on[key]), key
+    if t_on["refl"] is None:
+        assert t["refl"] is None
+        return
+    for key, val in t_on["refl"].items():
+        assert torch.equal(t["refl"][key], val), key
+
+
+@pytest.mark.parametrize("flags", list(MARCHES_OFF.values()),
+                         ids=list(MARCHES_OFF))
+def test_scene_ctx_geometry_forwards_the_march_flags(flags):
+    """SceneCtx.geometry passes want_shadows and want_vis on to the
+    wrapper, as the JAX package's SceneCtx passes them to
+    pallas_geometry."""
+    from madarch_tpu_torch.examples import scenes as tscenes
+    from madarch_tpu_torch.render.context import SceneCtx
+    r = tscenes.global_illumination(width=16, height=16, device="cpu")
+    o, d = (torch.as_tensor(x[:64]) for x in _gi_rays("screen"))
+    ctx = SceneCtx(r.spec, r.scene_data)
+    got = ctx.geometry(o, d, r.probes, r.screen_cfg, **flags)
+    want = TM.geometry(ctx.packed, ctx.lpos_vec, ctx.n_light_slots, o, d,
+                       ctx.max_dist, probe_spacing=r.probes.grid_spacing,
+                       probe_dims=r.probes.grid_dimensions,
+                       surface_offset=trm.SURFACE_OFFSET,
+                       ao_steps=r.screen_cfg.ambient_occlusion_steps,
+                       max_steps=r.screen_cfg.max_march_steps,
+                       refl_shadows=r.screen_cfg.add_indirect_specular,
+                       **flags)
+    assert got["hit"].any()
+    for key in ("t", "normal", "ao", "shadows", "vis8"):
+        assert torch.equal(got[key], want[key]), key
+    on = ctx.geometry(o, d, r.probes, r.screen_cfg)
+    for key, want_key in (("shadows", "want_shadows"), ("vis8", "want_vis")):
+        if flags.get(want_key, True):
+            assert torch.equal(got[key], on[key])
+        else:
+            assert bool((got[key] == 1).all())
+            assert not bool((on[key][:, on["hit"]] == 1).all())
 
 
 # ---------------------------------------------------------------------------

@@ -242,7 +242,9 @@ def test_port_never_imports_jax():
                    "utils.checkpoint", "parallel.spmd", "core.vecmath",
                    "core.resample", "io.image", "scene.primitives",
                    "scene.lights", "scene.scene", "scene.partitioning",
-                   "render.shading", "render.probes", "utils.profiling"):
+                   "render.shading", "render.probes", "utils.profiling",
+                   "bench", "tools.perf_probe", "tools.geom_probe",
+                   "tools.train_probe", "tools.diag_golden"):
         assert "madarch_tpu_torch." + module in names
 
 
