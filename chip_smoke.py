@@ -202,7 +202,19 @@ Phases, each printed on its own lines; any failure exits non-zero:
    phase 2 reused): fails if it exits non-zero, if its JSON line lacks a
    key, if a configuration's frame_ms is not finite and positive, or if
    GI's launches per frame are not phase 5's; prints its line as
-   {"bench": ...}.
+   {"bench": ...};
+38. the box-exit cap (ops/march.py:ray_box_cap) on obj_mesh 800x800, the
+   one all-bounded scene: the capped geometry kernel held to the capped
+   plain version (the folded screen launch on the 16,384-ray subset, the
+   radiance launch on all 36,864 rays), and at both full shapes against
+   the launch with box_cap=False (equal on hits, a miss's t max_dist or
+   the uncapped t), both timed in turns; raycast, visibility and (its
+   march uncapped) softshadows held on the screen subset, raycast and
+   visibility timed capped and uncapped on all 640,000 screen rays;
+   geom_probe's split and the bench's obj_mesh row capped and uncapped;
+   the GI, light_shafts, simple_scene and obj_mesh 800x800 images
+   bit-equal with the cap on and off (only obj_mesh packs a cap); prints
+   a box_cap JSON line.
 
 The geometry kernel shares a ray among a group of lanes
 (ops/csrc/scene.cuh).  At every full shape above (phases 3, 16, 21) and on
@@ -232,9 +244,11 @@ published fp32 peak.
 It prints a train JSON line (phases 25-27), a scenes JSON line (phases
 28-32), a pathtrace JSON line (phases 33-34), an api JSON line (phase 35),
 a geometry_flags JSON line (phase 36), a bench JSON line (phase 37), a
-kernels JSON line, the card line, then the last line
+box_cap JSON line (phase 38), a kernels JSON line, the card line, then the
+last line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
+import contextlib
 import dataclasses
 import glob
 import json
@@ -533,7 +547,8 @@ def time_turns(torch, fns, iters=10):
 def scene_bytes(packed):
     """Bytes of the packed scene's tables."""
     return 4 * (packed.rows.numel() + packed.info.numel()
-                + packed.tris.numel() + packed.aabbs.numel())
+                + packed.tris.numel() + packed.aabbs.numel()
+                + packed.cap_boxes.numel())
 
 
 def time_lanes(torch, m, run, packed, n, label, bound_txt, card):
@@ -2301,6 +2316,230 @@ def bench_phase(torch, gi_per_frame):
     return out, wall
 
 
+# Phase 38: the box-exit cap (ops/march.py:ray_box_cap, csrc/scene.cuh:
+# box_cap) on obj_mesh, the one all-bounded scene of the path; the images
+# of the four kernel-route scenes with the cap on and off.
+CAP_SIZE = 800
+CAP_FRAMES = 2
+CAP_IMAGES = ("global_illumination", "light_shafts", "simple_scene",
+              "obj_mesh")
+
+
+@contextlib.contextmanager
+def cap_off(M):
+    """Every scene packed inside the block has its box-exit cap dropped."""
+    pack = M.pack_scene
+    M.pack_scene = lambda spec, data: M.without_box_cap(pack(spec, data))
+    try:
+        yield
+    finally:
+        M.pack_scene = pack
+
+
+def hold_cap_off(torch, label, on, off, max_dist):
+    """The capped geometry outputs ``on`` against the uncapped ``off`` of
+    the same rays, the primary's and the reflection's each on its own hits:
+    hit equal everywhere, every output equal on hits, and a miss's t
+    max_dist or the uncapped t.  Returns the misses at t = max_dist."""
+    same, n_capped, n_miss = True, 0, 0
+    pairs = [(on, off)] + ([(on["refl"], off["refl"])] if on["refl"] else [])
+    for a, b in pairs:
+        hit = a["hit"]
+        n = hit.shape[0]
+        same &= torch.equal(hit, b["hit"])
+        for key, x in a.items():
+            if key == "refl":
+                continue
+            mask = hit.view(n, *[1] * (x.dim() - 1)) if x.shape[0] == n \
+                else hit[None]
+            same &= not bool(((x != b[key]) & mask).any())
+        miss = ~hit
+        capped = miss & (a["t"] == max_dist)
+        same &= bool(((a["t"] == b["t"]) | capped)[miss].all())
+        n_capped += int(capped.sum())
+        n_miss += int(miss.sum())
+    print(f"cap {label}: capped against uncapped, every output equal on "
+          f"hits, {n_capped} of {n_miss} misses (primary and reflection) "
+          f"at t = max_dist; {'equal' if same else 'DIFFERENT'}")
+    if not same:
+        fail(f"cap {label}: capped and uncapped outputs differ beyond a "
+             f"miss's t")
+    return n_capped
+
+
+def box_cap_phase(torch, m, dev, card):
+    """Phase 38.  Returns ({its numbers}, {kernel: the largest
+    kernel-vs-plain difference of its holds})."""
+    M, S = m.M, m.S
+    r = S.obj_mesh(width=CAP_SIZE, height=CAP_SIZE, obj_path=S.TORUS_OBJ,
+                   device=dev)
+    ctx = m.SceneCtx(r.spec, r.scene_data)
+    packed = ctx.packed
+    if packed.cap_margin != M.FAR_MARGIN or packed.cap_boxes.shape != (1, 6):
+        fail(f"obj_mesh packs cap boxes {tuple(packed.cap_boxes.shape)} at "
+             f"margin {packed.cap_margin}, expected one at {M.FAR_MARGIN}")
+    max_dist = ctx.max_dist
+    _, scr_sub, rad_full, scr_full = gi_rays(torch, m, r, dev)
+    passes = {"radiance": (m.PROBE_SHADE_CONFIG, False, rad_full, rad_full),
+              "screen": (r.screen_cfg, True, scr_full, scr_sub)}
+
+    def run(fn, rays, name, refl=None, **kw):
+        cfg = passes[name][0]
+        refl = passes[name][1] if refl is None else refl
+        return fn(packed, ctx.lpos_vec, ctx.n_light_slots, rays[0], rays[1],
+                  max_dist, probe_spacing=r.probes.grid_spacing,
+                  probe_dims=r.probes.grid_dimensions,
+                  surface_offset=m.SURFACE_OFFSET,
+                  ao_steps=cfg.ambient_occlusion_steps,
+                  max_steps=cfg.max_march_steps,
+                  mat_rough_vec=ctx.rough_vec if refl else None,
+                  refl_shadows=cfg.add_indirect_specular, **kw)
+
+    out, err = {}, dict.fromkeys(KERNELS, 0.0)
+    for name, (_, _, full, held) in passes.items():
+        ref = run(M.geometry_reference, held, name)
+        k = run(M.geometry, held, name)
+        torch.cuda.synchronize()
+        err["geometry"] = max(err["geometry"], check_geometry(
+            torch, f"cap obj_mesh {name}", held[0].shape[0], k, ref))
+        del k, ref
+        on, off = run(M.geometry, full, name), run(M.geometry, full, name,
+                                                   box_cap=False)
+        torch.cuda.synchronize()
+        n_capped = hold_cap_off(torch, f"obj_mesh {name}", on, off, max_dist)
+        del on, off
+        ms_on, ms_off = time_turns(torch, [
+            lambda: run(M.geometry, full, name),
+            lambda: run(M.geometry, full, name, box_cap=False)], iters=3)
+        n = full[0].shape[0]
+        print(f"time cap geometry obj_mesh {name} ({n} rays): capped "
+              f"{ms_on:.3f} ms, uncapped {ms_off:.3f} ms; [{card}]")
+        out[f"geometry {name}"] = dict(rays=n, ms=ms_on, uncapped_ms=ms_off,
+                                       capped_misses=n_capped)
+
+    # where the capped screen launch's time goes: its primary launch (no
+    # reflection fold, as geom_probe's) on the rays that miss alone, capped
+    # and not, and on those that hit
+    hit = run(M.geometry, scr_full, "screen")["hit"]
+    for tag, rows in (("misses", ~hit), ("hits", hit)):
+        sel = tuple(x[rows].contiguous() for x in scr_full)
+        fns = [lambda: run(M.geometry, sel, "screen", refl=False)]
+        if tag == "misses":
+            fns.append(lambda: run(M.geometry, sel, "screen", refl=False,
+                                   box_cap=False))
+        ms = time_turns(torch, fns, iters=3)
+        print(f"time cap geometry obj_mesh screen {tag} alone "
+              f"({sel[0].shape[0]} rays, primary launch): capped "
+              f"{ms[0]:.3f} ms"
+              + (f", uncapped {ms[1]:.3f} ms" if len(ms) > 1 else "")
+              + f"; [{card}]")
+        out[f"geometry screen {tag}"] = dict(
+            rays=sel[0].shape[0], ms=ms[0],
+            uncapped_ms=ms[1] if len(ms) > 1 else None)
+    del hit
+
+    # the march kernels on the screen rays (most miss the torus)
+    o, d = scr_full
+    g = torch.Generator().manual_seed(SEED + 38)
+    mx_full = torch.full((o.shape[0],), max_dist, device=dev)
+    mn = (torch.rand(scr_sub[0].shape[0], generator=g) * 0.5).to(dev)
+    mx = (torch.rand(scr_sub[0].shape[0], generator=g) * max_dist).to(dev)
+    so, sd = scr_sub
+    k = M.raycast(packed, so, sd, max_dist)
+    torch.cuda.synchronize()
+    err["raycast"] = check_raycast(
+        torch, "cap raycast obj_mesh screen", k,
+        M.raycast_reference(packed, so, sd, max_dist))
+    k = M.visibility(packed, so, sd, mx)
+    torch.cuda.synchronize()
+    err["visibility"] = check_visibility(
+        torch, "cap visibility obj_mesh screen", k,
+        M.visibility_reference(packed, so, sd, mx))
+    k = M.softshadows(packed, so, sd, mn, mx, 64.0)
+    torch.cuda.synchronize()
+    err["softshadows"] = check_softshadows(
+        torch, "cap softshadows obj_mesh screen (uncapped)", k,
+        M.softshadows_reference(packed, so, sd, mn, mx, 64.0))
+    rc, rc_off = M.raycast(packed, o, d, max_dist), M.raycast(
+        packed, o, d, max_dist, box_cap=False)
+    miss = ~rc[1]
+    if not (torch.equal(rc[1], rc_off[1])
+            and torch.equal(rc[0][rc[1]], rc_off[0][rc[1]])
+            and bool((rc[0][miss] == max_dist).all())):
+        fail("cap raycast obj_mesh: capped and uncapped differ beyond a "
+             "miss's t, or a miss is not at max_dist")
+    if not torch.equal(M.visibility(packed, o, d, mx_full),
+                       M.visibility(packed, o, d, mx_full, box_cap=False)):
+        fail("cap visibility obj_mesh: capped and uncapped differ")
+    del rc, rc_off
+    for name, fn in (("raycast", lambda cap: M.raycast(
+            packed, o, d, max_dist, box_cap=cap)),
+                     ("visibility", lambda cap: M.visibility(
+                         packed, o, d, mx_full, box_cap=cap))):
+        ms_on, ms_off = time_turns(torch, [lambda: fn(True),
+                                           lambda: fn(False)])
+        print(f"time cap {name} obj_mesh screen ({o.shape[0]} rays): "
+              f"capped {ms_on:.4f} ms, uncapped {ms_off:.4f} ms; [{card}]")
+        out[name] = dict(rays=o.shape[0], ms=ms_on, uncapped_ms=ms_off)
+
+    # geom_probe's split and the bench's obj_mesh row, capped and not
+    rb = m.bench.make_config("obj_mesh", CAP_SIZE, dev)
+    for cap in (True, False):
+        ms, lanes, n = m.geom_probe.time_variants(rb, box_cap=cap)
+        split = m.geom_probe.split(ms)
+        tag = "capped" if cap else "uncapped"
+        print(f"geom_probe obj_mesh {tag} ({n} rays, {lanes} lanes): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+              + "; split " + ", ".join(
+                  f"{k} {v:.4f} ms ({v / ms['full']:.1%})"
+                  for k, v in split.items()) + f"; [{card}]")
+        out[f"geom_probe {tag}"] = dict(ms=ms, split=split)
+    cfg = m.bench.CONFIGS["obj_mesh"]
+    rows = {}
+    for cap in (True, False, False, True):
+        with contextlib.nullcontext() if cap else cap_off(M):
+            row = m.bench.bench_renderer(
+                "obj_mesh", rb, ctx.n_light_slots, frames=cfg["frames"],
+                converge_frames=cfg["converge_frames"])
+        rows.setdefault("capped" if cap else "uncapped", []).append(row)
+    for tag, rr in rows.items():
+        print(f"bench obj_mesh {tag}: ms/frame "
+              + " / ".join(f"{x['frame_ms']:.3f}" for x in rr)
+              + ", device busy " + " / ".join(
+                  f"{x['device_busy_ms']:.3f}" for x in rr)
+              + ", idle share " + " / ".join(
+                  f"{x['idle_share']:.3f}" for x in rr)
+              + ", geometry ms a launch " + " / ".join(
+                  f"{x['kernel_ms_per_launch']['geometry']:.3f}"
+                  for x in rr) + f"; [{card}]")
+    out["bench obj_mesh"] = {tag: [{k: x[k] for k in (
+        "frame_ms", "device_busy_ms", "profiled_wall_ms", "idle_share",
+        "kernel_ms_per_launch")} for x in rr] for tag, rr in rows.items()}
+
+    # the images: bit-equal with the cap on and off
+    for name in CAP_IMAGES:
+        imgs, caps = [], []
+        for cap in (True, False):
+            with contextlib.nullcontext() if cap else cap_off(M):
+                ri = m.bench.make_config(name, CAP_SIZE, dev)
+                caps.append(m.SceneCtx(ri.spec, ri.scene_data)
+                            .packed.cap_margin)
+                imgs.append(ri.converge(frames=CAP_FRAMES))
+        bounded = caps[0] is not None
+        if bounded != (name == "obj_mesh") or caps[1] is not None:
+            fail(f"cap {name}: cap margins {caps}")
+        same = torch.equal(*imgs)
+        print(f"cap image {name} {CAP_SIZE}x{CAP_SIZE}, {CAP_FRAMES} "
+              f"frames: {'capped' if bounded else 'no cap'}, with the cap "
+              f"off {'bit-equal' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"cap {name}: the image differs with the cap off")
+        out.setdefault("images_equal", {})[name] = same
+        del imgs
+    out["max_abs_err"] = err
+    return out, err
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "madarch_tpu_torch")):
         fail("madarch_tpu_torch/ is not beside this script")
@@ -2684,6 +2923,15 @@ def main():
     bench_out, bench_s = bench_phase(
         torch, {k: v / frames for k, v in gi_launches.items()})
 
+    # ---- 38. the box-exit cap: obj_mesh's capped kernels against their
+    # plain versions and against the uncapped launches, timed both ways;
+    # the kernel-route images with the cap on and off
+    cap, cap_err = box_cap_phase(torch, m, dev, card)
+    max_err = max(max_err, cap_err["geometry"])
+    rc_err = max(rc_err, cap_err["raycast"])
+    vis_err = max(vis_err, cap_err["visibility"])
+    sh_err = max(sh_err, cap_err["softshadows"])
+
     def lamp_keys(name):
         """The kernel's numbers on the lamp room (phase 32)."""
         k = lamp_k[name]
@@ -2696,6 +2944,7 @@ def main():
     print(json.dumps({"api": api}))
     print(json.dumps({"geometry_flags": flags}))
     print(json.dumps({"bench": bench_out, "bench_wall_s": bench_s}))
+    print(json.dumps({"box_cap": cap}))
 
     def pt_keys(name):
         """The kernel's numbers in the path tracers (phase 33), its
@@ -2756,6 +3005,13 @@ def main():
          "bound_by_obj_mesh": mesh["screen"]["bound_by"],
          "bound_ms_obj_mesh_radiance": mesh["radiance"]["bound_ms"],
          "unculled_bound_ms_obj_mesh": mesh["screen"]["unculled_bound_ms"],
+         # the folded screen and the radiance launch with the box-exit cap
+         # dropped, timed in turns with the capped ones (phase 38)
+         "ms_obj_mesh_capped": cap["geometry screen"]["ms"],
+         "ms_obj_mesh_uncapped": cap["geometry screen"]["uncapped_ms"],
+         "ms_obj_mesh_radiance_capped": cap["geometry radiance"]["ms"],
+         "ms_obj_mesh_radiance_uncapped": cap["geometry radiance"][
+             "uncapped_ms"],
          # lanes per ray: the wrapper's choice and the time at each of
          # TIMED_LANES, per full shape
          "lanes": {label: g["lanes"] for label, g in shapes.items()},
@@ -2785,6 +3041,8 @@ def main():
          "candidate_gi_mode1": launched(m, g1ctx.packed),
          "ms_by_build_gi_mode1": rc1_builds,
          "steps_gi_mode1": steps["reflections"], **lamp_keys("raycast"),
+         "ms_obj_mesh_screen": cap["raycast"]["ms"],
+         "ms_obj_mesh_screen_uncapped": cap["raycast"]["uncapped_ms"],
          **pt_keys("raycast")},
         {"name": "visibility", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1127",
@@ -2795,6 +3053,8 @@ def main():
          "library_ms": None, "candidate": launched(m, lctx.packed),
          "ms_by_build": vis_builds, "steps": steps["froxels"],
          "steps_gi_lamp": lamp_k["visibility"]["steps"],
+         "ms_obj_mesh_screen": cap["visibility"]["ms"],
+         "ms_obj_mesh_screen_uncapped": cap["visibility"]["uncapped_ms"],
          **lamp_keys("visibility")},
         {"name": "softshadows", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1144",

@@ -29,7 +29,12 @@
 // A ray that hits nothing pays none of the hit's fixed work: its normal is
 // the reversed ray direction and its AO 1 (the plain version defines the
 // same), so the four normal and the AO evaluations run on hits only.  The
-// hit's index and material id are classified on every ray.
+// hit's index and material id are classified on every ray.  On a scene
+// whose every type has a global box (obj_mesh's triangles) the primary,
+// reflection and probe-visibility marches end at the ray's exit from the
+// grown boxes (scene.cuh:box_cap, the TPU kernel's _ray_box_cap), a ray
+// that misses them does not march, and a miss so capped reports t =
+// max_dist; the penumbra marches go to the light (scene.cuh:march_shadow).
 //
 // The typed slot runs, the triangle boxes, light positions and roughness
 // sit in shared memory; the triangle table (~108 KB for obj_mesh's 968)
@@ -199,9 +204,11 @@ __device__ void vis_block(const Scene& sc, const Group<G>& g, const March& m,
   float bw = 0.f - BIG, bpid = 0.f, bdx = 0.f, bdy = 0.f, bdz = 0.f;
   for (int k = 0; k < 8; ++k) {
     const Corner c = probe_corner(a, k, px, py, pz);
+    const float cap =
+        hit ? box_cap(sc, sx, sy, sz, c.vdx, c.vdy, c.vdz) : 0.f;
     const float vis = march_visibility<G, TRIS>(
         sc, g, m, sx, sy, sz, c.vdx, c.vdy, c.vdz, c.pdist - a.surf_off,
-        hit);
+        hit, cap);
     if (g.lane == 0) out[k * a.n + i] = vis;
     if (PICK) {
       const float w = (c.vdx * nx + c.vdy * ny + c.vdz * nz) * vis;
@@ -230,7 +237,8 @@ __device__ void bounce(const Scene& sc, const Group<G>& g, const March& m,
                        float dx, float dy, float dz, bool en, float* t,
                        float* px, float* py, float* pz, bool* hit, int* idx,
                        int* mid, float* nx, float* ny, float* nz) {
-  *t = march_primary<G, TRIS>(sc, g, m, ox, oy, oz, dx, dy, dz, en);
+  const float cap = en ? box_cap(sc, ox, oy, oz, dx, dy, dz) : 0.f;
+  *t = march_primary<G, TRIS>(sc, g, m, ox, oy, oz, dx, dy, dz, en, cap);
   *px = ox + *t * dx;
   *py = oy + *t * dy;
   *pz = oz + *t * dz;

@@ -75,11 +75,14 @@
 // memory, read by every thread at the same address (a broadcast);
 // triangles stay in device memory and are pruned exactly by their boxes
 // (scene.cuh:tri_min), so a march steps as the unculled plain version
-// does.  No kernel culls with a margin: on the TPU the box-exit cap exists
-// only for all-bounded plans, and a scene with a plane has none; the TPU
-// penumbra kernel's far-field skip for k >= 32 used a margin (0.15) below
-// max_dist/k and darkened shadows, so any such culling here would need a
-// margin of at least max_dist/k.
+// does.  On a scene whose every type has a global box (all bounded:
+// ops/march.py:pack_scene; obj_mesh's triangles, not a scene with a
+// plane) raycast and visibility end a ray at its exit from those boxes
+// grown by 0.015 (scene.cuh:box_cap, the TPU kernels' _ray_box_cap), and a
+// raycast miss so capped reports t = max_dist, as the TPU kernel's does.
+// The penumbra march takes no cap (scene.cuh:march_shadow says why); the
+// TPU penumbra kernel's cap and far-field skip for k >= 32 used a margin
+// (0.15) below max_dist/k and darkened shadows.
 //
 // Each launch passes its own scene-distance cap: raycast caps at its
 // max_dist, visibility and softshadows at 1e4 (as pallas_visibility and
@@ -140,8 +143,9 @@ __global__ void raycast_kernel(const MarchArgs a) {
   const float dy = a.dirs[3 * i + 1];
   const float dz = a.dirs[3 * i + 2];
   const bool en = a.enabled[i] != 0;
+  const float cap = en ? box_cap(sc, ox, oy, oz, dx, dy, dz) : 0.f;
   const float t = march_primary<1, TRIS>(sc, g, m, ox, oy, oz, dx, dy, dz,
-                                         en);
+                                         en, cap);
   bool hit = false;
   if (en && t < a.max_dist) {
     hit = scene_dist<1, TRIS>(sc, g, ox + t * dx, oy + t * dy,
@@ -158,10 +162,16 @@ __global__ void visibility_kernel(const MarchArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const March m{a.cap, a.eps, a.omega, a.one_minus_omega, 0.f, a.max_steps};
-  a.vis[i] = march_visibility<1, TRIS>(
-      sc, Group<1>(), m, a.origins[3 * i + 0], a.origins[3 * i + 1],
-      a.origins[3 * i + 2], a.dirs[3 * i + 0], a.dirs[3 * i + 1],
-      a.dirs[3 * i + 2], a.max_dists[i], a.enabled[i] != 0);
+  const float ox = a.origins[3 * i + 0];
+  const float oy = a.origins[3 * i + 1];
+  const float oz = a.origins[3 * i + 2];
+  const float dx = a.dirs[3 * i + 0];
+  const float dy = a.dirs[3 * i + 1];
+  const float dz = a.dirs[3 * i + 2];
+  const bool en = a.enabled[i] != 0;
+  const float cap = en ? box_cap(sc, ox, oy, oz, dx, dy, dz) : 0.f;
+  a.vis[i] = march_visibility<1, TRIS>(sc, Group<1>(), m, ox, oy, oz, dx, dy,
+                                       dz, a.max_dists[i], en, cap);
 }
 
 template <bool TRIS>

@@ -92,6 +92,11 @@ struct SceneArgs {
   const float4* aabbs;  // [1 + n_supers + n_chunks][2]
   int n_chunks;
   int n_supers;
+  // the grown global box of each bounded type (lo xyz, hi xyz), by which
+  // a march ends at the ray's exit from the scene (box_cap); none on a
+  // scene that is not all bounded, or with the cap turned off
+  const float* cap_boxes;  // [n_cap_boxes][6]
+  int n_cap_boxes;
   // scene evaluations, box tests and triangle evaluations, summed over the
   // launch by geometry.cu built with COUNT_WORK; else unused
   unsigned long long* work;
@@ -107,6 +112,8 @@ struct Scene {
   const float4* tris;
   const float4* aabbs;
   int n_chunks, n_supers;
+  const float* cap_boxes;
+  int n_cap_boxes;
 #ifdef COUNT_WORK
   // this thread's scene evaluations, box tests and triangle evaluations
   unsigned long long* work;
@@ -144,6 +151,8 @@ __device__ __forceinline__ Scene stage_scene(const SceneArgs& a, float4* s,
   sc.aabbs = s + n_row4;
   sc.n_chunks = a.n_chunks;
   sc.n_supers = a.n_supers;
+  sc.cap_boxes = a.cap_boxes;
+  sc.n_cap_boxes = a.n_cap_boxes;
   return sc;
 }
 
@@ -478,23 +487,68 @@ __device__ float scene_info(const Scene& sc, const Group<G>& g, float px,
   return nb.d;
 }
 
+// One axis of the slab test: the entry and exit t of the ray o + t·d in
+// [lo, hi], a direction component under 1e-12 in magnitude taken as 1e-12.
+__device__ __forceinline__ void slab(float lo, float hi, float o, float d,
+                                     float* t_in, float* t_out) {
+  const float ds = fabsf(d) < 1e-12f ? 1e-12f : d;
+  const float inv = 1.f / ds;
+  const float t1 = (lo - o) * inv;
+  const float t2 = (hi - o) * inv;
+  *t_in = fminf(t1, t2);
+  *t_out = fmaxf(t1, t2);
+}
+
+// The box-exit cap of the ray o + t·d (the TPU kernels' _ray_box_cap,
+// ops/march.py:ray_box_cap): per grown box, its exit t where the ray
+// enters it before it leaves, else 0, clamped at 0; the largest over the
+// boxes.  Infinite on a scene without cap boxes.  Past the cap the ray
+// stays outside every grown box, more than the margin (0.015) from every
+// primitive, so on a scene whose every type has its box a march can
+// neither hit nor be blocked there.
+__device__ __forceinline__ float box_cap(const Scene& sc, float ox, float oy,
+                                         float oz, float dx, float dy,
+                                         float dz) {
+  if (sc.n_cap_boxes == 0) return CUDART_INF_F;
+  float cap = 0.f;
+  for (int b = 0; b < sc.n_cap_boxes; ++b) {
+    const float* box = sc.cap_boxes + 6 * b;
+    float n1, x1, n2, x2, n3, x3;
+    slab(__ldg(box + 0), __ldg(box + 3), ox, dx, &n1, &x1);
+    slab(__ldg(box + 1), __ldg(box + 4), oy, dy, &n2, &x2);
+    slab(__ldg(box + 2), __ldg(box + 5), oz, dz, &n3, &x3);
+    const float t_en = fmaxf(fmaxf(n1, n2), n3);
+    const float t_ex = fminf(fminf(x1, x2), x3);
+    cap = fmaxf(cap, t_en <= t_ex ? fmaxf(t_ex, 0.f) : 0.f);
+  }
+  return cap;
+}
+
 struct March {
   float max_dist, eps, omega, one_minus_omega, shadow_k;
   int max_steps;
 };
 
 // Over-relaxed sphere trace with the Keinert backtrack; t = the march
-// distance where it stopped (t >= max_dist on a miss).
+// distance where it stopped (t >= max_dist on a miss).  `cap` is the
+// ray's box_cap: a ray whose cap is 0 does not march, and one retires at
+// the first position at or past the cap that is not a backtrack (retiring
+// on the raw t >= cap would end an over-relaxed step mid-overshoot, before
+// its backtrack, and lose the hit it skipped).  An enabled ray that ended
+// at its cap short of max_dist is a miss and reports t = max_dist; a
+// disabled one stays at 0.
 template <int G, bool TRIS>
 __device__ float march_primary(const Scene& sc, const Group<G>& g,
                                const March& m, float ox, float oy, float oz,
-                               float dx, float dy, float dz, bool active) {
+                               float dx, float dy, float dz, bool en,
+                               float cap) {
   float t = 0.f, prev_r = 0.f, step_len = 0.f, om = m.omega;
+  bool active = en && 0.f < cap;
   for (int step = 0; step < m.max_steps && active; ++step) {
     const float dist =
         scene_dist<G, TRIS>(sc, g, ox + t * dx, oy + t * dy, oz + t * dz);
     const bool fail = om > 1.f && fabsf(dist) + prev_r <= step_len;
-    if (!fail && dist < m.eps) break;
+    if (!fail && (dist < m.eps || t >= cap)) break;
     const float new_step = fail ? step_len * m.one_minus_omega : dist * om;
     if (fail) om = 1.f;
     t = t + new_step;
@@ -502,22 +556,25 @@ __device__ float march_primary(const Scene& sc, const Group<G>& g,
     step_len = new_step;
     active = t < m.max_dist;
   }
-  return t;
+  const float eff = fminf(m.max_dist, cap);
+  return en && t >= eff && eff < m.max_dist ? m.max_dist : t;
 }
 
-// 1 if the ray reaches mx unobstructed, else 0; starts only if 0 < mx.
+// 1 if the ray reaches mx unobstructed, else 0; starts only if 0 < mx and
+// 0 < cap, and retires unblocked at the cap as march_primary does.
 template <int G, bool TRIS>
 __device__ float march_visibility(const Scene& sc, const Group<G>& g,
                                   const March& m, float ox, float oy,
                                   float oz, float dx, float dy, float dz,
-                                  float mx, bool active) {
+                                  float mx, bool active, float cap) {
   float t = 0.f, prev_r = 0.f, step_len = 0.f, om = m.omega;
-  active = active && 0.f < mx;
+  active = active && 0.f < mx && 0.f < cap;
   for (int step = 0; step < m.max_steps && active; ++step) {
     const float dist =
         scene_dist<G, TRIS>(sc, g, ox + t * dx, oy + t * dy, oz + t * dz);
     const bool fail = om > 1.f && fabsf(dist) + prev_r <= step_len;
     if (!fail && dist < m.eps) return 0.f;
+    if (!fail && t >= cap) return 1.f;
     const float new_step = fail ? step_len * m.one_minus_omega : dist * om;
     if (fail) om = 1.f;
     t = t + new_step;
@@ -532,6 +589,15 @@ __device__ float march_visibility(const Scene& sc, const Group<G>& g,
 // starts only if t0 < mx; 0 when the shadow ray hits geometry.  The
 // penumbra term's denominator t - y counts t from the origin, so t0 > 0
 // shifts every sample's estimate.
+//
+// It takes no box cap, whatever the margin.  Past a box the distance is
+// more than the margin, but the penumbra term is not bounded by it: with
+// y = d²/(2·prev) the term k·sqrt(d² − y²)/(t − y) is k times the
+// tangent of the angle at which the two last samples' spheres place the
+// occluder, and on a ray leaving the scene d grows at nearly the rate t
+// does (d → 2·prev), so those samples can set the minimum however far
+// out they lie.  Ending the march at a box exit then lightens the shadow
+// (tests/test_torch_box_cap.py holds a case on the torus).
 template <int G, bool TRIS>
 __device__ float march_shadow(const Scene& sc, const Group<G>& g,
                               const March& m, float ox, float oy, float oz,

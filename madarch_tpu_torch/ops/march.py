@@ -29,6 +29,11 @@ super-chunk of SUPER chunks, by which the kernels prune triangles exactly
 block offset + slot).  A slot past a dynamic count is packed inert: a
 sphere of radius -1e9, a plane 1e9 away, a box of half-side -1e9, a
 triangle 3e9 away, so its distance never comes under a scene-distance cap.
+``cap_boxes``: on a scene whose every live type has a global box (all
+bounded, as the JAX package's ``ScenePlan.all_bounded``), each type's box
+grown by FAR_MARGIN, at whose exit raycast, visibility and geometry end a
+ray (``ray_box_cap``); a ray so capped short of max_dist is a miss at t =
+max_dist.
 
 ``geometry`` picks the lanes per ray of its launch from the scene's layout
 and the ray count (``geometry_lanes``); ``raycast``, ``visibility`` and
@@ -95,6 +100,17 @@ AABB_FLOPS = 18
 # The visibility and softshadow kernels' scene-distance cap (the 1e4 of
 # pallas_visibility and pallas_softshadows).
 VIS_CAP = 1e4
+# A type of more slots than this has a global box when its primitive has
+# bounds (the JAX package's build_plan: its unrolled types have none), and
+# a scene whose every live type has one is all bounded: its marches end at
+# the exit from those boxes grown by FAR_MARGIN (csrc/scene.cuh:box_cap).
+# The margin is the JAX package's; it must exceed a march's eps.
+UNROLL_SLOTS_MAX = 8
+FAR_MARGIN = 0.015
+# Float operations of one ray's slab test against one cap box
+# (scene.cuh:box_cap): per axis abs, compare, divide, 2 sub, 2 mul, min and
+# max; 2 max and 2 min for entry and exit, a compare, 2 max.
+CAP_FLOPS = 31
 # The plain versions evaluate at most this many points at once when the
 # scene has more than CHUNK_SLOT_THRESHOLD columns, bounding their
 # [points, slots] intermediates (render/context.py:GRID_CHUNK of the JAX
@@ -112,6 +128,8 @@ scene_evals = {code: 0 for code in (0, 1, 2, TRIANGLE_CODE)}
 # and the live triangles of the chunks whose box does.  Counted only
 # inside counting(): it costs a box test and a host sync per evaluation.
 pruned_evals = {"aabb": 0, "triangles": 0}
+# Rays x cap boxes slab-tested by the plain versions (ray_box_cap).
+cap_tests = {"boxes": 0}
 _counting_pruned = False
 
 
@@ -120,7 +138,7 @@ def counting():
     """Counts the plain versions' work from zero inside the block, exact
     pruning's included."""
     global _counting_pruned
-    for d in (scene_evals, pruned_evals):
+    for d in (scene_evals, pruned_evals, cap_tests):
         for key in d:
             d[key] = 0
     _counting_pruned = True
@@ -133,9 +151,10 @@ def counting():
 def scene_eval_flops(pruned=True):
     """Float operations of the slot evaluations counted since counting()
     last began: with ``pruned`` the triangles as exact pruning must
-    evaluate them (box tests and admitted chunks), else every triangle."""
+    evaluate them (box tests and admitted chunks), else every triangle;
+    with the box-exit caps' slab tests either way."""
     flops = sum(SLOT_FLOPS[code] * n for code, n in scene_evals.items()
-                if code != TRIANGLE_CODE)
+                if code != TRIANGLE_CODE) + CAP_FLOPS * cap_tests["boxes"]
     if pruned:
         return flops + AABB_FLOPS * pruned_evals["aabb"] \
             + SLOT_FLOPS[TRIANGLE_CODE] * pruned_evals["triangles"]
@@ -154,7 +173,9 @@ class PackedScene:
     coordinate scale, then the super-chunk and chunk boxes (lo xyz, 0, hi
     xyz, 0), empty without triangles; ``col_gidx``/``col_mid``: i32 global
     index and material id of each column of the plain versions' distance
-    table (spec order).  All on the scene's device."""
+    table (spec order); ``cap_boxes``: f32[B, 6], on an all-bounded scene
+    each live type's global box grown by ``cap_margin`` (lo xyz, hi xyz),
+    else empty with ``cap_margin`` None.  All on the scene's device."""
 
     entries: tuple
     rows: torch.Tensor
@@ -166,6 +187,8 @@ class PackedScene:
     n_chunks: int
     col_gidx: torch.Tensor
     col_mid: torch.Tensor
+    cap_boxes: torch.Tensor
+    cap_margin: float | None
 
     @property
     def n_slots(self):
@@ -255,6 +278,7 @@ def pack_scene(spec, data) -> PackedScene:
     aabbs = torch.zeros((0, 8), device=dev)
     n_chunks = 0
     goff = 0
+    boxes = []     # each live type's global box, None where it has none
     for ptype, cap, n, static in spec.prim_bounds():
         if n == 0:
             goff += cap
@@ -277,6 +301,7 @@ def pack_scene(spec, data) -> PackedScene:
         col_mid.append(mid)
         entries.append((ptype, code, n, static))
         goff += cap
+        boxes.append(_global_box(ptype, params, n, live))
         if ptype is P.Triangle:
             tris, tri_live, aabbs, n_chunks = _pack_triangles(params, n,
                                                               live)
@@ -308,12 +333,65 @@ def pack_scene(spec, data) -> PackedScene:
     info = torch.cat([runs[c][1] for c in codes] + [tri_info]).contiguous()
     counts = tuple(runs[c][1].shape[0] if c in runs else 0
                    for c in range(TRIANGLE_CODE))
+    bounded = all(b is not None for b in boxes)
+    cap_boxes = torch.stack(boxes) if bounded \
+        else torch.zeros((0, 6), device=dev)
+    cap_boxes[:, :3] -= FAR_MARGIN
+    cap_boxes[:, 3:] += FAR_MARGIN
     return PackedScene(
         entries=tuple((ptype, first.get(code, 0), n, static)
                       for ptype, code, n, static in entries),
         rows=rows, counts=counts, info=info, tris=tris, tri_live=tri_live,
         aabbs=aabbs, n_chunks=n_chunks, col_gidx=torch.cat(col_gidx),
-        col_mid=torch.cat(col_mid))
+        col_mid=torch.cat(col_mid), cap_boxes=cap_boxes.contiguous(),
+        cap_margin=FAR_MARGIN if bounded else None)
+
+
+def _global_box(ptype, params, n, live):
+    """f32[6]: the box (lo xyz, hi xyz) of the live slots of a type of n
+    slots, or None where the type has none (a primitive without bounds,
+    or at most UNROLL_SLOTS_MAX slots).  No live slot gives lo 1e9 and hi
+    -1e9, as the JAX package packs it."""
+    if ptype.bounds is None or n <= UNROLL_SLOTS_MAX:
+        return None
+    lo, hi = ptype.bounds({k: v[:n].to(torch.float32)
+                           for k, v in params.items() if k != "material_id"})
+    alive = live[:, None] > 0.5
+    lo = torch.where(alive, lo, BIG).amin(dim=0)
+    hi = torch.where(alive, hi, -BIG).amax(dim=0)
+    return torch.cat([lo, hi])
+
+
+def without_box_cap(packed):
+    """The packed scene with its box-exit cap dropped: its marches go to
+    max_dist as on a scene that is not all bounded."""
+    return dataclasses.replace(packed, cap_boxes=packed.cap_boxes[:0],
+                               cap_margin=None)
+
+
+def ray_box_cap(packed, origins, dirs):
+    """f32[N]: each ray's box-exit cap (csrc/scene.cuh:box_cap, the TPU
+    kernels' _ray_box_cap), or None on a scene without cap boxes.  Per
+    grown box the slab test's exit t where the ray enters the box before
+    it leaves, else 0, clamped at 0; the largest over the boxes.  Past it
+    the ray stays more than FAR_MARGIN from every box, so on an
+    all-bounded scene a march can neither hit nor be blocked there."""
+    nb = packed.cap_boxes.shape[0]
+    if nb == 0:
+        return None
+    cap_tests["boxes"] += origins.shape[0] * nb
+    ds = torch.where(torch.abs(dirs) < 1e-12, 1e-12, dirs)
+    inv = 1.0 / ds
+    lo = packed.cap_boxes[:, None, :3]
+    hi = packed.cap_boxes[:, None, 3:]
+    t1 = (lo - origins[None]) * inv[None]                # [B, N, 3]
+    t2 = (hi - origins[None]) * inv[None]
+    tn = torch.minimum(t1, t2)
+    tx = torch.maximum(t1, t2)
+    t_en = torch.maximum(torch.maximum(tn[..., 0], tn[..., 1]), tn[..., 2])
+    t_ex = torch.minimum(torch.minimum(tx[..., 0], tx[..., 1]), tx[..., 2])
+    return torch.where(t_en <= t_ex, torch.clamp_min(t_ex, 0.0),
+                       0.0).amax(dim=0)
 
 
 def slot_live(packed):
@@ -530,9 +608,10 @@ def _shadows(sdf_b, lpos, n_lights, p, so, normal, hit, k, max_steps, eps):
     return sh.reshape(n_lights, n)
 
 
-def _vis8(sdf_b, p, so, hit, spacing, dims, surface_offset, max_steps, eps,
-          omega, pick_normal=None):
-    """f32[8, N] probe visibility to the clamped probe-cell corners, and
+def _vis8(sdf_b, packed, p, so, hit, spacing, dims, surface_offset,
+          max_steps, eps, omega, pick_normal=None):
+    """f32[8, N] probe visibility to the clamped probe-cell corners, each
+    march ended at its box-exit cap where the packed scene has one, and
     with pick_normal the mode-2 best probe (id as f32, -dir to it)."""
     n = p.shape[0]
     dev = p.device
@@ -545,11 +624,11 @@ def _vis8(sdf_b, p, so, hit, spacing, dims, surface_offset, max_steps, eps,
     w = corner * sp - p[None]
     pdist = torch.clamp_min(torch.sqrt(dot(w, w)), 1e-6)
     vdir = w * (1.0 / pdist)[..., None]
+    o8, d8 = so.repeat(8, 1), vdir.reshape(-1, 3)
     vis = rm.raycast_visibility(
-        sdf_b, so.repeat(8, 1), vdir.reshape(-1, 3),
-        (pdist - surface_offset).reshape(-1),
-        enabled=hit.repeat(8), max_steps=max_steps, eps=eps,
-        omega=omega).reshape(8, n)
+        sdf_b, o8, d8, (pdist - surface_offset).reshape(-1),
+        enabled=hit.repeat(8), max_steps=max_steps, eps=eps, omega=omega,
+        caps=ray_box_cap(packed, o8, d8)).reshape(8, n)
     if pick_normal is None:
         return vis, None, None
     pid = (corner[..., 2] * float(dims[0] * dims[1])
@@ -573,7 +652,8 @@ def geometry_reference(packed, lpos, n_lights, origins, dirs, max_dist, *,
                        refl_shadows=True, enabled=None, want_shadows=True,
                        want_vis=True):
     """Plain PyTorch version of the geometry kernel: the same marches,
-    offsets, masks, FD normal and in-order pick, in batched tensor ops;
+    offsets, masks, FD normal and in-order pick, in batched tensor ops,
+    ended at the box-exit caps where the scene packs them;
     ``want_shadows`` / ``want_vis`` False skip the primary hit's penumbra /
     probe-visibility marches, as the kernel does, and give ones."""
     n = origins.shape[0]
@@ -588,7 +668,8 @@ def geometry_reference(packed, lpos, n_lights, origins, dirs, max_dist, *,
 
     def bounce(o, d, en_b):
         t = rm.raycast_distance(sdf_b, o, d, max_dist, enabled=en_b,
-                                omega=omega, **march)
+                                omega=omega, caps=ray_box_cap(packed, o, d),
+                                **march)
         p = o + t[:, None] * d
         d_end, idx, mid = scene_dist_info(packed, p, max_dist)
         hit = en_b & (d_end < eps) & (t < max_dist)
@@ -610,7 +691,7 @@ def geometry_reference(packed, lpos, n_lights, origins, dirs, max_dist, *,
     shadows = _shadows(sdf_b, lpos, n_lights, p, so, normal, hit, shadow_k,
                        **march) if want_shadows \
         else torch.ones((n_lights, n), dtype=torch.float32, device=dev)
-    vis8 = _vis8(sdf_b, p, so, hit, probe_spacing, probe_dims,
+    vis8 = _vis8(sdf_b, packed, p, so, hit, probe_spacing, probe_dims,
                  surface_offset, omega=omega, **march)[0] if want_vis \
         else torch.ones((8, n), dtype=torch.float32, device=dev)
     out = {"t": t, "hit": hit, "idx": torch.where(hit, idx, -1), "mid": mid,
@@ -632,8 +713,8 @@ def geometry_reference(packed, lpos, n_lights, origins, dirs, max_dist, *,
                     shadow_k, **march) if refl_shadows \
         else torch.ones((n_lights, n), dtype=torch.float32, device=dev)
     r_vis, best_pid, best_dir = _vis8(
-        sdf_b, rp, r_so, r_hit, probe_spacing, probe_dims, surface_offset,
-        omega=omega, pick_normal=r_normal, **march)
+        sdf_b, packed, rp, r_so, r_hit, probe_spacing, probe_dims,
+        surface_offset, omega=omega, pick_normal=r_normal, **march)
     out["refl"] = {"t": r_t, "hit": r_hit, "mid": r_mid, "normal": r_normal,
                    "shadows": r_sh, "vis8": r_vis, "best_pid": best_pid,
                    "best_dir": best_dir}
@@ -644,12 +725,14 @@ def raycast_reference(packed, origins, dirs, max_dist, *, eps=EPSILON,
                       max_steps=300, enabled=None, omega=1.6,
                       return_steps=False):
     """Plain PyTorch version of the raycast kernel: render/raymarch.py's
-    raycast over the packed scene, whose distances cap at max_dist; with
+    raycast over the packed scene, whose distances cap at max_dist, ended
+    at the rays' box-exit caps where the scene packs them; with
     ``return_steps`` each ray's march steps i32[N] too."""
     return rm.raycast(lambda p: scene_dist(packed, p, max_dist), origins,
                       dirs, max_dist, eps=eps, max_steps=max_steps,
                       enabled=enabled, omega=omega,
-                      return_steps=return_steps)
+                      return_steps=return_steps,
+                      caps=ray_box_cap(packed, origins, dirs))
 
 
 def visibility_reference(packed, origins, dirs, max_dists, *, eps=EPSILON,
@@ -657,19 +740,22 @@ def visibility_reference(packed, origins, dirs, max_dists, *, eps=EPSILON,
                          return_steps=False):
     """Plain PyTorch version of the visibility kernel: render/raymarch.py's
     raycast_visibility over the packed scene, whose distances cap at
-    VIS_CAP; with ``return_steps`` each ray's march steps i32[N] too."""
+    VIS_CAP, ended at the rays' box-exit caps where the scene packs them;
+    with ``return_steps`` each ray's march steps i32[N] too."""
     return rm.raycast_visibility(
         lambda p: scene_dist(packed, p, VIS_CAP), origins, dirs, max_dists,
         eps=eps, max_steps=max_steps, enabled=enabled, omega=omega,
-        return_steps=return_steps)
+        return_steps=return_steps, caps=ray_box_cap(packed, origins, dirs))
 
 
 def softshadows_reference(packed, origins, dirs, min_dists, max_dists, k, *,
                           eps=EPSILON, max_steps=300, enabled=None,
                           return_steps=False):
     """Plain PyTorch version of the softshadow kernel: render/raymarch.py's
-    softshadows over the packed scene, whose distances cap at VIS_CAP;
-    with ``return_steps`` each ray's march steps i32[N] too."""
+    softshadows over the packed scene, whose distances cap at VIS_CAP,
+    marched to max_dists on every scene (no box-exit cap:
+    csrc/scene.cuh:march_shadow says why); with ``return_steps`` each
+    ray's march steps i32[N] too."""
     return rm.softshadows(
         lambda p: scene_dist(packed, p, VIS_CAP), origins, dirs, min_dists,
         max_dists, k, eps=eps, max_steps=max_steps, enabled=enabled,
@@ -688,7 +774,8 @@ class _SceneArgs(ctypes.Structure):
         ("n_planes", ctypes.c_int), ("n_boxes", ctypes.c_int),
         ("info", ctypes.c_void_p), ("tris", ctypes.c_void_p),
         ("aabbs", ctypes.c_void_p), ("n_chunks", ctypes.c_int),
-        ("n_supers", ctypes.c_int), ("work", ctypes.c_void_p),
+        ("n_supers", ctypes.c_int), ("cap_boxes", ctypes.c_void_p),
+        ("n_cap_boxes", ctypes.c_int), ("work", ctypes.c_void_p),
     ]
 
 
@@ -772,6 +859,8 @@ def _check_scene(packed, dev):
     _check("packed.aabbs", packed.aabbs, dev, torch.float32,
            (1 + packed.n_supers + packed.n_chunks if packed.n_chunks else 0,
             8))
+    _check("packed.cap_boxes", packed.cap_boxes, dev, torch.float32,
+           (packed.cap_boxes.shape[0], 6))
     # the kernels read these tables as float4 and int2
     for name, align in (("rows", 16), ("tris", 16), ("aabbs", 16),
                         ("info", 8)):
@@ -793,7 +882,8 @@ def _scene_args(packed, extra_smem_floats, kernels, work=None):
         rows=_ptr(packed.rows), n_spheres=n_spheres, n_planes=n_planes,
         n_boxes=n_boxes, info=_ptr(packed.info), tris=_ptr(packed.tris),
         aabbs=_ptr(packed.aabbs), n_chunks=packed.n_chunks,
-        n_supers=packed.n_supers, work=_ptr(work))
+        n_supers=packed.n_supers, cap_boxes=_ptr(packed.cap_boxes),
+        n_cap_boxes=packed.cap_boxes.shape[0], work=_ptr(work))
 
 
 # geometry() gives a ray 8 lanes on a launch of fewer rays than this (a
@@ -819,8 +909,8 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
              probe_spacing, probe_dims, surface_offset, ao_steps,
              ao_step_size=0.1, shadow_k=64.0, eps=EPSILON, max_steps=300,
              omega=1.6, mat_rough_vec=None, refl_shadows=True,
-             enabled=None, want_shadows=True, want_vis=True, library=None,
-             work=None):
+             enabled=None, want_shadows=True, want_vis=True, box_cap=True,
+             library=None, work=None):
     """Fused geometry pass over rays origins/dirs f32[N, 3]: a dict with t,
     hit (bool), idx (i32 global index, -1 where not hit), mid (i32),
     normal f32[N,3], ao f32[N], shadows f32[L,N], vis8 f32[8,N], and
@@ -835,7 +925,12 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
     (the reflection's marches stay: its visibility feeds the best-probe
     pick).  ``enabled``: optional bool[N]; a disabled
     ray does not march (t 0), is no hit and enables no other march.  At a
-    miss the normal is the reversed ray direction and the ao 1.
+    miss the normal is the reversed ray direction and the ao 1.  On an
+    all-bounded scene (``packed.cap_boxes``) the primary, reflection and
+    probe-visibility marches end at the ray's box-exit cap, and a miss so
+    capped has t = max_dist (the JAX kernel's miss convention); elsewhere a
+    miss's t is max_dist or more.  ``box_cap`` False drops the cap, for a
+    measurement.
 
     On the card the launch uses ``geometry_lanes`` lanes per ray;
     ``library`` (a ``geometry_library`` build) overrides the choice and
@@ -868,6 +963,8 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
                   mat_rough_vec=mat_rough_vec, refl_shadows=refl_shadows,
                   enabled=enabled, want_shadows=want_shadows,
                   want_vis=want_vis)
+    if not box_cap:
+        packed = without_box_cap(packed)
     if dev.type == "cpu":
         return geometry_reference(packed, lpos, n_lights, origins, dirs,
                                   max_dist, **kwargs)
@@ -1036,12 +1133,17 @@ def _launch_march(fn, packed, origins, dirs, enabled, **fields):
 
 
 def raycast(packed, origins, dirs, max_dist, *, eps=EPSILON, max_steps=300,
-            enabled=None, omega=1.6):
+            enabled=None, omega=1.6, box_cap=True):
     """Over-relaxed primary march of rays origins/dirs f32[N, 3] to
-    max_dist (also the scene-distance cap): (t f32[N], max_dist or more
-    on a miss and 0 where disabled; hit bool[N]; pos = o + t·d).
-    ``enabled``: optional bool[N]; disabled rays never march."""
+    max_dist (also the scene-distance cap): (t f32[N], 0 where disabled;
+    hit bool[N]; pos = o + t·d).  On a miss t is max_dist where the march
+    ended at the ray's box-exit cap (an all-bounded scene), as the JAX
+    kernel's is, else max_dist or more; ``box_cap`` False drops the cap,
+    for a measurement.  ``enabled``: optional bool[N]; disabled rays never
+    march."""
     origins, dirs, enabled = _stop_gradient(origins, dirs, enabled)
+    if not box_cap:
+        packed = without_box_cap(packed)
     dev = origins.device
     en = _check_rays(packed, origins, dirs, enabled)
     kwargs = dict(eps=eps, max_steps=max_steps, omega=omega)
@@ -1070,12 +1172,16 @@ def _raycast(lib, packed, origins, dirs, max_dist, en, *, eps=EPSILON,
 
 
 def visibility(packed, origins, dirs, max_dists, *, eps=EPSILON,
-               max_steps=300, enabled=None, omega=1.6):
+               max_steps=300, enabled=None, omega=1.6, box_cap=True):
     """f32[N]: 1 where the ray origins/dirs f32[N, 3] reaches its own
     max_dists f32[N] unblocked, else 0; a ray starts only where
-    0 < max_dist and ``enabled`` (optional bool[N]) holds."""
+    0 < max_dist and ``enabled`` (optional bool[N]) holds.  On an
+    all-bounded scene a ray ends unblocked at its box-exit cap;
+    ``box_cap`` False drops the cap, for a measurement."""
     origins, dirs, max_dists, enabled = _stop_gradient(
         origins, dirs, max_dists, enabled)
+    if not box_cap:
+        packed = without_box_cap(packed)
     dev = origins.device
     n = origins.shape[0]
     en = _check_rays(packed, origins, dirs, enabled)

@@ -37,13 +37,18 @@ def _active0(origins, enabled):
 
 
 def _over_relaxed(sdf_b, origins, dirs, max_dists, active, eps, max_steps,
-                  omega, count_steps=False):
+                  omega, count_steps=False, caps=None):
     """The ω-relaxed march with the Keinert backtrack shared by raycast and
     raycast_visibility.  ``max_dists`` is per ray.  Returns (t, blocked,
     steps): blocked marks lanes that stopped on a hit; with
     ``count_steps``, steps i32[N] is each lane's march steps (its scene
-    evaluations), else None."""
+    evaluations), else None.  ``caps`` f32[N], optional: a lane whose cap
+    is 0 does not march, and one retires unblocked at the first position
+    t >= cap that is not a backtrack (the kernels' box-exit cap,
+    ops/march.py:ray_box_cap)."""
     n = origins.shape[0]
+    if caps is not None:
+        active = active & (caps > 0.0)
     t = torch.zeros(n, dtype=torch.float32, device=origins.device)
     prev_r = torch.zeros_like(t)
     step_len = torch.zeros_like(t)
@@ -65,6 +70,8 @@ def _over_relaxed(sdf_b, origins, dirs, max_dists, active, eps, max_steps,
         new_step = torch.where(fail, sl * (1.0 - omega), d * o)
         om[ids] = torch.where(fail, 1.0, o)
         still = ~hit
+        if caps is not None:
+            still = still & (fail | (ta < caps[ids]))
         ta = torch.where(still, ta + new_step, ta)
         t[ids] = ta
         prev_r[ids] = torch.where(still, torch.abs(d), pr)
@@ -74,21 +81,32 @@ def _over_relaxed(sdf_b, origins, dirs, max_dists, active, eps, max_steps,
     return t, blocked, steps
 
 
+def _snap_capped(t, caps, en, max_dist):
+    """t with max_dist where an enabled ray ended at its cap short of
+    max_dist: such a ray is a miss (the kernels' miss convention)."""
+    eff = torch.clamp_max(caps, max_dist)
+    return torch.where(en & (t >= eff) & (eff < max_dist), max_dist, t)
+
+
 @torch.no_grad()
 def raycast_distance(sdf_b, origins, dirs, max_dist, *, eps=EPSILON,
-                     max_steps=MAX_STEPS, enabled=None, omega=RELAXATION):
+                     max_steps=MAX_STEPS, enabled=None, omega=RELAXATION,
+                     caps=None):
     """The march of ``raycast`` alone: t f32[N], where each ray stopped (0
-    where disabled), for a caller that classifies the end point itself."""
+    where disabled), for a caller that classifies the end point itself;
+    ``caps`` as raycast's."""
     max_dists = torch.full((origins.shape[0],), max_dist,
                            dtype=torch.float32, device=origins.device)
-    return _over_relaxed(sdf_b, origins, dirs, max_dists,
-                         _active0(origins, enabled), eps, max_steps, omega)[0]
+    en = _active0(origins, enabled)
+    t = _over_relaxed(sdf_b, origins, dirs, max_dists, en.clone(), eps,
+                      max_steps, omega, caps=caps)[0]
+    return t if caps is None else _snap_capped(t, caps, en, max_dist)
 
 
 @torch.no_grad()
 def raycast(sdf_b, origins, dirs, max_dist, *, eps=EPSILON,
             max_steps=MAX_STEPS, enabled=None, omega=RELAXATION,
-            return_steps=False):
+            return_steps=False, caps=None):
     """Sphere-trace a batch of rays.
 
     sdf_b: batched scene distance f32[N,3] -> f32[N]; origins, dirs
@@ -97,13 +115,18 @@ def raycast(sdf_b, origins, dirs, max_dist, *, eps=EPSILON,
     ``return_steps``, each ray's march steps i32[N].  hit = sdf(pos) < eps
     ∧ t < max_dist on enabled rays; a ray that stopped on a hit evaluated
     pos in its last step, so only the others are evaluated there again.
+    ``caps``: optional f32[N] box-exit caps (ops/march.py:ray_box_cap); an
+    enabled ray that ends at its cap short of max_dist reports t =
+    max_dist.  Without them the march is the JAX package's.
     """
     en = _active0(origins, enabled)
     max_dists = torch.full((origins.shape[0],), max_dist,
                            dtype=torch.float32, device=origins.device)
     t, blocked, steps = _over_relaxed(sdf_b, origins, dirs, max_dists,
                                       en.clone(), eps, max_steps, omega,
-                                      return_steps)
+                                      return_steps, caps)
+    if caps is not None:
+        t = _snap_capped(t, caps, en, max_dist)
     pos = origins + t[:, None] * dirs
     under = t < max_dist
     hit = blocked & under
@@ -116,14 +139,15 @@ def raycast(sdf_b, origins, dirs, max_dist, *, eps=EPSILON,
 @torch.no_grad()
 def raycast_visibility(sdf_b, origins, dirs, max_dists, *, eps=EPSILON,
                        max_steps=MAX_STEPS, enabled=None, omega=RELAXATION,
-                       return_steps=False):
+                       return_steps=False, caps=None):
     """1.0 if the ray reaches its own max distance unobstructed, else 0.0;
     max_dists is per ray f32[N].  With ``return_steps`` also each ray's
-    march steps i32[N]."""
+    march steps i32[N].  ``caps``: optional f32[N] box-exit caps, at which
+    a ray ends unblocked."""
     active = _active0(origins, enabled) & (0.0 < max_dists)
     _, blocked, steps = _over_relaxed(sdf_b, origins, dirs, max_dists,
                                       active, eps, max_steps, omega,
-                                      return_steps)
+                                      return_steps, caps)
     vis = torch.where(blocked, 0.0, 1.0)
     return (vis, steps) if return_steps else vis
 

@@ -37,10 +37,13 @@ VARIANTS = {
 REPS = 3
 
 
-def time_variants(r, reps=REPS):
+def time_variants(r, reps=REPS, box_cap=True):
     """({variant: ms per launch}, lanes per ray, rays) of renderer r's
-    screen-ray geometry launch in each of VARIANTS."""
+    screen-ray geometry launch in each of VARIANTS; ``box_cap`` False drops
+    the scene's box-exit cap."""
     ctx = SceneCtx(r.spec, r.scene_data)
+    if not box_cap:
+        ctx.packed = march_ops.without_box_cap(ctx.packed)
     o, d = bench.screen_rays(r)
 
     def launch(flags):

@@ -550,6 +550,126 @@ def test_obj_mesh_frame_launches_the_kernel(dev):
     assert torch.isfinite(img).all() and img.var() > 0
 
 
+def _camera_rays(r, dev):
+    """Renderer r's camera rays: on the torus most of them miss."""
+    cam = r.camera
+    o, d = camera_rays(pixel_grid(r.width, r.height, dev), cam.position,
+                       cam.orientation)
+    return o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+
+
+@pytest.mark.parametrize("lanes", M.LANE_CHOICES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_box_cap_geometry_matches_plain_on_camera_rays(dev, lanes, masked):
+    """The torus packs a box-exit cap: on its camera rays (most miss) the
+    capped kernel equals the capped plain version, every miss of the
+    primary and the reflection at t = max_dist, and with box_cap=False
+    both march on to max_dist as before; hits the same either way."""
+    r, spec, data = _mesh_scene(dev)
+    o, d = _camera_rays(r, dev)
+    en = (torch.rand(o.shape[0], generator=torch.Generator().manual_seed(5))
+          > 0.3).to(dev) if masked else None
+    packed = M.pack_scene(spec, data)
+    assert packed.cap_margin == M.FAR_MARGIN
+    k, ref = _both(spec, data, o, d, True, 3, r.probes, lanes=lanes,
+                   enabled=en)
+    _assert_match(k, ref)
+    hit = k["hit"]
+    assert 0 < int(hit.sum()) < hit.numel() // 2
+    live = torch.ones_like(hit) if en is None else en
+    assert bool((k["t"][live & ~hit] == spec.max_dist).all())
+    assert bool((k["t"][~live] == 0).all())
+    kw = dict(probe_spacing=r.probes.grid_spacing,
+              probe_dims=r.probes.grid_dimensions,
+              surface_offset=SURFACE_OFFSET, ao_steps=3,
+              mat_rough_vec=data.materials["roughness"], enabled=en)
+    lpos, n_lights = M.pack_light_positions(spec, data)
+    k_off = M.geometry(packed, lpos, n_lights, o, d, spec.max_dist,
+                       library=M.geometry_library(lanes), box_cap=False,
+                       **kw)
+    _assert_match(k_off, M.geometry_reference(
+        M.without_box_cap(packed), lpos, n_lights, o, d, spec.max_dist,
+        **kw))
+    assert torch.equal(k_off["hit"], hit)
+    assert torch.equal(k_off["t"][hit], k["t"][hit])
+    assert bool((k_off["t"][live & ~hit] > spec.max_dist).all())
+
+
+def _bounded_slots(dev, n_spheres, n_boxes):
+    """Spheres and boxes only, each type of more than 8 slots: an
+    all-bounded scene without triangles, scattered around (0, 1.5, 5)."""
+    prims = tuple((pt, n) for pt, n in ((P.Sphere, n_spheres),
+                                        (P.Box, n_boxes)) if n)
+    spec = SceneSpec(prims=prims, lights=((L.PointLight, 1),),
+                     max_dist=20.0)
+    b = SceneBuilder(spec)
+    b.add_material((0.5, 0.5, 0.5), 0.0, 0.2)
+    rng = np.random.RandomState(11)
+    for pt, n in prims:
+        for _ in range(n):
+            c = tuple(rng.uniform(-2.0, 2.0, 3) + (0.0, 1.5, 5.0))
+            if pt is P.Sphere:
+                b.add_primitive(pt, center=c, radius=rng.uniform(0.1, 0.4),
+                                material_id=0)
+            else:
+                b.add_primitive(pt, center=c,
+                                side=tuple(rng.uniform(0.1, 0.4, 3)),
+                                material_id=0)
+    b.add_light(L.PointLight, position=(0.0, 5.0, 3.0), color=(1.0,) * 3)
+    return spec, b.device_data(dev)
+
+
+@pytest.mark.parametrize("lanes", M.LANE_CHOICES)
+@pytest.mark.parametrize("counts", [(12, 0), (20, 12)])
+def test_box_cap_without_triangles_matches_plain(dev, lanes, counts):
+    """An all-bounded scene of spheres (12: raycast and visibility in the
+    build of its layout) or of spheres and boxes (the generic build; two
+    cap boxes): each kernel capped equals its capped plain version, a
+    capped miss at t = max_dist."""
+    spec, data = _bounded_slots(dev, *counts)
+    packed = M.pack_scene(spec, data)
+    assert packed.cap_boxes.shape == (len([c for c in counts if c]), 6)
+    assert (M.march_layout(packed) is not None) == (counts == (12, 0))
+    g = torch.Generator().manual_seed(13)
+    o = (torch.rand(4099, 3, generator=g) * 8.0 - 4.0
+         + torch.tensor([0.0, 1.5, 5.0])).to(dev)
+    d = torch.randn(4099, 3, generator=g).to(dev)
+    d = (d / d.norm(dim=1, keepdim=True)).contiguous()
+    grid = ProbeSettings(grid_dimensions=(3, 3, 4),
+                         grid_spacing=(2.0, 3.0, 3.0))
+    k, ref = _both(spec, data, o, d, True, 3, grid, lanes=lanes)
+    _assert_match(k, ref)
+    hit = k["hit"]
+    assert 0 < int(hit.sum()) < hit.numel()
+    assert bool((k["t"][~hit] == spec.max_dist).any())
+    kt, khit, _ = M.raycast(packed, o, d, spec.max_dist)
+    rt, rhit, _ = M.raycast_reference(packed, o, d, spec.max_dist)
+    assert torch.equal(khit, rhit)
+    torch.testing.assert_close(kt, rt, rtol=1e-5, atol=1e-5)
+    mx = torch.full((o.shape[0],), spec.max_dist, device=dev)
+    assert torch.equal(M.visibility(packed, o, d, mx),
+                       M.visibility_reference(packed, o, d, mx))
+
+
+def test_box_cap_march_kernels_match_plain_on_camera_rays(dev):
+    """raycast and visibility end at the torus's box, capped and with
+    box_cap=False, each equal to its plain version; a capped raycast miss
+    at t = max_dist."""
+    r, spec, data = _mesh_scene(dev)
+    packed = M.pack_scene(spec, data)
+    o, d = _camera_rays(r, dev)
+    mx = torch.full((o.shape[0],), spec.max_dist, device=dev)
+    for cap in (True, False):
+        plain = packed if cap else M.without_box_cap(packed)
+        kt, khit, _ = M.raycast(packed, o, d, spec.max_dist, box_cap=cap)
+        rt, rhit, _ = M.raycast_reference(plain, o, d, spec.max_dist)
+        assert torch.equal(khit, rhit)
+        torch.testing.assert_close(kt, rt, rtol=1e-5, atol=1e-5)
+        assert bool((kt[~khit] == spec.max_dist).all()) == cap
+        kv = M.visibility(packed, o, d, mx, box_cap=cap)
+        assert torch.equal(kv, M.visibility_reference(plain, o, d, mx))
+
+
 # ---------------------------------------------------------------------------
 # Lane groups: the geometry kernel built for each lane count per ray the
 # wrapper can choose (ops/march.py:LANE_CHOICES), whatever it would choose

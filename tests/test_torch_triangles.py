@@ -14,7 +14,9 @@ madarch_tpu.
   against the JAX package's unculled XLA marches (render/raymarch.py)
   over scene_sdf and scene_sdf_info: hit, visibility, the blocked set of
   the penumbras, idx and mid equal; t and the penumbra factors to 1e-5
-  relative or absolute (a miss's t only past max_dist on both); the
+  relative or absolute (a miss's t only past max_dist on both, and at
+  max_dist exactly on the port's side on the torus, whose scene packs a
+  box-exit cap); the
   primary normal, which the JAX package takes by autodiff, to 2e-3 (1e-4
   on average, NORMAL_ATOL says why) against a tetrahedron FD of its
   scene_sdf computed here.
@@ -314,14 +316,18 @@ def tri_scene(request):
     return name, jspec, jdata, tspec, tdata, o, d
 
 
-def _assert_t_close(got, ref, max_dist):
+def _assert_t_close(got, ref, max_dist, capped):
     """t to TOL where either march stopped under max_dist; a miss past
     max_dist on both otherwise (its overshoot is the last step, ω·d at a
-    far point, where the two SDF forms' last bits differ)."""
+    far point, where the two SDF forms' last bits differ), and at exactly
+    max_dist on the port's side where its scene packs a box-exit cap
+    (``capped``: the torus; the JAX XLA march has none)."""
     got, ref = _np(got), np.asarray(ref)
     near = (got < max_dist) | (ref < max_dist)
     np.testing.assert_allclose(got[near], ref[near], **TOL)
     assert (got[~near] >= max_dist).all() and (ref[~near] >= max_dist).all()
+    if capped:
+        assert (got[~near] == max_dist).all()
 
 
 def _jax_sdf(jspec, jdata, cap=None):
@@ -340,7 +346,8 @@ def test_raycast_reference_matches_xla(tri_scene):
     tt, thit, _ = TM.raycast(packed, torch.as_tensor(o), torch.as_tensor(d),
                              tspec.max_dist)
     np.testing.assert_array_equal(_np(thit), np.asarray(jhit))
-    _assert_t_close(tt, jt, tspec.max_dist)
+    assert (packed.cap_margin is not None) == (name == "torus")
+    _assert_t_close(tt, jt, tspec.max_dist, packed.cap_margin is not None)
     assert _np(thit).mean() > (0.6 if name == "torus" else 0.2)
 
 
@@ -364,7 +371,8 @@ def test_geometry_reference_primary_matches_xla(tri_scene):
     np.testing.assert_array_equal(_np(g["hit"]), jhit)
     np.testing.assert_array_equal(_np(g["idx"])[jhit], np.asarray(jidx)[jhit])
     np.testing.assert_array_equal(_np(g["mid"])[jhit], np.asarray(jmid)[jhit])
-    _assert_t_close(g["t"], jt, tspec.max_dist)
+    _assert_t_close(g["t"], jt, tspec.max_dist,
+                    packed.cap_margin is not None)
     pos = np.asarray(jpos)
     h = TM.NORMAL_H
     f = [np.asarray(sdf(jnp.asarray(pos + h * k))) for k in TET]
