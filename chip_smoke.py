@@ -214,7 +214,23 @@ Phases, each printed on its own lines; any failure exits non-zero:
    geom_probe's split and the bench's obj_mesh row capped and uncapped;
    the GI, light_shafts, simple_scene and obj_mesh 800x800 images
    bit-equal with the cap on and off (only obj_mesh packs a cap); prints
-   a box_cap JSON line.
+   a box_cap JSON line;
+39. scenes past 48 KiB of staged tables (examples/large_scenes.py): 3,500
+   spheres in the chunked layout (staged), a 12,000-triangle grid OBJ
+   through obj_mesh (the geometry kernel's opt-in; the march kernels'
+   device memory) and a 65,000-triangle grid (device memory), at 800x800:
+   each scene's staged bytes and placement; the four kernels held to their
+   plain versions on a seeded subset of the screen rays (LARGE_CHECK: the
+   plain versions' [points, slots] intermediates grow with the slots), the
+   geometry kernel at both lane counts without and with the fold and a
+   mask, timed there against its plain version and its bound; at the full
+   shapes every placement that holds the tables bit-equal and timed in
+   turns (folded screen, radiance, raycast, visibility, softshadows); the
+   sphere field's chunked run against the same spheres in one typed run
+   (typed_spheres), bit-equal and timed; the sphere field and the mesh at
+   32x32 on the card and on the CPU under the golden gates, and at 800x800
+   (a warm-up, 3 timed frames, 2 geometry launches each, device busy and
+   idle share under torch.profiler); prints a large_scenes JSON line.
 
 The geometry kernel shares a ray among a group of lanes
 (ops/csrc/scene.cuh).  At every full shape above (phases 3, 16, 21) and on
@@ -244,8 +260,8 @@ published fp32 peak.
 It prints a train JSON line (phases 25-27), a scenes JSON line (phases
 28-32), a pathtrace JSON line (phases 33-34), an api JSON line (phase 35),
 a geometry_flags JSON line (phase 36), a bench JSON line (phase 37), a
-box_cap JSON line (phase 38), a kernels JSON line, the card line, then the
-last line
+box_cap JSON line (phase 38), a large_scenes JSON line (phase 39), a
+kernels JSON line, the card line, then the last line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 import contextlib
@@ -291,6 +307,7 @@ def port_modules():
                                                ProbeSettings, ShadeConfig,
                                                VolumetricsSettings)
     from madarch_tpu_torch.core.vecmath import length, reflect
+    from madarch_tpu_torch.examples import large_scenes
     from madarch_tpu_torch.examples import scenes
     from madarch_tpu_torch.ops import build
     from madarch_tpu_torch.ops import march
@@ -334,7 +351,8 @@ def port_modules():
         image_stats=image_stats, FrameTimer=FrameTimer,
         averaged_busy=averaged_busy, device_ops=device_ops,
         kernel_ops=kernel_ops, trace=trace, trace_calls=trace_calls,
-        rays_per_frame=rays_per_frame, bench=bench, geom_probe=geom_probe)
+        rays_per_frame=rays_per_frame, bench=bench, geom_probe=geom_probe,
+        LS=large_scenes)
 
 
 def toolchain(torch, m):
@@ -370,7 +388,8 @@ def build_all(m):
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda b: b[1](), builds))
     print("build: " + ", ".join(name for name, _ in builds)
-          + f" in {time.perf_counter() - t0:.2f} s")
+          + f" in {time.perf_counter() - t0:.2f} s ({m.build.load.build_s:.1f}"
+          f" s of nvcc summed over the builds)")
 
 
 def ptxas_lines(m, name, kernel="", defines=()):
@@ -547,7 +566,7 @@ def time_turns(torch, fns, iters=10):
 def scene_bytes(packed):
     """Bytes of the packed scene's tables."""
     return 4 * (packed.rows.numel() + packed.info.numel()
-                + packed.tris.numel() + packed.aabbs.numel()
+                + packed.chunks.numel() + packed.aabbs.numel()
                 + packed.cap_boxes.numel())
 
 
@@ -623,10 +642,12 @@ def pad_scene(torch, m, packed, counts):
             out += [cols[col:col + n],
                     torch.zeros(add[code], dtype=cols.dtype, device=dev)]
         col += n
+    col_gidx = torch.cat(gidx)
     return dataclasses.replace(
         packed, entries=tuple(entries), rows=torch.cat(rows).contiguous(),
         counts=tuple(counts), info=torch.cat(info).contiguous(),
-        col_gidx=torch.cat(gidx), col_mid=torch.cat(mid))
+        col_gidx=col_gidx, col_mid=torch.cat(mid),
+        col_slot=torch.full_like(col_gidx, -1, dtype=torch.int64))
 
 
 def layout_name(counts):
@@ -993,23 +1014,23 @@ def mesh_phases(torch, m, dev, card):
     differences on mesh rays and the launches of the 800x800 frames."""
     M, S = m.M, m.S
 
-    # ---- 19. ptxas's report for the triangle variants (the last template
-    # argument, TRIS, true)
+    # ---- 19. ptxas's report for the triangle variants (template
+    # arguments CHUNKS = TRI_CHUNKS, STAGED true)
     for lanes in M.LANE_CHOICES:
-        ptxas_lines(m, "geometry", "Lb1EEEv", lanes_def(lanes))
-    ptxas_lines(m, "march", "Lb1EEEv")
+        ptxas_lines(m, "geometry", "Li1ELb1EEEv", lanes_def(lanes))
+    ptxas_lines(m, "march", "Li1ELb1EEEv")
 
     # ---- 20. the scene: 968 triangles in 121 chunks
     r = S.obj_mesh(width=800, height=800, obj_path=S.TORUS_OBJ, device=dev)
     ctx = m.SceneCtx(r.spec, r.scene_data)
     packed = ctx.packed
-    n_tri = int(packed.tri_live.sum())
+    n_tri = int(packed.chunk_live.sum())
     if (n_tri, packed.n_chunks) != (968, 121):
         fail(f"obj_mesh packs {n_tri} triangles in {packed.n_chunks} "
              f"chunks, expected 968 in 121")
     print(f"obj_mesh: {n_tri} triangles in {packed.n_chunks} chunks and "
           f"{packed.n_supers} super-chunks; triangle table "
-          f"{4 * packed.tris.numel()} bytes in device memory, boxes "
+          f"{4 * packed.chunks.numel()} bytes in device memory, boxes "
           f"{4 * packed.aabbs.numel()} bytes in shared memory")
 
     # ---- 21. the kernels against their plain versions on mesh rays
@@ -2540,6 +2561,252 @@ def box_cap_phase(torch, m, dev, card):
     return out, err
 
 
+# Phase 39: scenes past 48 KiB of staged tables (examples/large_scenes.py):
+# the chunked sphere runs, the opt-in and device memory.
+LARGE_SIZE = 800
+LARGE_FRAMES = 3
+# rays each kernel is held to its plain version on, a seeded subset of the
+# screen rays: the plain versions' [points, slots] intermediates grow with
+# the slots
+LARGE_CHECK = {"spheres": 2048, "mesh": 2048, "huge_mesh": 512}
+LARGE_PLACEMENTS = {"spheres": "staged", "mesh": "optin",
+                    "huge_mesh": "global"}
+
+
+@contextlib.contextmanager
+def typed_spheres(M):
+    """Every scene packed inside the block keeps its sphere and box types
+    in the typed runs, as many slots as they have."""
+    chunked = M.chunked_layout
+    M.chunked_layout = lambda ptype, n: ptype is M.P.Triangle
+    try:
+        yield
+    finally:
+        M.chunked_layout = chunked
+
+
+def large_scenes(m, tmp, dev, size, names=tuple(LARGE_CHECK), **kw):
+    """{name: renderer} of the large scenes ``names`` at size², with the
+    Renderer keywords kw (probes)."""
+    LS, S = m.LS, m.S
+    out = {}
+    for name in names:
+        if name == "spheres":
+            out[name] = LS.sphere_field(size, size, device=dev, **kw)
+            continue
+        n = {"mesh": LS.MESH_TRIANGLES,
+             "huge_mesh": LS.HUGE_MESH_TRIANGLES}[name]
+        path = LS.write_grid_obj(os.path.join(tmp, f"{name}.obj"), n)
+        out[name] = S.obj_mesh(width=size, height=size, obj_path=path,
+                               triangle_capacity=n, device=dev, **kw)
+    return out
+
+
+def large_scene_phase(torch, m, dev, card):
+    """Phase 39.  Returns ({its numbers}, {kernel: the largest
+    kernel-vs-plain difference of its holds})."""
+    import tempfile
+    M, LS = m.M, m.LS
+    for lanes in M.LANE_CHOICES:
+        ptxas_lines(m, "geometry", ("Li2ELb1EEEv", "Li2ELb0EEEv",
+                                    "Li1ELb0EEEv"), lanes_def(lanes))
+    ptxas_lines(m, "march", ("Li2ELb1EEEv", "Li2ELb0EEEv", "Li1ELb0EEEv"))
+    limit = M.optin_limit(M.geometry_library(8), dev)
+    out, err = {"optin_limit": limit}, dict.fromkeys(KERNELS, 0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        rs = large_scenes(m, tmp, dev, LARGE_SIZE)
+    for name, r in rs.items():
+        ctx = m.SceneCtx(r.spec, r.scene_data)
+        packed = ctx.packed
+        extra = ctx.lpos_vec.numel() + ctx.rough_vec.numel()
+        staged = {"geometry": M.smem_bytes(packed, extra),
+                  "march": M.smem_bytes(packed)}
+        placed = {k: M.placement_for("geometry" if k == "geometry"
+                                     else "raycast", b, limit)
+                  for k, b in staged.items()}
+        print(f"large {name}: chunk runs {packed.chunk_runs} (type code, "
+              f"first chunk, chunks), {packed.n_supers} super-chunks, "
+              f"typed runs {packed.counts}; staged bytes {staged} -> "
+              f"{placed}; chunk table {4 * packed.chunks.numel()} bytes in "
+              f"device memory; [{card}]")
+        if placed["geometry"] != LARGE_PLACEMENTS[name]:
+            fail(f"large {name}: placement {placed}, expected "
+                 f"{LARGE_PLACEMENTS[name]}")
+        out[name] = dict(chunk_runs=packed.chunk_runs,
+                         n_supers=packed.n_supers, staged_bytes=staged,
+                         placement=placed)
+        _, scr_sub, rad_full, scr_full = gi_rays(torch, m, r, dev)
+        n_check = LARGE_CHECK[name]
+        sub = tuple(x[:n_check].contiguous() for x in scr_sub)
+        en = torch.rand(n_check, generator=torch.Generator().manual_seed(
+            SEED + 39)).to(dev) > 0.2
+
+        def run(fn, rays, refl, scene=packed, **kw):
+            return fn(scene, ctx.lpos_vec, ctx.n_light_slots, rays[0],
+                      rays[1], ctx.max_dist,
+                      probe_spacing=r.probes.grid_spacing,
+                      probe_dims=r.probes.grid_dimensions,
+                      surface_offset=m.SURFACE_OFFSET,
+                      ao_steps=r.screen_cfg.ambient_occlusion_steps,
+                      max_steps=r.screen_cfg.max_march_steps,
+                      mat_rough_vec=ctx.rough_vec if refl else None,
+                      refl_shadows=r.screen_cfg.add_indirect_specular, **kw)
+
+        # the four kernels against their plain versions on the subset:
+        # geometry at both lane counts, without and with the fold and the
+        # mask, its work counted for the bound
+        for refl, mask in ((False, None), (True, en)):
+            ref, flops = counted(torch, m, lambda: run(
+                M.geometry_reference, sub, refl, enabled=mask))
+            for lanes in M.LANE_CHOICES:
+                k = run(M.geometry, sub, refl, enabled=mask,
+                        library=M.geometry_library(lanes))
+                torch.cuda.synchronize()
+                err["geometry"] = max(err["geometry"], check_geometry(
+                    torch, f"large {name}, {lanes} lanes, "
+                    f"{'fold and mask' if refl else 'primary'}", n_check,
+                    k, ref))
+                del k
+            del ref
+        pruned = dict(M.pruned_evals)
+        (k1, k2), (p1, p2) = time_pair(
+            torch, lambda: run(M.geometry, sub, True, enabled=en),
+            lambda: run(M.geometry_reference, sub, True, enabled=en),
+            iters=3)
+        n_l = ctx.n_light_slots
+        per_ray = 25 + 4 * (10 + n_l + 8) + 4 * (14 + n_l + 8)
+        b_ms, b_by = bound(flops, n_check * per_ray + scene_bytes(packed)
+                           + 4 * extra)
+        print(f"time large {name} geometry, fold and mask ({n_check} "
+              f"rays): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.1f}/"
+              f"{p2:.1f} ms; bound {b_ms:.5f} ms ({b_by}: {flops:.4e} "
+              f"flops, exact pruning's {json.dumps(pruned)}); [{card}]")
+        out[name]["subset"] = dict(rays=n_check, ms=min(k1, k2),
+                                   plain_ms=min(p1, p2), bound_ms=b_ms,
+                                   bound_by=b_by, flops=flops,
+                                   pruned=pruned)
+        o, d = sub
+        g = torch.Generator().manual_seed(SEED + 40)
+        mx = (torch.rand(n_check, generator=g) * ctx.max_dist).to(dev)
+        mn = (torch.rand(n_check, generator=g) * 0.5).to(dev)
+        k = M.raycast(packed, o, d, ctx.max_dist, enabled=en)
+        torch.cuda.synchronize()
+        err["raycast"] = max(err["raycast"], check_raycast(
+            torch, f"large {name} raycast", k, M.raycast_reference(
+                packed, o, d, ctx.max_dist, enabled=en)))
+        k = M.visibility(packed, o, d, mx, enabled=en)
+        torch.cuda.synchronize()
+        err["visibility"] = max(err["visibility"], check_visibility(
+            torch, f"large {name} visibility", k, M.visibility_reference(
+                packed, o, d, mx, enabled=en)))
+        k = M.softshadows(packed, o, d, mn, mx, 64.0, enabled=en)
+        torch.cuda.synchronize()
+        err["softshadows"] = max(err["softshadows"], check_softshadows(
+            torch, f"large {name} softshadows", k, M.softshadows_reference(
+                packed, o, d, mn, mx, 64.0, enabled=en)))
+        del k
+
+        # each placement that holds the tables, timed in turns at the
+        # passes' full shapes: the folded screen launch, the radiance
+        # launch, and the march kernels on the screen rays (to max_dist;
+        # the penumbra from 0 at k = 64)
+        allowed = [p for p in M.PLACEMENTS
+                   if M.PLACEMENTS.index(p)
+                   >= M.PLACEMENTS.index(placed["geometry"])]
+        mx_full = torch.full((scr_full[0].shape[0],), ctx.max_dist,
+                             device=dev)
+        fns = {"screen": lambda p: run(M.geometry, scr_full, True,
+                                       placement=p),
+               "radiance": lambda p: run(M.geometry, rad_full, False,
+                                         placement=p),
+               "raycast": lambda p: M.raycast(packed, *scr_full,
+                                              ctx.max_dist, placement=p),
+               "visibility": lambda p: (M.visibility(
+                   packed, *scr_full, mx_full, placement=p),),
+               "softshadows": lambda p: (M.softshadows(
+                   packed, *scr_full, 0.0 * mx_full, mx_full, 64.0,
+                   placement=p),)}
+        for launch, fn in fns.items():
+            first = fn(allowed[0])
+            for p in allowed[1:]:
+                other = fn(p)
+                same = (same_outputs(torch, first, other)
+                        if isinstance(first, dict) else all(
+                            torch.equal(a, b) for a, b in zip(first, other)))
+                if not same:
+                    fail(f"large {name} {launch}: placement {p} differs "
+                         f"from {allowed[0]}")
+                del other
+            del first
+            ms = dict(zip(allowed, time_turns(
+                torch, [lambda p=p: fn(p) for p in allowed], iters=3)))
+            print(f"time large {name} {launch} by placement: "
+                  + ", ".join(f"{p} {t:.3f} ms" for p, t in ms.items())
+                  + f"; [{card}]")
+            out[name].setdefault("ms_by_placement", {})[launch] = ms
+
+    # the sphere field's chunked run against the same spheres forced into
+    # one typed run (every slot evaluated at every step): bit-equal, timed
+    r = rs["spheres"]
+    ctx = m.SceneCtx(r.spec, r.scene_data)
+    with typed_spheres(M):
+        typed = m.SceneCtx(r.spec, r.scene_data).packed
+    if typed.counts != (LS.SPHERES, 1, 0) or typed.n_chunks:
+        fail(f"typed sphere field packs {typed.counts}")
+    _, scr_sub, rad_full, scr_full = gi_rays(torch, m, r, dev)
+    ms = {}
+    for launch, rays, refl in (("screen", scr_full, True),
+                               ("radiance", rad_full, False)):
+        def geo(scene, rays=rays, refl=refl):
+            return M.geometry(
+                scene, ctx.lpos_vec, ctx.n_light_slots, *rays, ctx.max_dist,
+                probe_spacing=r.probes.grid_spacing,
+                probe_dims=r.probes.grid_dimensions,
+                surface_offset=m.SURFACE_OFFSET, ao_steps=3,
+                mat_rough_vec=ctx.rough_vec if refl else None)
+        if not same_outputs(torch, geo(ctx.packed), geo(typed)):
+            fail(f"large spheres {launch}: chunked and typed differ")
+        ms[launch] = dict(zip(("chunked", "typed"), time_turns(
+            torch, [lambda: geo(ctx.packed), lambda: geo(typed)], iters=1)))
+        print(f"time large spheres {launch} ({rays[0].shape[0]} rays): "
+              f"chunked {ms[launch]['chunked']:.3f} ms, typed run "
+              f"{ms[launch]['typed']:.3f} ms "
+              f"({M.placement_for('geometry', M.smem_bytes(typed, 3), limit)}"
+              f"); "
+              f"[{card}]")
+    out["spheres"]["chunked_vs_typed"] = ms
+
+    # card against CPU at 32x32 with the tiny probes, then the 800x800
+    # frames: the main path
+    with tempfile.TemporaryDirectory() as tmp:
+        small = {x: large_scenes(m, tmp, x, 32, ("spheres", "mesh"),
+                                 probes=m.ProbeSettings(**TINY_PROBES))
+                 for x in (dev, "cpu")}
+    for name in ("spheres", "mesh"):
+        imgs = [small[x][name].converge(frames=2).cpu().numpy()
+                for x in (dev, "cpu")]
+        stats = m.image_stats(*imgs)
+        print(f"large {name} 32x32, cuda vs cpu: {json.dumps(stats)}")
+        if stats["breached"]:
+            fail(f"large {name}: card vs CPU gates breached: "
+                 f"{stats['breached']}")
+        out[name]["golden_32"] = stats
+    del small
+    for name in ("spheres", "mesh"):
+        r = rs[name]
+        launches, ms, rays_s = drive(
+            torch, m, r, f"large {name} {LARGE_SIZE}x{LARGE_SIZE}",
+            LARGE_FRAMES, {"geometry": 2}, card)
+        busy, wall, _ = profile_frames(
+            m, r, f"large {name} {LARGE_SIZE}x{LARGE_SIZE}", card)
+        out[name]["frame"] = dict(ms=ms, rays_per_s=rays_s,
+                                  launches=launches, device_busy_ms=busy,
+                                  profiled_wall_ms=wall,
+                                  idle_share=1.0 - busy / wall)
+    out["max_abs_err"] = err
+    return out, err
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "madarch_tpu_torch")):
         fail("madarch_tpu_torch/ is not beside this script")
@@ -2932,6 +3199,14 @@ def main():
     vis_err = max(vis_err, cap_err["visibility"])
     sh_err = max(sh_err, cap_err["softshadows"])
 
+    # ---- 39. scenes past 48 KiB of staged tables: the chunked sphere
+    # runs, the opt-in and device memory
+    large, large_err = large_scene_phase(torch, m, dev, card)
+    max_err = max(max_err, large_err["geometry"])
+    rc_err = max(rc_err, large_err["raycast"])
+    vis_err = max(vis_err, large_err["visibility"])
+    sh_err = max(sh_err, large_err["softshadows"])
+
     def lamp_keys(name):
         """The kernel's numbers on the lamp room (phase 32)."""
         k = lamp_k[name]
@@ -2945,6 +3220,7 @@ def main():
     print(json.dumps({"geometry_flags": flags}))
     print(json.dumps({"bench": bench_out, "bench_wall_s": bench_s}))
     print(json.dumps({"box_cap": cap}))
+    print(json.dumps({"large_scenes": large}))
 
     def pt_keys(name):
         """The kernel's numbers in the path tracers (phase 33), its
@@ -3012,6 +3288,23 @@ def main():
          "ms_obj_mesh_radiance_capped": cap["geometry radiance"]["ms"],
          "ms_obj_mesh_radiance_uncapped": cap["geometry radiance"][
              "uncapped_ms"],
+         # phase 39: the large scenes' 800x800 frames, the folded screen
+         # launch at each placement that holds the tables, the sphere
+         # field chunked against its typed run, the held subsets' time and
+         # bound
+         **{f"launches_large_{name}": large[name]["frame"]["launches"][
+             "geometry"] for name in ("spheres", "mesh")},
+         "ms_large_by_placement": {
+             name: large[name]["ms_by_placement"]["screen"]
+             for name in LARGE_CHECK},
+         "ms_large_spheres_chunked_vs_typed": large["spheres"][
+             "chunked_vs_typed"],
+         "ms_large_subset": {name: large[name]["subset"]["ms"]
+                             for name in LARGE_CHECK},
+         "plain_ms_large_subset": {name: large[name]["subset"]["plain_ms"]
+                                   for name in LARGE_CHECK},
+         "bound_ms_large_subset": {name: large[name]["subset"]["bound_ms"]
+                                   for name in LARGE_CHECK},
          # lanes per ray: the wrapper's choice and the time at each of
          # TIMED_LANES, per full shape
          "lanes": {label: g["lanes"] for label, g in shapes.items()},
@@ -3043,6 +3336,9 @@ def main():
          "steps_gi_mode1": steps["reflections"], **lamp_keys("raycast"),
          "ms_obj_mesh_screen": cap["raycast"]["ms"],
          "ms_obj_mesh_screen_uncapped": cap["raycast"]["uncapped_ms"],
+         "ms_large_by_placement": {
+             name: large[name]["ms_by_placement"]["raycast"]
+             for name in LARGE_CHECK},
          **pt_keys("raycast")},
         {"name": "visibility", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1127",
@@ -3055,6 +3351,9 @@ def main():
          "steps_gi_lamp": lamp_k["visibility"]["steps"],
          "ms_obj_mesh_screen": cap["visibility"]["ms"],
          "ms_obj_mesh_screen_uncapped": cap["visibility"]["uncapped_ms"],
+         "ms_large_by_placement": {
+             name: large[name]["ms_by_placement"]["visibility"]
+             for name in LARGE_CHECK},
          **lamp_keys("visibility")},
         {"name": "softshadows", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1144",
@@ -3066,6 +3365,9 @@ def main():
          "library_ms": None,
          "candidate": launched(m, g1ctx.packed),
          "ms_by_build": sh_builds, "steps": steps["penumbra"],
+         "ms_large_by_placement": {
+             name: large[name]["ms_by_placement"]["softshadows"]
+             for name in LARGE_CHECK},
          **lamp_keys("softshadows"), **pt_keys("softshadows")},
     ]}))
     print(card)

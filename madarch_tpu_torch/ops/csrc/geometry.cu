@@ -3,10 +3,11 @@
 // Replaces the Pallas TPU kernel madarch_tpu/ops/march.py:_geometry_kernel
 // (reached through pallas_geometry), in all three of its scene layouts:
 // unrolled and rolled slots (spheres, planes, boxes) and the chunked
-// triangle layout of meshes.  Per ray it runs the over-relaxed primary
-// sphere trace, classifies the hit (nearest global primitive index and
-// material id), takes the tetrahedron finite-difference normal, the AO
-// probes, one penumbra march per light and the 8 probe-visibility marches;
+// layout of meshes and of sphere and box types of more than 64 slots.
+// Per ray it runs the over-relaxed primary sphere trace, classifies the
+// hit (nearest global primitive index and material id), takes the
+// tetrahedron finite-difference normal, the AO probes, one penumbra march
+// per light and the 8 probe-visibility marches;
 // with REFL it also folds in the specular mode-2 reflection bounce (gate,
 // reflect, march, classify, normal, shadows, visibility) and the best-probe
 // pick.  An optional per-ray `enabled` mask (specular mode 3's reflection
@@ -36,15 +37,20 @@
 // that misses them does not march, and a miss so capped reports t =
 // max_dist; the penumbra marches go to the light (scene.cuh:march_shadow).
 //
-// The typed slot runs, the triangle boxes, light positions and roughness
-// sit in shared memory; the triangle table (~108 KB for obj_mesh's 968)
-// stays in device memory behind the read-only cache.  Every live slot is
-// evaluated exactly; triangles are pruned exactly by their boxes
-// (scene.cuh:tri_min), where the TPU kernel's culling gave margin lower
-// bounds that moved the march.
+// The typed slot runs, the chunk boxes, light positions and roughness sit
+// in shared memory: up to 48 KiB as is, past that after the opt-in, and
+// past the card's opt-in limit (227 KiB on an H100) they are read in place
+// from device memory through the read-only path, an instantiation of its
+// own (scene.cuh:Layout).  The chunk table (~108 KB for obj_mesh's 968
+// triangles) stays in device memory behind the read-only cache.  Every
+// typed slot is evaluated exactly; the chunked types (triangles, and
+// spheres and boxes of more than 64 slots, the TPU kernel's chunked
+// layout) are pruned exactly by their boxes (scene.cuh:chunk_min), where
+// the TPU kernel's culling gave margin lower bounds that moved the march.
 //
 // Built with COUNT_WORK, which no path of the package does, the kernel sums
-// the scene evaluations, box tests and triangle evaluations of the launch.
+// the scene evaluations, box tests and chunk-slot evaluations of the
+// launch.
 //
 // Built with -fmad=false so each float operation rounds like the plain
 // PyTorch version (ops/march.py:geometry_reference), which composes the
@@ -116,14 +122,14 @@ struct GeomArgs {
 namespace {
 
 // Tetrahedron finite-difference normal of the scene SDF.
-template <int G, bool TRIS>
+template <int G, class L>
 __device__ void fd_normal(const Scene& sc, const Group<G>& g, float h,
                           float px, float py, float pz, float* nx, float* ny,
                           float* nz) {
-  const float f0 = scene_dist<G, TRIS>(sc, g, px + h, py - h, pz - h);
-  const float f1 = scene_dist<G, TRIS>(sc, g, px - h, py - h, pz + h);
-  const float f2 = scene_dist<G, TRIS>(sc, g, px - h, py + h, pz - h);
-  const float f3 = scene_dist<G, TRIS>(sc, g, px + h, py + h, pz + h);
+  const float f0 = scene_dist<G, L>(sc, g, px + h, py - h, pz - h);
+  const float f1 = scene_dist<G, L>(sc, g, px - h, py - h, pz + h);
+  const float f2 = scene_dist<G, L>(sc, g, px - h, py + h, pz - h);
+  const float f3 = scene_dist<G, L>(sc, g, px + h, py + h, pz + h);
   const float gx = f0 - f1 - f2 + f3;
   const float gy = -f0 - f1 + f2 + f3;
   const float gz = -f0 + f1 - f2 + f3;
@@ -136,16 +142,16 @@ __device__ void fd_normal(const Scene& sc, const Group<G>& g, float h,
 // Per-light penumbra: origin (sx,sy,sz) is the offset surface point, the
 // light direction and distance come from the un-offset point p; enabled
 // only where n·l > ndotl_min.
-template <int G, bool TRIS>
+template <int G, class L>
 __device__ void shadow_block(const Scene& sc, const Group<G>& g,
                              const March& m, const GeomArgs& a,
                              const float* lpos, float px, float py, float pz,
                              float sx, float sy, float sz, float nx, float ny,
                              float nz, bool hit, float* out, int i) {
   for (int li = 0; li < a.n_lights; ++li) {
-    const float tlx = lpos[3 * li + 0] - px;
-    const float tly = lpos[3 * li + 1] - py;
-    const float tlz = lpos[3 * li + 2] - pz;
+    const float tlx = ld<L>(lpos + 3 * li + 0) - px;
+    const float tly = ld<L>(lpos + 3 * li + 1) - py;
+    const float tlz = ld<L>(lpos + 3 * li + 2) - pz;
     const float ldist = sqrtf(tlx * tlx + tly * tly + tlz * tlz);
     const float inv = 1.f / fmaxf(ldist, 1e-9f);
     const float ldx = tlx * inv;
@@ -153,7 +159,7 @@ __device__ void shadow_block(const Scene& sc, const Group<G>& g,
     const float ldz = tlz * inv;
     const float ndotl = nx * ldx + ny * ldy + nz * ldz;
     const float sh =
-        march_shadow<G, TRIS>(sc, g, m, sx, sy, sz, ldx, ldy, ldz, 0.f,
+        march_shadow<G, L>(sc, g, m, sx, sy, sz, ldx, ldy, ldz, 0.f,
                               ldist, hit && ndotl > a.ndotl_min);
     if (g.lane == 0) out[li * a.n + i] = sh;
   }
@@ -195,7 +201,7 @@ __device__ __forceinline__ Corner probe_corner(const GeomArgs& a, int k,
 // holding p (direction and distance from p, origin the offset point).
 // With pick, also the mode-2 best probe: weight dot(dir, n)·vis from -BIG,
 // strict > so the first corner wins a tie; emits -dir of the winner.
-template <bool PICK, int G, bool TRIS>
+template <bool PICK, int G, class L>
 __device__ void vis_block(const Scene& sc, const Group<G>& g, const March& m,
                           const GeomArgs& a, float px, float py, float pz,
                           float sx, float sy, float sz, float nx, float ny,
@@ -206,7 +212,7 @@ __device__ void vis_block(const Scene& sc, const Group<G>& g, const March& m,
     const Corner c = probe_corner(a, k, px, py, pz);
     const float cap =
         hit ? box_cap(sc, sx, sy, sz, c.vdx, c.vdy, c.vdz) : 0.f;
-    const float vis = march_visibility<G, TRIS>(
+    const float vis = march_visibility<G, L>(
         sc, g, m, sx, sy, sz, c.vdx, c.vdy, c.vdz, c.pdist - a.surf_off,
         hit, cap);
     if (g.lane == 0) out[k * a.n + i] = vis;
@@ -231,41 +237,48 @@ __device__ void vis_block(const Scene& sc, const Group<G>& g, const March& m,
 
 // One bounce from (o, d): the march, the classification of its end point,
 // and on a hit the FD normal; on a miss the normal is -d.
-template <int G, bool TRIS>
+template <int G, class L>
 __device__ void bounce(const Scene& sc, const Group<G>& g, const March& m,
                        const GeomArgs& a, float ox, float oy, float oz,
                        float dx, float dy, float dz, bool en, float* t,
                        float* px, float* py, float* pz, bool* hit, int* idx,
                        int* mid, float* nx, float* ny, float* nz) {
   const float cap = en ? box_cap(sc, ox, oy, oz, dx, dy, dz) : 0.f;
-  *t = march_primary<G, TRIS>(sc, g, m, ox, oy, oz, dx, dy, dz, en, cap);
+  *t = march_primary<G, L>(sc, g, m, ox, oy, oz, dx, dy, dz, en, cap);
   *px = ox + *t * dx;
   *py = oy + *t * dy;
   *pz = oz + *t * dz;
-  const float d_end = scene_info<G, TRIS>(sc, g, *px, *py, *pz, idx, mid);
+  const float d_end = scene_info<G, L>(sc, g, *px, *py, *pz, idx, mid);
   *hit = en && d_end < a.eps && *t < a.max_dist;
   *nx = -dx;
   *ny = -dy;
   *nz = -dz;
-  if (*hit) fd_normal<G, TRIS>(sc, g, a.normal_h, *px, *py, *pz, nx, ny, nz);
+  if (*hit) fd_normal<G, L>(sc, g, a.normal_h, *px, *py, *pz, nx, ny, nz);
 }
 
-template <int G, bool REFL, bool TRIS>
+template <int G, bool REFL, int CHUNKS, bool STAGED>
 __global__ void geometry_kernel(const GeomArgs a) {
-  // shared memory: the typed slot runs, boxes (TRIS), light positions,
-  // roughness
+  using L = Layout<CHUNKS, STAGED>;
+  // shared memory, STAGED: the typed slot runs, boxes (with chunks), light
+  // positions, roughness
   extern __shared__ float4 smem[];
-  Scene sc = stage_scene<TRIS>(a.scene, smem, a.max_dist);
-  const int n_light_f = 3 * a.n_lights;
-  const int n_rough = REFL ? a.n_mats : 0;
-  float4* s_end = smem + scene_row4(a.scene) +
-                  (TRIS ? scene_aabb4(a.scene) : 0);
-  float* s_lpos = reinterpret_cast<float*>(s_end);
-  float* s_rough = s_lpos + n_light_f;
-  for (int j = threadIdx.x; j < n_light_f + n_rough; j += blockDim.x) {
-    s_lpos[j] = j < n_light_f ? a.lpos[j] : a.rough[j - n_light_f];
+  Scene sc = stage_scene<L>(a.scene, smem, a.max_dist);
+  const float* lpos = a.lpos;
+  const float* rough = a.rough;
+  if (STAGED) {
+    const int n_light_f = 3 * a.n_lights;
+    const int n_rough = REFL ? a.n_mats : 0;
+    float4* s_end = smem + scene_row4(a.scene) +
+                    (CHUNKS != NO_CHUNKS ? scene_aabb4(a.scene) : 0);
+    float* s_lpos = reinterpret_cast<float*>(s_end);
+    float* s_rough = s_lpos + n_light_f;
+    for (int j = threadIdx.x; j < n_light_f + n_rough; j += blockDim.x) {
+      s_lpos[j] = j < n_light_f ? a.lpos[j] : a.rough[j - n_light_f];
+    }
+    __syncthreads();
+    lpos = s_lpos;
+    rough = s_rough;
   }
-  __syncthreads();
 
   // the lanes of a group share ray i and leave together
   const int i = (blockIdx.x * blockDim.x + threadIdx.x) / G;
@@ -292,7 +305,7 @@ __global__ void geometry_kernel(const GeomArgs a) {
   float t, px, py, pz, nx, ny, nz;
   bool hit;
   int idx, mid;
-  bounce<G, TRIS>(sc, g, m, a, ox, oy, oz, dx, dy, dz, en, &t, &px, &py, &pz,
+  bounce<G, L>(sc, g, m, a, ox, oy, oz, dx, dy, dz, en, &t, &px, &py, &pz,
                   &hit, &idx, &mid, &nx, &ny, &nz);
 
   float ao = 1.f;
@@ -301,7 +314,7 @@ __global__ void geometry_kernel(const GeomArgs a) {
     for (int s = 0; s < a.ao_steps; ++s) {
       const float h = a.ao_h[s];
       const float factor = 1.f / static_cast<float>(1 << s);
-      ao_sum = ao_sum + factor * scene_dist<G, TRIS>(
+      ao_sum = ao_sum + factor * scene_dist<G, L>(
                                      sc, g, px + nx * h, py + ny * h,
                                      pz + nz * h);
     }
@@ -313,13 +326,13 @@ __global__ void geometry_kernel(const GeomArgs a) {
   const float soz = pz + nz * a.surf_off;
 
   if (a.want_shadows) {
-    shadow_block<G, TRIS>(sc, g, m, a, s_lpos, px, py, pz, sox, soy, soz, nx,
+    shadow_block<G, L>(sc, g, m, a, lpos, px, py, pz, sox, soy, soz, nx,
                           ny, nz, hit, a.shadows, i);
   } else if (writer) {
     for (int li = 0; li < a.n_lights; ++li) a.shadows[li * a.n + i] = 1.f;
   }
   if (a.want_vis) {
-    vis_block<false, G, TRIS>(sc, g, m, a, px, py, pz, sox, soy, soz, nx, ny,
+    vis_block<false, G, L>(sc, g, m, a, px, py, pz, sox, soy, soz, nx, ny,
                               nz, hit, a.vis8, i, nullptr, nullptr);
   } else if (writer) {
     for (int k = 0; k < 8; ++k) a.vis8[k * a.n + i] = 1.f;
@@ -339,8 +352,9 @@ __global__ void geometry_kernel(const GeomArgs a) {
   if (REFL) {
     // ---- 2. reflection bounce (specular mode 2): roughness(mid) < 0.75
     // gate, reflected ray from the offset primary hit
-    const float rough = (mid >= 0 && mid < a.n_mats) ? s_rough[mid] : 0.f;
-    const bool r_en = hit && rough < 0.75f;
+    const float r_rough =
+        (mid >= 0 && mid < a.n_mats) ? ld<L>(rough + mid) : 0.f;
+    const bool r_en = hit && r_rough < 0.75f;
     const float ddn = dx * nx + dy * ny + dz * nz;
     const float rdx = dx - 2.f * ddn * nx;
     const float rdy = dy - 2.f * ddn * ny;
@@ -348,7 +362,7 @@ __global__ void geometry_kernel(const GeomArgs a) {
     float r_t, rpx, rpy, rpz, rnx, rny, rnz;
     bool r_hit;
     int r_idx, r_mid;
-    bounce<G, TRIS>(sc, g, m, a, sox, soy, soz, rdx, rdy, rdz, r_en, &r_t,
+    bounce<G, L>(sc, g, m, a, sox, soy, soz, rdx, rdy, rdz, r_en, &r_t,
                     &rpx, &rpy, &rpz, &r_hit, &r_idx, &r_mid, &rnx, &rny,
                     &rnz);
     const float rsox = rpx + rnx * a.surf_off;
@@ -356,14 +370,14 @@ __global__ void geometry_kernel(const GeomArgs a) {
     const float rsoz = rpz + rnz * a.surf_off;
 
     if (a.refl_shadows) {
-      shadow_block<G, TRIS>(sc, g, m, a, s_lpos, rpx, rpy, rpz, rsox, rsoy,
+      shadow_block<G, L>(sc, g, m, a, lpos, rpx, rpy, rpz, rsox, rsoy,
                             rsoz, rnx, rny, rnz, r_hit, a.r_shadows, i);
     } else if (writer) {
       for (int li = 0; li < a.n_lights; ++li) {
         a.r_shadows[li * a.n + i] = 1.f;
       }
     }
-    vis_block<true, G, TRIS>(sc, g, m, a, rpx, rpy, rpz, rsox, rsoy, rsoz,
+    vis_block<true, G, L>(sc, g, m, a, rpx, rpy, rpz, rsox, rsoy, rsoz,
                              rnx, rny, rnz, r_hit, a.r_vis8, i, a.best_pid,
                              a.best_dir);
 
@@ -386,8 +400,33 @@ __global__ void geometry_kernel(const GeomArgs a) {
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success); the
-// triangle variant runs when the scene has triangle chunks.
+namespace {
+
+// The instantiation for the scene's chunk layout and placement.
+template <bool REFL, int CHUNKS>
+void (*placed_kernel(const GeomArgs& a))(const GeomArgs) {
+  return a.scene.placement == PLACE_GLOBAL
+             ? geometry_kernel<LANES, REFL, CHUNKS, false>
+             : geometry_kernel<LANES, REFL, CHUNKS, true>;
+}
+
+template <bool REFL>
+void (*pick_kernel(const GeomArgs& a))(const GeomArgs) {
+  switch (scene_chunks(a.scene)) {
+    case NO_CHUNKS:
+      return placed_kernel<REFL, NO_CHUNKS>(a);
+    case TRI_CHUNKS:
+      return placed_kernel<REFL, TRI_CHUNKS>(a);
+    default:
+      return placed_kernel<REFL, ANY_CHUNKS>(a);
+  }
+}
+
+}  // namespace
+
+// Launches on `stream` and returns the launch's error (0 on success): the
+// instantiation for the scene's chunk layout and placement, after the
+// opt-in where the placement asks for it.
 extern "C" int madarch_geometry(const GeomArgs* a, int refl, void* stream) {
   if (a->n == 0) return 0;
   if (a->ao_steps > MAX_AO_STEPS ||
@@ -396,15 +435,9 @@ extern "C" int madarch_geometry(const GeomArgs* a, int refl, void* stream) {
   }
   const int rays = THREADS / LANES;
   const int blocks = (a->n + rays - 1) / rays;
-  const bool tris = a->scene.n_chunks > 0;
   const size_t smem =
       sizeof(float4) * (scene_row4(a->scene) + scene_aabb4(a->scene)) +
       sizeof(float) * (3 * a->n_lights + (refl ? a->n_mats : 0));
-  void (*kernel)(const GeomArgs) =
-      refl ? (tris ? geometry_kernel<LANES, true, true>
-                   : geometry_kernel<LANES, true, false>)
-           : (tris ? geometry_kernel<LANES, false, true>
-                   : geometry_kernel<LANES, false, false>);
-  kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(*a);
-  return static_cast<int>(cudaGetLastError());
+  return launch_placed(refl ? pick_kernel<true>(*a) : pick_kernel<false>(*a),
+                       *a, blocks, THREADS, smem, stream);
 }

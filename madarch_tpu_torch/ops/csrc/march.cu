@@ -71,15 +71,19 @@
 // build, as raycast, in blocks of 128 threads (64 and 256 timed within a
 // few per cent of it, PERF.md §6).
 //
-// The typed slot runs (and the triangle chunks' boxes) sit in shared
-// memory, read by every thread at the same address (a broadcast);
-// triangles stay in device memory and are pruned exactly by their boxes
-// (scene.cuh:tri_min), so a march steps as the unculled plain version
-// does.  On a scene whose every type has a global box (all bounded:
-// ops/march.py:pack_scene; obj_mesh's triangles, not a scene with a
-// plane) raycast and visibility end a ray at its exit from those boxes
-// grown by 0.015 (scene.cuh:box_cap, the TPU kernels' _ray_box_cap), and a
-// raycast miss so capped reports t = max_dist, as the TPU kernel's does.
+// The typed slot runs (and the chunks' boxes) sit in shared memory, read
+// by every thread at the same address (a broadcast), up to 48 KiB; past
+// that they are read in place from device memory (scene.cuh:Layout),
+// which beat staging them after the opt-in (ops/march.py:OPTIN_KERNELS;
+// a forced placement still takes it).  The chunked types (triangles;
+// spheres and boxes of more than 64 slots) stay in device memory and are
+// pruned exactly by their boxes (scene.cuh:chunk_min), so a march steps
+// as the unculled plain version does.  On a scene whose every type has a
+// global box (all bounded: ops/march.py:pack_scene; obj_mesh's
+// triangles, not a scene with a plane) raycast and visibility end a ray
+// at its exit from those boxes grown by 0.015 (scene.cuh:box_cap, the TPU
+// kernels' _ray_box_cap), and a raycast miss so capped reports t =
+// max_dist, as the TPU kernel's does.
 // The penumbra march takes no cap (scene.cuh:march_shadow says why); the
 // TPU penumbra kernel's cap and far-field skip for k >= 32 used a margin
 // (0.15) below max_dist/k and darkened shadows.
@@ -118,19 +122,21 @@ struct MarchArgs {
 
 namespace {
 
-// The scene staged in shared memory, with scene-distance cap a.cap.  Every
-// thread of the block takes part before any returns.
-template <bool TRIS>
+// The scene, staged in shared memory where L is STAGED, with
+// scene-distance cap a.cap.  Every thread of the block takes part before
+// any returns.
+template <class L>
 __device__ __forceinline__ Scene load_scene(const MarchArgs& a, float4* s) {
-  const Scene sc = stage_scene<TRIS>(a.scene, s, a.cap);
-  __syncthreads();
+  const Scene sc = stage_scene<L>(a.scene, s, a.cap);
+  if (L::STAGED) __syncthreads();
   return sc;
 }
 
-template <bool TRIS>
+template <int CHUNKS, bool STAGED>
 __global__ void raycast_kernel(const MarchArgs a) {
+  using L = Layout<CHUNKS, STAGED>;
   extern __shared__ float4 smem[];
-  const Scene sc = load_scene<TRIS>(a, smem);
+  const Scene sc = load_scene<L>(a, smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const Group<1> g;
@@ -144,21 +150,22 @@ __global__ void raycast_kernel(const MarchArgs a) {
   const float dz = a.dirs[3 * i + 2];
   const bool en = a.enabled[i] != 0;
   const float cap = en ? box_cap(sc, ox, oy, oz, dx, dy, dz) : 0.f;
-  const float t = march_primary<1, TRIS>(sc, g, m, ox, oy, oz, dx, dy, dz,
-                                         en, cap);
+  const float t = march_primary<1, L>(sc, g, m, ox, oy, oz, dx, dy, dz,
+                                      en, cap);
   bool hit = false;
   if (en && t < a.max_dist) {
-    hit = scene_dist<1, TRIS>(sc, g, ox + t * dx, oy + t * dy,
-                              oz + t * dz) < a.eps;
+    hit = scene_dist<1, L>(sc, g, ox + t * dx, oy + t * dy,
+                           oz + t * dz) < a.eps;
   }
   a.t[i] = t;
   a.hit[i] = hit ? 1 : 0;
 }
 
-template <bool TRIS>
+template <int CHUNKS, bool STAGED>
 __global__ void visibility_kernel(const MarchArgs a) {
+  using L = Layout<CHUNKS, STAGED>;
   extern __shared__ float4 smem[];
-  const Scene sc = load_scene<TRIS>(a, smem);
+  const Scene sc = load_scene<L>(a, smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const March m{a.cap, a.eps, a.omega, a.one_minus_omega, 0.f, a.max_steps};
@@ -170,59 +177,82 @@ __global__ void visibility_kernel(const MarchArgs a) {
   const float dz = a.dirs[3 * i + 2];
   const bool en = a.enabled[i] != 0;
   const float cap = en ? box_cap(sc, ox, oy, oz, dx, dy, dz) : 0.f;
-  a.vis[i] = march_visibility<1, TRIS>(sc, Group<1>(), m, ox, oy, oz, dx, dy,
-                                       dz, a.max_dists[i], en, cap);
+  a.vis[i] = march_visibility<1, L>(sc, Group<1>(), m, ox, oy, oz, dx, dy,
+                                    dz, a.max_dists[i], en, cap);
 }
 
-template <bool TRIS>
+template <int CHUNKS, bool STAGED>
 __global__ void softshadow_kernel(const MarchArgs a) {
+  using L = Layout<CHUNKS, STAGED>;
   extern __shared__ float4 smem[];
-  const Scene sc = load_scene<TRIS>(a, smem);
+  const Scene sc = load_scene<L>(a, smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const March m{a.cap, a.eps, 1.f, 0.f, a.k, a.max_steps};
-  a.vis[i] = march_shadow<1, TRIS>(
+  a.vis[i] = march_shadow<1, L>(
       sc, Group<1>(), m, a.origins[3 * i + 0], a.origins[3 * i + 1],
       a.origins[3 * i + 2], a.dirs[3 * i + 0], a.dirs[3 * i + 1],
       a.dirs[3 * i + 2], a.min_dists[i], a.max_dists[i], a.enabled[i] != 0);
 }
 
-// Launches the triangle variant when the scene has triangle chunks.
-template <typename Kernel>
-int launch(Kernel plain, Kernel with_tris, const MarchArgs* a,
-           void* stream) {
+// Each kernel's instantiations by chunk layout and placement.
+#define MARCH_KERNEL(Name, kernel)                          \
+  struct Name {                                             \
+    template <int CHUNKS, bool STAGED>                      \
+    static void (*get())(const MarchArgs) {                 \
+      return kernel<CHUNKS, STAGED>;                        \
+    }                                                       \
+  };
+MARCH_KERNEL(Raycast, raycast_kernel)
+MARCH_KERNEL(Visibility, visibility_kernel)
+MARCH_KERNEL(Softshadows, softshadow_kernel)
+#undef MARCH_KERNEL
+
+template <class K, int CHUNKS>
+void (*placed_kernel(const MarchArgs& a))(const MarchArgs) {
+  return a.scene.placement == PLACE_GLOBAL
+             ? K::template get<CHUNKS, false>()
+             : K::template get<CHUNKS, true>();
+}
+
+// Launches K's instantiation for the scene's chunk layout and placement;
+// a layout's build has the chunkless ones only.
+template <class K>
+int launch(const MarchArgs* a, void* stream) {
   if (a->n == 0) return 0;
+  const int threads = 128;
+  const int blocks = (a->n + threads - 1) / threads;
+  const size_t smem =
+      sizeof(float4) * (scene_row4(a->scene) + scene_aabb4(a->scene));
 #ifdef FIXED_SPHERES
   // a layout's build runs only scenes of that layout
   if (a->scene.n_spheres != FIXED_COUNTS[0] ||
       a->scene.n_planes != FIXED_COUNTS[1] ||
-      a->scene.n_boxes != FIXED_COUNTS[2]) {
+      a->scene.n_boxes != FIXED_COUNTS[2] || a->scene.n_chunks != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  void (*kernel)(const MarchArgs) = placed_kernel<K, NO_CHUNKS>(*a);
+#else
+  const int chunks = scene_chunks(a->scene);
+  void (*kernel)(const MarchArgs) =
+      chunks == NO_CHUNKS    ? placed_kernel<K, NO_CHUNKS>(*a)
+      : chunks == TRI_CHUNKS ? placed_kernel<K, TRI_CHUNKS>(*a)
+                             : placed_kernel<K, ANY_CHUNKS>(*a);
 #endif
-  const int threads = 128;
-  const int blocks = (a->n + threads - 1) / threads;
-  const bool tris = a->scene.n_chunks > 0;
-  const size_t smem =
-      sizeof(float4) * (scene_row4(a->scene) + scene_aabb4(a->scene));
-  (tris ? with_tris : plain)<<<blocks, threads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(*a);
-  return static_cast<int>(cudaGetLastError());
+  return launch_placed(kernel, *a, blocks, threads, smem, stream);
 }
 
 }  // namespace
 
-// Each launches on `stream` and returns cudaGetLastError() (0 on success).
+// Each launches on `stream` and returns the launch's error (0 on success).
 extern "C" int madarch_raycast(const MarchArgs* a, void* stream) {
-  return launch(raycast_kernel<false>, raycast_kernel<true>, a, stream);
+  return launch<Raycast>(a, stream);
 }
 
 extern "C" int madarch_visibility(const MarchArgs* a, void* stream) {
-  return launch(visibility_kernel<false>, visibility_kernel<true>, a,
-                stream);
+  return launch<Visibility>(a, stream);
 }
 
 extern "C" int madarch_softshadows(const MarchArgs* a, void* stream) {
-  return launch(softshadow_kernel<false>, softshadow_kernel<true>, a,
-                stream);
+  return launch<Softshadows>(a, stream);
 }

@@ -20,38 +20,56 @@
 //    slot (past a dynamic count) is packed so that its distance is about
 //    1e9 and never wins a minimum that starts at max_dist;
 //  - `info`, int2 (global index, material id) per slot in run order, then
-//    per triangle slot: read only where a hit is classified;
-//  - `tris`, per chunk of CHUNK triangle slots TRI_ROWS x CHUNK float4:
-//    row k of all CHUNK triangles, then row k + 1 (the 28 constants of the
-//    derived triangle SDF), so the lanes of a group load one 128-byte line
-//    per row.  It stays in device memory behind the read-only cache;
+//    per chunk slot: read only where a hit is classified;
+//  - `chunks`, the chunked types (triangles; spheres and boxes of more
+//    than 64 slots, where the TPU kernels chunk them), per chunk of CHUNK
+//    slots of one type TRI_ROWS x CHUNK float4: row k of all CHUNK slots,
+//    then row k + 1 (a triangle's 28 derived constants; a sphere's
+//    (center, radius) in row 0; a box's center and half-side in rows 0
+//    and 1), so the lanes of a group load one 128-byte line per row.  The
+//    chunks run spheres, boxes, triangles (box_chunk0 and tri_chunk0 mark
+//    where each run begins), each run but the last padded with inert
+//    chunks to whole super-chunks.  It stays in device memory behind the
+//    read-only cache;
 //  - `aabbs`, two float4 (lo, hi) per box: first a row holding the
 //    coordinate scale, then the super-chunk boxes (SUPER chunks each),
 //    then the chunk boxes; padded and dead slots make inert boxes.
 //
-// Triangles are pruned exactly.  A box's point-to-box distance bounds
-// every triangle in it from below, so a box whose bound exceeds the
-// running minimum cannot change the minimum.  tri_min tests the
-// super-chunk boxes a lane each and opens them nearest bound first while
-// the bound is within `slack` of the running minimum; an opened
-// super-chunk's chunk boxes are tested a lane each and its chunks taken
-// nearest bound first, each re-checked against the running minimum, its
-// triangles evaluated a lane each.  The slack (PRUNE_REL times the scene's
-// and the point's coordinate scale) covers the rounding of a bound and of
-// a triangle's distance, and fminf is exact in any order, so the pruned
-// minimum is the unpruned one bit for bit.  Ties go to the lower global
-// index in every fold: the first minimum of the plain version's
+// Where a launch keeps `rows` and `aabbs` is its placement (the wrappers'
+// choice, ops/march.py:placement_for): staged into shared memory, up to
+// 48 KiB as is and past that after the opt-in (allow_smem; the geometry
+// kernel), or read in place from device memory through the read-only
+// path (the march kernels past 48 KiB, every kernel past the card's
+// opt-in limit).  STAGED, a template argument (Layout), decides it at
+// build time, so every staged load stays a shared-memory load.
+//
+// Chunked slots are pruned exactly.  A box's point-to-box distance bounds
+// every slot in it from below, so a box whose bound exceeds the running
+// minimum cannot change the minimum.  chunk_min tests the super-chunk
+// boxes a lane each and opens them nearest bound first while the bound is
+// within `slack` of the running minimum; an opened super-chunk's chunk
+// boxes are tested a lane each and its chunks taken nearest bound first,
+// each re-checked against the running minimum, its slots evaluated a lane
+// each with their type's distance.  The slack (PRUNE_REL times the
+// scene's and the point's coordinate scale) covers the rounding of a
+// bound and of a slot's distance, and fminf is exact in any order, so the
+// pruned minimum is the unpruned one bit for bit.  Ties go to the lower
+// global index in every fold: the first minimum of the plain version's
 // spec-order scan.
 //
 // Built with -fmad=false, so each float operation rounds like the plain
 // PyTorch marches of render/raymarch.py.  The scene functions and marches
-// are templates on TRIS: scenes without triangles compile without the
-// triangle code.
+// are templates on a Layout: scenes without chunks compile without the
+// pruning code, and scenes whose chunks are all triangles without the
+// sphere and box chunk code.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <math_constants.h>
+
+#include <mutex>
+#include <vector>
 
 // SLOT_UNROLL: how far scene_dist's three slot loops are unrolled, set by
 // the including source.  Rolled (1, the default) suits geometry.cu, whose
@@ -64,10 +82,13 @@
 
 namespace {
 
-constexpr int CHUNK = 8;      // triangle slots per chunk box
+constexpr int CHUNK = 8;      // slots per chunk box
 constexpr int SUPER = 8;      // chunks per super-chunk box
 constexpr int TRI_ROWS = 7;   // float4 rows of a triangle's 28 constants
 constexpr float PRUNE_REL = 1e-4f;
+// The dynamic shared memory a block gets without an opt-in
+// (ops/march.py:SMEM_LIMIT).
+constexpr size_t SMEM_DEFAULT = 48 * 1024;
 constexpr float BIG = 1e9f;
 // FIXED_SPHERES, FIXED_PLANES and FIXED_BOXES, set together by a build for
 // one scene layout (ops/march.py:march_layout), fix scene_dist's loop
@@ -80,6 +101,43 @@ constexpr int SLOT_UNROLL_N = FIXED_SPHERES + FIXED_PLANES + FIXED_BOXES;
 constexpr int SLOT_UNROLL_N = SLOT_UNROLL;
 #endif
 
+// The chunk layouts a kernel is built for: no chunks, triangle chunks
+// only, or chunks of any chunked type (each chunk's type from its index).
+constexpr int NO_CHUNKS = 0;
+constexpr int TRI_CHUNKS = 1;
+constexpr int ANY_CHUNKS = 2;
+// The placements of ops/march.py:PLACEMENTS.
+constexpr int PLACE_STAGED = 0;
+constexpr int PLACE_OPTIN = 1;
+constexpr int PLACE_GLOBAL = 2;
+
+// What a kernel instantiation is built for: its chunk layout, and whether
+// `rows` and `aabbs` are staged in shared memory (else read in place).
+template <int CHUNKS_, bool STAGED_>
+struct Layout {
+  static constexpr int CHUNKS = CHUNKS_;
+  static constexpr bool STAGED = STAGED_;
+};
+
+// A load from the staged tables: shared memory, or the read-only path.
+template <class L>
+__device__ __forceinline__ float4 ld(const float4* p) {
+  if constexpr (L::STAGED) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
+template <class L>
+__device__ __forceinline__ float ld(const float* p) {
+  if constexpr (L::STAGED) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
 // The scene's tables as the wrappers pass them; mirrored field for field
 // by ops/march.py:_SceneArgs (ctypes).
 struct SceneArgs {
@@ -88,34 +146,41 @@ struct SceneArgs {
   int n_planes;
   int n_boxes;
   const int2* info;     // [slots + n_chunks * CHUNK]
-  const float4* tris;   // [n_chunks][TRI_ROWS][CHUNK]
+  const float4* chunks; // [n_chunks][TRI_ROWS][CHUNK]
   const float4* aabbs;  // [1 + n_supers + n_chunks][2]
   int n_chunks;
   int n_supers;
+  // the first box chunk and the first triangle chunk (chunks before
+  // box_chunk0 hold spheres)
+  int box_chunk0;
+  int tri_chunk0;
   // the grown global box of each bounded type (lo xyz, hi xyz), by which
   // a march ends at the ray's exit from the scene (box_cap); none on a
   // scene that is not all bounded, or with the cap turned off
   const float* cap_boxes;  // [n_cap_boxes][6]
   int n_cap_boxes;
-  // scene evaluations, box tests and triangle evaluations, summed over the
-  // launch by geometry.cu built with COUNT_WORK; else unused
+  int placement;        // PLACE_STAGED, PLACE_OPTIN or PLACE_GLOBAL
+  // scene evaluations, box tests and chunk-slot evaluations, summed over
+  // the launch by geometry.cu built with COUNT_WORK; else unused
   unsigned long long* work;
 };
 
-// The scene as a kernel reads it: `rows` and `aabbs` in shared memory.
-// max_dist caps every scene distance.
+// The scene as a kernel reads it: `rows` and `aabbs` in shared memory, or
+// in device memory where the layout is not STAGED.  max_dist caps every
+// scene distance.
 struct Scene {
   const float4* rows;
   int n_spheres, n_planes, n_boxes;
   float max_dist;
   const int2* info;
-  const float4* tris;
+  const float4* chunks;
   const float4* aabbs;
   int n_chunks, n_supers;
+  int box_chunk0, tri_chunk0;
   const float* cap_boxes;
   int n_cap_boxes;
 #ifdef COUNT_WORK
-  // this thread's scene evaluations, box tests and triangle evaluations
+  // this thread's scene evaluations, box tests and chunk-slot evaluations
   unsigned long long* work;
 #endif
 };
@@ -129,31 +194,94 @@ __host__ __device__ inline int scene_aabb4(const SceneArgs& a) {
   return a.n_chunks > 0 ? 2 * (1 + a.n_supers + a.n_chunks) : 0;
 }
 
-// Copies the typed runs and, with TRIS, the boxes into shared memory at s
-// and returns the scene with scene-distance cap max_dist.  The caller
-// synchronises the block before the first evaluation.
-template <bool TRIS>
+// The chunk layout of the scene a launch is given.
+__host__ inline int scene_chunks(const SceneArgs& a) {
+  if (a.n_chunks == 0) return NO_CHUNKS;
+  return a.tri_chunk0 == 0 ? TRI_CHUNKS : ANY_CHUNKS;
+}
+
+// The scene with scene-distance cap max_dist.  STAGED, it copies the typed
+// runs and, with chunks, the boxes into shared memory at s, and the caller
+// synchronises the block before the first evaluation; else the scene
+// points at the tables in device memory.
+template <class L>
 __device__ __forceinline__ Scene stage_scene(const SceneArgs& a, float4* s,
                                              float max_dist) {
   const int n_row4 = scene_row4(a);
-  const int n4 = n_row4 + (TRIS ? scene_aabb4(a) : 0);
-  for (int j = threadIdx.x; j < n4; j += blockDim.x) {
-    s[j] = j < n_row4 ? a.rows[j] : a.aabbs[j - n_row4];
+  if (L::STAGED) {
+    const int n4 = n_row4 + (L::CHUNKS != NO_CHUNKS ? scene_aabb4(a) : 0);
+    for (int j = threadIdx.x; j < n4; j += blockDim.x) {
+      s[j] = j < n_row4 ? a.rows[j] : a.aabbs[j - n_row4];
+    }
   }
   Scene sc;
-  sc.rows = s;
+  sc.rows = L::STAGED ? s : a.rows;
   sc.n_spheres = a.n_spheres;
   sc.n_planes = a.n_planes;
   sc.n_boxes = a.n_boxes;
   sc.max_dist = max_dist;
   sc.info = a.info;
-  sc.tris = a.tris;
-  sc.aabbs = s + n_row4;
+  sc.chunks = a.chunks;
+  sc.aabbs = L::STAGED ? s + n_row4 : a.aabbs;
   sc.n_chunks = a.n_chunks;
   sc.n_supers = a.n_supers;
+  sc.box_chunk0 = a.box_chunk0;
+  sc.tri_chunk0 = a.tri_chunk0;
   sc.cap_boxes = a.cap_boxes;
   sc.n_cap_boxes = a.n_cap_boxes;
   return sc;
+}
+
+// Raises `kernel`'s dynamic shared memory limit on the current device to
+// `bytes` (the opt-in past 48 KiB) where it has not been raised that far
+// yet: each instantiation keeps its high-water mark.  The attribute sets
+// the limit, lowering it too, so it is never set below the 48 KiB every
+// kernel starts with.
+inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  if (bytes <= SMEM_DEFAULT) return cudaSuccess;
+  struct Grant {
+    const void* kernel;
+    int device;
+    size_t bytes;
+  };
+  static std::mutex mu;
+  static std::vector<Grant> granted;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  Grant* g = nullptr;
+  for (Grant& x : granted) {
+    if (x.kernel == kernel && x.device == device) g = &x;
+  }
+  if (g != nullptr && g->bytes >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  if (g != nullptr) {
+    g->bytes = bytes;
+  } else {
+    granted.push_back({kernel, device, bytes});
+  }
+  return cudaSuccess;
+}
+
+// Launches `kernel` on `stream` with `smem` bytes of staged tables at the
+// scene's placement (none staged in device-memory placement): the opt-in
+// first where the placement asks for it.  Returns the launch's error.
+template <typename Args>
+int launch_placed(void (*kernel)(const Args), const Args& a, int blocks,
+                  int threads, size_t smem, void* stream) {
+  if (a.scene.placement == PLACE_GLOBAL) {
+    smem = 0;
+  } else if (a.scene.placement == PLACE_OPTIN) {
+    const cudaError_t err =
+        allow_smem(reinterpret_cast<const void*>(kernel), smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // (distance, global index, material id) of the nearest primitive so far.
@@ -299,10 +427,11 @@ __device__ __forceinline__ float tri_dist(const float4* rows, int j,
 }
 
 // Squared distance from p to the box at b (lo, hi); 0 inside it.
+template <class L>
 __device__ __forceinline__ float aabb_d2(const float4* b, float px, float py,
                                          float pz) {
-  const float4 lo = b[0];
-  const float4 hi = b[1];
+  const float4 lo = ld<L>(b);
+  const float4 hi = ld<L>(b + 1);
   const float dx = fmaxf(fmaxf(lo.x - px, px - hi.x), 0.f);
   const float dy = fmaxf(fmaxf(lo.y - py, py - hi.y), 0.f);
   const float dz = fmaxf(fmaxf(lo.z - pz, pz - hi.z), 0.f);
@@ -316,18 +445,38 @@ __device__ __forceinline__ void count_work(const Scene& sc, int what,
 #endif
 }
 
-// Folds the triangles of chunk ch that fall to this lane into `mine`; INFO
-// keeps the global index and material id of the minimum.
-template <int G, bool INFO>
-__device__ __forceinline__ void tri_chunk(const Scene& sc,
-                                          const Group<G>& g, int ch,
-                                          float px, float py, float pz,
-                                          Near& mine) {
-  const float4* rows = sc.tris + ch * (TRI_ROWS * CHUNK);
+// The type of chunk ch's slots.
+enum ChunkKind { SPHERE_CHUNK, BOX_CHUNK, TRI_CHUNK };
+
+template <class L>
+__device__ __forceinline__ ChunkKind chunk_kind(const Scene& sc, int ch) {
+  if (L::CHUNKS == TRI_CHUNKS) return TRI_CHUNK;
+  return ch < sc.box_chunk0   ? SPHERE_CHUNK
+         : ch < sc.tri_chunk0 ? BOX_CHUNK
+                              : TRI_CHUNK;
+}
+
+// Folds the slots of chunk ch that fall to this lane into `mine`, each by
+// its type's distance; INFO keeps the global index and material id of the
+// minimum.
+template <int G, bool INFO, class L>
+__device__ __forceinline__ void chunk_eval(const Scene& sc,
+                                           const Group<G>& g, int ch,
+                                           float px, float py, float pz,
+                                           Near& mine) {
+  const float4* rows = sc.chunks + ch * (TRI_ROWS * CHUNK);
   const int2* info =
       sc.info + sc.n_spheres + sc.n_planes + sc.n_boxes + ch * CHUNK;
+  const ChunkKind kind = chunk_kind<L>(sc, ch);
   for (int j = g.lane; j < CHUNK; j += G) {
-    const float d = tri_dist(rows, j, px, py, pz);
+    float d;
+    if (kind == TRI_CHUNK) {
+      d = tri_dist(rows, j, px, py, pz);
+    } else if (kind == SPHERE_CHUNK) {
+      d = sphere_dist(__ldg(rows + j), px, py, pz);
+    } else {
+      d = box_dist(__ldg(rows + j), __ldg(rows + CHUNK + j), px, py, pz);
+    }
     count_work(sc, 2, 1);
     if (INFO) {
       const int2 im = __ldg(info + j);
@@ -353,17 +502,17 @@ __device__ __forceinline__ Near fold(const Group<G>& g, Near mine) {
 // round's admitted chunks in slot order, or all of them between two folds,
 // evaluates more triangles and took longer on the card: the time follows
 // the triangles evaluated, not the folds.)
-template <int G, bool INFO>
-__device__ void tri_super(const Scene& sc, const Group<G>& g, int s,
-                          float slack, float px, float py, float pz,
-                          Near& nb) {
+template <int G, bool INFO, class L>
+__device__ void chunk_super(const Scene& sc, const Group<G>& g, int s,
+                            float slack, float px, float py, float pz,
+                            Near& nb) {
   const float4* chunk_boxes = sc.aabbs + 2 * (1 + sc.n_supers);
   const int c_end = min(sc.n_chunks, (s + 1) * SUPER);
   for (int c0 = s * SUPER; c0 < c_end; c0 += G) {
     const int c = c0 + g.lane;
     float key = CUDART_INF_F;
     if (c < c_end) {
-      key = aabb_d2(chunk_boxes + 2 * c, px, py, pz);
+      key = aabb_d2<L>(chunk_boxes + 2 * c, px, py, pz);
       count_work(sc, 1, 1);
     }
     for (;;) {
@@ -373,24 +522,25 @@ __device__ void tri_super(const Scene& sc, const Group<G>& g, int s,
       const int owner = __ffs(g.ballot(key == nearest)) - 1;
       if (g.lane == owner) key = CUDART_INF_F;
       Near mine = nb;
-      tri_chunk<G, INFO>(sc, g, c0 + owner, px, py, pz, mine);
+      chunk_eval<G, INFO, L>(sc, g, c0 + owner, px, py, pz, mine);
       nb = fold<G, INFO>(g, mine);
     }
   }
 }
 
-// The pruned triangle minimum folded into nb, which every lane of the
-// group holds alike.  Super-chunks are opened in order of their bound (the
-// next one found by testing every box again, a lane each: two tests a lane
-// for obj_mesh's 16), until the next bound lies beyond slack of the running
-// minimum: every box after it lies farther still.  In this order the
-// opened set is the least any exact pruning opens: a super-chunk opened
-// before the one that holds the minimum has a bound below the minimum.
-template <int G, bool INFO>
-__device__ void tri_min(const Scene& sc, const Group<G>& g, float px,
-                        float py, float pz, Near& nb) {
-  const float slack =
-      PRUNE_REL * (sc.aabbs[0].x + fabsf(px) + fabsf(py) + fabsf(pz));
+// The pruned minimum over the chunked slots folded into nb, which every
+// lane of the group holds alike.  Super-chunks are opened in order of
+// their bound (the next one found by testing every box again, a lane
+// each: two tests a lane for obj_mesh's 16), until the next bound lies
+// beyond slack of the running minimum: every box after it lies farther
+// still.  In this order the opened set is the least any exact pruning
+// opens: a super-chunk opened before the one that holds the minimum has a
+// bound below the minimum.
+template <int G, bool INFO, class L>
+__device__ void chunk_min(const Scene& sc, const Group<G>& g, float px,
+                          float py, float pz, Near& nb) {
+  const float scale = ld<L>(reinterpret_cast<const float*>(sc.aabbs));
+  const float slack = PRUNE_REL * (scale + fabsf(px) + fabsf(py) + fabsf(pz));
   const float4* super_boxes = sc.aabbs + 2;
   if (g.lane == 0) count_work(sc, 0, 1);
   float last_d2 = -1.f;
@@ -400,7 +550,7 @@ __device__ void tri_min(const Scene& sc, const Group<G>& g, float px,
     float next_d2 = CUDART_INF_F;
     int next = 0x7fffffff;
     for (int s = g.lane; s < sc.n_supers; s += G) {
-      const float d2 = aabb_d2(super_boxes + 2 * s, px, py, pz);
+      const float d2 = aabb_d2<L>(super_boxes + 2 * s, px, py, pz);
       count_work(sc, 1, 1);
       const bool after = d2 > last_d2 || (d2 == last_d2 && s > last);
       if (after && (d2 < next_d2 || (d2 == next_d2 && s < next))) {
@@ -411,14 +561,15 @@ __device__ void tri_min(const Scene& sc, const Group<G>& g, float px,
     g.argmin(next_d2, next);
     const float lim = nb.d + slack;
     if (!(next_d2 <= lim * lim)) break;
-    tri_super<G, INFO>(sc, g, next, slack, px, py, pz, nb);
+    chunk_super<G, INFO, L>(sc, g, next, slack, px, py, pz, nb);
     last_d2 = next_d2;
     last = next;
   }
 }
 
-// Scene distance: min over the slots and triangles, capped at max_dist.
-template <int G, bool TRIS>
+// Scene distance: min over the typed slots and the chunked ones, capped
+// at max_dist.
+template <int G, class L>
 __device__ float scene_dist(const Scene& sc, const Group<G>& g, float px,
                             float py, float pz) {
 #ifdef FIXED_SPHERES
@@ -432,24 +583,25 @@ __device__ float scene_dist(const Scene& sc, const Group<G>& g, float px,
   const float4* r = sc.rows;
 #pragma unroll SLOT_UNROLL_N
   for (int s = g.lane; s < n_spheres; s += G) {
-    best = fminf(best, sphere_dist(r[s], px, py, pz));
+    best = fminf(best, sphere_dist(ld<L>(r + s), px, py, pz));
   }
   r += n_spheres;
 #pragma unroll SLOT_UNROLL_N
   for (int s = g.lane; s < n_planes; s += G) {
-    best = fminf(best, plane_dist(r[s], px, py, pz));
+    best = fminf(best, plane_dist(ld<L>(r + s), px, py, pz));
   }
   r += n_planes;
 #pragma unroll SLOT_UNROLL_N
   for (int s = g.lane; s < n_boxes; s += G) {
-    best = fminf(best, box_dist(r[s], r[n_boxes + s], px, py, pz));
+    best = fminf(best, box_dist(ld<L>(r + s), ld<L>(r + n_boxes + s), px,
+                                py, pz));
   }
   if (G > 1 && n_spheres + n_planes + n_boxes > 0) {
     best = g.min(best);
   }
-  if (TRIS) {
+  if (L::CHUNKS != NO_CHUNKS) {
     Near nb{best, -1, 0};
-    tri_min<G, false>(sc, g, px, py, pz, nb);
+    chunk_min<G, false, L>(sc, g, px, py, pz, nb);
     best = nb.d;
   }
   return best;
@@ -458,7 +610,7 @@ __device__ float scene_dist(const Scene& sc, const Group<G>& g, float px,
 // (distance, global index, material id); among equal distances the lower
 // global index wins (the first minimum in spec order); index -1 and
 // material 0 when nothing is under max_dist.
-template <int G, bool TRIS>
+template <int G, class L>
 __device__ float scene_info(const Scene& sc, const Group<G>& g, float px,
                             float py, float pz, int* idx, int* mid) {
   Near nb{sc.max_dist, -1, 0};
@@ -466,22 +618,23 @@ __device__ float scene_info(const Scene& sc, const Group<G>& g, float px,
   const int2* info = sc.info;
   for (int s = g.lane; s < sc.n_spheres; s += G) {
     const int2 im = __ldg(info + s);
-    take(nb, sphere_dist(r[s], px, py, pz), im.x, im.y);
+    take(nb, sphere_dist(ld<L>(r + s), px, py, pz), im.x, im.y);
   }
   r += sc.n_spheres;
   info += sc.n_spheres;
   for (int s = g.lane; s < sc.n_planes; s += G) {
     const int2 im = __ldg(info + s);
-    take(nb, plane_dist(r[s], px, py, pz), im.x, im.y);
+    take(nb, plane_dist(ld<L>(r + s), px, py, pz), im.x, im.y);
   }
   r += sc.n_planes;
   info += sc.n_planes;
   for (int s = g.lane; s < sc.n_boxes; s += G) {
     const int2 im = __ldg(info + s);
-    take(nb, box_dist(r[s], r[sc.n_boxes + s], px, py, pz), im.x, im.y);
+    take(nb, box_dist(ld<L>(r + s), ld<L>(r + sc.n_boxes + s), px, py, pz),
+         im.x, im.y);
   }
   if (G > 1) nb = g.nearest(nb);
-  if (TRIS) tri_min<G, true>(sc, g, px, py, pz, nb);
+  if (L::CHUNKS != NO_CHUNKS) chunk_min<G, true, L>(sc, g, px, py, pz, nb);
   *idx = nb.gi;
   *mid = nb.mid;
   return nb.d;
@@ -537,7 +690,7 @@ struct March {
 // its backtrack, and lose the hit it skipped).  An enabled ray that ended
 // at its cap short of max_dist is a miss and reports t = max_dist; a
 // disabled one stays at 0.
-template <int G, bool TRIS>
+template <int G, class L>
 __device__ float march_primary(const Scene& sc, const Group<G>& g,
                                const March& m, float ox, float oy, float oz,
                                float dx, float dy, float dz, bool en,
@@ -546,7 +699,7 @@ __device__ float march_primary(const Scene& sc, const Group<G>& g,
   bool active = en && 0.f < cap;
   for (int step = 0; step < m.max_steps && active; ++step) {
     const float dist =
-        scene_dist<G, TRIS>(sc, g, ox + t * dx, oy + t * dy, oz + t * dz);
+        scene_dist<G, L>(sc, g, ox + t * dx, oy + t * dy, oz + t * dz);
     const bool fail = om > 1.f && fabsf(dist) + prev_r <= step_len;
     if (!fail && (dist < m.eps || t >= cap)) break;
     const float new_step = fail ? step_len * m.one_minus_omega : dist * om;
@@ -562,7 +715,7 @@ __device__ float march_primary(const Scene& sc, const Group<G>& g,
 
 // 1 if the ray reaches mx unobstructed, else 0; starts only if 0 < mx and
 // 0 < cap, and retires unblocked at the cap as march_primary does.
-template <int G, bool TRIS>
+template <int G, class L>
 __device__ float march_visibility(const Scene& sc, const Group<G>& g,
                                   const March& m, float ox, float oy,
                                   float oz, float dx, float dy, float dz,
@@ -571,7 +724,7 @@ __device__ float march_visibility(const Scene& sc, const Group<G>& g,
   active = active && 0.f < mx && 0.f < cap;
   for (int step = 0; step < m.max_steps && active; ++step) {
     const float dist =
-        scene_dist<G, TRIS>(sc, g, ox + t * dx, oy + t * dy, oz + t * dz);
+        scene_dist<G, L>(sc, g, ox + t * dx, oy + t * dy, oz + t * dz);
     const bool fail = om > 1.f && fabsf(dist) + prev_r <= step_len;
     if (!fail && dist < m.eps) return 0.f;
     if (!fail && t >= cap) return 1.f;
@@ -598,7 +751,7 @@ __device__ float march_visibility(const Scene& sc, const Group<G>& g,
 // does (d → 2·prev), so those samples can set the minimum however far
 // out they lie.  Ending the march at a box exit then lightens the shadow
 // (tests/test_torch_box_cap.py holds a case on the torus).
-template <int G, bool TRIS>
+template <int G, class L>
 __device__ float march_shadow(const Scene& sc, const Group<G>& g,
                               const March& m, float ox, float oy, float oz,
                               float dx, float dy, float dz, float t0,
@@ -607,7 +760,7 @@ __device__ float march_shadow(const Scene& sc, const Group<G>& g,
   active = active && t < mx;
   for (int step = 0; step < m.max_steps && active; ++step) {
     const float dist =
-        scene_dist<G, TRIS>(sc, g, ox + t * dx, oy + t * dy, oz + t * dz);
+        scene_dist<G, L>(sc, g, ox + t * dx, oy + t * dy, oz + t * dz);
     if (dist < m.eps) return 0.f;
     const float y = dist * dist / (2.f * prev);
     const float dd = sqrtf(fmaxf(dist * dist - y * y, 0.f));
@@ -623,3 +776,15 @@ __device__ float march_shadow(const Scene& sc, const Group<G>& g,
 }
 
 }  // namespace
+
+// The most dynamic shared memory a block may opt in to on `device`
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin, in bytes), or -1 on an error:
+// ops/march.py:optin_limit asks it of whichever library it holds.
+extern "C" int madarch_smem_optin(int device) {
+  int bytes = 0;
+  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess) {
+    return -1;
+  }
+  return bytes;
+}

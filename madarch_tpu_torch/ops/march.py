@@ -18,27 +18,42 @@ tensor it runs its plain version (``geometry_reference``,
 
 The scene packs into the tables csrc/scene.cuh reads.  ``rows``: float4
 rows in three typed runs, spheres (center, radius), planes (normal,
-offset), boxes (every center, then every half-side).  ``info``: (global
-index, material id) per slot in run order, then per triangle slot.
-``tris``: per chunk of CHUNK triangle slots, in slot order, TRI_ROWS x
-CHUNK float4: the 28 constants of the derived triangle SDF
-(primitives.py:TRIANGLE_DERIVED_FIELDS), row k of every triangle of the
-chunk before row k + 1.  ``aabbs``: (lo, 0, hi, 0) per chunk and per
-super-chunk of SUPER chunks, by which the kernels prune triangles exactly
-(csrc/scene.cuh:tri_min).  Global indices are capacity based (the type's
-block offset + slot).  A slot past a dynamic count is packed inert: a
-sphere of radius -1e9, a plane 1e9 away, a box of half-side -1e9, a
-triangle 3e9 away, so its distance never comes under a scene-distance cap.
-``cap_boxes``: on a scene whose every live type has a global box (all
-bounded, as the JAX package's ``ScenePlan.all_bounded``), each type's box
-grown by FAR_MARGIN, at whose exit raycast, visibility and geometry end a
-ray (``ray_box_cap``); a ray so capped short of max_dist is a miss at t =
-max_dist.
+offset), boxes (every center, then every half-side).  ``chunks``: the
+chunked types, chunk-major, per chunk of CHUNK slots TRI_ROWS x CHUNK
+float4, row k of every slot of the chunk before row k + 1: a triangle's
+28 derived constants (primitives.py:TRIANGLE_DERIVED_FIELDS), a sphere's
+(center, radius) in row 0, a box's center and half-side in rows 0 and 1.
+A type is chunked where the JAX package's ``build_plan`` gives it its
+chunked layout (kind "c") and it has bounds: triangles, and spheres and
+boxes of more than SMEM_ROLLED_SLOTS_MAX slots (``chunked_layout``); the
+chunk runs go spheres, boxes, triangles, each but the last padded with
+inert chunks to a whole super-chunk, so that no super-chunk holds two
+types.  Spheres and boxes go in Z-order of their centers (a chunk's box
+then holds neighbours; ``col_slot`` maps each back to its column),
+triangles in slot order.  ``info``: (global index, material id) per slot
+in run order, then per chunk slot.  ``aabbs``: (lo, 0, hi, 0) per super-chunk of SUPER
+chunks and per chunk, by which the kernels prune the chunked slots
+exactly (csrc/scene.cuh:chunk_min).  Global indices are capacity based
+(the type's block offset + slot).  A slot past a dynamic count is packed
+inert: a sphere of radius -1e9, a plane 1e9 away, a box of half-side
+-1e9, a triangle 3e9 away, so its distance never comes under a
+scene-distance cap.  ``cap_boxes``: on a scene whose every live type has
+a global box (all bounded, as the JAX package's
+``ScenePlan.all_bounded``), each type's box grown by FAR_MARGIN, at whose
+exit raycast, visibility and geometry end a ray (``ray_box_cap``); a ray
+so capped short of max_dist is a miss at t = max_dist.
+
+Where a launch keeps the typed runs and the boxes (and, for geometry, the
+light positions and roughness) is its placement (``placement_for``):
+staged in shared memory up to SMEM_LIMIT; past it, for the geometry
+kernel, staged after an opt-in up to the card's limit; else read in place
+from device memory.
 
 ``geometry`` picks the lanes per ray of its launch from the scene's layout
 and the ray count (``geometry_lanes``); ``raycast``, ``visibility`` and
 ``softshadows`` launch the build of march.cu for the scene's layout when it
-has one (``march_layout``).
+has one (``march_layout``).  Each of the four takes ``placement`` to force
+one, for a measurement.
 """
 from __future__ import annotations
 
@@ -56,11 +71,21 @@ from madarch_tpu_torch.render.probes import CORNER_OFFSETS
 from madarch_tpu_torch.scene import primitives as P
 
 MAX_AO_STEPS = 8
-# The kernels copy the typed slot runs, the triangle boxes, light positions
-# and roughness into dynamic shared memory, which a launch gets up to 48
-# KiB of without an opt-in: about 3,000 spheres, or some 10,000 triangles.
-# The triangle table itself stays in device memory, whatever its size.
+# The most dynamic shared memory a block gets without an opt-in.  A launch
+# whose staged tables (the typed slot runs, the chunk and super-chunk
+# boxes and, for geometry, the light positions and roughness) fit stages
+# them there; past it the kernels of OPTIN_KERNELS stage them after
+# cudaFuncSetAttribute, up to the card's opt-in limit (232,448 bytes on
+# an H100), and read them in place from device memory past that, as the
+# other kernels do past SMEM_LIMIT (``placement_for``).  The chunk table
+# stays in device memory, whatever its size.
 SMEM_LIMIT = 48 * 1024
+PLACEMENTS = ("staged", "optin", "global")
+# On the 12,000-triangle grid at 800² (chip_smoke.py phase 39, PERF.md
+# §6) the opt-in beat device memory on the geometry launches by 2-4%
+# and lost to it on visibility and softshadows by 9-14% (a 54 KB block
+# leaves 4 blocks an SM), raycast within the noise of two calls.
+OPTIN_KERNELS = ("geometry",)
 BIG = 1e9
 # Central-difference half-step of the tetrahedron normal.
 NORMAL_H = 1e-3
@@ -76,13 +101,19 @@ TRIANGLE_CODE = 3
 # padded triangle slot holds v1 = (3e9, 0, 0) and zeros, 3e9 from anywhere.
 TRI_ROWS = 7
 DEAD_TRIANGLE_X = 3e9
-# Triangle slots per chunk box and chunks per super-chunk box
-# (csrc/scene.cuh).
+# Slots per chunk box and chunks per super-chunk box (csrc/scene.cuh).
 CHUNK = 8
 SUPER = 8
+# The JAX package's build_plan gives a type of more than UNROLL_SLOTS_MAX
+# slots its rolled layout while the type has at most SMEM_ROLLED_SLOTS_MAX
+# slots and SMEM_ROLLED_SCALARS_MAX scalars (slots x its fields' scalars),
+# else its chunked layout; the port chunks a sphere or box type exactly
+# there (``chunked_layout``), and triangles always.
+SMEM_ROLLED_SLOTS_MAX = 64
+SMEM_ROLLED_SCALARS_MAX = 512
 # A box is admitted while its point-to-box distance is within
 # PRUNE_REL · (coordinate scale + |p|₁) of the running minimum
-# (csrc/scene.cuh:tri_min).
+# (csrc/scene.cuh:chunk_min).
 PRUNE_REL = 1e-4
 # Lanes per ray the geometry kernel is built for (csrc/geometry.cu).
 LANE_CHOICES = (1, 8)
@@ -120,14 +151,18 @@ CHUNK_SLOT_THRESHOLD = 128
 # Slot evaluations of the plain versions by type code, summed over every
 # point they evaluate the scene at (march steps of the active lanes,
 # classification, normals, AO): the work the kernels do on the same rays
-# with every triangle evaluated.
+# with every slot evaluated.
 scene_evals = {code: 0 for code in (0, 1, 2, TRIANGLE_CODE)}
+# The part of scene_evals that fell to chunked types, by type code.
+chunk_evals = {code: 0 for code in (0, 2, TRIANGLE_CODE)}
 # The work of exact pruning on the same points, given each point's scene
 # distance: every super-chunk box test, the chunk box tests inside the
 # super-chunks whose box lies within the pruning slack of that distance,
-# and the live triangles of the chunks whose box does.  Counted only
-# inside counting(): it costs a box test and a host sync per evaluation.
-pruned_evals = {"aabb": 0, "triangles": 0}
+# and the live slots of the chunks whose box does, by chunked type.
+# Counted only inside counting(): it costs a box test and a host sync per
+# evaluation.
+CHUNK_KEYS = {0: "spheres", 2: "boxes", TRIANGLE_CODE: "triangles"}
+pruned_evals = {"aabb": 0, **{key: 0 for key in CHUNK_KEYS.values()}}
 # Rays x cap boxes slab-tested by the plain versions (ray_box_cap).
 cap_tests = {"boxes": 0}
 _counting_pruned = False
@@ -138,7 +173,7 @@ def counting():
     """Counts the plain versions' work from zero inside the block, exact
     pruning's included."""
     global _counting_pruned
-    for d in (scene_evals, pruned_evals, cap_tests):
+    for d in (scene_evals, chunk_evals, pruned_evals, cap_tests):
         for key in d:
             d[key] = 0
     _counting_pruned = True
@@ -150,28 +185,36 @@ def counting():
 
 def scene_eval_flops(pruned=True):
     """Float operations of the slot evaluations counted since counting()
-    last began: with ``pruned`` the triangles as exact pruning must
-    evaluate them (box tests and admitted chunks), else every triangle;
-    with the box-exit caps' slab tests either way."""
-    flops = sum(SLOT_FLOPS[code] * n for code, n in scene_evals.items()
-                if code != TRIANGLE_CODE) + CAP_FLOPS * cap_tests["boxes"]
+    last began: with ``pruned`` the chunked slots as exact pruning must
+    evaluate them (box tests and admitted chunks), else every chunked
+    slot; with the box-exit caps' slab tests either way."""
+    flops = sum(SLOT_FLOPS[code] * (n - chunk_evals.get(code, 0))
+                for code, n in scene_evals.items()) \
+        + CAP_FLOPS * cap_tests["boxes"]
     if pruned:
-        return flops + AABB_FLOPS * pruned_evals["aabb"] \
-            + SLOT_FLOPS[TRIANGLE_CODE] * pruned_evals["triangles"]
-    return flops + SLOT_FLOPS[TRIANGLE_CODE] * scene_evals[TRIANGLE_CODE]
+        return flops + AABB_FLOPS * pruned_evals["aabb"] + sum(
+            SLOT_FLOPS[code] * pruned_evals[key]
+            for code, key in CHUNK_KEYS.items())
+    return flops + sum(SLOT_FLOPS[code] * n
+                       for code, n in chunk_evals.items())
 
 
 @dataclasses.dataclass(frozen=True)
 class PackedScene:
-    """``entries``: static ((ptype, first_row, n, static_counts), ...) in
-    spec order, first_row the type's first row of ``rows`` (0 for
-    triangles); ``rows``: f32[n_spheres + n_planes + 2·n_boxes, 4], the
-    typed runs; ``counts``: (n_spheres, n_planes, n_boxes); ``info``:
-    i32[n_slots + n_chunks·CHUNK, 2]; ``tris``: f32[n_chunks, TRI_ROWS,
-    CHUNK, 4]; ``tri_live``: f32[n_chunks·CHUNK], 1 on live triangle
-    slots; ``aabbs``: f32[1 + n_supers + n_chunks, 8], a row holding the
+    """``entries``: static ((ptype, first, n, static_counts), ...) in spec
+    order, first the type's first row of ``rows``, or for a chunked type
+    its first chunk of ``chunks``; ``rows``: f32[n_spheres + n_planes +
+    2·n_boxes, 4], the typed runs; ``counts``: (n_spheres, n_planes,
+    n_boxes) of the typed runs; ``info``: i32[n_slots + n_chunks·CHUNK,
+    2]; ``chunks``: f32[n_chunks, TRI_ROWS, CHUNK, 4]; ``chunk_runs``:
+    ((type code, first chunk, chunks), ...) in chunk order (spheres, boxes,
+    triangles), the chunks padded inert to whole super-chunks but the
+    last run's; ``chunk_live``: f32[n_chunks·CHUNK], 1 on live chunk
+    slots; ``col_slot``: i64[n_columns], each column's slot of the chunk
+    table (chunk·CHUNK + its place in the chunk), -1 for a column of a
+    typed run; ``aabbs``: f32[1 + n_supers + n_chunks, 8], a row holding the
     coordinate scale, then the super-chunk and chunk boxes (lo xyz, 0, hi
-    xyz, 0), empty without triangles; ``col_gidx``/``col_mid``: i32 global
+    xyz, 0), empty without chunks; ``col_gidx``/``col_mid``: i32 global
     index and material id of each column of the plain versions' distance
     table (spec order); ``cap_boxes``: f32[B, 6], on an all-bounded scene
     each live type's global box grown by ``cap_margin`` (lo xyz, hi xyz),
@@ -181,8 +224,10 @@ class PackedScene:
     rows: torch.Tensor
     counts: tuple
     info: torch.Tensor
-    tris: torch.Tensor
-    tri_live: torch.Tensor
+    chunks: torch.Tensor
+    chunk_runs: tuple
+    chunk_live: torch.Tensor
+    col_slot: torch.Tensor
     aabbs: torch.Tensor
     n_chunks: int
     col_gidx: torch.Tensor
@@ -202,55 +247,154 @@ class PackedScene:
     def n_columns(self):
         return self.col_gidx.shape[0]
 
+    def chunked(self, ptype):
+        """Whether ptype's slots sit in ``chunks``."""
+        code = TRIANGLE_CODE if ptype is P.Triangle \
+            else KERNEL_TYPES[ptype][0]
+        return any(c == code for c, _, _ in self.chunk_runs)
+
+    def chunk_end(self, code):
+        """The chunks of the runs of the types up to ``code``: the first
+        chunk of the run after them."""
+        return sum(n for c, _, n in self.chunk_runs if c <= code)
+
     def triangle_rows(self):
-        """f32[n_chunks·CHUNK, 28]: each triangle slot's derived constants
-        in TRIANGLE_DERIVED_FIELDS order."""
-        return self.tris.permute(0, 2, 1, 3).reshape(-1, 4 * TRI_ROWS)
+        """f32[n·CHUNK, 28]: each triangle slot's derived constants in
+        TRIANGLE_DERIVED_FIELDS order, n the triangle chunks."""
+        tri = self.chunks[self.chunk_end(2):]
+        return tri.permute(0, 2, 1, 3).reshape(-1, 4 * TRI_ROWS)
 
 
-def _pack_triangles(params, n, live):
-    """(triangle table, live flags, boxes, chunks) of the first n triangle
-    slots."""
-    dev = live.device
-    tri = {k: v[:n].to(torch.float32) for k, v in params.items()
+def chunked_layout(ptype, n):
+    """Whether a type of n slots packs into ``chunks``: triangles always;
+    a sphere or box type where the JAX package's build_plan gives it its
+    chunked layout (kind "c"); a plane, which has no bounds to prune by,
+    never (the plan's "c" entry of planes is unculled)."""
+    if ptype is P.Triangle:
+        return True
+    if ptype not in (P.Sphere, P.Box) or n <= UNROLL_SLOTS_MAX:
+        return False
+    scalars = sum(3 if kind == P.VEC3 else 1 for _, kind in ptype.fields)
+    return not (n <= SMEM_ROLLED_SLOTS_MAX
+                and n * scalars <= SMEM_ROLLED_SCALARS_MAX)
+
+
+def _dead_row(ptype, dev):
+    """f32[4·TRI_ROWS]: the rows of a dead or padded chunk slot, 1e9 or
+    more from anywhere: a triangle at x = 3e9, a sphere of radius -1e9, a
+    box of half-side -1e9."""
+    row = torch.zeros(4 * TRI_ROWS, device=dev)
+    if ptype is P.Triangle:
+        row[0] = DEAD_TRIANGLE_X
+    elif ptype is P.Sphere:
+        row[3] = -BIG
+    else:
+        row[4:7] = -BIG
+    return row
+
+
+def _chunk_slots(ptype, params, n, live):
+    """(f32[n, 4·TRI_ROWS] rows, lo f32[n, 3], hi f32[n, 3]) of a chunked
+    type's first n slots: a slot's TRI_ROWS float4 rows and its box, a
+    dead slot's rows inert and its box empty (lo BIG, hi -BIG)."""
+    prm = {k: v[:n].to(torch.float32) for k, v in params.items()
            if k != "material_id"}
-    tri["material_id"] = params["material_id"][:n]
-    der = P.Triangle.derive(tri)
-    cols = []
-    for name, kind in P.Triangle.derived_fields:
-        if name == "material_id":
-            continue
-        v = der[name]
-        cols += list(v.unbind(-1)) if kind == P.VEC3 else [v]
-    n_chunks = -(-n // CHUNK)
-    n_pad = n_chunks * CHUNK
+    if ptype is P.Triangle:
+        der = P.Triangle.derive(dict(prm,
+                                     material_id=params["material_id"][:n]))
+        cols = []
+        for name, kind in P.Triangle.derived_fields:
+            if name == "material_id":
+                continue
+            v = der[name]
+            cols += list(v.unbind(-1)) if kind == P.VEC3 else [v]
+        rows = torch.stack(cols, dim=1)
+    elif ptype is P.Sphere:
+        # (center, radius) in row 0
+        rows = torch.cat([prm["center"], prm["radius"][:, None]], dim=1)
+    else:
+        # the center in row 0, the half-side in row 1
+        rows = torch.cat([F.pad(prm["center"], (0, 1)),
+                          F.pad(prm["side"], (0, 1))], dim=1)
+    rows = F.pad(rows, (0, 4 * TRI_ROWS - rows.shape[1]))
     alive = live[:, None] > 0.5
-    table = torch.zeros((n_pad, 4 * TRI_ROWS), device=dev)
-    table[:, 0] = DEAD_TRIANGLE_X
-    table[:n] = torch.where(alive, torch.stack(cols, dim=1), table[:n])
-    table = table.reshape(n_chunks, CHUNK, TRI_ROWS, 4).permute(0, 2, 1, 3)
-    tri_live = torch.zeros(n_pad, device=dev)
-    tri_live[:n] = live
+    lo, hi = ptype.bounds(prm)
+    return (torch.where(alive, rows, _dead_row(ptype, live.device)),
+            torch.where(alive, lo, BIG), torch.where(alive, hi, -BIG))
 
-    lo, hi = P.Triangle.bounds(tri)
-    lo = torch.where(alive, lo, BIG)
-    hi = torch.where(alive, hi, -BIG)
-    pad = torch.full((n_pad - n, 3), BIG, device=dev)
-    lo = torch.cat([lo, pad]).reshape(n_chunks, CHUNK, 3).amin(dim=1)
-    hi = torch.cat([hi, -pad]).reshape(n_chunks, CHUNK, 3).amax(dim=1)
+
+def _z_order(points, live, bits=10):
+    """The permutation that sorts the live points f32[N, 3] by their
+    Z-order key (scene/mesh.py:morton_order's), the dead ones after them:
+    neighbours share a chunk, whose box stays tight."""
+    alive = live > 0.5
+    if not bool(alive.any()):
+        return torch.arange(points.shape[0], device=points.device)
+    lo = points[alive].amin(dim=0)
+    extent = torch.clamp_min(points[alive].amax(dim=0) - lo, 1e-9)
+    q = ((points - lo) / extent * ((1 << bits) - 1)).to(torch.int64)
+    key = torch.zeros(points.shape[0], dtype=torch.int64,
+                      device=points.device)
+    for b in range(bits):
+        for a in range(3):
+            key |= ((q[:, a] >> b) & 1) << (3 * b + a)
+    key = torch.where(alive, key, 1 << (3 * bits))
+    return torch.argsort(key, stable=True)
+
+
+def _pack_chunks(parts):
+    """(chunks, chunk_runs, chunk_live, chunk info, aabbs, {code: chunk
+    slot of each of the type's slots}) of the chunked types' parts {code:
+    (ptype, params, n, live, gidx, mid)}, in chunk order.  Spheres and
+    boxes go in Z-order of their centers, so that a chunk's box holds
+    neighbours; triangles keep their order (a mesh's loader,
+    scene/mesh.py:add_mesh_to_renderer, gives them Z-order)."""
+    dev = next(iter(parts.values()))[3].device
+    codes = sorted(parts)
+    rows, lo, hi, live, info, runs, col_slot = [], [], [], [], [], [], {}
+    first = 0
+    for code in codes:
+        ptype, params, n, alive, gidx, mid = parts[code]
+        r, l, h = _chunk_slots(ptype, params, n, alive)
+        order = torch.arange(n, device=dev) if ptype is P.Triangle \
+            else _z_order(params["center"][:n].to(torch.float32), alive)
+        r, l, h, alive, gidx, mid = (x[order] for x in (r, l, h, alive,
+                                                        gidx, mid))
+        col_slot[code] = torch.empty_like(order)
+        col_slot[code][order] = first * CHUNK + torch.arange(n, device=dev)
+        n_ch = -(-n // CHUNK)
+        if code != codes[-1]:
+            n_ch = -(-n_ch // SUPER) * SUPER
+        pad = n_ch * CHUNK - n
+        # padded slots: the inert rows of a dead slot, an empty box
+        rows += [r, _dead_row(ptype, dev).expand(pad, -1)]
+        lo += [l, torch.full((pad, 3), BIG, device=dev)]
+        hi += [h, torch.full((pad, 3), -BIG, device=dev)]
+        live += [alive, torch.zeros(pad, device=dev)]
+        info += [torch.stack([gidx, mid], dim=1),
+                 torch.zeros((pad, 2), dtype=torch.int32, device=dev)]
+        runs.append((code, first, n_ch))
+        first += n_ch
+    n_chunks = first
+    table = torch.cat(rows).reshape(n_chunks, CHUNK, TRI_ROWS, 4) \
+        .permute(0, 2, 1, 3).contiguous()
+    lo, hi = torch.cat(lo), torch.cat(hi)
+    chunk_live = torch.cat(live)
+    # the coordinate scale of the pruning slack: 1 + the largest
+    # coordinate of a live slot's box (of a triangle, a vertex)
+    scale = 1.0 + torch.where(chunk_live[:, None] > 0.5,
+                              torch.maximum(lo.abs(), hi.abs()), 0.0).amax()
+    lo = lo.reshape(n_chunks, CHUNK, 3).amin(dim=1)
+    hi = hi.reshape(n_chunks, CHUNK, 3).amax(dim=1)
     n_supers = -(-n_chunks // SUPER)
     padc = torch.full((n_supers * SUPER - n_chunks, 3), BIG, device=dev)
     lo_s = torch.cat([lo, padc]).reshape(n_supers, SUPER, 3).amin(dim=1)
     hi_s = torch.cat([hi, -padc]).reshape(n_supers, SUPER, 3).amax(dim=1)
-    # the coordinate scale of the pruning slack: 1 + the largest vertex
-    # coordinate of a live triangle
-    verts = torch.stack([tri["v1"], tri["v2"], tri["v3"]], dim=1)
-    scale = 1.0 + torch.where(alive[:, None], verts.abs(), 0.0).amax()
     aabbs = torch.zeros((1 + n_supers + n_chunks, 8), device=dev)
     aabbs[0, 0] = scale
     aabbs[1:, 0:3] = torch.cat([lo_s, lo])
     aabbs[1:, 4:7] = torch.cat([hi_s, hi])
-    return table.contiguous(), tri_live, aabbs, n_chunks
+    return table, tuple(runs), chunk_live, torch.cat(info), aabbs, col_slot
 
 
 def kernel_scene(spec) -> bool:
@@ -270,13 +414,9 @@ def pack_scene(spec, data) -> PackedScene:
     in two runs, no live primitive)."""
     dev = data.materials["albedo"].device
     runs = {}      # type code -> (row blocks, info rows) of the type's run
+    parts = {}     # type code -> what _pack_chunks packs of a chunked type
     entries = []
     col_gidx, col_mid = [], []
-    tris = torch.zeros((0, TRI_ROWS, CHUNK, 4), device=dev)
-    tri_live = torch.zeros(0, device=dev)
-    tri_info = torch.zeros((0, 2), dtype=torch.int32, device=dev)
-    aabbs = torch.zeros((0, 8), device=dev)
-    n_chunks = 0
     goff = 0
     boxes = []     # each live type's global box, None where it has none
     for ptype, cap, n, static in spec.prim_bounds():
@@ -289,7 +429,7 @@ def pack_scene(spec, data) -> PackedScene:
                 f"not {ptype.name!r}")
         code = TRIANGLE_CODE if ptype is P.Triangle \
             else KERNEL_TYPES[ptype][0]
-        if code in runs or (code == TRIANGLE_CODE and n_chunks):
+        if code in runs or code in parts:
             raise NotImplementedError(f"one {ptype.name} type per scene")
         params = data.prims[ptype.name]
         slot = torch.arange(n, device=dev)
@@ -302,12 +442,8 @@ def pack_scene(spec, data) -> PackedScene:
         entries.append((ptype, code, n, static))
         goff += cap
         boxes.append(_global_box(ptype, params, n, live))
-        if ptype is P.Triangle:
-            tris, tri_live, aabbs, n_chunks = _pack_triangles(params, n,
-                                                              live)
-            tri_info = torch.zeros((n_chunks * CHUNK, 2), dtype=torch.int32,
-                                   device=dev)
-            tri_info[:n] = torch.stack([gidx, mid], dim=1)
+        if chunked_layout(ptype, n):
+            parts[code] = (ptype, params, n, live, gidx, mid)
             continue
         _, names, dead = KERNEL_TYPES[ptype]
         blocks = []
@@ -330,19 +466,33 @@ def pack_scene(spec, data) -> PackedScene:
         row += runs[code][0].shape[0]
     rows = torch.cat([runs[c][0] for c in codes]).contiguous() if codes \
         else torch.zeros((0, 4), device=dev)
-    info = torch.cat([runs[c][1] for c in codes] + [tri_info]).contiguous()
     counts = tuple(runs[c][1].shape[0] if c in runs else 0
                    for c in range(TRIANGLE_CODE))
+    col_slot = {}
+    if parts:
+        chunks, chunk_runs, chunk_live, chunk_info, aabbs, col_slot = \
+            _pack_chunks(parts)
+        first.update({c: f for c, f, _ in chunk_runs})
+    else:
+        chunks = torch.zeros((0, TRI_ROWS, CHUNK, 4), device=dev)
+        chunk_runs, chunk_live = (), torch.zeros(0, device=dev)
+        chunk_info = torch.zeros((0, 2), dtype=torch.int32, device=dev)
+        aabbs = torch.zeros((0, 8), device=dev)
+    info = torch.cat([runs[c][1] for c in codes] + [chunk_info]).contiguous()
     bounded = all(b is not None for b in boxes)
     cap_boxes = torch.stack(boxes) if bounded \
         else torch.zeros((0, 6), device=dev)
     cap_boxes[:, :3] -= FAR_MARGIN
     cap_boxes[:, 3:] += FAR_MARGIN
     return PackedScene(
-        entries=tuple((ptype, first.get(code, 0), n, static)
+        entries=tuple((ptype, first[code], n, static)
                       for ptype, code, n, static in entries),
-        rows=rows, counts=counts, info=info, tris=tris, tri_live=tri_live,
-        aabbs=aabbs, n_chunks=n_chunks, col_gidx=torch.cat(col_gidx),
+        rows=rows, counts=counts, info=info, chunks=chunks,
+        chunk_runs=chunk_runs, chunk_live=chunk_live,
+        col_slot=torch.cat([col_slot.get(code, torch.full(
+            (n,), -1, dtype=torch.int64, device=dev))
+            for _, code, n, _ in entries]), aabbs=aabbs,
+        n_chunks=chunks.shape[0], col_gidx=torch.cat(col_gidx),
         col_mid=torch.cat(col_mid), cap_boxes=cap_boxes.contiguous(),
         cap_margin=FAR_MARGIN if bounded else None)
 
@@ -444,44 +594,43 @@ def _slot_dists(packed, p):
     triangle's through sdf_planar_derived on its table row), dead slots at
     1e9 or more; columns in spec order."""
     px, py, pz = p[:, 0:1], p[:, 1:2], p[:, 2:3]
+    slots = packed.chunks.permute(0, 2, 1, 3).reshape(-1, 4 * TRI_ROWS)
     cols = []
+    col = 0
     for ptype, first, n, _ in packed.entries:
+        chunked = packed.chunked(ptype)
+        rows = slots[packed.col_slot[col:col + n]] if chunked \
+            else packed.rows[first:first + n]
         if ptype is P.Triangle:
             fields = [f for f in ptype.derived_fields
                       if f[0] != "material_id"]
-            d = ptype.sdf_planar_derived(
-                _planar_scalars(packed.triangle_rows()[:n], fields),
-                px, py, pz)
+            d = ptype.sdf_planar_derived(_planar_scalars(rows, fields),
+                                         px, py, pz)
             code = TRIANGLE_CODE
         else:
             code, names, _ = KERNEL_TYPES[ptype]
             kinds = dict(ptype.fields)
-            rows = packed.rows[first:first + n]
             if ptype is P.Box:
-                rows = torch.cat(
-                    [rows[:, :3], packed.rows[first + n:first + 2 * n, :3]],
-                    dim=1)
+                # the center and the half-side: rows 0 and 1 of a chunk
+                # slot, the run's two blocks of a typed one
+                rows = torch.cat([rows[:, :3], rows[:, 4:7]], dim=1) \
+                    if chunked else torch.cat([
+                        rows[:, :3],
+                        packed.rows[first + n:first + 2 * n, :3]], dim=1)
             d = ptype.sdf_planar(_planar_scalars(
                 rows, [(k, kinds[k]) for k in names]), px, py, pz)
         cols.append(d)
         scene_evals[code] += p.shape[0] * n
-    return torch.cat(cols, dim=1)
-
-
-def _tri_columns(packed):
-    """(first column, count) of the triangles in the distance table."""
-    col = 0
-    for ptype, _, n, _ in packed.entries:
-        if ptype is P.Triangle:
-            return col, n
+        if chunked:
+            chunk_evals[code] += p.shape[0] * n
         col += n
-    return col, 0
+    return torch.cat(cols, dim=1)
 
 
 def _admitted(packed, p, best):
     """(bool[N, n_supers], bool[N, n_chunks]): the super-chunks and the
     chunks whose box lies within the pruning slack of best[N] at points
-    p[N, 3] (csrc/scene.cuh:tri_min's test); a chunk only inside an
+    p[N, 3] (csrc/scene.cuh:chunk_min's test); a chunk only inside an
     admitted super-chunk."""
     px, py, pz = p[:, 0:1], p[:, 1:2], p[:, 2:3]
     slack = PRUNE_REL * (packed.aabbs[0, 0] + torch.abs(p[:, 0])
@@ -513,11 +662,14 @@ def _count_pruned(packed, p, dmin):
     per_super = torch.full((packed.n_supers,), float(SUPER),
                            dtype=torch.float64, device=p.device)
     per_super[-1] = packed.n_chunks - SUPER * (packed.n_supers - 1)
-    live = packed.tri_live.reshape(packed.n_chunks, CHUNK).sum(1)
+    live = packed.chunk_live.reshape(packed.n_chunks, CHUNK).sum(1).to(
+        torch.float64)
     pruned_evals["aabb"] += p.shape[0] * packed.n_supers + int(
         (sup.to(torch.float64) @ per_super).sum().item())
-    pruned_evals["triangles"] += int(
-        (chunk.to(torch.float64) @ live.to(torch.float64)).sum().item())
+    for code, first, n in packed.chunk_runs:
+        pruned_evals[CHUNK_KEYS[code]] += int(
+            (chunk[:, first:first + n].to(torch.float64)
+             @ live[first:first + n]).sum().item())
 
 
 def _by_chunks(fn, packed, p, max_dist):
@@ -560,18 +712,16 @@ def scene_dist_info(packed, p, max_dist):
 
 
 def pruned_scene_dist(packed, p, max_dist):
-    """Scene distance at p[N, 3] with only the admitted triangle chunks
-    evaluated (those pruned_evals counts): the vectorised emulation of the
-    kernels' exact pruning, equal to scene_dist wherever it is exact."""
+    """Scene distance at p[N, 3] with only the admitted chunks evaluated
+    (those pruned_evals counts): the vectorised emulation of the kernels'
+    exact pruning, equal to scene_dist wherever it is exact."""
     d = _slot_dists(packed, p)
     dmin = torch.clamp_max(torch.amin(d, dim=1), max_dist)
-    first, n = _tri_columns(packed)
-    if n:
-        admitted = _admitted(packed, p, dmin)[1].repeat_interleave(
-            CHUNK, dim=1)[:, :n]
-        d = d.clone()
-        d[:, first:first + n] = torch.where(admitted, d[:, first:first + n],
-                                            torch.inf)
+    if packed.n_chunks:
+        chunk = packed.col_slot // CHUNK
+        admitted = _admitted(packed, p, dmin)[1][:, chunk.clamp_min(0)] \
+            | (chunk < 0)
+        d = torch.where(admitted, d, torch.inf)
     return torch.clamp_max(torch.amin(d, dim=1), max_dist)
 
 
@@ -772,10 +922,12 @@ class _SceneArgs(ctypes.Structure):
     _fields_ = [
         ("rows", ctypes.c_void_p), ("n_spheres", ctypes.c_int),
         ("n_planes", ctypes.c_int), ("n_boxes", ctypes.c_int),
-        ("info", ctypes.c_void_p), ("tris", ctypes.c_void_p),
+        ("info", ctypes.c_void_p), ("chunks", ctypes.c_void_p),
         ("aabbs", ctypes.c_void_p), ("n_chunks", ctypes.c_int),
-        ("n_supers", ctypes.c_int), ("cap_boxes", ctypes.c_void_p),
-        ("n_cap_boxes", ctypes.c_int), ("work", ctypes.c_void_p),
+        ("n_supers", ctypes.c_int), ("box_chunk0", ctypes.c_int),
+        ("tri_chunk0", ctypes.c_int), ("cap_boxes", ctypes.c_void_p),
+        ("n_cap_boxes", ctypes.c_int), ("placement", ctypes.c_int),
+        ("work", ctypes.c_void_p),
     ]
 
 
@@ -822,6 +974,12 @@ def geometry_library(lanes=1, count_work=False, fmad=False):
     lib.madarch_geometry.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                      ctypes.c_void_p]
     lib.madarch_geometry.restype = ctypes.c_int
+    return _with_optin_query(lib)
+
+
+def _with_optin_query(lib):
+    lib.madarch_smem_optin.argtypes = [ctypes.c_int]
+    lib.madarch_smem_optin.restype = ctypes.c_int
     return lib
 
 
@@ -849,12 +1007,11 @@ def _ptr(x):
 
 
 def _check_scene(packed, dev):
-    n_tri = packed.n_chunks * CHUNK
     _check("packed.rows", packed.rows, dev, torch.float32,
            (sum(packed.counts) + packed.counts[2], 4))
     _check("packed.info", packed.info, dev, torch.int32,
-           (packed.n_slots + n_tri, 2))
-    _check("packed.tris", packed.tris, dev, torch.float32,
+           (packed.n_slots + packed.n_chunks * CHUNK, 2))
+    _check("packed.chunks", packed.chunks, dev, torch.float32,
            (packed.n_chunks, TRI_ROWS, CHUNK, 4))
     _check("packed.aabbs", packed.aabbs, dev, torch.float32,
            (1 + packed.n_supers + packed.n_chunks if packed.n_chunks else 0,
@@ -862,28 +1019,77 @@ def _check_scene(packed, dev):
     _check("packed.cap_boxes", packed.cap_boxes, dev, torch.float32,
            (packed.cap_boxes.shape[0], 6))
     # the kernels read these tables as float4 and int2
-    for name, align in (("rows", 16), ("tris", 16), ("aabbs", 16),
+    for name, align in (("rows", 16), ("chunks", 16), ("aabbs", 16),
                         ("info", 8)):
         if getattr(packed, name).data_ptr() % align:
             raise ValueError(f"packed.{name} must be {align}-byte aligned")
 
 
-def _scene_args(packed, extra_smem_floats, kernels, work=None):
-    """The scene's _SceneArgs; raises when its shared memory (typed runs,
-    boxes and extra_smem_floats) exceeds SMEM_LIMIT."""
-    n_bytes = 4 * (packed.rows.numel() + packed.aabbs.numel()
-                   + extra_smem_floats)
-    if n_bytes > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"scene needs {n_bytes} bytes of shared memory; the {kernels} "
-            f"kernels hold at most {SMEM_LIMIT}")
+def placement_for(kernel, n_bytes, optin_limit):
+    """Where a launch of ``kernel`` (geometry, raycast, visibility or
+    softshadows) whose staged tables take n_bytes keeps them: "staged" in
+    shared memory up to SMEM_LIMIT, for OPTIN_KERNELS "optin" (staged
+    after raising the kernel's limit) up to optin_limit, the device's
+    opt-in maximum, else "global" (read in place from device memory)."""
+    if n_bytes <= SMEM_LIMIT:
+        return "staged"
+    if kernel in OPTIN_KERNELS and n_bytes <= optin_limit:
+        return "optin"
+    return "global"
+
+
+def smem_bytes(packed, extra_floats=0):
+    """Bytes a launch stages: the typed runs, the boxes and extra_floats
+    (the geometry kernel's light positions and roughness)."""
+    return 4 * (packed.rows.numel() + packed.aabbs.numel() + extra_floats)
+
+
+_optin_limits = {}
+
+
+def optin_limit(lib, dev):
+    """The device's cudaDevAttrMaxSharedMemoryPerBlockOptin in bytes, asked
+    of a kernel library once per device."""
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    if index not in _optin_limits:
+        limit = lib.madarch_smem_optin(index)
+        if limit < 0:
+            raise RuntimeError(f"cannot read the shared-memory opt-in "
+                               f"limit of cuda:{index}")
+        _optin_limits[index] = limit
+    return _optin_limits[index]
+
+
+def _check_placement(placement):
+    if placement is not None and placement not in PLACEMENTS:
+        raise ValueError(f"placement must be None or one of {PLACEMENTS}, "
+                         f"not {placement!r}")
+
+
+def _scene_args(packed, extra_smem_floats, kernel, lib, dev,
+                placement=None, work=None):
+    """The scene's _SceneArgs for a launch of ``kernel`` at ``placement``
+    (None: placement_for's choice); raises ValueError where a forced
+    placement cannot hold the staged tables."""
+    n_bytes = smem_bytes(packed, extra_smem_floats)
+    limit = optin_limit(lib, dev)
+    if placement is None:
+        placement = placement_for(kernel, n_bytes, limit)
+    elif n_bytes > {"staged": SMEM_LIMIT, "optin": limit}.get(
+            placement, n_bytes):
+        raise ValueError(f"the scene stages {n_bytes} bytes: more than "
+                         f"placement {placement!r} holds")
     n_spheres, n_planes, n_boxes = packed.counts
     return _SceneArgs(
         rows=_ptr(packed.rows), n_spheres=n_spheres, n_planes=n_planes,
-        n_boxes=n_boxes, info=_ptr(packed.info), tris=_ptr(packed.tris),
+        n_boxes=n_boxes, info=_ptr(packed.info), chunks=_ptr(packed.chunks),
         aabbs=_ptr(packed.aabbs), n_chunks=packed.n_chunks,
-        n_supers=packed.n_supers, cap_boxes=_ptr(packed.cap_boxes),
-        n_cap_boxes=packed.cap_boxes.shape[0], work=_ptr(work))
+        n_supers=packed.n_supers, box_chunk0=packed.chunk_end(0),
+        tri_chunk0=packed.chunk_end(2),
+        cap_boxes=_ptr(packed.cap_boxes),
+        n_cap_boxes=packed.cap_boxes.shape[0],
+        placement=PLACEMENTS.index(placement), work=_ptr(work))
 
 
 # geometry() gives a ray 8 lanes on a launch of fewer rays than this (a
@@ -898,8 +1104,8 @@ LANES_MIN_SLOTS = 16
 
 def geometry_lanes(packed, n_rays):
     """The lanes per ray geometry() launches with: 8 on a scene with
-    triangles, whose chunks and boxes are 8 wide, on a scene of many slots
-    and on a small launch; else 1."""
+    chunked types, whose chunks and boxes are 8 wide, on a scene of many
+    slots and on a small launch; else 1."""
     if packed.n_chunks or packed.n_slots >= LANES_MIN_SLOTS:
         return 8
     return 8 if n_rays < LANES_RAY_LIMIT else 1
@@ -910,7 +1116,7 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
              ao_step_size=0.1, shadow_k=64.0, eps=EPSILON, max_steps=300,
              omega=1.6, mat_rough_vec=None, refl_shadows=True,
              enabled=None, want_shadows=True, want_vis=True, box_cap=True,
-             library=None, work=None):
+             placement=None, library=None, work=None):
     """Fused geometry pass over rays origins/dirs f32[N, 3]: a dict with t,
     hit (bool), idx (i32 global index, -1 where not hit), mid (i32),
     normal f32[N,3], ao f32[N], shadows f32[L,N], vis8 f32[8,N], and
@@ -932,10 +1138,11 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
     miss's t is max_dist or more.  ``box_cap`` False drops the cap, for a
     measurement.
 
-    On the card the launch uses ``geometry_lanes`` lanes per ray;
-    ``library`` (a ``geometry_library`` build) overrides the choice and
-    ``work`` (i64[3] on the device) receives a COUNT_WORK build's counts:
-    both are for measurements.
+    On the card the launch uses ``geometry_lanes`` lanes per ray and
+    ``placement_for``'s placement; ``placement`` (one of PLACEMENTS)
+    forces one, ``library`` (a ``geometry_library`` build) overrides the
+    lanes and ``work`` (i64[3] on the device) receives a COUNT_WORK
+    build's counts: all three are for measurements.
 
     Every output is a constant to autograd: the wrapper detaches its
     inputs, on either device (a ctypes launch would ignore autograd
@@ -956,6 +1163,7 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
                (mat_rough_vec.shape[0],))
     if not 0 <= ao_steps <= MAX_AO_STEPS:
         raise ValueError(f"ao_steps must be in [0, {MAX_AO_STEPS}]")
+    _check_placement(placement)
     kwargs = dict(probe_spacing=probe_spacing, probe_dims=probe_dims,
                   surface_offset=surface_offset, ao_steps=ao_steps,
                   ao_step_size=ao_step_size, shadow_k=shadow_k, eps=eps,
@@ -974,19 +1182,20 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
         _check("work", work, dev, torch.int64, (3,))
     if library is None:
         library = geometry_library(geometry_lanes(packed, n))
-    return _launch(library, work, packed, lpos, n_lights, origins, dirs,
-                   max_dist, **kwargs)
+    return _launch(library, work, placement, packed, lpos, n_lights,
+                   origins, dirs, max_dist, **kwargs)
 
 
-def _launch(lib, work, packed, lpos, n_lights, origins, dirs, max_dist, *,
-            probe_spacing, probe_dims, surface_offset, ao_steps,
-            ao_step_size, shadow_k, eps, max_steps, omega, mat_rough_vec,
-            refl_shadows, enabled, want_shadows, want_vis):
+def _launch(lib, work, placement, packed, lpos, n_lights, origins, dirs,
+            max_dist, *, probe_spacing, probe_dims, surface_offset,
+            ao_steps, ao_step_size, shadow_k, eps, max_steps, omega,
+            mat_rough_vec, refl_shadows, enabled, want_shadows, want_vis):
     dev = origins.device
     n = origins.shape[0]
     refl = mat_rough_vec is not None
     scene = _scene_args(packed, lpos.numel() + (
-        mat_rough_vec.numel() if refl else 0), "geometry", work)
+        mat_rough_vec.numel() if refl else 0), "geometry", lib, dev,
+        placement, work)
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -1081,7 +1290,7 @@ def march_library(counts=None):
                lib.madarch_softshadows):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib
+    return _with_optin_query(lib)
 
 
 # A scene without triangles whose typed runs fill at most this many float4
@@ -1096,14 +1305,14 @@ UNROLL_ROWS_MAX = 20
 
 def march_layout(packed):
     """The (spheres, planes, boxes) layout the march kernels are built for
-    on this scene, or None for the generic build (triangles, or typed runs
-    of more than UNROLL_ROWS_MAX rows)."""
+    on this scene, or None for the generic build (chunked types, or typed
+    runs of more than UNROLL_ROWS_MAX rows)."""
     if packed.n_chunks or packed.rows.shape[0] > UNROLL_ROWS_MAX:
         return None
     return tuple(packed.counts)
 
 
-def _check_rays(packed, origins, dirs, enabled):
+def _check_rays(packed, origins, dirs, enabled, placement=None):
     """Checks the arguments the raycast, visibility and softshadow wrappers
     share and returns the enable mask as a bool[N] tensor."""
     dev = origins.device
@@ -1111,20 +1320,24 @@ def _check_rays(packed, origins, dirs, enabled):
     _check("origins", origins, dev, torch.float32, (n, 3))
     _check("dirs", dirs, dev, torch.float32, (n, 3))
     _check_scene(packed, dev)
+    _check_placement(placement)
     if enabled is None:
         return torch.ones(n, dtype=torch.bool, device=dev)
     _check("enabled", enabled, dev, torch.bool, (n,))
     return enabled
 
 
-def _launch_march(fn, packed, origins, dirs, enabled, **fields):
-    """Launches one of csrc/march.cu's kernels on the current stream."""
-    scene = _scene_args(packed, 0, "march")
+def _launch_march(lib, kernel, placement, packed, origins, dirs, enabled,
+                  **fields):
+    """Launches csrc/march.cu's ``kernel`` (raycast, visibility or
+    softshadows) of ``lib`` on the current stream."""
+    dev = origins.device
+    fn = getattr(lib, "madarch_" + kernel)
+    scene = _scene_args(packed, 0, kernel, lib, dev, placement)
     omega = fields.pop("omega")
     args = _MarchArgs(scene=scene, origins=_ptr(origins), dirs=_ptr(dirs),
                       enabled=_ptr(enabled), n=origins.shape[0],
                       omega=omega, one_minus_omega=1.0 - omega, **fields)
-    dev = origins.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ctypes.addressof(args), stream)
@@ -1133,19 +1346,20 @@ def _launch_march(fn, packed, origins, dirs, enabled, **fields):
 
 
 def raycast(packed, origins, dirs, max_dist, *, eps=EPSILON, max_steps=300,
-            enabled=None, omega=1.6, box_cap=True):
+            enabled=None, omega=1.6, box_cap=True, placement=None):
     """Over-relaxed primary march of rays origins/dirs f32[N, 3] to
     max_dist (also the scene-distance cap): (t f32[N], 0 where disabled;
     hit bool[N]; pos = o + t·d).  On a miss t is max_dist where the march
     ended at the ray's box-exit cap (an all-bounded scene), as the JAX
     kernel's is, else max_dist or more; ``box_cap`` False drops the cap,
-    for a measurement.  ``enabled``: optional bool[N]; disabled rays never
-    march."""
+    for a measurement, as ``placement`` forces where the launch keeps the
+    scene's tables (geometry says how).  ``enabled``: optional bool[N];
+    disabled rays never march."""
     origins, dirs, enabled = _stop_gradient(origins, dirs, enabled)
     if not box_cap:
         packed = without_box_cap(packed)
     dev = origins.device
-    en = _check_rays(packed, origins, dirs, enabled)
+    en = _check_rays(packed, origins, dirs, enabled, placement)
     kwargs = dict(eps=eps, max_steps=max_steps, omega=omega)
     if dev.type == "cpu":
         return raycast_reference(packed, origins, dirs, max_dist,
@@ -1153,38 +1367,40 @@ def raycast(packed, origins, dirs, max_dist, *, eps=EPSILON, max_steps=300,
     if dev.type != "cuda":
         raise ValueError(f"raycast runs on cpu or cuda, not {dev}")
     t, hit = _raycast(march_library(march_layout(packed)), packed, origins,
-                      dirs, max_dist, en, **kwargs)
+                      dirs, max_dist, en, placement=placement, **kwargs)
     raycast.launches += 1
     return t, hit, origins + t[:, None] * dirs
 
 
 def _raycast(lib, packed, origins, dirs, max_dist, en, *, eps=EPSILON,
-             max_steps=300, omega=1.6):
+             max_steps=300, omega=1.6, placement=None):
     """raycast's launch on the march_library build ``lib``, en the enable
     mask bool[N]: (t, hit)."""
     n = origins.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=origins.device)
     hit = torch.empty(n, dtype=torch.bool, device=origins.device)
-    _launch_march(lib.madarch_raycast, packed, origins, dirs, en,
+    _launch_march(lib, "raycast", placement, packed, origins, dirs, en,
                   max_dist=max_dist, cap=max_dist, t=_ptr(t), hit=_ptr(hit),
                   eps=eps, max_steps=max_steps, omega=omega)
     return t, hit
 
 
 def visibility(packed, origins, dirs, max_dists, *, eps=EPSILON,
-               max_steps=300, enabled=None, omega=1.6, box_cap=True):
+               max_steps=300, enabled=None, omega=1.6, box_cap=True,
+               placement=None):
     """f32[N]: 1 where the ray origins/dirs f32[N, 3] reaches its own
     max_dists f32[N] unblocked, else 0; a ray starts only where
     0 < max_dist and ``enabled`` (optional bool[N]) holds.  On an
     all-bounded scene a ray ends unblocked at its box-exit cap;
-    ``box_cap`` False drops the cap, for a measurement."""
+    ``box_cap`` False drops the cap and ``placement`` forces one, for a
+    measurement."""
     origins, dirs, max_dists, enabled = _stop_gradient(
         origins, dirs, max_dists, enabled)
     if not box_cap:
         packed = without_box_cap(packed)
     dev = origins.device
     n = origins.shape[0]
-    en = _check_rays(packed, origins, dirs, enabled)
+    en = _check_rays(packed, origins, dirs, enabled, placement)
     _check("max_dists", max_dists, dev, torch.float32, (n,))
     kwargs = dict(eps=eps, max_steps=max_steps, omega=omega)
     if dev.type == "cpu":
@@ -1193,34 +1409,35 @@ def visibility(packed, origins, dirs, max_dists, *, eps=EPSILON,
     if dev.type != "cuda":
         raise ValueError(f"visibility runs on cpu or cuda, not {dev}")
     vis = _visibility(march_library(march_layout(packed)), packed, origins,
-                      dirs, max_dists, en, **kwargs)
+                      dirs, max_dists, en, placement=placement, **kwargs)
     visibility.launches += 1
     return vis
 
 
 def _visibility(lib, packed, origins, dirs, max_dists, en, *, eps=EPSILON,
-                max_steps=300, omega=1.6):
+                max_steps=300, omega=1.6, placement=None):
     """visibility's launch on the march_library build ``lib``."""
     vis = torch.empty(origins.shape[0], dtype=torch.float32,
                       device=origins.device)
-    _launch_march(lib.madarch_visibility, packed, origins, dirs, en,
+    _launch_march(lib, "visibility", placement, packed, origins, dirs, en,
                   max_dists=_ptr(max_dists), max_dist=VIS_CAP, cap=VIS_CAP,
                   vis=_ptr(vis), eps=eps, max_steps=max_steps, omega=omega)
     return vis
 
 
 def softshadows(packed, origins, dirs, min_dists, max_dists, k, *,
-                eps=EPSILON, max_steps=300, enabled=None):
+                eps=EPSILON, max_steps=300, enabled=None, placement=None):
     """f32[N]: the improved-penumbra factor of the ray origins/dirs
     f32[N, 3] marched (omega 1) from its min_dists to its max_dists
     f32[N], k the penumbra sharpness; 0 where the ray hits geometry, 1
     where it never starts (``enabled``, optional bool[N], false, or
-    min_dist >= max_dist)."""
+    min_dist >= max_dist).  ``placement`` forces one, for a
+    measurement."""
     origins, dirs, min_dists, max_dists, enabled = _stop_gradient(
         origins, dirs, min_dists, max_dists, enabled)
     dev = origins.device
     n = origins.shape[0]
-    en = _check_rays(packed, origins, dirs, enabled)
+    en = _check_rays(packed, origins, dirs, enabled, placement)
     _check("min_dists", min_dists, dev, torch.float32, (n,))
     _check("max_dists", max_dists, dev, torch.float32, (n,))
     kwargs = dict(eps=eps, max_steps=max_steps)
@@ -1230,17 +1447,19 @@ def softshadows(packed, origins, dirs, min_dists, max_dists, k, *,
     if dev.type != "cuda":
         raise ValueError(f"softshadows runs on cpu or cuda, not {dev}")
     res = _softshadows(march_library(march_layout(packed)), packed, origins,
-                       dirs, min_dists, max_dists, k, en, **kwargs)
+                       dirs, min_dists, max_dists, k, en,
+                       placement=placement, **kwargs)
     softshadows.launches += 1
     return res
 
 
 def _softshadows(lib, packed, origins, dirs, min_dists, max_dists, k, en, *,
-                 eps=EPSILON, max_steps=300):
+                 eps=EPSILON, max_steps=300, placement=None):
     """softshadows' launch on the march_library build ``lib``."""
     res = torch.empty(origins.shape[0], dtype=torch.float32,
                       device=origins.device)
-    _launch_march(lib.madarch_softshadows, packed, origins, dirs, en,
+    _launch_march(lib, "softshadows", placement, packed, origins, dirs,
+                  en,
                   min_dists=_ptr(min_dists), max_dists=_ptr(max_dists),
                   max_dist=VIS_CAP, cap=VIS_CAP, omega=1.0, k=k,
                   vis=_ptr(res), eps=eps, max_steps=max_steps)

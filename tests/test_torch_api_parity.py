@@ -67,8 +67,7 @@ DEVIATIONS = {
     "madarch_tpu/ops/march.py:SceneRefs": ("by design", _PLAN),
     "madarch_tpu/ops/march.py:build_plan": ("by design", _PLAN),
     **{f"madarch_tpu/ops/march.py:{name}": ("by design", _KNOB) for name in (
-        "TILE_ROWS", "UNROLL", "S_UNROLL", "SEG_CAND", "SEG_DENSE",
-        "SMEM_ROLLED_SCALARS_MAX", "SMEM_ROLLED_SLOTS_MAX", "LANES",
+        "TILE_ROWS", "UNROLL", "S_UNROLL", "SEG_CAND", "SEG_DENSE", "LANES",
         "CHUNK_S", "SUPER_MIN", "S_CULL", "AO_MARGIN", "SHADOW_MARGIN_MIN")},
     # -- parallel/spmd.py: one process per device, not one process's mesh
     "madarch_tpu/parallel/spmd.py:init_distributed(coordinator_address)": (

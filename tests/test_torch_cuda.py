@@ -22,6 +22,7 @@ import torch
 
 from madarch_tpu_torch.core.config import ProbeSettings, ShadeConfig
 from madarch_tpu_torch.core.vecmath import reflect
+from madarch_tpu_torch.examples import large_scenes as LS
 from madarch_tpu_torch.examples import scenes as S
 from madarch_tpu_torch.ops import march as M
 from madarch_tpu_torch.render import probes as PR
@@ -461,7 +462,7 @@ def test_geometry_matches_plain_on_the_mesh(dev, refl):
     r, spec, data = _mesh_scene(dev)
     o, d = _mesh_rays(r, dev, n=4097)
     packed = M.pack_scene(spec, data)
-    assert packed.tris.numel() * 4 > 48 * 1024 and packed.n_chunks == 121
+    assert packed.chunks.numel() * 4 > 48 * 1024 and packed.n_chunks == 121
     k, ref = _both(spec, data, o, d, refl, 3 if refl else 0, r.probes)
     assert ref["hit"].float().mean() > 0.5
     _assert_match(k, ref)
@@ -509,7 +510,7 @@ def test_geometry_matches_plain_with_dead_triangle_slots(dev):
     o, d = _mesh_rays(r, dev, seed=37)
     packed = M.pack_scene(spec, data)
     assert packed.n_chunks == 125
-    assert int((packed.tri_live == 0).sum()) == 300
+    assert int((packed.chunk_live == 0).sum()) == 300
     k, ref = _both(spec, data, o, d, True, 3, r.probes)
     assert ref["hit"].float().mean() > 0.3
     _assert_match(k, ref)
@@ -1348,3 +1349,169 @@ def test_an_empty_data_template_restores_a_card_checkpoint(dev, tmp_path):
                            probe_cfg=r.probe_cfg)[0]
               for data in (r.scene_data, back)]
     assert torch.equal(*frames)
+
+
+# ---------------------------------------------------------------------------
+# Placements (ops/march.py:placement_for) and large scenes: the chunked
+# sphere and box runs, the opt-in and device memory
+# (examples/large_scenes.py)
+# ---------------------------------------------------------------------------
+
+def _placement_scene(name, dev):
+    """(spec, data, probes, 4,096 seeded screen rays) of GI, simple_scene
+    or the torus at 64²."""
+    if name == "torus":
+        r = _mesh_scene(dev)[0]
+        o, d = _mesh_rays(r, dev)
+    else:
+        r = getattr(S, name)(width=64, height=64, device=dev)
+        o, d = _gi_rays(r, dev, "screen")
+    return r.spec, r.scene_data, r.probes, o, d
+
+
+def _launch_all(spec, data, probes, o, d, placement, lanes=None):
+    """Every kernel at ``placement`` on rays o, d: geometry with the fold
+    and a mask, raycast, visibility to seeded max dists, softshadows at k
+    = 64 and 0.5; a dict of each kernel's outputs."""
+    packed = M.pack_scene(spec, data)
+    lpos, n_lights = M.pack_light_positions(spec, data)
+    g = torch.Generator().manual_seed(91)
+    n = o.shape[0]
+    en = (torch.rand(n, generator=g) > 0.2).to(o.device)
+    mn = (torch.rand(n, generator=g) * 0.5).to(o.device)
+    mx = (torch.rand(n, generator=g) * 20.0).to(o.device)
+    geo = M.geometry(packed, lpos, n_lights, o, d, spec.max_dist,
+                     probe_spacing=probes.grid_spacing,
+                     probe_dims=probes.grid_dimensions,
+                     surface_offset=SURFACE_OFFSET, ao_steps=3,
+                     mat_rough_vec=data.materials["roughness"], enabled=en,
+                     placement=placement,
+                     library=lanes and M.geometry_library(lanes))
+    out = {"geometry": geo,
+           "raycast": M.raycast(packed, o, d, spec.max_dist, enabled=en,
+                                placement=placement)[:2],
+           "visibility": M.visibility(packed, o, d, mx, enabled=en,
+                                      placement=placement),
+           "softshadows": [M.softshadows(packed, o, d, mn, mx, k,
+                                         enabled=en, placement=placement)
+                           for k in (64.0, 0.5)]}
+    torch.cuda.synchronize()
+    return out
+
+
+def _flat(x):
+    """Every tensor of a kernel's outputs, in a fixed order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) if x[k] is not None for t in _flat(x[k])]
+    return [t for v in x for t in _flat(v)]
+
+
+@pytest.mark.parametrize("lanes", M.LANE_CHOICES)
+@pytest.mark.parametrize("scene", ["global_illumination", "simple_scene",
+                                   "torus"])
+def test_every_placement_is_bit_equal_to_the_staged_launch(dev, scene,
+                                                           lanes):
+    """The opt-in and device-memory instantiations of the four kernels give
+    the staged launch's outputs bit for bit (the same arithmetic, read
+    from elsewhere), and each placement's launch counts once."""
+    spec, data, probes, o, d = _placement_scene(scene, dev)
+    staged = _launch_all(spec, data, probes, o, d, "staged", lanes)
+    for placement in ("optin", "global"):
+        before = M.geometry.launches
+        got = _launch_all(spec, data, probes, o, d, placement, lanes)
+        assert M.geometry.launches == before + 1
+        for name in staged:
+            for a, b in zip(_flat(got[name]), _flat(staged[name]),
+                            strict=True):
+                assert torch.equal(a, b), (placement, name)
+
+
+def _large_scene(name, dev):
+    """(spec, data, probes, seeded rays from the camera toward the scene)
+    of the sphere field, the 12,000-triangle or the 65,000-triangle grid
+    (a 2 x 2 grid at the origin, facing the camera at (0, 0, -4)); fewer
+    rays on the largest: the plain versions' [points, slots]
+    intermediates grow with the slots."""
+    g = torch.Generator().manual_seed(53)
+    if name == "spheres":
+        r = LS.sphere_field(64, 64, device=dev)
+        spec, data, probes = r.spec, r.scene_data, r.probes
+        n, cam = 1024, torch.tensor([0.0, 1.0, -5.0])
+        lo, hi = torch.tensor([-3.0, -0.5, 3.0]), torch.tensor([3.0, 2.0, 9.0])
+    else:
+        n_tris = {"mesh": LS.MESH_TRIANGLES,
+                  "huge_mesh": LS.HUGE_MESH_TRIANGLES}[name]
+        verts, faces = LS.grid_vertices(n_tris)
+        spec = SceneSpec(prims=((P.Triangle, n_tris),),
+                         lights=((L.PointLight, 1),))
+        b = SceneBuilder(spec)
+        b.add_material((0.5, 0.5, 0.5), 0.0, 0.2)
+        for v1, v2, v3 in verts[faces]:
+            b.add_primitive(P.Triangle, v1=v1, v2=v2, v3=v3, material_id=0)
+        b.add_light(L.PointLight, position=(0.0, 3.0, -3.0),
+                    color=(1.0,) * 3)
+        spec, data, probes = spec, b.device_data(dev), LS.PROBES
+        n = 1024 if name == "mesh" else 256
+        cam = torch.tensor([0.0, 0.0, -4.0])
+        lo, hi = torch.tensor([-1.2, -1.2, 0.0]), torch.tensor([1.2, 1.2, 0.0])
+    o = cam + torch.randn(n, 3, generator=g) * 0.2
+    d = lo + torch.rand(n, 3, generator=g) * (hi - lo) - o
+    d = d / d.norm(dim=1, keepdim=True)
+    return spec, data, probes, o.to(dev).contiguous(), d.to(dev).contiguous()
+
+
+@pytest.mark.parametrize("scene", ["spheres", "mesh", "huge_mesh"])
+def test_large_scenes_match_plain(dev, scene):
+    """The sphere field (chunked, staged), 12,000 triangles (the opt-in)
+    and 65,000 (device memory): the geometry kernel at both lane counts,
+    with and without the fold and the mask, matches its plain version;
+    raycast, visibility and softshadows equal theirs."""
+    spec, data, probes, o, d = _large_scene(scene, dev)
+    packed = M.pack_scene(spec, data)
+    lpos, n_lights = M.pack_light_positions(spec, data)
+    extra = lpos.numel() + data.materials["roughness"].numel()
+    assert M.placement_for("geometry", M.smem_bytes(packed, extra),
+                           232_448) == {
+        "spheres": "staged", "mesh": "optin", "huge_mesh": "global"}[scene]
+    g = torch.Generator().manual_seed(92)
+    en = (torch.rand(o.shape[0], generator=g) > 0.2).to(dev)
+    for refl, enabled in ((False, None), (True, en)):
+        kw = dict(probe_spacing=probes.grid_spacing,
+                  probe_dims=probes.grid_dimensions,
+                  surface_offset=SURFACE_OFFSET, ao_steps=3,
+                  mat_rough_vec=data.materials["roughness"] if refl
+                  else None, enabled=enabled)
+        ref = M.geometry_reference(packed, lpos, n_lights, o, d,
+                                   spec.max_dist, **kw)
+        assert ref["hit"].float().mean() > 0.2
+        for lanes in M.LANE_CHOICES:
+            k = M.geometry(packed, lpos, n_lights, o, d, spec.max_dist,
+                           library=M.geometry_library(lanes), **kw)
+            torch.cuda.synchronize()
+            _assert_match(k, ref)
+    mn = (torch.rand(o.shape[0], generator=g) * 0.5).to(dev)
+    mx = (torch.rand(o.shape[0], generator=g) * 20.0).to(dev)
+    got = _march_all(packed, spec.max_dist, o, d, en, mn, mx)
+    torch.cuda.synchronize()
+    want = _march_plain(packed, spec.max_dist, o, d, en, mn, mx)
+    for name, a, b in zip(("t", "hit", "vis", "pen64", "pen05"), got, want):
+        assert torch.equal(a, b), name
+
+
+def test_chunked_spheres_equal_the_typed_run(dev, monkeypatch):
+    """The sphere field packed chunk-major (pruned) and, with
+    chunked_layout forced off, as one typed run of 3,500 slots (the
+    opt-in, every slot evaluated): every kernel's outputs bit-equal."""
+    spec, data, probes, o, d = _large_scene("spheres", dev)
+    chunked = _launch_all(spec, data, probes, o, d, None)
+    monkeypatch.setattr(M, "chunked_layout", lambda ptype, n:
+                        ptype is P.Triangle)
+    assert M.pack_scene(spec, data).counts == (LS.SPHERES, 1, 0)
+    typed = _launch_all(spec, data, probes, o, d, None)
+    for name in chunked:
+        for a, b in zip(_flat(typed[name]), _flat(chunked[name]),
+                        strict=True):
+            assert torch.equal(a, b), name
+

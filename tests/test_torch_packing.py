@@ -204,14 +204,14 @@ def test_triangle_table_holds_the_specs_triangles(n_live):
     spec, data = _scene(order, prims, {"plane": 4, "triangle": n_live})
     packed = TM.pack_scene(spec, data)
     assert packed.n_chunks == 4 and packed.n_supers == 1
-    assert packed.tris.shape == (4, TM.TRI_ROWS, TM.CHUNK, 4)
-    assert packed.tris.is_contiguous()
+    assert packed.chunks.shape == (4, TM.TRI_ROWS, TM.CHUNK, 4)
+    assert packed.chunks.is_contiguous()
     der = TP.Triangle.derive({k: torch.as_tensor(v)
                               for k, v in prims["triangle"].items()})
     want = torch.cat([der[name].reshape(29, -1)
                       for name, _ in TP.Triangle.derived_fields[:-1]],
                      dim=1).numpy()
-    tris = packed.tris.numpy()
+    tris = packed.chunks.numpy()
     for slot in range(32):
         got = tris[slot // 8, :, slot % 8, :].reshape(-1)
         if slot < n_live:
@@ -219,7 +219,7 @@ def test_triangle_table_holds_the_specs_triangles(n_live):
         else:
             np.testing.assert_array_equal(
                 got, [TM.DEAD_TRIANGLE_X] + [0.0] * 27, err_msg=str(slot))
-    np.testing.assert_array_equal(packed.tri_live.numpy(),
+    np.testing.assert_array_equal(packed.chunk_live.numpy(),
                                   np.arange(32) < n_live)
     info = packed.info.numpy()
     assert info.shape == (4 + 32, 2)
@@ -357,7 +357,7 @@ def _take(best, d, gi):
 
 
 def _group_tri_min(packed, dists, gidx, p, start, lanes):
-    """scene.cuh:tri_min for a group of ``lanes`` lanes at each point:
+    """scene.cuh:chunk_min for a group of ``lanes`` lanes at each point:
     (distance, global index) folded from ``start`` and the triangles
     evaluated.  dists[N, slots]: every triangle slot's distance, read
     where the kernel would evaluate it."""
@@ -430,14 +430,15 @@ def tri_points(request):
         rng.uniform(lo - 6.0, hi + 6.0, (40, 3))]).astype(np.float32)
     pt = torch.as_tensor(p)
     cols = TM._slot_dists(packed, pt).numpy()
-    first, n = TM._tri_columns(packed)
+    tri = packed.col_slot.numpy() >= 0
+    n = int(tri.sum())
     dists = np.full((len(p), packed.n_chunks * TM.CHUNK),
                     np.float32(TM.DEAD_TRIANGLE_X))
-    dists[:, :n] = cols[:, first:first + n]
+    dists[:, :n] = cols[:, tri]
     gidx = packed.info[packed.n_slots:, 0].numpy()
     # the slots before the triangles fold first, as scene_info folds them
-    others = np.delete(cols, np.s_[first:first + n], axis=1)
-    other_gidx = np.delete(packed.col_gidx.numpy(), np.s_[first:first + n])
+    others = cols[:, ~tri]
+    other_gidx = packed.col_gidx.numpy()[~tri]
     start = []
     for i in range(len(p)):
         best = (np.float32(spec.max_dist), -1)

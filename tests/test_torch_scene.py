@@ -244,7 +244,8 @@ def test_port_never_imports_jax():
                    "scene.lights", "scene.scene", "scene.partitioning",
                    "render.shading", "render.probes", "utils.profiling",
                    "bench", "tools.perf_probe", "tools.geom_probe",
-                   "tools.train_probe", "tools.diag_golden"):
+                   "tools.train_probe", "tools.diag_golden",
+                   "tools.tree_outputs", "examples.large_scenes"):
         assert "madarch_tpu_torch." + module in names
 
 

@@ -203,17 +203,17 @@ def test_triangle_table_layout():
     tspec, tdata = _port(jspec, jdata)
     packed = TM.pack_scene(tspec, tdata)
     assert packed.n_chunks == 10 and packed.n_supers == 2
-    assert packed.tris.shape == (10, TM.TRI_ROWS, TM.CHUNK, 4)
+    assert packed.chunks.shape == (10, TM.TRI_ROWS, TM.CHUNK, 4)
     assert packed.n_slots == 1 and packed.n_columns == 81
     # triangle 8·c + j's float4 row k sits at tris[c, k, j]
     tris = packed.triangle_rows().numpy()
     np.testing.assert_array_equal(
         tris.reshape(10, TM.CHUNK, TM.TRI_ROWS, 4),
-        packed.tris.numpy().transpose(0, 2, 1, 3))
+        packed.chunks.numpy().transpose(0, 2, 1, 3))
     # the plane's slot first (gidx 80), then the triangle slots
     np.testing.assert_array_equal(packed.info[:, 0].numpy(),
                                   [80] + list(range(80)))
-    np.testing.assert_array_equal(packed.tri_live.numpy(), 1.0)
+    np.testing.assert_array_equal(packed.chunk_live.numpy(), 1.0)
     np.testing.assert_array_equal(packed.col_gidx.numpy(),
                                   list(range(80)) + [80])
     jd = JP.Triangle.derive(jax.tree.map(lambda a: a[:80],
@@ -253,8 +253,8 @@ def test_dead_and_padded_triangle_slots_are_inert():
                             max_dist=tspec.max_dist)
     tdata.prim_counts["triangle"] = torch.tensor(13, dtype=torch.int32)
     packed = TM.pack_scene(tspec, tdata)
-    assert packed.n_chunks == 10 and packed.tri_live.shape[0] == 80
-    np.testing.assert_array_equal(packed.tri_live.numpy(),
+    assert packed.n_chunks == 10 and packed.chunk_live.shape[0] == 80
+    np.testing.assert_array_equal(packed.chunk_live.numpy(),
                                   [1.0] * 13 + [0.0] * 67)
     dead = packed.triangle_rows().numpy()[13:]
     assert (dead[:, 0] == TM.DEAD_TRIANGLE_X).all() and not dead[:, 1:].any()
@@ -435,7 +435,7 @@ def test_pruning_emulation_gives_the_unpruned_minimum(tri_scene):
     counted = dict(TM.pruned_evals)
     TM.scene_dist(packed, p, tspec.max_dist)
     assert TM.pruned_evals == counted
-    n_tri = packed.tri_live.shape[0]
+    n_tri = packed.chunk_live.shape[0]
     assert TM.scene_evals[TM.TRIANGLE_CODE] == 2 * p.shape[0] * n_tri
 
     pts, b = _np(p), _np(packed.aabbs)
@@ -452,11 +452,11 @@ def test_pruning_emulation_gives_the_unpruned_minimum(tri_scene):
     boxes = b[1:][:, [0, 1, 2, 4, 5, 6]]
     sup = within(boxes[:ns])
     chunk = within(boxes[ns:]) & sup[:, np.arange(nc) // TM.SUPER]
-    live = _np(packed.tri_live).reshape(nc, TM.CHUNK).sum(1)
+    live = _np(packed.chunk_live).reshape(nc, TM.CHUNK).sum(1)
     per_super = np.bincount(np.arange(nc) // TM.SUPER)
     assert counted == {
         "aabb": len(pts) * ns + int((sup * per_super).sum()),
-        "triangles": int((chunk * live).sum())}
+        "triangles": int((chunk * live).sum()), "spheres": 0, "boxes": 0}
     assert counted["aabb"] < len(pts) * (ns + nc)
     assert 0 < counted["triangles"] < 0.5 * len(pts) * n_tri
     with TM.counting():
