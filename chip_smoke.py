@@ -230,7 +230,27 @@ Phases, each printed on its own lines; any failure exits non-zero:
    (typed_spheres), bit-equal and timed; the sphere field and the mesh at
    32x32 on the card and on the CPU under the golden gates, and at 800x800
    (a warm-up, 3 timed frames, 2 geometry launches each, device busy and
-   idle share under torch.profiler); prints a large_scenes JSON line.
+   idle share under torch.profiler); prints a large_scenes JSON line;
+40. the compiled frame (render/pipeline.py:compiled_frame), at 800x800 on
+   GI modes 2, 1 and 3, light_shafts, simple_scene, obj_mesh (capped),
+   ball_game dynamic (specialize_counts False: balls thrown between
+   replays, no capture) and specialised (a capture a throw), and the
+   3,500-sphere field, each from an empty cache: the eager first frame
+   against the compiled one (eager warm-up, capture, replay), 20 replays
+   each held bit for bit (image and state) to an eager frame on the same
+   inputs, eager and compiled ms/frame in turns, device busy and idle
+   share both ways under torch.profiler, the kernels' device events in a
+   replayed frame held to the launches its capture recorded, capture
+   seconds and graph pool MiB; prints a compiled JSON line.
+
+Renderer.render() runs the compiled frame on the kernel route: a scene's
+first frame runs an eager warm-up and captures the frame into a CUDA
+graph, later frames replay it, and each replay adds the captured launches
+to the wrappers' counts (ops/march.py:add_launches).  So the timed and
+counted frames of phases 5, 10, 17, 23, 31 and 39 are replays; a phase
+that records the wrappers' inputs during a frame (32) renders it inside
+pipeline.eager(), and one that patches the packing (38) drops the
+compiled frames at its edges.
 
 The geometry kernel shares a ray among a group of lanes
 (ops/csrc/scene.cuh).  At every full shape above (phases 3, 16, 21) and on
@@ -261,8 +281,8 @@ It prints a train JSON line (phases 25-27), a scenes JSON line (phases
 28-32), a pathtrace JSON line (phases 33-34), an api JSON line (phase 35),
 a geometry_flags JSON line (phase 36), a bench JSON line (phase 37), a
 box_cap JSON line (phase 38), a large_scenes JSON line (phase 39), a
-kernels JSON line, the card line, then the last line
-{"ok": true, "device": {...}}.  Imports no JAX.
+compiled JSON line (phase 40), a kernels JSON line, the card line, then
+the last line {"ok": true, "device": {...}}.  Imports no JAX.
 """
 import contextlib
 import dataclasses
@@ -333,7 +353,8 @@ def port_modules():
     from madarch_tpu_torch.utils.golden import image_stats
     from madarch_tpu_torch.utils.profiling import (FrameTimer,
                                                    averaged_busy,
-                                                   device_ops, kernel_ops,
+                                                   device_ops,
+                                                   kernel_events, kernel_ops,
                                                    rays_per_frame, trace,
                                                    trace_calls)
     return SimpleNamespace(
@@ -350,7 +371,8 @@ def port_modules():
         tree_items=tree_items, tree_map=tree_map,
         image_stats=image_stats, FrameTimer=FrameTimer,
         averaged_busy=averaged_busy, device_ops=device_ops,
-        kernel_ops=kernel_ops, trace=trace, trace_calls=trace_calls,
+        kernel_ops=kernel_ops, kernel_events=kernel_events, trace=trace,
+        trace_calls=trace_calls,
         rays_per_frame=rays_per_frame, bench=bench, geom_probe=geom_probe,
         LS=large_scenes)
 
@@ -754,7 +776,8 @@ def hold_golden(m, img, goldens, name, label):
 
 
 def drive(torch, m, r, label, frames, per_frame, card):
-    """The main path of renderer r: a warm-up frame, then ``frames`` frames
+    """The main path of renderer r: a warm-up frame (on the kernel route
+    the capture of the compiled frame), then ``frames`` frames (replays)
     timed with CUDA events, the launch counts set to 0 just before and read
     just after.  Fails unless each kernel launched per_frame[name] (0 if
     absent) times per frame and the last image is finite with nonzero
@@ -776,7 +799,8 @@ def drive(torch, m, r, label, frames, per_frame, card):
     n_lights = m.M.pack_light_positions(r.spec, r.scene_data)[1]
     n_rays = m.rays_per_frame(r.width, r.height, r.probes, n_lights,
                               r.screen_cfg, r.volumetrics)
-    print(f"{label}: {frames} frames, {timer.mean * 1e3:.3f} ms/frame, "
+    print(f"{label}: {frames} frames, {timer.mean * 1e3:.3f} ms/frame "
+          f"({', '.join(f'{t * 1e3:.3f}' for t in timer.times)}), "
           f"{n_rays / timer.mean / 1e6:.1f} M rays/s ({n_rays} rays/frame); "
           f"launches {json.dumps(launches)}; "
           f"image mean {float(img.mean()):.5f} var {float(img.var()):.6f}; "
@@ -1428,8 +1452,12 @@ BALL_THROWS = 12
 def ball_game(m, size, dev):
     """ball_game at size x size after the golden's script
     (tools/make_goldens.py): a ball thrown, 2 physics steps.  Returns
-    (renderer, step_physics, throw_ball)."""
-    r, step, throw = m.S.ball_game(width=size, height=size, device=dev)
+    (renderer, step_physics, throw_ball).  Specialised to its live counts
+    (specialize_counts=True), so that phases 29 and 31 read the live slots
+    and the lanes they give off the spec; phase 40 renders it both
+    ways."""
+    r, step, throw = m.S.ball_game(width=size, height=size, device=dev,
+                                   specialize_counts=True)
     throw((2.0, 2.0, 0.0), (2.0, 2.0, 4.0))
     for _ in range(2):
         step()
@@ -1495,6 +1523,8 @@ def scene_phases(torch, np, m, dev, card, goldens):
 
     # ---- 29. ball_game 128x128 against the JAX golden, then balls thrown
     # past LANES_MIN_SLOTS with no build after the first frame
+    # 2 geometry launches a frame; the first frame of each live count
+    # (specialised: a new compiled frame) runs its eager warm-up too
     r, step, throw = ball_game(m, 128, dev)
     reset_launches(m)
     r.render()
@@ -1503,9 +1533,10 @@ def scene_phases(torch, np, m, dev, card, goldens):
     img = r.render().cpu().numpy()
     slots = [sum(r.spec.live_prims)]
     launches = launch_counts(m)
-    if launches != {"geometry": 4, "raycast": 0, "visibility": 0,
+    if launches != {"geometry": 6, "raycast": 0, "visibility": 0,
                     "softshadows": 0}:
-        fail(f"ball_game 128x128: launches {launches} in 2 frames")
+        fail(f"ball_game 128x128: launches {launches} in 2 frames and a "
+             f"warm-up")
     hold_golden(m, img, goldens, "ball_game", "ball_game 128x128")
     throw_more(step, throw)
     reset_launches(m)
@@ -1519,7 +1550,7 @@ def scene_phases(torch, np, m, dev, card, goldens):
           f"launches {json.dumps(launches)} in 2 frames; nvcc builds and "
           f"libraries loaded {first} after the first frame, {later} after "
           f"the last")
-    if slots != [8, 8 + BALL_THROWS] or launches["geometry"] != 4 or not (
+    if slots != [8, 8 + BALL_THROWS] or launches["geometry"] != 6 or not (
             bool(torch.isfinite(img).all()) and float(img.var()) > 0.0):
         fail(f"ball_game after {BALL_THROWS} throws: slots {slots}, "
              f"launches {launches}")
@@ -1716,7 +1747,9 @@ def lamp_phase(torch, np, m, dev, card):
     for name in real:
         setattr(m.SceneCtx, name, recorder(name))
     try:
-        r.render()
+        # an eager frame: a replay calls no wrapper to record
+        with m.pipeline.eager():
+            r.render()
         torch.cuda.synchronize()
     finally:
         for name, fn in real.items():
@@ -2334,6 +2367,14 @@ def bench_phase(torch, gi_per_frame):
     gi = out["configs"]["global_illumination"]["launches_per_frame"]
     if gi != gi_per_frame:
         fail(f"bench GI launches per frame {gi}, phase 5's {gi_per_frame}")
+    for name, cfg in out["configs"].items():
+        traced = cfg["traced_launches_per_frame"]
+        if not cfg["compiled"] or any(
+                not math.isclose(traced[k], v, abs_tol=1e-6)
+                for k, v in cfg["launches_per_frame"].items()):
+            fail(f"bench {name}: compiled {cfg['compiled']}, launches a "
+                 f"captured frame {cfg['launches_per_frame']}, traced "
+                 f"{traced}")
     return out, wall
 
 
@@ -2347,14 +2388,19 @@ CAP_IMAGES = ("global_illumination", "light_shafts", "simple_scene",
 
 
 @contextlib.contextmanager
-def cap_off(M):
-    """Every scene packed inside the block has its box-exit cap dropped."""
+def cap_off(m):
+    """Every scene packed inside the block has its box-exit cap dropped.
+    A compiled frame packs its scene inside its graph, so the frames
+    compiled before the block and inside it are dropped at its edges."""
+    M = m.M
     pack = M.pack_scene
     M.pack_scene = lambda spec, data: M.without_box_cap(pack(spec, data))
+    m.pipeline.clear_compiled()
     try:
         yield
     finally:
         M.pack_scene = pack
+        m.pipeline.clear_compiled()
 
 
 def hold_cap_off(torch, label, on, off, max_dist):
@@ -2518,7 +2564,7 @@ def box_cap_phase(torch, m, dev, card):
     cfg = m.bench.CONFIGS["obj_mesh"]
     rows = {}
     for cap in (True, False, False, True):
-        with contextlib.nullcontext() if cap else cap_off(M):
+        with contextlib.nullcontext() if cap else cap_off(m):
             row = m.bench.bench_renderer(
                 "obj_mesh", rb, ctx.n_light_slots, frames=cfg["frames"],
                 converge_frames=cfg["converge_frames"])
@@ -2541,7 +2587,7 @@ def box_cap_phase(torch, m, dev, card):
     for name in CAP_IMAGES:
         imgs, caps = [], []
         for cap in (True, False):
-            with contextlib.nullcontext() if cap else cap_off(M):
+            with contextlib.nullcontext() if cap else cap_off(m):
                 ri = m.bench.make_config(name, CAP_SIZE, dev)
                 caps.append(m.SceneCtx(ri.spec, ri.scene_data)
                             .packed.cap_margin)
@@ -2805,6 +2851,186 @@ def large_scene_phase(torch, m, dev, card):
                                   idle_share=1.0 - busy / wall)
     out["max_abs_err"] = err
     return out, err
+
+
+# Phase 40: the compiled frame (render/pipeline.py:compiled_frame): each
+# kernel-route scene at 800x800 captured into a CUDA graph and replayed.
+COMPILED_SIZE = 800
+COMPILED_REPLAYS = 20   # replays held bit for bit to the eager frame
+COMPILED_TIMED = 10     # frames a turn of eager / compiled timing
+COMPILED_PROFILED = 3   # frames under torch.profiler, each way
+COMPILED_THROW_EVERY = 4  # ball_game: a ball thrown every so many frames
+
+
+def compiled_scenes(m, dev, tmp):
+    """[(label, make(), between(renderer, i) or None, captures expected
+    in COMPILED_REPLAYS replays)]: the bench's configurations where it has
+    them (their probes), GI modes 1 and 3, ball_game both ways (balls
+    thrown between replays) and the 3,500-sphere field."""
+    S, B = m.S, m.bench
+    mode = {k: m.ShadeConfig(indirect_specular_mode=k) for k in (1, 3)}
+    size = COMPILED_SIZE
+    throws = COMPILED_REPLAYS // COMPILED_THROW_EVERY
+
+    def ball(specialize):
+        def make():
+            r, step, throw = m.S.ball_game(width=size, height=size,
+                                           device=dev,
+                                           specialize_counts=specialize)
+            throw((2.0, 2.0, 0.0), (2.0, 2.0, 4.0))
+            r.step, r.throw = step, throw
+            return r
+        return make
+
+    def between(r, i):
+        r.step()
+        if i % COMPILED_THROW_EVERY == 0:
+            k = i // COMPILED_THROW_EVERY
+            r.throw((0.5 + 0.4 * k, 3.0, 1.0 + 0.3 * k), (0.5, 1.0, 1.0))
+
+    return [
+        ("GI mode 2", lambda: B.make_config("global_illumination", size,
+                                            dev), None, 0),
+        ("GI mode 1", lambda: S.global_illumination(
+            width=size, height=size, device=dev, screen_cfg=mode[1]),
+         None, 0),
+        ("GI mode 3", lambda: S.global_illumination(
+            width=size, height=size, device=dev, screen_cfg=mode[3]),
+         None, 0),
+        ("light_shafts", lambda: B.make_config("light_shafts", size, dev),
+         None, 0),
+        ("simple_scene", lambda: B.make_config("simple_scene", size, dev),
+         None, 0),
+        ("obj_mesh capped", lambda: B.make_config("obj_mesh", size, dev),
+         None, 0),
+        ("ball_game dynamic", ball(False), between, 0),
+        ("ball_game specialised", ball(True), between, throws),
+        ("spheres 3500", lambda: large_scenes(m, tmp, dev, size,
+                                              ("spheres",))["spheres"],
+         None, 0),
+    ]
+
+
+def replay_holds(torch, m, r, between, replays):
+    """``replays`` frames of renderer r, each image and state held bit for
+    bit to render_frame's op by op on the same inputs, run in turn.
+    Returns the frames that differ."""
+    P = m.pipeline
+    differ = 0
+    for i in range(replays):
+        if between is not None:
+            between(r, i)
+        state, data, cam = r.state, r.scene_data, r.camera
+        img = r.render()
+        with torch.no_grad():
+            ref, ref_state = P.render_frame(
+                r.spec, r.probes, r.volumetrics, r.width, r.height, data,
+                cam, state, screen_cfg=r.screen_cfg, probe_cfg=r.probe_cfg)
+        same = torch.equal(img, ref) and all(
+            torch.equal(getattr(r.state, f.name), getattr(ref_state, f.name))
+            for f in dataclasses.fields(P.FrameState))
+        differ += not same
+    return differ
+
+
+def compiled_phase(torch, m, dev, card):
+    """Phase 40 at 800x800, each scene from an empty cache of compiled
+    frames: the eager first frame and the compiled one (eager warm-up,
+    capture, replay; host clock), COMPILED_REPLAYS replays held bit for
+    bit to eager frames on the same inputs (ball_game with balls thrown
+    between them: dynamic, no capture; specialised, a capture a throw),
+    eager and compiled ms/frame between CUDA events in turns (eager,
+    compiled, compiled, eager), device busy and idle share under
+    torch.profiler both ways, each kernel's device events a replayed
+    frame held to the launches the capture recorded, the capture's
+    seconds and the graph pool's bytes.  Returns {scene: numbers}."""
+    import tempfile
+    P = m.pipeline
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scenes = compiled_scenes(m, dev, tmp)
+        for label, make, between, want_captures in scenes:
+            P.clear_compiled()
+            torch.cuda.empty_cache()
+            r = make()
+            if not r.compiled:
+                fail(f"compiled {label}: not on the kernel route")
+            firsts = {}
+            for way in ("eager", "compiled"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with P.eager() if way == "eager" \
+                        else contextlib.nullcontext():
+                    r.render()
+                torch.cuda.synchronize()
+                firsts[way] = time.perf_counter() - t0
+            frame = r.frame
+            captures = P.CompiledFrame.captures
+            differ = replay_holds(torch, m, r, between, COMPILED_REPLAYS)
+            new = P.CompiledFrame.captures - captures
+            if differ or new != want_captures:
+                fail(f"compiled {label}: {differ} of {COMPILED_REPLAYS} "
+                     f"replays differ from the eager frame; {new} captures "
+                     f"(expected {want_captures})")
+
+            def eager_render():
+                with P.eager():
+                    return r.render()
+            e1 = cuda_ms(torch, eager_render, COMPILED_TIMED)
+            c1 = cuda_ms(torch, r.render, COMPILED_TIMED)
+            c2 = cuda_ms(torch, r.render, COMPILED_TIMED)
+            e2 = cuda_ms(torch, eager_render, COMPILED_TIMED)
+            prof = {}
+            for way, fn in (("eager", eager_render),
+                            ("compiled", r.render)):
+                trace, wall = m.trace_calls(fn, COMPILED_PROFILED)
+                ops = m.kernel_ops(trace, COMPILED_PROFILED)
+                busy = sum(ops.values())
+                prof[way] = dict(busy_ms=busy, profiled_wall_ms=wall,
+                                 idle_share=1.0 - busy / wall)
+                if way == "compiled":
+                    events = m.kernel_events(trace, COMPILED_PROFILED)
+            launches = r.frame.launches
+            traced = {k: round(sum(n for op, n in events.items()
+                                   if m.bench.KERNELS[k] in op), 6)
+                      for k in KERNELS}
+            if traced != {k: float(v) for k, v in launches.items()} \
+                    or not launches["geometry"]:
+                fail(f"compiled {label}: the trace counts {traced} kernel "
+                     f"events a replayed frame, the capture recorded "
+                     f"{launches}")
+            f = r.frame
+            cell = dict(
+                eager_ms=[e1, e2], compiled_ms=[c1, c2],
+                first_frame_s=firsts, warmup_s=f.warmup_s,
+                capture_s=f.capture_s, pool_mib=f.pool_bytes / 2 ** 20,
+                launches_per_captured_frame=launches,
+                traced_launches_per_frame=traced, replays=COMPILED_REPLAYS,
+                replays_differ=differ, captures_in_replays=new,
+                first_key_kept=r.frame is frame, **{
+                    f"{way}_{k}": v for way, p in prof.items()
+                    for k, v in p.items()})
+            print(f"compiled {label} {COMPILED_SIZE}x{COMPILED_SIZE}: eager "
+                  f"{e1:.3f} / {e2:.3f} ms/frame, compiled {c1:.3f} / "
+                  f"{c2:.3f} (CUDA events, {COMPILED_TIMED} frames a turn); "
+                  f"device busy eager {prof['eager']['busy_ms']:.3f} of "
+                  f"{prof['eager']['profiled_wall_ms']:.3f} ms/frame (idle "
+                  f"{prof['eager']['idle_share']:.3f}), compiled "
+                  f"{prof['compiled']['busy_ms']:.3f} of "
+                  f"{prof['compiled']['profiled_wall_ms']:.3f} (idle "
+                  f"{prof['compiled']['idle_share']:.3f}); first frame "
+                  f"eager {firsts['eager']:.3f} s, compiled "
+                  f"{firsts['compiled']:.3f} s (warm-up {f.warmup_s:.3f}, "
+                  f"capture {f.capture_s:.3f}); graph pool "
+                  f"{f.pool_bytes / 2 ** 20:.1f} MiB; launches a captured "
+                  f"frame {json.dumps(launches)}, traced {json.dumps(traced)}"
+                  f"; {COMPILED_REPLAYS} replays bit-equal to eager, "
+                  f"{new} captures among them; [{card}]")
+            out[label] = cell
+            del r, frame, f
+    P.clear_compiled()
+    torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -3207,6 +3433,11 @@ def main():
     vis_err = max(vis_err, large_err["visibility"])
     sh_err = max(sh_err, large_err["softshadows"])
 
+    # ---- 40. the compiled frame: each kernel-route scene captured into a
+    # CUDA graph and replayed, held bit for bit to the eager frame, timed
+    # both ways
+    compiled = compiled_phase(torch, m, dev, card)
+
     def lamp_keys(name):
         """The kernel's numbers on the lamp room (phase 32)."""
         k = lamp_k[name]
@@ -3221,6 +3452,14 @@ def main():
     print(json.dumps({"bench": bench_out, "bench_wall_s": bench_s}))
     print(json.dumps({"box_cap": cap}))
     print(json.dumps({"large_scenes": large}))
+    print(json.dumps({"compiled": compiled}))
+
+    def compiled_keys(name):
+        """The kernel's launches a captured 800x800 frame, by scene
+        (phase 40)."""
+        return {"launches_per_captured_frame": {
+            label: c["launches_per_captured_frame"][name]
+            for label, c in compiled.items()}}
 
     def pt_keys(name):
         """The kernel's numbers in the path tracers (phase 33), its
@@ -3317,7 +3556,8 @@ def main():
          "pruned_work_obj_mesh": {
              name: {k: mesh[name][k] for k in (
                  "plain_evals", "pruned_box_tests", "pruned_triangles")}
-             for name in ("radiance", "screen")}},
+             for name in ("radiance", "screen")},
+         **compiled_keys("geometry")},
         {"name": "raycast", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1089",
          "launches": launches["raycast"],
@@ -3339,7 +3579,7 @@ def main():
          "ms_large_by_placement": {
              name: large[name]["ms_by_placement"]["raycast"]
              for name in LARGE_CHECK},
-         **pt_keys("raycast")},
+         **pt_keys("raycast"), **compiled_keys("raycast")},
         {"name": "visibility", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1127",
          "launches": launches["visibility"],
@@ -3354,7 +3594,7 @@ def main():
          "ms_large_by_placement": {
              name: large[name]["ms_by_placement"]["visibility"]
              for name in LARGE_CHECK},
-         **lamp_keys("visibility")},
+         **lamp_keys("visibility"), **compiled_keys("visibility")},
         {"name": "softshadows", "route": "cuda", "source": src + "march.cu",
          "replaces": "madarch_tpu/ops/march.py:1144",
          "launches": paths["GI mode 1"]["softshadows"],
@@ -3368,7 +3608,8 @@ def main():
          "ms_large_by_placement": {
              name: large[name]["ms_by_placement"]["softshadows"]
              for name in LARGE_CHECK},
-         **lamp_keys("softshadows"), **pt_keys("softshadows")},
+         **lamp_keys("softshadows"), **pt_keys("softshadows"),
+         **compiled_keys("softshadows")},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,19 +6,22 @@ configurations (port of the root bench.py, which times the JAX package).
 Prints ONE JSON line on stdout and its progress on stderr.  The headline
 ("metric" rays_per_s_per_chip_gi_800, "value") is global_illumination at
 800x800; the key names are the JAX bench's where they mean the same thing:
-"configs" (per configuration: ms/frame between CUDA events, rays/s by
-utils/profiling.py:rays_per_frame, the first frame's seconds with the nvcc
-seconds it paid, kernel launches per frame, and over 3 frames under
+"configs" (per configuration: ms/frame between CUDA events of the frame
+as users get it, compiled into a CUDA graph on the kernel route, beside
+the eager frame's ms/frame; rays/s by utils/profiling.py:rays_per_frame,
+the first frame's seconds with the nvcc seconds it paid and the capture's,
+kernel launches per captured frame, and over 3 frames under
 torch.profiler the device's busy ms/frame, its idle share and each
-hand-written kernel's ms per launch), "train_step" (the GI train step at
-256x256 and 512x512, at 512 split into the differentiable forward and the
-backward + update), "per_pass_ms" (GI's radiance, irradiance and screen
-passes, and the screen's geometry launch with and without the mode-2
-reflection fold), "golden_breaches", "scaling_efficiency"; it adds
-"gpu_vs_golden" (GI and simple_scene at 128x128 on the card against
-tests/goldens/images.npz under GOLDEN_GATES) and "device" (the card's name
-and power limit, from nvidia-smi).  It exits 1 after the line on a golden
-breach, a non-finite loss or a failed scaling run.
+hand-written kernel's ms per launch and launches a frame), "train_step"
+(the GI train step at 256x256 and 512x512, at 512 split into the
+differentiable forward and the backward + update), "per_pass_ms" (GI's
+radiance, irradiance and screen passes, and the screen's geometry launch
+with and without the mode-2 reflection fold), "golden_breaches",
+"scaling_efficiency"; it adds "gpu_vs_golden" (GI and simple_scene at
+128x128 on the card against tests/goldens/images.npz under GOLDEN_GATES)
+and "device" (the card's name and power limit, from nvidia-smi).  It
+exits 1 after the line on a golden breach, a non-finite loss or a failed
+scaling run.
 
 It runs on the CUDA card unless ``--device`` names another device; with no
 card it raises, and it never falls back to the CPU.  The tests call its
@@ -57,8 +60,9 @@ from madarch_tpu_torch.render import probes as probes_mod
 from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
 from madarch_tpu_torch.render.context import SceneCtx
 from madarch_tpu_torch.utils.golden import GOLDEN_GATES, image_stats
-from madarch_tpu_torch.utils.profiling import (FrameTimer, device_ops,
-                                               rays_per_frame)
+from madarch_tpu_torch.utils.profiling import (FrameTimer, kernel_events,
+                                               kernel_ops, rays_per_frame,
+                                               trace_calls)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDENS = os.path.join(REPO, "tests", "goldens", "images.npz")
@@ -133,15 +137,6 @@ def time_ms(fn, iters, device):
     return (time.perf_counter() - t0) * 1e3 / iters, out
 
 
-def reset_launches():
-    for name in KERNELS:
-        getattr(march_ops, name).launches = 0
-
-
-def launch_counts():
-    return {name: getattr(march_ops, name).launches for name in KERNELS}
-
-
 def kernel_ms(ops, launches_per_frame):
     """Each launched kernel's device ms per launch, from a trace's
     {op name: device ms per frame} (utils/profiling.py:kernel_ops) and
@@ -159,44 +154,72 @@ def kernel_ms(ops, launches_per_frame):
 
 def bench_renderer(name, r, n_lights, frames=5, converge_frames=3,
                    profiled=PROFILED_FRAMES):
-    """Renderer r's frame: the first frame alone (first_frame_s, with the
-    nvcc seconds it paid, build_s), converge_frames - 1 more, then
-    ``frames`` frames timed together (frame_ms; launches counted, per
-    frame), and on a card ``profiled`` frames under torch.profiler:
+    """Renderer r's frame as its users get it: compiled on the kernel
+    route (render/pipeline.py:compiled_frame; on a card a CUDA graph
+    captured at the first frame, then replayed), eager on the generic
+    route.  The first frame alone (first_frame_s, with the nvcc seconds
+    it paid, build_s; on a card's kernel route the eager warm-up frame,
+    warmup_s, and the capture, capture_s, with the graph's memory pool,
+    graph_pool_bytes), converge_frames - 1 more, then ``frames`` frames
+    timed together (frame_ms) and as many eager frames (eager_frame_ms,
+    inside pipeline.eager()).  Launches a frame: those of the captured
+    frame (CompiledFrame.launches) where one was captured, else the eager
+    frames' count.  On a card ``profiled`` frames under torch.profiler:
     device busy ms/frame, idle share, each kernel's ms per launch (the
-    mean over its launches in a frame).  Off a card the profiler's device
-    numbers are None (not measured)."""
+    mean over its launches in a frame) and its device events a frame
+    (traced_launches_per_frame).  Off a card the profiler's and the
+    capture's numbers are None (not measured)."""
     dev = r.device
     builds, build_s = build.load.builds, build.load.build_s
     t0 = time.perf_counter()
     r.render()
     sync(dev)
     first_s = time.perf_counter() - t0
+    frame = r.frame if r.compiled else None
+    captured = frame is not None and frame.launches is not None
     out = {"first_frame_s": first_s,
            "build_s": build.load.build_s - build_s,
-           "nvcc_runs": build.load.builds - builds}
+           "nvcc_runs": build.load.builds - builds,
+           "compiled": r.compiled,
+           "warmup_s": frame.warmup_s if captured else None,
+           "capture_s": frame.capture_s if captured else None,
+           "graph_pool_bytes": frame.pool_bytes if captured else None}
     for _ in range(converge_frames - 1):
         r.render()
-    reset_launches()
     ms = time_ms(r.render, frames, dev)[0]
-    per_frame = {k: v / frames for k, v in launch_counts().items()}
+    before = march_ops.launch_counts()
+    with pipeline.eager():
+        eager_ms = time_ms(r.render, frames, dev)[0]
+    per_frame = {k: float(v) for k, v in frame.launches.items()} \
+        if captured else {k: (v - before[k]) / frames
+                          for k, v in march_ops.launch_counts().items()}
     rays = rays_per_frame(r.width, r.height, r.probes, n_lights,
                           r.screen_cfg, r.volumetrics)
-    out.update(frame_ms=ms, rays_per_s=rays / (ms / 1e3),
-               rays_per_frame=rays, frames=frames,
-               launches_per_frame=per_frame, device_busy_ms=None,
+    out.update(frame_ms=ms, eager_frame_ms=eager_ms,
+               rays_per_s=rays / (ms / 1e3), rays_per_frame=rays,
+               frames=frames, launches_per_frame=per_frame,
+               traced_launches_per_frame=None, device_busy_ms=None,
                profiled_wall_ms=None, idle_share=None,
                kernel_ms_per_launch=None)
     if dev.type == "cuda":
-        busy, wall, ops = device_ops(r.render, profiled)
+        prof, wall = trace_calls(r.render, profiled)
+        ops = kernel_ops(prof, profiled)
+        events = kernel_events(prof, profiled)
+        busy = sum(ops.values())
         out.update(device_busy_ms=busy, profiled_wall_ms=wall,
                    idle_share=1.0 - busy / wall,
-                   kernel_ms_per_launch=kernel_ms(ops, per_frame))
-    log(f"{name:20s} {ms:9.3f} ms/frame {rays / ms / 1e3:9.1f} M rays/s "
-        f"(first frame {first_s:.2f} s, nvcc {out['build_s']:.1f} s); "
-        f"launches/frame {per_frame}; busy {out['device_busy_ms']} of "
-        f"{out['profiled_wall_ms']} ms/frame; kernels "
-        f"{out['kernel_ms_per_launch']}")
+                   kernel_ms_per_launch=kernel_ms(ops, per_frame),
+                   traced_launches_per_frame={
+                       name: sum(n for op, n in events.items()
+                                 if symbol in op)
+                       for name, symbol in KERNELS.items()})
+    log(f"{name:20s} {ms:9.3f} ms/frame compiled, {eager_ms:9.3f} eager, "
+        f"{rays / ms / 1e3:9.1f} M rays/s (first frame {first_s:.2f} s, "
+        f"nvcc {out['build_s']:.1f} s, capture {out['capture_s']}); "
+        f"launches/frame {per_frame}, traced "
+        f"{out['traced_launches_per_frame']}; busy "
+        f"{out['device_busy_ms']} of {out['profiled_wall_ms']} ms/frame; "
+        f"kernels {out['kernel_ms_per_launch']}")
     return out
 
 

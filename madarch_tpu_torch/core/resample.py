@@ -12,11 +12,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from madarch_tpu_torch.core.constants import cached
+
 
 def take_static(x, idx: np.ndarray, axis: int = 0):
     """``x`` gathered along ``axis`` at the host-known in-bounds indices
-    ``idx`` (what ``jnp.take(x, idx, axis)`` returns)."""
-    index = torch.as_tensor(np.asarray(idx, np.int64)).to(x.device)
+    ``idx`` (what ``jnp.take(x, idx, axis)`` returns).  The index map goes
+    to the device once per map and device (core/constants.py)."""
+    idx = np.asarray(idx, np.int64)
+    index = cached(("take_static", idx.shape, idx.tobytes()), x.device,
+                   lambda: idx)
     return torch.index_select(x, axis, index)
 
 

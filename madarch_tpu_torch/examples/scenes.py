@@ -207,11 +207,13 @@ def obj_mesh(width=1000, height=1000, obj_path=None, triangle_capacity=1000,
 def ball_game(width=1000, height=1000, **kwargs):
     """The GI room with balls thrown into it, moved by host physics that
     queries ``eval_distance_to``.  Returns (renderer, step_physics,
-    throw_ball).  The live sphere count changes as balls are thrown; the
-    renderer packs the live counts every frame, so nothing is rebuilt (the
-    JAX package's ``specialize_counts=False`` has no counterpart here)."""
+    throw_ball).  The live sphere count changes as balls are thrown, so
+    the renderer is count-dynamic (``specialize_counts=False``, as in the
+    JAX package, unless the caller says otherwise): a thrown ball is a
+    new live count in the same compiled frame, never a new capture."""
     spec = SceneSpec(prims=((P.Sphere, 20), (P.Plane, 10), (P.Box, 10)),
                      lights=((L.SpotLight, 4),))
+    kwargs.setdefault("specialize_counts", False)
     r = Renderer(spec, width, height, volumetrics=NO_VOLUMETRICS, **kwargs)
     wall1 = r.add_material((0.0, 0.0, 0.0), 0.0, 0.6)
     wall2 = r.add_material((1.0, 0.0, 0.0), 0.0, 0.6)

@@ -61,9 +61,11 @@ import contextlib
 import ctypes
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from madarch_tpu_torch.core.constants import cached
 from madarch_tpu_torch.core.vecmath import EPSILON, dot
 from madarch_tpu_torch.ops import build
 from madarch_tpu_torch.render import raymarch as rm
@@ -282,15 +284,17 @@ def chunked_layout(ptype, n):
 def _dead_row(ptype, dev):
     """f32[4·TRI_ROWS]: the rows of a dead or padded chunk slot, 1e9 or
     more from anywhere: a triangle at x = 3e9, a sphere of radius -1e9, a
-    box of half-side -1e9."""
-    row = torch.zeros(4 * TRI_ROWS, device=dev)
-    if ptype is P.Triangle:
-        row[0] = DEAD_TRIANGLE_X
-    elif ptype is P.Sphere:
-        row[3] = -BIG
-    else:
-        row[4:7] = -BIG
-    return row
+    box of half-side -1e9.  A device constant (core/constants.py)."""
+    def build():
+        row = np.zeros(4 * TRI_ROWS, np.float32)
+        if ptype is P.Triangle:
+            row[0] = DEAD_TRIANGLE_X
+        elif ptype is P.Sphere:
+            row[3] = -BIG
+        else:
+            row[4:7] = -BIG
+        return row
+    return cached(("dead_row", ptype.name), dev, build)
 
 
 def _chunk_slots(ptype, params, n, live):
@@ -326,13 +330,17 @@ def _chunk_slots(ptype, params, n, live):
 def _z_order(points, live, bits=10):
     """The permutation that sorts the live points f32[N, 3] by their
     Z-order key (scene/mesh.py:morton_order's), the dead ones after them:
-    neighbours share a chunk, whose box stays tight."""
+    neighbours share a chunk, whose box stays tight.  The host never waits
+    on the device here (a captured frame packs its scene): the live box
+    is a masked reduction, and with no live point every key is the dead
+    one, so the stable sort keeps the order."""
     alive = live > 0.5
-    if not bool(alive.any()):
-        return torch.arange(points.shape[0], device=points.device)
-    lo = points[alive].amin(dim=0)
-    extent = torch.clamp_min(points[alive].amax(dim=0) - lo, 1e-9)
-    q = ((points - lo) / extent * ((1 << bits) - 1)).to(torch.int64)
+    lo = torch.where(alive[:, None], points, float("inf")).amin(dim=0)
+    hi = torch.where(alive[:, None], points, float("-inf")).amax(dim=0)
+    extent = torch.clamp_min(hi - lo, 1e-9)
+    q = ((points - lo) / extent * ((1 << bits) - 1))
+    # no live point: q is not finite, and its keys are all replaced below
+    q = torch.nan_to_num(q).to(torch.int64)
     key = torch.zeros(points.shape[0], dtype=torch.int64,
                       device=points.device)
     for b in range(bits):
@@ -1468,7 +1476,23 @@ def _softshadows(lib, packed, origins, dirs, min_dists, max_dists, k, en, *,
 
 # Kernel launches since the count was last reset (the CPU path does not
 # count): lets a run show that its main path went through the kernels.
+# A frame captured into a CUDA graph (render/pipeline.py:CompiledFrame)
+# launches nothing while it is captured and takes those calls back out of
+# the count; each replay of the graph launches the captured kernels again
+# and adds them (add_launches).
 geometry.launches = 0
 raycast.launches = 0
 visibility.launches = 0
 softshadows.launches = 0
+KERNEL_WRAPPERS = (geometry, raycast, visibility, softshadows)
+
+
+def launch_counts():
+    """{wrapper name: its launch count}."""
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+def add_launches(counts):
+    """Adds {wrapper name: launches} to the wrappers' counts."""
+    for fn in KERNEL_WRAPPERS:
+        fn.launches += counts.get(fn.__name__, 0)

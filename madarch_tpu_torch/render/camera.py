@@ -9,17 +9,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from madarch_tpu_torch.core.constants import cached, constant
 from madarch_tpu_torch.core.vecmath import length
 
 EYE = (0.0, 0.0, -1.5)
 
 
 def pixel_grid(width: int, height: int, device):
-    """Fragment positions at pixel centers: f32[H, W, 2] in [-1, 1]²."""
-    xs = (np.arange(width, dtype=np.float32) + 0.5) / width * 2.0 - 1.0
-    ys = (np.arange(height, dtype=np.float32) + 0.5) / height * 2.0 - 1.0
-    gx, gy = np.meshgrid(xs, ys)
-    return torch.as_tensor(np.stack([gx, gy], axis=-1)).to(device)
+    """Fragment positions at pixel centers: f32[H, W, 2] in [-1, 1]², a
+    device constant (core/constants.py): read it, never write to it."""
+    def build():
+        xs = (np.arange(width, dtype=np.float32) + 0.5) / width * 2.0 - 1.0
+        ys = (np.arange(height, dtype=np.float32) + 0.5) / height * 2.0 \
+            - 1.0
+        gx, gy = np.meshgrid(xs, ys)
+        return np.stack([gx, gy], axis=-1)
+    return cached(("pixel_grid", width, height), device, build)
 
 
 def camera_rays(frag_xy, position, orientation):
@@ -28,8 +33,7 @@ def camera_rays(frag_xy, position, orientation):
     position: f32[3]; orientation: f32[3,3] applied as R @ v.
     """
     frag = torch.cat([frag_xy, torch.zeros_like(frag_xy[..., :1])], dim=-1)
-    to_frag = frag - torch.tensor(EYE, dtype=torch.float32,
-                                  device=frag.device)
+    to_frag = frag - constant(EYE, frag.device)
     local_dir = to_frag / length(to_frag)[..., None]
     dirs = local_dir @ orientation.T
     origins = frag @ orientation.T + position

@@ -7,10 +7,19 @@ feedback that accumulates light bounces over frames), the irradiance pass
 integrates the new radiance, the volumetric passes (when the scene has
 them) build this frame's scattering map, and the screen pass consumes
 everything.
+
+``render_frame`` runs a frame eagerly, op by op.  ``compiled_frame`` is
+the port's counterpart of the JAX package's ``jax.jit(render_frame_impl)``
+with its static arguments: a ``CompiledFrame`` per static key, which on a
+card captures the frame into a CUDA graph once and replays it, and
+``eager()`` is the counterpart of ``jax.disable_jit()``.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -19,12 +28,14 @@ from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG,
                                            ProbeSettings, ShadeConfig,
                                            VolumetricsSettings,
                                            screen_shade_config)
+from madarch_tpu_torch.ops import march as march_ops
 from madarch_tpu_torch.render import probes as probes_mod
 from madarch_tpu_torch.render import volumetrics as vol_mod
 from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
 from madarch_tpu_torch.render.context import SceneCtx
 from madarch_tpu_torch.render.shading import pixel_color
-from madarch_tpu_torch.scene.scene import SceneData, SceneSpec
+from madarch_tpu_torch.scene.scene import (SceneData, SceneSpec, tree_items,
+                                           tree_leaves, tree_map)
 
 
 @dataclasses.dataclass
@@ -184,3 +195,186 @@ def render_frame(spec: SceneSpec, probes: ProbeSettings,
     return image, FrameState(radiance=radiance.detach(),
                              irradiance=irradiance.detach(),
                              scattering=scattering.detach())
+
+
+# ---------------------------------------------------------------------------
+# The compiled frame
+# ---------------------------------------------------------------------------
+
+# Compiled frames kept by compiled_frame, for every renderer together (as
+# the JAX package's jit cache is one for the process): past this many the
+# least recently used is dropped, and with it its graph and the graph's
+# memory pool.
+GRAPH_CACHE_SIZE = 4
+
+_frames = collections.OrderedDict()
+_eager = [False]
+
+
+@contextlib.contextmanager
+def eager():
+    """Inside the block no frame is compiled: ``Renderer.render()`` runs
+    ``render_frame`` op by op, as under ``jax.disable_jit()``."""
+    before = _eager[0]
+    _eager[0] = True
+    try:
+        yield
+    finally:
+        _eager[0] = before
+
+
+def eager_active() -> bool:
+    """Whether an ``eager()`` block is open."""
+    return _eager[0]
+
+
+def _shapes(tree):
+    return tuple((path, tuple(x.shape), x.dtype)
+                 for path, x in tree_items(tree))
+
+
+class CompiledFrame:
+    """``render_frame`` for one static key: the JAX package's static
+    arguments (spec, probes, vol, width, height, screen_cfg, probe_cfg)
+    and the shapes of the scene data, camera and state, on one device.
+
+    It holds one input buffer per tensor of the data, the camera and the
+    state.  A call copies each argument into its buffers (one that is the
+    object the last call took or returned is there already: an argument
+    is a snapshot, never changed in place) and runs the frame on the
+    buffers.  The frame writes the new feedback state back into the state
+    buffers, so the state chains from call to call, and the call returns
+    the image and the state as fresh tensors, which the next call leaves
+    alone.  The frame packs the scene itself, as the JAX package packs it
+    inside its jit, so a mutation needs nothing but the copy.
+
+    On a card the first call captures the frame into a CUDA graph: one
+    frame op by op on a side stream first (so that every kernel is built
+    and loaded, the shared-memory opt-in set and cuBLAS set up outside the
+    capture), then the capture; every call replays the graph.  A capture
+    or replay that fails raises: nothing falls back to the eager frame.
+    On the CPU the call runs ``render_frame`` on the buffers, with no
+    graph: the same buffers and copies, so a stale buffer shows there
+    too.
+
+    After the capture: ``launches`` (the kernel launches of one frame, by
+    wrapper), ``warmup_s`` and ``capture_s`` (host seconds of the eager
+    frame and of the capture) and ``pool_bytes`` (the device memory the
+    graph's private pool holds)."""
+
+    captures = 0   # frames captured (on the CPU: set up) in this process
+
+    def __init__(self, spec, probes, vol, width, height, data, camera,
+                 state, screen_cfg=None, probe_cfg=PROBE_SHADE_CONFIG):
+        self.spec, self.probes, self.vol = spec, probes, vol
+        self.width, self.height = width, height
+        self.screen_cfg, self.probe_cfg = screen_cfg, probe_cfg
+        self.device = state.radiance.device
+        with torch.no_grad():
+            self.data, self.camera, self.state = (
+                tree_map(torch.clone, x) for x in (data, camera, state))
+        self._sources = {}
+        self.graph = None
+        self._image = None
+        self.launches = None
+        self.warmup_s = self.capture_s = self.pool_bytes = None
+        if self.device.type != "cuda":
+            CompiledFrame.captures += 1
+
+    def __call__(self, data: SceneData, camera: Camera, state: FrameState):
+        """(image f32[H,W,3], new FrameState), as render_frame returns
+        them."""
+        with torch.no_grad():
+            for name, src in (("data", data), ("camera", camera),
+                              ("state", state)):
+                if self._sources.get(name) is not src:
+                    for buf, x in zip(tree_leaves(getattr(self, name)),
+                                      tree_leaves(src)):
+                        buf.copy_(x)
+                    self._sources[name] = src
+            if self.device.type != "cuda":
+                image = self._frame()
+            else:
+                if self.graph is None:
+                    self._capture()
+                self.graph.replay()
+                march_ops.add_launches(self.launches)
+                image = self._image.clone()
+            new = tree_map(torch.clone, self.state)
+        self._sources["state"] = new
+        return image, new
+
+    def _eager(self):
+        return render_frame(self.spec, self.probes, self.vol, self.width,
+                            self.height, self.data, self.camera, self.state,
+                            screen_cfg=self.screen_cfg,
+                            probe_cfg=self.probe_cfg)
+
+    def _frame(self):
+        """One frame on the buffers, its state written back into them."""
+        image, new = self._eager()
+        for buf, x in zip(tree_leaves(self.state), tree_leaves(new)):
+            buf.copy_(x)
+        return image
+
+    def _capture(self):
+        dev = self.device
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._eager()       # the state buffers keep this call's input
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        self.warmup_s = time.perf_counter() - t0
+        before = march_ops.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph):
+                reserved = torch.cuda.memory_reserved(dev)
+                self._image = self._frame()
+        finally:
+            # the capture launched nothing
+            after = march_ops.launch_counts()
+            march_ops.add_launches({k: before[k] - after[k]
+                                    for k in after})
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.launches = {k: after[k] - before[k] for k in after}
+        self.graph = graph
+        CompiledFrame.captures += 1
+
+
+def compiled_frame(spec: SceneSpec, probes: ProbeSettings,
+                   vol: VolumetricsSettings, width: int, height: int,
+                   data: SceneData, camera: Camera, state: FrameState,
+                   screen_cfg: ShadeConfig = None,
+                   probe_cfg: ShadeConfig = PROBE_SHADE_CONFIG
+                   ) -> CompiledFrame:
+    """The CompiledFrame of this static key, made on first use and kept
+    among the GRAPH_CACHE_SIZE most recently used; call it with (data,
+    camera, state).  For a scene on the kernel route (ops/march.py:
+    kernel_scene); the generic route's plain marches wait on the device
+    at every step and run eagerly."""
+    key = (spec, probes, vol, width, height, screen_cfg, probe_cfg,
+           _shapes(data), _shapes(camera), _shapes(state),
+           state.radiance.device)
+    frame = _frames.pop(key, None)
+    if frame is None:
+        frame = CompiledFrame(spec, probes, vol, width, height, data,
+                              camera, state, screen_cfg, probe_cfg)
+        while len(_frames) >= GRAPH_CACHE_SIZE:
+            _frames.popitem(last=False)
+    _frames[key] = frame
+    return frame
+
+
+def cache_size() -> int:
+    """The compiled frames kept (JAX: ``render_frame._cache_size()``)."""
+    return len(_frames)
+
+
+def clear_compiled():
+    """Drops every compiled frame, and with it its graph and memory."""
+    _frames.clear()

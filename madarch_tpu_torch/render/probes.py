@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from madarch_tpu_torch.core.config import ProbeSettings
+from madarch_tpu_torch.core.constants import cached, constant
 from madarch_tpu_torch.core.vecmath import (absolute, dot, length, mix,
                                             sign_not_zero)
 from madarch_tpu_torch.render.raymarch import MAX_STEPS, SURFACE_OFFSET
@@ -87,8 +88,7 @@ def probe_world_positions(settings: ProbeSettings, device):
     """f32[num_probes, 3] world positions of all probes."""
     pid = torch.arange(settings.num_probes, device=device)
     gp = probe_id_to_grid_position(settings, pid)
-    spacing = torch.tensor(settings.grid_spacing, dtype=torch.float32,
-                           device=device)
+    spacing = constant(settings.grid_spacing, device)
     return gp.to(torch.float32) * spacing
 
 
@@ -109,7 +109,8 @@ def _texel_dirs(res: int):
 
 
 def texel_directions(res: int, device):
-    return torch.as_tensor(_texel_dirs(res)).to(device)
+    """_texel_dirs(res) as a device constant (core/constants.py)."""
+    return cached(("texel_dirs", res), device, lambda: _texel_dirs(res))
 
 
 @lru_cache(maxsize=None)
@@ -264,10 +265,11 @@ def integrate_irradiance(settings: ProbeSettings, radiance_atlas):
     irradiance tile: one [ir², rr²] × [P, rr², 3] contraction."""
     rr = settings.radiance_resolution
     ir = settings.irradiance_resolution
-    w_np, wsum_np = _cosine_weights(ir, rr)
     dev = radiance_atlas.device
-    w = torch.as_tensor(w_np).to(dev)
-    wsum = torch.as_tensor(wsum_np).to(dev)
+    w = cached(("cosine_weights", ir, rr), dev,
+               lambda: _cosine_weights(ir, rr)[0])
+    wsum = cached(("cosine_weight_sums", ir, rr), dev,
+                  lambda: _cosine_weights(ir, rr)[1])
     rad = atlas_to_tiles(settings, radiance_atlas, rr)      # [P, rr², 3]
     irr = torch.einsum("ij,pjc->pic", w, rad) / wsum
     return tiles_to_atlas(settings, irr, ir)
@@ -282,14 +284,11 @@ def probe_corners(settings: ProbeSettings, p):
     grid: (grid positions i32[8,N,3], world positions f32[8,N,3], each
     point's offset in its cell alpha f32[N,3])."""
     dev = p.device
-    spacing = torch.tensor(settings.grid_spacing, dtype=torch.float32,
-                           device=dev)
-    dims = torch.tensor(settings.grid_dimensions, dtype=torch.int32,
-                        device=dev)
+    spacing = constant(settings.grid_spacing, dev)
+    dims = constant(settings.grid_dimensions, dev, np.int32)
     grid_pos = torch.floor(p / spacing).to(torch.int32)       # [N,3]
     alpha = p / spacing - grid_pos.to(torch.float32)          # [N,3]
-    offsets = torch.tensor(CORNER_OFFSETS, dtype=torch.int32,
-                           device=dev)                        # [8,3]
+    offsets = constant(CORNER_OFFSETS, dev, np.int32)         # [8,3]
     offseted = torch.minimum(
         torch.clamp_min(grid_pos[None] + offsets[:, None], 0),
         dims - 1)                                             # [8,N,3]
@@ -350,8 +349,7 @@ def sample_irradiance(settings: ProbeSettings, irr_atlas, pos, normal, *,
     weight = torch.where(weight < crush,
                          weight * weight * weight / (crush * crush), weight)
 
-    offsets = torch.tensor(CORNER_OFFSETS, dtype=torch.float32,
-                           device=pos.device)                 # [8,3]
+    offsets = constant(CORNER_OFFSETS, pos.device)            # [8,3]
     tri = mix(1.0 - alpha[None], alpha[None], offsets[:, None])  # [8,N,3]
     weight = weight * tri[..., 0] * tri[..., 1] * tri[..., 2]
 

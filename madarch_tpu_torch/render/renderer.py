@@ -4,7 +4,12 @@ are on by default, as in the JAX package; the renderer runs on the CUDA
 card unless the caller names another device.
 
 Mutations edit a host-side numpy mirror; the next ``render()`` copies the
-snapshot to ``device`` once and reuses it until the next mutation.
+snapshot to ``device`` once and reuses it until the next mutation.  On the
+kernel route the frame is compiled per static (spec, settings,
+resolution), as the JAX package jits it (render/pipeline.py:
+compiled_frame: on a card a CUDA graph captured once and replayed), and a
+mutation that keeps that key only copies the new snapshot into the
+graph's buffers.
 """
 from __future__ import annotations
 
@@ -17,8 +22,11 @@ from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG,
                                            ProbeSettings, ShadeConfig,
                                            VolumetricsSettings,
                                            screen_shade_config)
+from madarch_tpu_torch.core.constants import to_device
+from madarch_tpu_torch.ops.march import kernel_scene
 from madarch_tpu_torch.render.camera import orientation_from_angles
-from madarch_tpu_torch.render.pipeline import (Camera, initial_state,
+from madarch_tpu_torch.render.pipeline import (Camera, compiled_frame,
+                                               eager_active, initial_state,
                                                render_frame)
 from madarch_tpu_torch.render.raymarch import scene_normal
 from madarch_tpu_torch.scene.primitives import PrimitiveType
@@ -35,14 +43,21 @@ class Renderer:
                  probes: ProbeSettings = ProbeSettings(),
                  volumetrics: VolumetricsSettings = VolumetricsSettings(),
                  screen_cfg: Optional[ShadeConfig] = None,
-                 probe_cfg: ShadeConfig = PROBE_SHADE_CONFIG, *,
-                 device="cuda"):
+                 probe_cfg: ShadeConfig = PROBE_SHADE_CONFIG,
+                 specialize_counts: bool = True, *, device="cuda"):
+        """``specialize_counts`` bakes the live primitive and light counts
+        into the spec, and so into the compiled frame's key: only the live
+        slots are packed, and a count change compiles the frame anew on
+        the next render().  False keeps one compiled frame for any count,
+        every slot packed and the dead ones masked by the live counts (for
+        scenes whose counts change as they run)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "Renderer asked for a CUDA device and none is available; "
                 "pass device='cpu' to render on the CPU")
         self.base_spec = spec
+        self.specialize_counts = specialize_counts
         self.width = width
         self.height = height
         self.probes = probes
@@ -54,7 +69,9 @@ class Renderer:
         self.state = initial_state(probes, volumetrics, self.device)
         self.camera_position = np.zeros(3, np.float32)
         self.camera_orientation = np.eye(3, dtype=np.float32)
+        self._camera = (None, None)  # (host bytes, device Camera)
         self._data = None  # device snapshot; invalidated on mutation
+        self.frame = None  # the CompiledFrame of the last render()
         self._grid = None  # partitioning grid of update_partitioning
         self._eval_specs = {}  # eval_distance_to's spec per type subset
 
@@ -96,11 +113,21 @@ class Renderer:
 
     @property
     def spec(self) -> SceneSpec:
-        """The spec the pipeline runs against, with the live counts baked
-        in: the scene is packed anew every frame, so specialising costs
-        nothing and dead slots are never evaluated."""
+        """The spec the pipeline runs against: the live counts baked in
+        when ``specialize_counts`` (a count change is a new key of the
+        compiled frame)."""
+        if not self.specialize_counts:
+            return self.base_spec
         return self.base_spec.specialized(self.builder._prim_counts,
                                           self.builder._light_counts)
+
+    @property
+    def compiled(self) -> bool:
+        """Whether render() runs the compiled frame: the kernel route,
+        decided by the spec's types alone (ops/march.py:kernel_scene) and
+        left only inside pipeline.eager().  The generic route, whose plain
+        marches wait on the device at every step, renders eagerly."""
+        return kernel_scene(self.spec)
 
     @property
     def scene_data(self):
@@ -123,20 +150,34 @@ class Renderer:
 
     @property
     def camera(self) -> Camera:
-        return Camera(
-            position=torch.as_tensor(self.camera_position).to(self.device),
-            orientation=torch.as_tensor(
-                self.camera_orientation).to(self.device))
+        """The camera on the device, copied there once per move (of
+        ``camera_position`` / ``camera_orientation``, however set)."""
+        key = (np.asarray(self.camera_position, np.float32).tobytes(),
+               np.asarray(self.camera_orientation, np.float32).tobytes())
+        if self._camera[0] != key:
+            self._camera = (key, Camera(
+                position=to_device(self.camera_position, self.device),
+                orientation=to_device(self.camera_orientation,
+                                      self.device)))
+        return self._camera[1]
 
     # -- frame loop --
     def render(self):
         """Render one frame; advances the probe feedback state.  Returns
         the tonemapped image f32[H, W, 3] (row 0 = bottom) on the
-        renderer's device."""
-        image, self.state = render_frame(
-            self.spec, self.probes, self.volumetrics, self.width,
-            self.height, self.scene_data, self.camera, self.state,
-            screen_cfg=self.screen_cfg, probe_cfg=self.probe_cfg)
+        renderer's device.  No gradient: a differentiable frame goes
+        through parallel/spmd.py:make_train_step, as in the JAX
+        package."""
+        spec = self.spec
+        args = (spec, self.probes, self.volumetrics, self.width,
+                self.height, self.scene_data, self.camera, self.state)
+        kwargs = dict(screen_cfg=self.screen_cfg, probe_cfg=self.probe_cfg)
+        with torch.no_grad():
+            if kernel_scene(spec) and not eager_active():
+                self.frame = compiled_frame(*args, **kwargs)
+                image, self.state = self.frame(*args[5:])
+            else:
+                image, self.state = render_frame(*args, **kwargs)
         return image
 
     def converge(self, frames: int = 4):

@@ -32,10 +32,12 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from madarch_tpu_torch.core.config import ProbeSettings, ShadeConfig
-from madarch_tpu_torch.core.vecmath import dot, reflect, vec3
+from madarch_tpu_torch.core.constants import constant
+from madarch_tpu_torch.core.vecmath import dot, reflect
 from madarch_tpu_torch.render import probes as probes_mod
 from madarch_tpu_torch.render.context import SceneCtx
 from madarch_tpu_torch.render.lighting import (direct_lighting,
@@ -60,7 +62,7 @@ def make_sdf_b(spec: SceneSpec, data: SceneData, *, stop_grad: bool):
 
 def sky_color(dirs):
     """Sky gradient on miss."""
-    base = vec3(0.30, 0.36, 0.60, device=dirs.device)
+    base = constant((0.30, 0.36, 0.60), dirs.device)
     return base - 0.7 * dirs[..., 1:2]
 
 
@@ -270,8 +272,7 @@ def sample_radiance_with_specular(spec, probe_settings, cfg, ctx, rad_atlas,
     w = ctx.softshadows(k=GLOSSY_K, max_steps=cfg.max_march_steps,
                         **rays).reshape(8, n_pts)
     weight = torch.clamp_min(w, 0.001)
-    offsets = torch.tensor(probes_mod.CORNER_OFFSETS, dtype=torch.int32,
-                           device=pos.device)
+    offsets = constant(probes_mod.CORNER_OFFSETS, pos.device, np.int32)
     tri = (1.0 - alpha[None]) * (1 - offsets[:, None]) \
         + alpha[None] * offsets[:, None]
     weight = weight * tri[..., 0] * tri[..., 1] * tri[..., 2]

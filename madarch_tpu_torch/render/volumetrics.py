@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from madarch_tpu_torch.core.config import VolumetricsSettings
+from madarch_tpu_torch.core.constants import cached, constant
 from madarch_tpu_torch.core.resample import floor_map, take_static
 from madarch_tpu_torch.core.vecmath import PI, dot
 from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
@@ -57,7 +58,7 @@ def visibility_pass(spec, data, vol: VolumetricsSettings, ctx,
     def froxel_light(pts_f, dirs_f):
         n = pts_f.shape[0]
         result = torch.zeros_like(pts_f)
-        dummy_normal = torch.tensor([1.0, 0.0, 0.0], device=dev).expand(n, 3)
+        dummy_normal = constant((1.0, 0.0, 0.0), dev).expand(n, 3)
         for ltype, cap, n_slots, static in spec.light_bounds():
             count = None if static else data.light_counts[ltype.name]
             for slot in range(n_slots):
@@ -116,8 +117,9 @@ def scattering_pass(spec, data, vol: VolumetricsSettings, ctx, visibility,
     n_steps = int(max_depth / vol.scattering_step_size)
     step = np.float32(vol.scattering_step_size)
     fs = np.arange(n_steps, dtype=np.float32) * step
-    weights = torch.exp(torch.as_tensor(-fs * np.float32(TAU_SCATTERING))
-                        .to(dev))
+    weights = cached(("scattering_weights", n_steps, float(step)), dev,
+                     lambda: torch.exp(torch.as_tensor(
+                         -fs * np.float32(TAU_SCATTERING)).to(dev)))
     acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     for i in range(n_steps):
         f = fs[i]

@@ -17,6 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from madarch_tpu_torch.core.constants import to_device
 from madarch_tpu_torch.scene.lights import LightType
 from madarch_tpu_torch.scene.primitives import (PrimitiveType, kind_dtype,
                                                 kind_shape)
@@ -147,10 +148,6 @@ def tree_map(fn, tree):
     return _rebuild(tree, iter([fn(x) for x in tree_leaves(tree)]))
 
 
-def _tensor(x, device):
-    return torch.as_tensor(np.array(x)).to(device)
-
-
 def scene_data_from_numpy(tree, device) -> SceneData:
     """SceneData from any object with SceneData's fields holding numpy
     arrays, e.g. ``jax.tree.map(np.asarray, jax_renderer.scene_data)``:
@@ -159,7 +156,7 @@ def scene_data_from_numpy(tree, device) -> SceneData:
     from madarch_tpu_torch.scene.partitioning import GridData
 
     def leaves(d):
-        return {k: _tensor(v, device) for k, v in d.items()}
+        return {k: to_device(v, device) for k, v in d.items()}
 
     grid = getattr(tree, "grid", None)
     return SceneData(
@@ -169,8 +166,8 @@ def scene_data_from_numpy(tree, device) -> SceneData:
         light_counts=leaves(tree.light_counts),
         materials=leaves(tree.materials),
         grid=None if grid is None else GridData(
-            cells=_tensor(grid.cells, device),
-            counts=_tensor(grid.counts, device)))
+            cells=to_device(grid.cells, device),
+            counts=to_device(grid.counts, device)))
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +255,9 @@ def sample_light(spec: SceneSpec, data: SceneData, index, p, n):
     capacity blocks: point lights [0, point_count), then spot lights, and
     so on; an index past every live light samples nothing (zero radiance,
     distance 1)."""
-    index = torch.as_tensor(index, device=p.device)
+    # a Python index is filled on the device, not copied from the host
+    index = index.to(p.device) if isinstance(index, torch.Tensor) \
+        else torch.full((), index, dtype=torch.int64, device=p.device)
     radiance = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     ldir = torch.zeros_like(radiance)
     ldist = torch.ones(p.shape[:-1], dtype=torch.float32, device=p.device)
@@ -378,10 +377,10 @@ class SceneBuilder:
         """The scene on ``device``, with the partitioning ``grid`` (a
         GridData already there) when the caller built one."""
         def leaves(d):
-            return {k: _tensor(v, device) for k, v in d.items()}
+            return {k: to_device(v, device) for k, v in d.items()}
 
         def counts(d):
-            return {k: torch.tensor(v, dtype=torch.int32, device=device)
+            return {k: torch.full((), v, dtype=torch.int32, device=device)
                     for k, v in d.items()}
 
         return SceneData(

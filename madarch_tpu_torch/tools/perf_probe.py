@@ -5,8 +5,11 @@ of tools/perf_probe.py):
         [--frames 3] [--passes] [--device cuda]
 
 CONFIG is one of the bench's configurations (madarch_tpu_torch/bench.py:
-CONFIGS; default obj_mesh).  One converge frame, then ``--frames`` timed
-frames through bench.bench_renderer; ``--passes`` adds
+CONFIGS; default obj_mesh).  One converge frame (on the card the capture
+of the compiled frame), then ``--frames`` timed frames through
+bench.bench_renderer: the compiled frame users get, and as many eager
+frames beside it; launches a frame from the capture, each kernel's
+ms per launch from the profiler.  ``--passes`` adds
 bench.per_pass_breakdown.  Progress on stderr, one JSON line on stdout.
 """
 from __future__ import annotations

@@ -4,9 +4,10 @@
 clock and refuses a device that is not a GPU; ``trace`` is a context
 manager that writes a torch.profiler trace for TensorBoard; ``device_ops``
 and ``device_busy`` trace calls with torch.profiler for the device's busy
-time (``trace_calls``, read by ``kernel_ops``, or by ``averaged_busy``
-through key_averages()); ``rays_per_frame`` is the JAX package's ray
-accounting unchanged, so rays/s compare across packages.
+time (``trace_calls``, read by ``kernel_ops`` and ``kernel_events``, or
+by ``averaged_busy`` through key_averages()); ``rays_per_frame`` is the
+JAX package's ray accounting unchanged, so rays/s compare across
+packages.
 """
 from __future__ import annotations
 
@@ -114,6 +115,17 @@ def kernel_ops(prof, calls):
             ops[e.name()] = ops.get(e.name(), 0.0) \
                 + e.duration_ns() / 1e6 / calls
     return ops
+
+
+def kernel_events(prof, calls):
+    """{op name: device events per call} of a trace: how often each
+    kernel ran, also inside a replayed CUDA graph, whose kernels the
+    trace records as the graph launches them."""
+    counts = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            counts[e.name()] = counts.get(e.name(), 0) + 1 / calls
+    return counts
 
 
 def averaged_busy(prof, calls):

@@ -140,9 +140,6 @@ DEVIATIONS = {
     # -- render/pipeline.py, render/renderer.py
     "madarch_tpu/render/pipeline.py:render_frame_impl": (
         "renamed", "madarch_tpu_torch/render/pipeline.py:render_frame"),
-    "madarch_tpu/render/renderer.py:Renderer(specialize_counts)": (
-        "by design", "the live counts are packed every frame, with no "
-        "rebuild when they change (ROADMAP C6)"),
 }
 
 

@@ -23,6 +23,7 @@ from madarch_tpu_torch.core.config import ProbeSettings, screen_shade_config
 from madarch_tpu_torch.examples import run as trun
 from madarch_tpu_torch.examples import scenes as tscenes
 from madarch_tpu_torch.ops import march as TM
+from madarch_tpu_torch.render import pipeline as TPL
 from madarch_tpu_torch.scene import primitives as TP
 from madarch_tpu_torch.utils.golden import image_stats
 from test_torch_config import jax_config, torch_threads  # noqa: F401
@@ -98,7 +99,11 @@ def test_ball_game_frame_matches_jax():
     np.testing.assert_allclose(tr.builder._prims["sphere"]["center"],
                                jr.builder._prims["sphere"]["center"],
                                rtol=0, atol=1e-6)
-    assert tr.spec.live_prims == (1, 6, 1)
+    # count-dynamic, as the JAX package's: every slot packed, the dead
+    # ones masked by the live counts (1 sphere, 6 planes, 1 box)
+    assert tr.spec.live_prims is None is jr.spec.live_prims
+    assert tr.builder._prim_counts == jr.builder._prim_counts \
+        == {"sphere": 1, "plane": 6, "box": 1}
     assert TM.kernel_scene(tr.spec)
     for _ in range(2):
         ref = np.asarray(jr.render())
@@ -116,7 +121,21 @@ def test_run_cli_renders_the_new_scenes(tmp_path, scene):
     assert out.stat().st_size > 0
 
 
-def test_ball_game_takes_no_specialize_counts():
-    with pytest.raises(TypeError):
-        tscenes.ball_game(width=8, height=8, device="cpu",
-                          specialize_counts=False)
+def test_ball_game_throws_balls_without_capturing_again():
+    """ball_game is count-dynamic, as the JAX package's: with
+    specialize_counts False (its default) a thrown ball keeps the
+    compiled frame; True compiles one per live count."""
+    for specialize, more in ((False, 0), (True, 2)):
+        kw = {} if not specialize else {"specialize_counts": True}
+        r, step, throw = tscenes.ball_game(width=8, height=8, probes=TINY,
+                                           device="cpu", **kw)
+        assert r.specialize_counts is specialize
+        r.render()
+        frame, captures = r.frame, TPL.CompiledFrame.captures
+        for k in range(2):
+            throw((2.0 + 0.5 * k, 2.0, 1.0), (1.0, 1.0, 2.0))
+            step()
+            r.render()
+        assert r.builder._prim_counts["sphere"] == 2
+        assert TPL.CompiledFrame.captures - captures == more
+        assert (r.frame is frame) is (not specialize)

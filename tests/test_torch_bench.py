@@ -32,12 +32,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_BENCH = os.path.join(REPO, "bench.py")
 SIZE = 16
 CPU = torch.device("cpu")
-RENDERER_KEYS = {"first_frame_s", "build_s", "nvcc_runs", "frame_ms",
-                 "rays_per_s", "rays_per_frame", "frames",
-                 "launches_per_frame", "device_busy_ms", "profiled_wall_ms",
-                 "idle_share", "kernel_ms_per_launch"}
-DEVICE_ONLY = ("device_busy_ms", "profiled_wall_ms", "idle_share",
-               "kernel_ms_per_launch")
+RENDERER_KEYS = {"first_frame_s", "build_s", "nvcc_runs", "compiled",
+                 "warmup_s", "capture_s", "graph_pool_bytes", "frame_ms",
+                 "eager_frame_ms", "rays_per_s", "rays_per_frame", "frames",
+                 "launches_per_frame", "traced_launches_per_frame",
+                 "device_busy_ms", "profiled_wall_ms", "idle_share",
+                 "kernel_ms_per_launch"}
+DEVICE_ONLY = ("warmup_s", "capture_s", "graph_pool_bytes",
+               "traced_launches_per_frame", "device_busy_ms",
+               "profiled_wall_ms", "idle_share", "kernel_ms_per_launch")
 
 
 def jax_bench():
@@ -49,17 +52,20 @@ def jax_bench():
 
 def test_bench_renderer_on_the_cpu():
     """The table's keys, finite numbers, the ray count of rays_per_frame;
-    the device metrics None off a card, and no kernel launched (the
-    wrappers run their plain versions, uncounted, on CPU tensors)."""
+    the compiled frame timed beside the eager one; the device metrics
+    None off a card, and no kernel launched (the wrappers run their plain
+    versions, uncounted, on CPU tensors)."""
     r = bench.make_config("room_reflections", SIZE, CPU)
     out = bench.bench_renderer("room_reflections", r, 1, frames=2,
                                converge_frames=1)
     assert set(out) == RENDERER_KEYS
+    assert out["compiled"] and r.frame is not None
     assert out["rays_per_frame"] == rays_per_frame(
         SIZE, SIZE, r.probes, 1, r.screen_cfg, r.volumetrics)
-    for key in ("first_frame_s", "build_s", "frame_ms", "rays_per_s"):
+    for key in ("first_frame_s", "build_s", "frame_ms", "eager_frame_ms",
+                "rays_per_s"):
         assert math.isfinite(out[key]) and out[key] >= 0.0, key
-    assert out["frame_ms"] > 0.0
+    assert out["frame_ms"] > 0.0 and out["eager_frame_ms"] > 0.0
     assert out["rays_per_s"] == pytest.approx(
         out["rays_per_frame"] / out["frame_ms"] * 1e3)
     assert out["launches_per_frame"] == dict.fromkeys(bench.KERNELS, 0.0)

@@ -5,6 +5,11 @@ geometry kernel at every lane count per ray its wrapper can choose, the
 raycast, visibility and softshadow kernels in the build of the scene's
 layout and in the generic build.
 
+The frame compiled into a CUDA graph (render/pipeline.py:CompiledFrame)
+is held bit for bit to the eager frame on GI, light_shafts and obj_mesh,
+after a mutation too, and a capture that fails must raise (last in the
+file).
+
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs where JAX is absent:
 
@@ -402,20 +407,28 @@ def test_masked_geometry_matches_plain_on_gi_reflections(dev):
 
 
 def test_modes_1_and_3_launch_their_kernels(dev):
-    """One 64² frame per mode through Renderer.render(): mode 1 launches
-    the geometry kernel twice (radiance, screen), the raycast and the
-    softshadow kernel once; mode 3 the geometry kernel three times."""
+    """64² frames per mode through Renderer.render(): a frame of mode 1
+    launches the geometry kernel twice (radiance, screen), the raycast and
+    the softshadow kernel once; mode 3 the geometry kernel three times.
+    The first frame runs the eager warm-up and the replay of its capture:
+    twice a frame's launches."""
+    from madarch_tpu_torch.render import pipeline
+    pipeline.clear_compiled()    # an earlier test may have these keys
     want = {1: (2, 1, 1), 3: (3, 0, 0)}
     for mode, launches in want.items():
         r = S.global_illumination(
             width=64, height=64, device=dev,
             screen_cfg=ShadeConfig(indirect_specular_mode=mode))
         fns = (M.geometry, M.raycast, M.softshadows)
-        before = [f.launches for f in fns]
-        img = r.render()
-        torch.cuda.synchronize()
-        assert tuple(f.launches - b for f, b in zip(fns, before)) \
-            == launches
+        for frame in (2, 1):
+            before = [f.launches for f in fns]
+            img = r.render()
+            torch.cuda.synchronize()
+            assert tuple(f.launches - b for f, b in zip(fns, before)) \
+                == tuple(frame * n for n in launches)
+        assert r.frame.launches == dict(zip(
+            ("geometry", "raycast", "softshadows", "visibility"),
+            launches + (0,)))
         assert torch.isfinite(img).all()
 
 
@@ -541,13 +554,17 @@ def test_march_kernels_match_plain_on_the_mesh(dev):
 
 
 def test_obj_mesh_frame_launches_the_kernel(dev):
-    """One 64² obj_mesh frame through Renderer.render(): two geometry
-    launches (radiance, screen) and a finite image."""
+    """64² obj_mesh frames through Renderer.render(): two geometry
+    launches a frame (radiance, screen; the first frame's warm-up two
+    more) and a finite image."""
+    from madarch_tpu_torch.render import pipeline
+    pipeline.clear_compiled()    # an earlier test may have this key
     r = S.obj_mesh(width=64, height=64, obj_path=S.TORUS_OBJ, device=dev)
-    before = M.geometry.launches
-    img = r.render()
-    torch.cuda.synchronize()
-    assert M.geometry.launches - before == 2
+    for frame in (2, 1):
+        before = M.geometry.launches
+        img = r.render()
+        torch.cuda.synchronize()
+        assert M.geometry.launches - before == 2 * frame
     assert torch.isfinite(img).all() and img.var() > 0
 
 
@@ -1077,10 +1094,13 @@ def _launches():
 def _card_and_cpu(make, dev, frames=2, between=None):
     """The frames of renderer make(device) on the card and on the CPU
     (between(renderer) runs before each frame), the card's kernel
-    launches per frame, and its nvcc builds and libraries loaded after
-    the first frame."""
+    launches per frame (on the kernel route the first frame's are twice
+    a frame's: the eager warm-up, then the replay of its capture), and
+    its nvcc builds and libraries loaded after the first frame."""
     from madarch_tpu_torch.ops import build
+    from madarch_tpu_torch.render import pipeline
     from madarch_tpu_torch.utils.golden import image_stats
+    pipeline.clear_compiled()    # the first frame captures its key
     imgs, per_frame, later = [], [], None
     for d in (dev, "cpu"):
         r = make(d)
@@ -1145,8 +1165,10 @@ def test_ball_game_matches_the_cpu_and_builds_nothing_new(dev):
             r.throw((1.0 + k, 4.0, 1.0), (0.5, 0.0, 1.0))
 
     per_frame, later = _card_and_cpu(make, dev, frames=4, between=between)
-    assert all(f == {"geometry": 2, "raycast": 0, "visibility": 0,
-                     "softshadows": 0} for f in per_frame), per_frame
+    frame = {"geometry": 2, "raycast": 0, "visibility": 0, "softshadows": 0}
+    # one capture for every live count (specialize_counts False)
+    assert per_frame == [{k: 2 * v for k, v in frame.items()}] \
+        + [frame] * 3, per_frame
     assert later == (0, 0), later
 
 
@@ -1175,8 +1197,10 @@ def test_a_light_without_position_launches_the_march_kernels(dev,
         monkeypatch.setattr(C.SceneCtx, name,
                             recorder(name, getattr(C.SceneCtx, name)))
     m = chip_smoke.port_modules()
-    per_frame, _ = _card_and_cpu(
-        lambda d: chip_smoke.lamp_room(np, m, 32, d, probes=TINY), dev)
+    # eager frames: the recorder sees each frame's calls and their inputs
+    with m.pipeline.eager():
+        per_frame, _ = _card_and_cpu(
+            lambda d: chip_smoke.lamp_room(np, m, 32, d, probes=TINY), dev)
     assert per_frame == [{"geometry": 0, "raycast": 3, "visibility": 3,
                           "softshadows": 3}] * 2, per_frame
     n_rad = TINY.num_probes * TINY.radiance_resolution ** 2
@@ -1515,3 +1539,133 @@ def test_chunked_spheres_equal_the_typed_run(dev, monkeypatch):
                         strict=True):
             assert torch.equal(a, b), name
 
+
+
+# ---------------------------------------------------------------------------
+# The compiled frame: a CUDA graph captured once per static key, replayed
+# ---------------------------------------------------------------------------
+
+COMPILED_SCENES = ("global_illumination", "light_shafts", "obj_mesh")
+
+
+def _compiled_scene(name, dev, size=64):
+    if name == "obj_mesh":
+        return S.obj_mesh(width=size, height=size, obj_path=S.TORUS_OBJ,
+                          device=dev)
+    return getattr(S, name)(width=size, height=size, device=dev)
+
+
+def _eager_frame(r, state):
+    from madarch_tpu_torch.render import pipeline
+    with torch.no_grad():
+        return pipeline.render_frame(
+            r.spec, r.probes, r.volumetrics, r.width, r.height,
+            r.scene_data, r.camera, state, screen_cfg=r.screen_cfg,
+            probe_cfg=r.probe_cfg)
+
+
+def _same_state(a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("radiance", "irradiance", "scattering"))
+
+
+@pytest.mark.parametrize("scene", COMPILED_SCENES)
+def test_replayed_frames_equal_eager_frames(dev, scene):
+    """GI (mode 2), light_shafts and obj_mesh at 64²: three frames
+    through Renderer.render(), one capture and two more replays, each
+    image and state bit-equal to render_frame's op by op on the same
+    inputs; every kernel the frame launches runs from the graph, counted
+    once a replay."""
+    from madarch_tpu_torch.render import pipeline
+    pipeline.clear_compiled()    # an earlier test may have this key
+    r = _compiled_scene(scene, dev)
+    captures = pipeline.CompiledFrame.captures
+    for i in range(3):
+        state = r.state
+        before = _launches()
+        img = r.render()
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in _launches().items()}
+        ref, ref_state = _eager_frame(r, state)
+        assert torch.equal(img, ref) and _same_state(r.state, ref_state)
+        assert got == {k: (2 if i == 0 else 1) * v
+                       for k, v in r.frame.launches.items()}
+    assert pipeline.CompiledFrame.captures == captures + 1
+    assert r.frame.graph is not None and r.frame.pool_bytes > 0
+    assert r.frame.launches["geometry"] == 2
+    assert float(img.var()) > 0.0
+
+
+@pytest.mark.parametrize("scene", COMPILED_SCENES)
+def test_a_mutation_after_capture_shows_in_the_next_replay(dev, scene):
+    """After the capture, a moved light (and on the GI room a moved
+    sphere, a changed material) shows in the next replay: the image is
+    render_frame's on the new scene, differs from the old scene's, and no
+    new graph is captured."""
+    from madarch_tpu_torch.render import pipeline
+    r = _compiled_scene(scene, dev)
+    r.render()
+    frame, captures = r.frame, pipeline.CompiledFrame.captures
+    ltype = r.base_spec.lights[0][0]
+    mutations = [lambda: r.set_light(ltype, 0, position=(2.0, 5.0, 3.0))]
+    if scene == "global_illumination":
+        mutations += [
+            lambda: r.set_primitive(P.Sphere, 0, center=(2.0, 1.8, 3.0)),
+            lambda: r.set_material(3, (0.9, 0.9, 0.1), 0.0, 0.9)]
+    for mutate in mutations:
+        state, data = r.state, r.scene_data
+        mutate()
+        old, _ = pipeline.render_frame(
+            r.spec, r.probes, r.volumetrics, r.width, r.height, data,
+            r.camera, state, screen_cfg=r.screen_cfg, probe_cfg=r.probe_cfg)
+        ref, _ = _eager_frame(r, state)
+        img = r.render()
+        torch.cuda.synchronize()
+        assert torch.equal(img, ref) and not torch.equal(img, old)
+    assert r.frame is frame
+    assert pipeline.CompiledFrame.captures == captures
+
+
+@pytest.mark.parametrize("scene", COMPILED_SCENES)
+def test_an_eager_frame_waits_on_nothing(dev, scene):
+    """After a first frame (the constants built), an eager kernel-route
+    frame neither synchronises nor copies from pageable host memory (sync
+    debug mode "error" raises on either): what lets it be captured."""
+    from madarch_tpu_torch.render import pipeline
+    r = _compiled_scene(scene, dev)
+    with pipeline.eager():
+        r.render()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            img = r.render()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(img).all()
+
+
+def test_a_capture_that_fails_raises(dev, monkeypatch):
+    """A host sync inside the captured frame (a screen pass that reads
+    its image back) is legal in the eager warm-up and illegal in the
+    capture: render() raises, every time, and never falls back to an
+    eager frame.  Last in this file: the failed capture is dropped."""
+    from madarch_tpu_torch.render import pipeline
+    real = pipeline.screen_pass
+
+    def reads_back(*args, **kwargs):
+        img = real(*args, **kwargs)
+        float(img.sum())
+        return img
+
+    monkeypatch.setattr(pipeline, "screen_pass", reads_back)
+    r = S.global_illumination(width=48, height=48, device=dev)
+    captures = pipeline.CompiledFrame.captures
+    try:
+        for _ in range(2):
+            with pytest.raises(RuntimeError):
+                r.render()
+            assert r.frame is not None and r.frame.graph is None
+        assert pipeline.CompiledFrame.captures == captures
+    finally:
+        pipeline.clear_compiled()
