@@ -111,16 +111,22 @@ Phases, each printed on its own lines; any failure exits non-zero:
    test_examples.py's tiny probes; checks that each kernel of each path
    launched;
 26. the GI train step (parallel/spmd.py:make_train_step) at bench.py's
-   sizes, 256x256 and 512x512, full width (36 probes x 32² texels): a
-   warm-up step, then 5 steps timed with CUDA events, and the
-   differentiable forward alone (no graph) as often; reports ms/step,
-   forward ms, backward+update ms, rays/s (the forward frame's rays),
-   each step's loss, the largest parameter change and peak memory, and
-   fails on a non-finite loss, unmoved parameters or other than 2
-   geometry launches a step;
-27. the 512x512 train step under torch.profiler: the device's busy ms per
-   step, its idle share and the heaviest device ops of the forward and of
-   the backward and update;
+   sizes, 256x256 and 512x512, full width (36 probes x 32² texels), both
+   ways: compiled (the step make_train_step gives on the kernel route,
+   one CUDA graph a static key) and eager (inside pipeline.eager()); a
+   warm-up step each, then 5 steps a turn timed with CUDA events in turns
+   (eager, compiled, compiled, eager), and the differentiable forward
+   alone as often, eager and through compiled_frame; reports ms/step,
+   forward ms, backward+update ms each way, rays/s (the forward frame's
+   rays), the capture's seconds and graph pool, each step's loss, the
+   largest parameter change and the eager steps' peak memory, and fails
+   on a non-finite loss, unmoved parameters or other than 2 geometry
+   launches a step either way;
+27. both train steps of phase 26 under torch.profiler, at each size and
+   each way: the device's busy ms per step, its idle share under the
+   profiler and by CUDA events (1 − busy / phase 26's ms per step), and
+   the heaviest device ops of the forward and of the backward and
+   update;
 28. renders bvh_test (16 BVH spheres, the default probes) at 128x128 over
    2 frames through Renderer(device="cuda") and holds it to the JAX
    golden; checks that the scene takes the generic route (the plain
@@ -201,8 +207,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
 37. python -m madarch_tpu_torch.bench in a subprocess (the builds of
    phase 2 reused): fails if it exits non-zero, if its JSON line lacks a
    key, if a configuration's frame_ms is not finite and positive, or if
-   GI's launches per frame are not phase 5's; prints its line as
-   {"bench": ...};
+   GI's launches per frame are not phase 5's, or if a train step was not
+   compiled or its ms/step, either way, is not finite and positive;
+   prints its line as {"bench": ...};
 38. the box-exit cap (ops/march.py:ray_box_cap) on obj_mesh 800x800, the
    one all-bounded scene: the capped geometry kernel held to the capped
    plain version (the folded screen launch on the 16,384-ray subset, the
@@ -241,7 +248,25 @@ Phases, each printed on its own lines; any failure exits non-zero:
    inputs, eager and compiled ms/frame in turns, device busy and idle
    share both ways under torch.profiler, the kernels' device events in a
    replayed frame held to the launches its capture recorded, capture
-   seconds and graph pool MiB; prints a compiled JSON line.
+   seconds and graph pool MiB;
+41. the compiled train step (parallel/spmd.py:CompiledStep): bench.py's
+   GI step at 256x256 and 512x512, GI mode 1 (raycast and softshadows in
+   the graph) and light_shafts (raycast and visibility) at 256x256, all at
+   full width (36 probes of 32x32 texels; light_shafts' own volumetrics),
+   each from a new make_train_step: the first step eager and
+   compiled (warm-up, capture), 10 replays each with two eager steps on
+   its own inputs and its launches counted, each held to an eager step
+   (hold_step: the loss, new state and every updated leaf bit-equal but
+   the material table's, whose gradients index_add sums with atomics;
+   those within max(2 × the largest spread of the phase's eager pairs,
+   1e-6) relative norm and GRAD_REL_LIMIT); 5 chained replays against two
+   chains of 5 eager steps (every item within that bound: the chains part
+   where an atomic sum flips an updated leaf's last bit); under
+   deterministic algorithms 3 replays
+   bit-equal to eager steps in every item; eager and compiled ms/step in
+   turns, the trace's device events a replayed step held to the launches
+   the capture recorded, capture seconds and graph pool MiB; prints a
+   compiled JSON line (phases 40-41).
 
 Renderer.render() runs the compiled frame on the kernel route: a scene's
 first frame runs an eager warm-up and captures the frame into a CUDA
@@ -281,7 +306,7 @@ It prints a train JSON line (phases 25-27), a scenes JSON line (phases
 28-32), a pathtrace JSON line (phases 33-34), an api JSON line (phase 35),
 a geometry_flags JSON line (phase 36), a bench JSON line (phase 37), a
 box_cap JSON line (phase 38), a large_scenes JSON line (phase 39), a
-compiled JSON line (phase 40), a kernels JSON line, the card line, then
+compiled JSON line (phases 40-41), a kernels JSON line, the card line, then
 the last line {"ok": true, "device": {...}}.  Imports no JAX.
 """
 import contextlib
@@ -1330,11 +1355,17 @@ def gradient_phase(torch, m, dev, card):
 def train_phase(torch, m, dev, card, size):
     """Phase 26 at size²: bench.py's train step (global_illumination at
     full width, its 36 probes x 32² texels, mode 2 with AO, a black
-    target, lr 0.01) timed with CUDA events over TRAIN_STEPS steps after a
-    warm-up, and the differentiable forward alone (no graph) over as many
-    frames.  Fails on a non-finite loss, on parameters that did not move,
-    or unless each step launched the geometry kernel twice and no other
-    kernel.  Returns the numbers and a function making one more step."""
+    target, lr 0.01) both ways: compiled (the step make_train_step gives
+    on the kernel route, a CUDA graph captured at its first step and
+    replayed) and eager (inside pipeline.eager()), after a warm-up step
+    each, TRAIN_STEPS steps a turn timed with CUDA events in turns
+    (eager, compiled, compiled, eager), each turn's launches counted; then
+    the differentiable forward alone as often, eager (render_frame, no
+    graph) and compiled (compiled_frame with the differentiable configs),
+    in turns.  Fails on a non-finite loss, on parameters that did not
+    move, or unless each step launched the geometry kernel twice and no
+    other kernel, either way.  Returns the numbers and {way: (a function
+    making one more step, the forward)}."""
     S, spmd, P = m.S, m.spmd, m.pipeline
     r = S.global_illumination(width=size, height=size, device=dev)
     step = spmd.make_train_step(r.spec, r.probes, r.volumetrics, size, size,
@@ -1343,99 +1374,144 @@ def train_phase(torch, m, dev, card, size):
     cam = r.camera
     run = {"data": r.scene_data, "state": r.state}
 
-    def one_step():
+    def compiled_step():
         loss, run["data"], run["state"] = step(run["data"], cam,
                                                run["state"], target)
         return loss
 
-    one_step()
-    before = [x.clone() for x in spmd.split_float_leaves(run["data"])[0]]
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    timer = m.FrameTimer(dev)
-    reset_launches(m)
-    losses = []
-    for _ in range(TRAIN_STEPS):
-        with timer.frame():
-            loss = one_step()
-        losses.append(float(loss))
-    # the steps' own peak, above what the script already held
-    peak = torch.cuda.max_memory_allocated(dev) - held
-    launches = {name: getattr(m.M, name).launches for name in KERNELS}
-    after = spmd.split_float_leaves(run["data"])[0]
-    moved = max(float((a - b).abs().max()) for a, b in zip(after, before))
+    def eager_step():
+        with P.eager():
+            return compiled_step()
 
     screen = dataclasses.replace(r.screen_cfg, differentiable=True)
     probe = dataclasses.replace(r.probe_cfg, differentiable=True)
 
-    def forward():
+    def eager_forward():
         with torch.no_grad():
             return P.render_frame(r.spec, r.probes, r.volumetrics, size,
                                   size, run["data"], cam, run["state"],
                                   screen_cfg=screen, probe_cfg=probe)[0]
 
-    forward()
-    fwd_timer = m.FrameTimer(dev)
-    for _ in range(TRAIN_STEPS):
-        with fwd_timer.frame():
-            forward()
-    ms, fwd_ms = timer.mean * 1e3, fwd_timer.mean * 1e3
+    def compiled_forward():
+        with torch.no_grad():
+            return P.compiled_frame(
+                r.spec, r.probes, r.volumetrics, size, size, run["data"],
+                cam, run["state"], screen_cfg=screen, probe_cfg=probe)(
+                    run["data"], cam, run["state"])[0]
+
+    ways = {"eager": (eager_step, eager_forward),
+            "compiled": (compiled_step, compiled_forward)}
+    for fn, _ in ways.values():
+        fn()
+    captured = step.compiled_step
+    before = [x.clone() for x in spmd.split_float_leaves(run["data"])[0]]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    timers = {way: m.FrameTimer(dev) for way in ways}
+    launches = {way: [] for way in ways}
+    losses = {way: [] for way in ways}
+    for way in ("eager", "compiled", "compiled", "eager"):
+        reset_launches(m)
+        for _ in range(TRAIN_STEPS):
+            with timers[way].frame():
+                loss = ways[way][0]()
+            losses[way].append(float(loss))
+        launches[way].append(launch_counts(m))
+    # the steps' own peak, above what the script already held (the graph
+    # pool among it): the eager steps' working memory
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    after = spmd.split_float_leaves(run["data"])[0]
+    moved = max(float((a - b).abs().max()) for a, b in zip(after, before))
+    for _, fwd in ways.values():
+        fwd()
+    fwd_timers = {way: m.FrameTimer(dev) for way in ways}
+    for way in ("eager", "compiled", "compiled", "eager"):
+        for _ in range(TRAIN_STEPS):
+            with fwd_timers[way].frame():
+                ways[way][1]()
+    ms = {way: t.mean * 1e3 for way, t in timers.items()}
+    fwd_ms = {way: t.mean * 1e3 for way, t in fwd_timers.items()}
     rays = m.rays_per_frame(size, size, r.probes, 1, r.screen_cfg,
                             r.volumetrics)
-    out = dict(ms_per_step=ms, forward_ms=fwd_ms,
-               backward_update_ms=ms - fwd_ms,
-               step_ms=[t * 1e3 for t in timer.times],
-               forward_each_ms=[t * 1e3 for t in fwd_timer.times],
-               rays_per_step=rays,
-               rays_per_s=rays / (ms / 1e3), losses=losses,
-               largest_change=moved, peak_mib=peak / 2 ** 20,
-               held_mib=held / 2 ** 20,
-               launches=launches)
-    print(f"train GI {size}x{size}: {ms:.3f} ms/step (forward {fwd_ms:.3f} "
-          f"ms, backward+update {ms - fwd_ms:.3f} ms; steps "
-          + ", ".join(f"{x:.1f}" for x in out["step_ms"]) + " ms, forwards "
-          + ", ".join(f"{x:.1f}" for x in out["forward_each_ms"])
-          + f" ms), {rays / (ms / 1e3) / 1e6:.1f} M rays/s ({rays} "
-          f"rays/step); losses {losses}; largest parameter change "
-          f"{moved:.3e}; peak memory {peak / 2 ** 20:.1f} MiB above the "
-          f"{held / 2 ** 20:.1f} MiB held before; launches "
-          f"{json.dumps(launches)} in {TRAIN_STEPS} steps; [{card}]")
-    if not all(math.isfinite(x) for x in losses):
+    out = dict(ms_per_step=ms["compiled"], eager_ms_per_step=ms["eager"],
+               forward_ms=fwd_ms["compiled"],
+               eager_forward_ms=fwd_ms["eager"],
+               backward_update_ms=ms["compiled"] - fwd_ms["compiled"],
+               eager_backward_update_ms=ms["eager"] - fwd_ms["eager"],
+               step_ms={way: [t * 1e3 for t in timers[way].times]
+                        for way in ways},
+               forward_each_ms={way: [t * 1e3 for t in fwd_timers[way].times]
+                                for way in ways},
+               rays_per_step=rays, rays_per_s=rays / (ms["compiled"] / 1e3),
+               losses=losses, largest_change=moved,
+               peak_mib=peak / 2 ** 20, held_mib=held / 2 ** 20,
+               launches=launches["compiled"][0],
+               launches_by_turn=launches,
+               launches_per_captured_step=captured.launches,
+               capture_s=captured.capture_s, warmup_s=captured.warmup_s,
+               pool_mib=captured.pool_bytes / 2 ** 20)
+    print(f"train GI {size}x{size}: compiled {ms['compiled']:.3f} ms/step, "
+          f"eager {ms['eager']:.3f} (CUDA events, {TRAIN_STEPS} steps a "
+          f"turn in turns; compiled steps "
+          + ", ".join(f"{x:.2f}" for x in out["step_ms"]["compiled"])
+          + ", eager " + ", ".join(f"{x:.1f}"
+                                   for x in out["step_ms"]["eager"])
+          + f" ms); forward compiled {fwd_ms['compiled']:.3f} ms, eager "
+          f"{fwd_ms['eager']:.3f}; backward+update compiled "
+          f"{out['backward_update_ms']:.3f} ms, eager "
+          f"{out['eager_backward_update_ms']:.3f}; "
+          f"{rays / (ms['compiled'] / 1e3) / 1e6:.1f} M rays/s compiled "
+          f"({rays} rays/step); capture {captured.capture_s:.3f} s "
+          f"(warm-up {captured.warmup_s:.3f}), graph pool "
+          f"{out['pool_mib']:.1f} MiB; losses {json.dumps(losses)}; "
+          f"largest parameter change {moved:.3e}; eager peak memory "
+          f"{peak / 2 ** 20:.1f} MiB above the {held / 2 ** 20:.1f} MiB "
+          f"held before; launches a captured step "
+          f"{json.dumps(captured.launches)}, each turn of {TRAIN_STEPS} "
+          f"steps {json.dumps(launches)}; [{card}]")
+    if not all(math.isfinite(x) for v in losses.values() for x in v):
         fail(f"train {size}x{size}: non-finite loss {losses}")
     if not moved > 0.0 or not math.isfinite(moved):
         fail(f"train {size}x{size}: parameters did not move ({moved})")
     want = {name: (2 * TRAIN_STEPS if name == "geometry" else 0)
             for name in KERNELS}
-    if launches != want:
-        fail(f"train {size}x{size}: launches {launches}, expected {want}")
-    return out, one_step, forward
+    if any(n != want for v in launches.values() for n in v):
+        fail(f"train {size}x{size}: launches {launches}, expected {want} "
+             f"a turn")
+    return out, ways
 
 
-def train_profile(torch, m, one_step, forward, label, card):
-    """Phase 27: the train step under torch.profiler (3 steps): the
-    device's busy ms per step and idle share, and the heaviest device ops
-    of the forward (profiled alone) and of the rest of the step (the
-    step's time per op less the forward's)."""
-    busy, wall, ops = m.device_ops(one_step, 3)
-    f_busy, f_wall, f_ops = m.device_ops(forward, 3)
-    back = {k: v - f_ops.get(k, 0.0) for k, v in ops.items()}
-
+def train_profile(torch, m, ways, label, card, step_ms):
+    """Phase 27: the train step under torch.profiler (3 steps), compiled
+    and eager: the device's busy ms per step, its idle share under the
+    profiler and by CUDA events (1 − busy / phase 26's ms per step), and
+    the heaviest device ops of the forward (profiled alone) and of the
+    rest of the step (the step's time per op less the forward's)."""
     def top(d):
         return [(k[:60], round(v, 4))
                 for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:6]]
 
-    out = dict(busy_ms=busy, wall_ms=wall, idle_share=1.0 - busy / wall,
-               forward_busy_ms=f_busy, forward_wall_ms=f_wall,
-               top_forward=top(f_ops), top_backward=top(back))
-    print(f"train {label} under torch.profiler (3 steps): device busy "
-          f"{busy:.3f} ms/step of {wall:.3f} ms/step, idle share "
-          f"{1.0 - busy / wall:.3f}; forward alone {f_busy:.3f} of "
-          f"{f_wall:.3f} ms; heaviest forward: "
-          + "; ".join(f"{k} {v}" for k, v in out["top_forward"])
-          + "; heaviest backward+update: "
-          + "; ".join(f"{k} {v}" for k, v in out["top_backward"])
-          + f"; [{card}]")
+    out = {}
+    for way, (one_step, forward) in ways.items():
+        busy, wall, ops = m.device_ops(one_step, 3)
+        f_busy, f_wall, f_ops = m.device_ops(forward, 3)
+        back = {k: v - f_ops.get(k, 0.0) for k, v in ops.items()}
+        out[way] = dict(busy_ms=busy, wall_ms=wall,
+                        idle_share=1.0 - busy / wall,
+                        idle_share_events=1.0 - busy / step_ms[way],
+                        forward_busy_ms=f_busy, forward_wall_ms=f_wall,
+                        top_forward=top(f_ops), top_backward=top(back))
+        print(f"train {label} {way} under torch.profiler (3 steps): device "
+              f"busy {busy:.3f} ms/step of {wall:.3f} ms/step, idle share "
+              f"{1.0 - busy / wall:.3f} (by CUDA events: "
+              f"{1.0 - busy / step_ms[way]:.3f} of {step_ms[way]:.3f} "
+              f"ms/step); forward alone {f_busy:.3f} of {f_wall:.3f} ms; "
+              "heaviest forward: "
+              + "; ".join(f"{k} {v}" for k, v in out[way]["top_forward"])
+              + "; heaviest backward+update: "
+              + "; ".join(f"{k} {v}" for k, v in out[way]["top_backward"])
+              + f"; [{card}]")
     return out
 
 
@@ -2375,6 +2451,14 @@ def bench_phase(torch, gi_per_frame):
             fail(f"bench {name}: compiled {cfg['compiled']}, launches a "
                  f"captured frame {cfg['launches_per_frame']}, traced "
                  f"{traced}")
+    train = out["train_step"]
+    for t in [train] + [v for k, v in train.items() if k.startswith("at_")]:
+        if not t["compiled"] or t["capture_s"] is None or not all(
+                math.isfinite(t[k]) and t[k] > 0.0
+                for k in ("frame_ms", "eager_ms_per_step")):
+            fail(f"bench train step {t['size']}: compiled {t['compiled']}, "
+                 f"capture {t['capture_s']}, {t['frame_ms']} ms/step, eager "
+                 f"{t['eager_ms_per_step']}")
     return out, wall
 
 
@@ -3033,6 +3117,272 @@ def compiled_phase(torch, m, dev, card):
     return out
 
 
+# Phase 41: the compiled train step (parallel/spmd.py:make_train_step,
+# CompiledStep): forward, autograd backward and SGD update captured into
+# one CUDA graph per static key and replayed.
+STEP_REPLAYS = 10     # replays held to eager steps on the same inputs
+STEP_CHAINED = 5      # chained replays against chained eager steps
+STEP_EXACT = 3        # replays under deterministic algorithms, bit-equal
+STEP_TIMED = 3        # steps a turn of eager / compiled timing
+STEP_PROFILED = 3     # replays under torch.profiler
+
+
+def step_cases(m, dev):
+    """[(label, make(), kernel launches expected a step)], each at full
+    width (the scene's 36 probes of 32x32 radiance texels, light_shafts'
+    own volumetrics, as bench.py renders them): bench.py's GI step at
+    256x256 and 512x512, and GI mode 1 (raycast and softshadows inside the
+    graph) and light_shafts (raycast and visibility) at 256x256."""
+    S = m.S
+
+    def gi(size, **kw):
+        return lambda: S.global_illumination(width=size, height=size,
+                                             device=dev, **kw)
+    return [
+        ("GI 256x256", gi(256), {"geometry": 2}),
+        ("GI 512x512", gi(512), {"geometry": 2}),
+        ("GI mode 1 256x256", gi(256, screen_cfg=m.ShadeConfig(
+            indirect_specular_mode=1)),
+         {"geometry": 2, "raycast": 1, "softshadows": 1}),
+        ("light_shafts 256x256", lambda: S.light_shafts(
+            width=256, height=256, device=dev),
+         {"geometry": 2, "raycast": 1, "visibility": 1}),
+    ]
+
+
+def step_items(m, out):
+    """A step's (loss, new data, new state) as [(name, tensor)]: the loss,
+    the three state textures, every float leaf of the data."""
+    loss, data, state = out
+    names = [path for path, leaf in m.tree_items(data)
+             if leaf.is_floating_point()]
+    return ([("loss", loss)]
+            + [(f"state.{f.name}", getattr(state, f.name))
+               for f in dataclasses.fields(state)]
+            + list(zip(names, m.spmd.split_float_leaves(data)[0])))
+
+
+def eager_spread(torch, m, pairs):
+    """{item: the largest relative norm between the two eager steps of
+    any of ``pairs`` [(eager step, eager step)]}: 0 for an item bit-equal
+    in every pair.  A gradient summed by index_add's atomics (the material
+    table's, through index_select) differs between eager steps in most
+    pairs; some pairs, or all of a phase's, may agree by chance."""
+    spread = {}
+    for a, b in pairs:
+        for (name, x), (_, y) in zip(step_items(m, a), step_items(m, b)):
+            spread[name] = max(spread.get(name, 0.0), 0.0 if torch.equal(
+                x, y) else rel_norm(torch, y, x))
+    return spread
+
+
+ATOMIC_LEAVES = "materials."   # summed by index_add's atomics
+
+
+def hold_step(torch, m, label, got, ref, spread, chained=False):
+    """A replayed step ``got`` against an eager step ``ref``, item by
+    item.  On the same inputs: the loss, the state and every updated leaf
+    bit-equal, but the material table's (ATOMIC_LEAVES: material_lookup's
+    index_select, whose gradient index_add sums with atomics, in an order
+    that differs from run to run; two eager steps may agree on such a sum
+    by chance, so ``spread`` 0 does not make it exact), each within
+    max(2 × spread, 1e-6) relative norm of ref and never beyond
+    GRAD_REL_LIMIT.  ``chained``: the same step of two chains from one
+    start, whose inputs part wherever an atomic sum flipped the last bit
+    of an updated leaf: every item within that bound.  Returns (the items
+    not bit-equal, the largest relative norm against ref)."""
+    loose, worst = [], 0.0
+    for (name, a), (_, b) in zip(step_items(m, got), step_items(m, ref)):
+        if torch.equal(a, b):
+            continue
+        rel = rel_norm(torch, a, b)
+        worst = max(worst, rel)
+        loose.append(name)
+        exact = not chained and not name.startswith(ATOMIC_LEAVES)
+        if exact or not rel <= min(max(2.0 * spread[name], 1e-6),
+                                   GRAD_REL_LIMIT):
+            fail(f"compiled step {label}: {name} differs from the eager "
+                 f"step by {rel:.3e} (eager steps: {spread[name]:.3e})")
+    return loose, worst
+
+
+def deterministic_holds(torch, m, make, replays):
+    """Under torch.use_deterministic_algorithms (index_add without
+    atomics): a new make_train_step on renderer make()'s scene, its
+    capture and ``replays`` replays, each against an eager step on its
+    own inputs.  Returns the items not bit-equal (none expected: the
+    compiled step is the eager step bit for bit)."""
+    spmd, P = m.spmd, m.pipeline
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        r = make()
+        step = spmd.make_train_step(r.spec, r.probes, r.volumetrics,
+                                    r.width, r.height,
+                                    screen_cfg=r.screen_cfg,
+                                    probe_cfg=r.probe_cfg)
+        target = torch.zeros((r.height, r.width, 3), device=r.device)
+        data, state, loose = r.scene_data, r.state, set()
+        for _ in range(replays + 1):
+            got = step(data, r.camera, state, target)
+            with P.eager():
+                ref = step(data, r.camera, state, target)
+            loose.update(name for (name, a), (_, b) in zip(
+                step_items(m, got), step_items(m, ref))
+                if not torch.equal(a, b))
+            data, state = got[1], got[2]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted(loose)
+
+
+def compiled_step_phase(torch, m, dev, card):
+    """Phase 41: per case of step_cases, a new make_train_step: the first
+    step eager and compiled (host clock: the compiled one warms up and
+    captures), STEP_REPLAYS replays with their launches counted and two
+    eager steps on each replay's inputs, STEP_CHAINED chained replays and
+    two chains of eager steps from the same start, every replay held by
+    hold_step to an eager step with the spread of all the eager pairs
+    (eager_spread); under
+    deterministic algorithms STEP_EXACT replays bit-equal to eager steps
+    in every item (deterministic_holds); eager and compiled ms/step in
+    turns (CUDA events), and the trace's device events a replayed step
+    held to the launches the capture recorded, its busy ms a step, idle
+    share by events (1 − busy / the mean compiled ms/step) and heaviest
+    ops; the capture's seconds and the graph pool.  Returns {case:
+    numbers}."""
+    spmd, P = m.spmd, m.pipeline
+    out = {}
+    for label, make, per_step in step_cases(m, dev):
+        r = make()
+        step = spmd.make_train_step(r.spec, r.probes, r.volumetrics,
+                                    r.width, r.height,
+                                    screen_cfg=r.screen_cfg,
+                                    probe_cfg=r.probe_cfg)
+        cam = r.camera
+        target = torch.zeros((r.height, r.width, 3), device=dev)
+
+        def eager(data, state):
+            with P.eager():
+                return step(data, cam, state, target)
+
+        firsts = {}
+        for way in ("eager", "compiled"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with P.eager() if way == "eager" else contextlib.nullcontext():
+                step(r.scene_data, cam, r.state, target)
+            torch.cuda.synchronize()
+            firsts[way] = time.perf_counter() - t0
+        cs = step.compiled_step
+        want = {k: per_step.get(k, 0) for k in KERNELS}
+        if cs is None or cs.launches != want:
+            fail(f"compiled step {label}: launches a captured step "
+                 f"{None if cs is None else cs.launches}, expected {want}")
+        data, state = r.scene_data, r.state
+        replays = []
+        for _ in range(STEP_REPLAYS):
+            reset_launches(m)
+            got = step(data, cam, state, target)
+            counted_now = launch_counts(m)
+            if counted_now != want or step.compiled_step is not cs:
+                fail(f"compiled step {label}: a replay counted "
+                     f"{counted_now}, expected {want}")
+            replays.append((got, eager(data, state), eager(data, state)))
+            data, state = got[1], got[2]
+        chains = {}
+        for way in ("compiled", "eager", "eager2"):
+            d, s_ = r.scene_data, r.state
+            chains[way] = []
+            for _ in range(STEP_CHAINED):
+                o = step(d, cam, s_, target) if way == "compiled" \
+                    else eager(d, s_)
+                chains[way].append(o)
+                d, s_ = o[1], o[2]
+        spread = eager_spread(
+            torch, m, [(ref, other) for _, ref, other in replays]
+            + list(zip(chains["eager"], chains["eager2"])))
+        loose, worst = set(), 0.0
+        for got, ref, _ in replays:
+            names, w = hold_step(torch, m, label, got, ref, spread)
+            loose.update(names)
+            worst = max(worst, w)
+        chained_loose, chained_worst = set(), 0.0
+        for got, ref in zip(chains["compiled"], chains["eager"]):
+            names, w = hold_step(torch, m, f"{label} chained", got, ref,
+                                 spread, chained=True)
+            chained_loose.update(names)
+            chained_worst = max(chained_worst, w)
+        del replays, chains
+        deterministic = deterministic_holds(torch, m, make, STEP_EXACT)
+        if deterministic:
+            fail(f"compiled step {label}: under deterministic algorithms "
+                 f"{deterministic} differ from the eager step")
+        run = {"d": r.scene_data, "s": r.state}
+
+        def compiled_one():
+            loss, run["d"], run["s"] = step(run["d"], cam, run["s"], target)
+            return loss
+
+        def eager_one():
+            with P.eager():
+                return compiled_one()
+        e1 = cuda_ms(torch, eager_one, STEP_TIMED)
+        c1 = cuda_ms(torch, compiled_one, STEP_TIMED)
+        c2 = cuda_ms(torch, compiled_one, STEP_TIMED)
+        e2 = cuda_ms(torch, eager_one, STEP_TIMED)
+        trace, wall = m.trace_calls(compiled_one, STEP_PROFILED)
+        ops = m.kernel_ops(trace, STEP_PROFILED)
+        busy = sum(ops.values())
+        heaviest = {op[:60]: round(ms, 3) for op, ms in sorted(
+            ops.items(), key=lambda kv: -kv[1])[:3]}
+        events = m.kernel_events(trace, STEP_PROFILED)
+        traced = {k: round(sum(n for op, n in events.items()
+                               if m.bench.KERNELS[k] in op), 6)
+                  for k in KERNELS}
+        if traced != {k: float(v) for k, v in cs.launches.items()}:
+            fail(f"compiled step {label}: the trace counts {traced} kernel "
+                 f"events a replayed step, the capture recorded "
+                 f"{cs.launches}")
+        cell = dict(
+            first_step_s=firsts, warmup_s=cs.warmup_s,
+            capture_s=cs.capture_s, pool_mib=cs.pool_bytes / 2 ** 20,
+            launches_per_captured_step=cs.launches,
+            traced_launches_per_step=traced, replays=STEP_REPLAYS,
+            not_bit_equal=sorted(loose), largest_rel=worst,
+            chained=STEP_CHAINED, chained_not_bit_equal=sorted(
+                chained_loose), chained_largest_rel=chained_worst,
+            eager_spread={k: v for k, v in spread.items() if v},
+            deterministic_replays_bit_equal=STEP_EXACT,
+            eager_ms=[e1, e2], compiled_ms=[c1, c2], busy_ms=busy,
+            profiled_wall_ms=wall,
+            idle_by_events=1.0 - 2.0 * busy / (c1 + c2),
+            heaviest_ms=heaviest)
+        print(f"compiled step {label}: first step eager "
+              f"{firsts['eager']:.3f} s, compiled {firsts['compiled']:.3f} s "
+              f"(warm-up {cs.warmup_s:.3f}, capture {cs.capture_s:.3f}); "
+              f"graph pool {cell['pool_mib']:.1f} MiB; {STEP_REPLAYS} "
+              f"replays held to eager steps on the same inputs (loss and "
+              f"state bit-equal; not bit-equal: {sorted(loose)}, largest "
+              f"relative norm {worst:.3e}); {STEP_CHAINED} chained replays "
+              f"against chained eager steps (not bit-equal: "
+              f"{sorted(chained_loose)}, largest {chained_worst:.3e}); "
+              f"eager steps not bit-equal with each other: "
+              f"{json.dumps(cell['eager_spread'])}; "
+              f"under deterministic algorithms {STEP_EXACT} replays "
+              f"bit-equal to eager steps in every item; "
+              f"eager {e1:.3f} / {e2:.3f} ms/step, compiled {c1:.3f} / "
+              f"{c2:.3f} (CUDA events, {STEP_TIMED} a turn); device busy "
+              f"{busy:.3f} ms/step (torch.profiler, {STEP_PROFILED} steps; "
+              f"idle by events {cell['idle_by_events']:.3f}), heaviest "
+              f"{json.dumps(heaviest)}; launches a "
+              f"captured step {json.dumps(cs.launches)}, traced "
+              f"{json.dumps(traced)}; [{card}]")
+        out[label] = cell
+        del step, cs, r, run
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "madarch_tpu_torch")):
         fail("madarch_tpu_torch/ is not beside this script")
@@ -3375,16 +3725,17 @@ def main():
     # ---- 25. gradients: card against CPU, per float leaf
     grads = gradient_phase(torch, m, dev, card)
 
-    # ---- 26. the GI train step at 256x256 and 512x512
+    # ---- 26-27. the GI train step at 256x256 and 512x512, compiled and
+    # eager, timed in turns and under torch.profiler
     train = {}
     for size in TRAIN_SIZES:
-        train[f"{size}x{size}"], one_step, forward = train_phase(
-            torch, m, dev, card, size)
-
-    # ---- 27. the 512x512 train step under torch.profiler
-    train[f"{size}x{size}"]["profile"] = train_profile(
-        torch, m, one_step, forward, f"GI {size}x{size}", card)
-    del one_step, forward
+        t, ways = train_phase(torch, m, dev, card, size)
+        t["profile"] = train_profile(
+            torch, m, ways, f"GI {size}x{size}", card,
+            {"compiled": t["ms_per_step"], "eager": t["eager_ms_per_step"]})
+        train[f"{size}x{size}"] = t
+        del ways
+        m.pipeline.clear_compiled()
     print(json.dumps({"train": dict(train, gradients=grads,
                                     grad_rel_limit=GRAD_REL_LIMIT)}))
 
@@ -3438,6 +3789,10 @@ def main():
     # both ways
     compiled = compiled_phase(torch, m, dev, card)
 
+    # ---- 41. the compiled train step: forward, backward and update
+    # replayed from one CUDA graph, held to eager steps
+    compiled_step = compiled_step_phase(torch, m, dev, card)
+
     def lamp_keys(name):
         """The kernel's numbers on the lamp room (phase 32)."""
         k = lamp_k[name]
@@ -3452,14 +3807,18 @@ def main():
     print(json.dumps({"bench": bench_out, "bench_wall_s": bench_s}))
     print(json.dumps({"box_cap": cap}))
     print(json.dumps({"large_scenes": large}))
-    print(json.dumps({"compiled": compiled}))
+    print(json.dumps({"compiled": compiled,
+                      "compiled_step": compiled_step}))
 
     def compiled_keys(name):
         """The kernel's launches a captured 800x800 frame, by scene
-        (phase 40)."""
+        (phase 40), and a captured train step, by case (phase 41)."""
         return {"launches_per_captured_frame": {
             label: c["launches_per_captured_frame"][name]
-            for label, c in compiled.items()}}
+            for label, c in compiled.items()},
+            "launches_per_captured_step": {
+                label: c["launches_per_captured_step"][name]
+                for label, c in compiled_step.items()}}
 
     def pt_keys(name):
         """The kernel's numbers in the path tracers (phase 33), its

@@ -13,8 +13,10 @@ the first frame's seconds with the nvcc seconds it paid and the capture's,
 kernel launches per captured frame, and over 3 frames under
 torch.profiler the device's busy ms/frame, its idle share and each
 hand-written kernel's ms per launch and launches a frame), "train_step"
-(the GI train step at 256x256 and 512x512, at 512 split into the
-differentiable forward and the backward + update), "per_pass_ms" (GI's
+(the GI train step at 256x256 and 512x512 as users get it, compiled into
+a CUDA graph on the kernel route, beside the eager step's ms/step, the
+first step and the capture; at 512 split into the differentiable forward
+and the backward + update, both ways), "per_pass_ms" (GI's
 radiance, irradiance and screen passes, and the screen's geometry launch
 with and without the mode-2 reflection fold), "golden_breaches",
 "scaling_efficiency"; it adds "gpu_vs_golden" (GI and simple_scene at
@@ -320,10 +322,17 @@ def gpu_vs_golden(device, path=GOLDENS):
 
 def train_step_at(size, device, steps=TRAIN_STEPS, split=False):
     """The GI train step at size² (parallel/spmd.py:make_train_step, a
-    black target, lr 0.01): ms/step between CUDA events over ``steps``
-    steps after a warm-up step; with ``split`` also the differentiable
-    forward alone (no graph) over as many frames, and the rest of the
-    step."""
+    black target, lr 0.01) as users get it: compiled on the kernel route
+    (a CompiledStep; on a card forward, backward and update captured into
+    one CUDA graph at the first step, then replayed).  The first step
+    (first_step_s; on a card the eager warm-up, warmup_s, and the
+    capture, capture_s, with the graph's pool, graph_pool_bytes), then
+    ms/step between CUDA events over ``steps`` steps (frame_ms) and as
+    many eager steps (eager_ms_per_step, inside pipeline.eager()).  With
+    ``split`` also the differentiable forward alone over as many frames,
+    compiled (fwd_ms: compiled_frame with the differentiable configs,
+    under no_grad) and eager (eager_fwd_ms: render_frame), and the rest
+    of the step each way."""
     r = scenes.global_illumination(width=size, height=size, device=device)
     step = spmd.make_train_step(r.spec, r.probes, r.volumetrics, size, size,
                                 screen_cfg=r.screen_cfg)
@@ -335,31 +344,59 @@ def train_step_at(size, device, steps=TRAIN_STEPS, split=False):
                                                run["state"], target)
         return loss
 
+    def eager_step():
+        with pipeline.eager():
+            return one_step()
+
+    t0 = time.perf_counter()
     one_step()
     sync(device)
+    first_s = time.perf_counter() - t0
+    compiled = step.compiled_step
+    captured = compiled is not None and compiled.launches is not None
     ms, loss = time_ms(one_step, steps, device)
+    eager_step()
+    sync(device)
+    eager_ms, eager_loss = time_ms(eager_step, steps, device)
     rays = rays_per_frame(size, size, r.probes, 1, r.screen_cfg,
                           r.volumetrics)
-    out = {"frame_ms": ms, "rays_per_s": rays / (ms / 1e3), "size": size,
-           "loss_finite": bool(torch.isfinite(loss))}
+    out = {"frame_ms": ms, "eager_ms_per_step": eager_ms,
+           "rays_per_s": rays / (ms / 1e3), "size": size,
+           "compiled": compiled is not None, "first_step_s": first_s,
+           "warmup_s": compiled.warmup_s if captured else None,
+           "capture_s": compiled.capture_s if captured else None,
+           "graph_pool_bytes": compiled.pool_bytes if captured else None,
+           "loss_finite": bool(torch.isfinite(loss))
+           and bool(torch.isfinite(eager_loss))}
     if split:
         scfg = dataclasses.replace(r.screen_cfg, differentiable=True)
         pcfg = dataclasses.replace(r.probe_cfg, differentiable=True)
+        args = (r.spec, r.probes, r.volumetrics, size, size)
+        kw = {"screen_cfg": scfg, "probe_cfg": pcfg}
 
         def forward():
             with torch.no_grad():
-                return pipeline.render_frame(
-                    r.spec, r.probes, r.volumetrics, size, size, run["data"],
-                    r.camera, run["state"], screen_cfg=scfg,
-                    probe_cfg=pcfg)[0]
+                return pipeline.compiled_frame(
+                    *args, run["data"], r.camera, run["state"], **kw)(
+                        run["data"], r.camera, run["state"])[0]
 
-        forward()
-        sync(device)
-        fwd_ms = time_ms(forward, steps, device)[0]
-        out.update(fwd_ms=fwd_ms, bwd_update_ms=ms - fwd_ms)
-    log(f"train_step (GI {size}x{size}): {ms:.3f} ms/step "
-        f"{rays / ms / 1e3:.1f} M rays/s" + (
-            f" (fwd {out['fwd_ms']:.3f} ms)" if split else ""))
+        def eager_forward():
+            with torch.no_grad():
+                return pipeline.render_frame(
+                    *args, run["data"], r.camera, run["state"], **kw)[0]
+
+        for name, fn in (("fwd_ms", forward),
+                         ("eager_fwd_ms", eager_forward)):
+            fn()
+            sync(device)
+            out[name] = time_ms(fn, steps, device)[0]
+        out.update(bwd_update_ms=ms - out["fwd_ms"],
+                   eager_bwd_update_ms=eager_ms - out["eager_fwd_ms"])
+    log(f"train_step (GI {size}x{size}): {ms:.3f} ms/step compiled, "
+        f"{eager_ms:.3f} eager, {rays / ms / 1e3:.1f} M rays/s (first step "
+        f"{first_s:.2f} s, capture {out['capture_s']})" + (
+            f" (fwd {out['fwd_ms']:.3f} ms, eager {out['eager_fwd_ms']:.3f})"
+            if split else ""))
     return out
 
 

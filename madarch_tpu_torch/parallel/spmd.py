@@ -22,9 +22,16 @@ the one-process gradient, not world size times it.  The marches run in
 the kernels as in any frame; gradients re-enter through the
 implicit-function-theorem hit distance and the autodiff normals
 (render/shading.py).
+
+Without a mesh, on the kernel route, ``make_train_step`` compiles the
+step as the JAX package jits it with its data and state donated: a
+``CompiledStep`` per static key, on a card forward, backward and update
+captured into one CUDA graph that updates its data and state buffers in
+place, then replayed.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import time
@@ -37,7 +44,10 @@ from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG,
                                            ProbeSettings, ShadeConfig,
                                            VolumetricsSettings,
                                            screen_shade_config)
-from madarch_tpu_torch.render.pipeline import render_frame
+from madarch_tpu_torch.ops.march import kernel_scene
+from madarch_tpu_torch.render.pipeline import (GRAPH_CACHE_SIZE, Captured,
+                                               eager_active, render_frame,
+                                               tree_shapes)
 from madarch_tpu_torch.scene.scene import SceneSpec, tree_leaves, tree_map
 
 ENV_VARS = ("MASTER_ADDR", "RANK", "WORLD_SIZE")
@@ -238,6 +248,15 @@ def merge_float_leaves(aux, floats):
     return tree_map(lambda _: next(merged), tree)
 
 
+def _differentiable(vol, screen_cfg, probe_cfg):
+    """The train step's shade configs: the scene's with differentiable
+    set (screen_cfg None: screen_shade_config's)."""
+    if screen_cfg is None:
+        screen_cfg = screen_shade_config(vol.enabled)
+    return (dataclasses.replace(screen_cfg, differentiable=True),
+            dataclasses.replace(probe_cfg, differentiable=True))
+
+
 def make_value_and_grad(spec: SceneSpec, probes: ProbeSettings,
                         vol: VolumetricsSettings, width: int, height: int,
                         screen_cfg: ShadeConfig = None,
@@ -252,11 +271,8 @@ def make_value_and_grad(spec: SceneSpec, probes: ProbeSettings,
     feedback.  With a ``mesh`` the frame's rays are sharded over it (at
     any world size: at 1 the collectives are copies) and the gradients
     are summed over the ranks; ``value_and_grad.sharder`` is the
-    sharder."""
-    if screen_cfg is None:
-        screen_cfg = screen_shade_config(vol.enabled)
-    screen_cfg = dataclasses.replace(screen_cfg, differentiable=True)
-    probe_cfg = dataclasses.replace(probe_cfg, differentiable=True)
+    sharder.  It runs op by op (make_train_step compiles its step)."""
+    screen_cfg, probe_cfg = _differentiable(vol, screen_cfg, probe_cfg)
     shard = None if mesh is None else ray_sharder(mesh)
     scale = 1 if shard is None else shard.n
 
@@ -281,27 +297,134 @@ def make_value_and_grad(spec: SceneSpec, probes: ProbeSettings,
     return value_and_grad
 
 
+def _sgd_update(floats, grads, lr):
+    """The train step's update of the float leaves: p − lr·g each."""
+    with torch.no_grad():
+        return [p - lr * g for p, g in zip(floats, grads)]
+
+
+class CompiledStep(Captured):
+    """The train step for one static key, the counterpart of the JAX
+    package's ``jax.jit(step, donate_argnums=(0, 2))``: make_train_step's
+    static arguments (spec, probes, vol, width, height, lr and the
+    differentiable screen_cfg and probe_cfg) and the shapes of the scene
+    data, camera, state and target, on one device.
+
+    A ``Captured`` (render/pipeline.py) with inputs data, camera, state
+    and target.  Its body is the eager step on the buffers: the loss, the
+    gradients of the float data buffers themselves (``value_and_grad``
+    differentiates ``buf.detach().requires_grad_(True)``, which shares
+    their storage; the autodiff normals' nested gradients inside), the
+    update ``_sgd_update`` computes, written into the float data buffers,
+    and the new feedback state, written into the state buffers: the data
+    and state are updated in place, donation's counterpart.  On a card
+    forward, backward and update are one CUDA graph.  The warm-up takes
+    the gradients and writes nothing back.
+
+    A call returns (loss, new data, new state) as fresh tensors, the new
+    data the argument's tree with its float leaves replaced
+    (merge_float_leaves; its other leaves as they were).  Every call
+    copies its arguments into the buffers, a chained call's too, so a
+    returned tensor the caller changed in place reaches the next step."""
+
+    captures = 0   # steps captured (on the CPU: set up) in this process
+
+    def __init__(self, value_and_grad, lr, data, camera, state, target):
+        self.value_and_grad, self.lr = value_and_grad, lr
+        super().__init__(state.radiance.device, data=data, camera=camera,
+                         state=state, target=target)
+        self.floats = split_float_leaves(self.data)[0]
+
+    def __call__(self, data, camera, state, target):
+        with torch.no_grad():
+            self.copy_in(data=data, camera=camera, state=state,
+                         target=target)
+            loss = self.run().clone()
+            floats = [x.clone() for x in self.floats]
+            new_state = tree_map(torch.clone, self.state)
+        new_data = merge_float_leaves(split_float_leaves(data)[1], floats)
+        return loss, new_data, new_state
+
+    def _warmup(self):
+        """The loss, gradients and new state on the buffers."""
+        return self.value_and_grad(self.data, self.camera, self.state,
+                                   self.target)
+
+    def _body(self):
+        """One step on the buffers, the update and the state written back
+        into them."""
+        loss, grads, new_state = self._warmup()
+        with torch.no_grad():
+            for buf, x in zip(self.floats,
+                              _sgd_update(self.floats, grads, self.lr)):
+                buf.copy_(x)
+            for buf, x in zip(tree_leaves(self.state),
+                              tree_leaves(new_state)):
+                buf.copy_(x)
+        return loss
+
+
+class TrainStep:
+    """make_train_step's step (see there): ``step(data, camera, state,
+    target)``, ``step.sharder``, ``step.compiled_step`` (the CompiledStep
+    of the last call, None after an eager call) and ``step.cache_size()``.
+    An object, not a closure that names itself: a closure's cycle would
+    keep its compiled steps, and their graphs and pools, alive until the
+    cyclic garbage collector runs, which may be during another capture."""
+
+    def __init__(self, value_and_grad, lr, compiled_route):
+        self.value_and_grad, self.lr = value_and_grad, lr
+        self.compiled_route = compiled_route
+        self.sharder = value_and_grad.sharder
+        self.compiled_step = None
+        self._compiled = collections.OrderedDict()   # keyed by the shapes
+
+    def cache_size(self) -> int:
+        return len(self._compiled)
+
+    def __call__(self, data, camera, state, target):
+        if not self.compiled_route or eager_active():
+            self.compiled_step = None
+            loss, grads, new_state = self.value_and_grad(data, camera, state,
+                                                         target)
+            floats, aux = split_float_leaves(data)
+            new = _sgd_update(floats, grads, self.lr)
+            return loss, merge_float_leaves(aux, new), new_state
+        key = (tree_shapes(data), tree_shapes(camera), tree_shapes(state),
+               tree_shapes(target), state.radiance.device)
+        fn = self._compiled.pop(key, None)
+        if fn is None:
+            fn = CompiledStep(self.value_and_grad, self.lr, data, camera,
+                              state, target)
+            while len(self._compiled) >= GRAPH_CACHE_SIZE:
+                self._compiled.popitem(last=False)
+        self._compiled[key] = self.compiled_step = fn
+        return fn(data, camera, state, target)
+
+
 def make_train_step(spec: SceneSpec, probes: ProbeSettings,
                     vol: VolumetricsSettings, width: int, height: int,
                     lr: float = 0.01, screen_cfg: ShadeConfig = None,
                     probe_cfg: ShadeConfig = PROBE_SHADE_CONFIG,
-                    mesh: Mesh = None):
+                    mesh: Mesh = None) -> TrainStep:
     """The train step: step(data, camera, state, target) -> (loss, new
     data, new state), make_value_and_grad's loss and state with new data
     holding the updated float leaves p − lr·g and the integer leaves as
-    they were; sharded over ``mesh`` when given (``step.sharder``)."""
+    they were.
+
+    Without a ``mesh``, on a scene of the kernel route (ops/march.py:
+    kernel_scene) and outside a ``pipeline.eager()`` block, checked at
+    each call, the step is compiled: a CompiledStep per static key, made
+    on first use and kept among the GRAPH_CACHE_SIZE most recently used
+    of this step (as jit caches per function: the static arguments are
+    this call's, so a key holds the shapes; ``step.cache_size()``, the
+    CompiledStep of the last call ``step.compiled_step``, None after an
+    eager call).  Otherwise it runs op by op: the generic route's plain
+    marches wait on the device at every step, and a mesh issues
+    collectives; sharded over ``mesh`` when given (``step.sharder``)."""
     value_and_grad = make_value_and_grad(spec, probes, vol, width, height,
                                          screen_cfg, probe_cfg, mesh)
-
-    def step(data, camera, state, target):
-        loss, grads, new_state = value_and_grad(data, camera, state, target)
-        floats, aux = split_float_leaves(data)
-        with torch.no_grad():
-            new = [p - lr * g for p, g in zip(floats, grads)]
-        return loss, merge_float_leaves(aux, new), new_state
-
-    step.sharder = value_and_grad.sharder
-    return step
+    return TrainStep(value_and_grad, lr, mesh is None and kernel_scene(spec))
 
 
 def measure_scaling(builder=None, width: int = 256, height: int = 256,

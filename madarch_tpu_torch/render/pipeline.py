@@ -19,6 +19,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import time
 
 import numpy as np
@@ -228,94 +229,71 @@ def eager_active() -> bool:
     return _eager[0]
 
 
-def _shapes(tree):
+def tree_shapes(tree):
     return tuple((path, tuple(x.shape), x.dtype)
                  for path, x in tree_items(tree))
 
 
-class CompiledFrame:
-    """``render_frame`` for one static key: the JAX package's static
-    arguments (spec, probes, vol, width, height, screen_cfg, probe_cfg)
-    and the shapes of the scene data, camera and state, on one device.
+class Captured:
+    """What the compiled frame and the compiled train step share: a
+    function of tensor trees run on input buffers of its own, on a card
+    captured once into a CUDA graph and replayed (the JAX package's jit).
 
-    It holds one input buffer per tensor of the data, the camera and the
-    state.  A call copies each argument into its buffers (one that is the
-    object the last call took or returned is there already: an argument
-    is a snapshot, never changed in place) and runs the frame on the
-    buffers.  The frame writes the new feedback state back into the state
-    buffers, so the state chains from call to call, and the call returns
-    the image and the state as fresh tensors, which the next call leaves
-    alone.  The frame packs the scene itself, as the JAX package packs it
-    inside its jit, so a mutation needs nothing but the copy.
+    Each input (a tree of tensors) gets one buffer a leaf, an attribute of
+    the input's name.  ``copy_in`` copies each argument into its buffers
+    at every call, whatever object it is: an argument is a snapshot of
+    its values at the call, and a tensor the caller changed in place
+    (a returned one too) reaches the next call.  ``run`` runs the
+    body on the buffers and returns its outputs: ``_body()`` writes what
+    chains from call to call back into the buffers, ``_warmup()`` is the
+    same work writing nothing back.
 
-    On a card the first call captures the frame into a CUDA graph: one
-    frame op by op on a side stream first (so that every kernel is built
-    and loaded, the shared-memory opt-in set and cuBLAS set up outside the
-    capture), then the capture; every call replays the graph.  A capture
-    or replay that fails raises: nothing falls back to the eager frame.
-    On the CPU the call runs ``render_frame`` on the buffers, with no
-    graph: the same buffers and copies, so a stale buffer shows there
-    too.
+    On a card the first ``run`` runs ``_warmup()`` op by op on a side
+    stream (so that every kernel is built and loaded, the shared-memory
+    opt-in set, cuBLAS and autograd set up outside the capture), then
+    captures ``_body()`` into a CUDA graph; every run replays the graph
+    and returns the outputs the capture left in its pool.  A capture or
+    replay that fails raises: nothing falls back to the eager body.  On
+    the CPU ``run`` calls ``_body()`` with no graph: the same buffers and
+    copies, so a stale buffer shows there too.
 
-    After the capture: ``launches`` (the kernel launches of one frame, by
-    wrapper), ``warmup_s`` and ``capture_s`` (host seconds of the eager
-    frame and of the capture) and ``pool_bytes`` (the device memory the
-    graph's private pool holds)."""
+    After the capture: ``launches`` (the kernel launches of one body, by
+    wrapper), ``warmup_s`` and ``capture_s`` (host seconds of the warm-up
+    and of the capture) and ``pool_bytes`` (the device memory the graph's
+    private pool holds).  ``captures`` counts, per subclass, the bodies
+    captured (on the CPU: set up) in this process."""
 
-    captures = 0   # frames captured (on the CPU: set up) in this process
+    captures = 0
 
-    def __init__(self, spec, probes, vol, width, height, data, camera,
-                 state, screen_cfg=None, probe_cfg=PROBE_SHADE_CONFIG):
-        self.spec, self.probes, self.vol = spec, probes, vol
-        self.width, self.height = width, height
-        self.screen_cfg, self.probe_cfg = screen_cfg, probe_cfg
-        self.device = state.radiance.device
+    def __init__(self, device, **inputs):
+        self.device = device
         with torch.no_grad():
-            self.data, self.camera, self.state = (
-                tree_map(torch.clone, x) for x in (data, camera, state))
-        self._sources = {}
+            for name, tree in inputs.items():
+                setattr(self, name, tree_map(torch.clone, tree))
         self.graph = None
-        self._image = None
+        self._out = None
         self.launches = None
         self.warmup_s = self.capture_s = self.pool_bytes = None
-        if self.device.type != "cuda":
-            CompiledFrame.captures += 1
+        if device.type != "cuda":
+            type(self).captures += 1
 
-    def __call__(self, data: SceneData, camera: Camera, state: FrameState):
-        """(image f32[H,W,3], new FrameState), as render_frame returns
-        them."""
+    def copy_in(self, **args):
+        """Each argument (input name = tree) into its buffers."""
         with torch.no_grad():
-            for name, src in (("data", data), ("camera", camera),
-                              ("state", state)):
-                if self._sources.get(name) is not src:
-                    for buf, x in zip(tree_leaves(getattr(self, name)),
-                                      tree_leaves(src)):
-                        buf.copy_(x)
-                    self._sources[name] = src
-            if self.device.type != "cuda":
-                image = self._frame()
-            else:
-                if self.graph is None:
-                    self._capture()
-                self.graph.replay()
-                march_ops.add_launches(self.launches)
-                image = self._image.clone()
-            new = tree_map(torch.clone, self.state)
-        self._sources["state"] = new
-        return image, new
+            for name, src in args.items():
+                for buf, x in zip(tree_leaves(getattr(self, name)),
+                                  tree_leaves(src)):
+                    buf.copy_(x)
 
-    def _eager(self):
-        return render_frame(self.spec, self.probes, self.vol, self.width,
-                            self.height, self.data, self.camera, self.state,
-                            screen_cfg=self.screen_cfg,
-                            probe_cfg=self.probe_cfg)
-
-    def _frame(self):
-        """One frame on the buffers, its state written back into them."""
-        image, new = self._eager()
-        for buf, x in zip(tree_leaves(self.state), tree_leaves(new)):
-            buf.copy_(x)
-        return image
+    def run(self):
+        """The body's outputs on the buffers: replayed on a card."""
+        if self.device.type != "cuda":
+            return self._body()
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        march_ops.add_launches(self.launches)
+        return self._out
 
     def _capture(self):
         dev = self.device
@@ -323,18 +301,25 @@ class CompiledFrame:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._eager()       # the state buffers keep this call's input
+            self._warmup()
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         self.warmup_s = time.perf_counter() - t0
         before = march_ops.launch_counts()
         graph = torch.cuda.CUDAGraph()
+        # A graph the cyclic garbage collector destroys while this one is
+        # captured invalidates the capture: collect first, then hold it off
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         t0 = time.perf_counter()
         try:
             with torch.cuda.graph(graph):
                 reserved = torch.cuda.memory_reserved(dev)
-                self._image = self._frame()
+                self._out = self._body()
         finally:
+            if collecting:
+                gc.enable()
             # the capture launched nothing
             after = march_ops.launch_counts()
             march_ops.add_launches({k: before[k] - after[k]
@@ -343,7 +328,54 @@ class CompiledFrame:
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.launches = {k: after[k] - before[k] for k in after}
         self.graph = graph
-        CompiledFrame.captures += 1
+        type(self).captures += 1
+
+
+class CompiledFrame(Captured):
+    """``render_frame`` for one static key: the JAX package's static
+    arguments (spec, probes, vol, width, height, screen_cfg, probe_cfg)
+    and the shapes of the scene data, camera and state, on one device.
+
+    A ``Captured`` with inputs data, camera and state.  The frame writes
+    the new feedback state back into the state buffers, so the state
+    chains from call to call, and the call returns the image and the
+    state as fresh tensors, which the next call leaves alone.  The frame
+    packs the scene itself, as the JAX package packs it inside its jit, so
+    a mutation needs nothing but the copy."""
+
+    captures = 0   # frames captured (on the CPU: set up) in this process
+
+    def __init__(self, spec, probes, vol, width, height, data, camera,
+                 state, screen_cfg=None, probe_cfg=PROBE_SHADE_CONFIG):
+        self.spec, self.probes, self.vol = spec, probes, vol
+        self.width, self.height = width, height
+        self.screen_cfg, self.probe_cfg = screen_cfg, probe_cfg
+        super().__init__(state.radiance.device, data=data, camera=camera,
+                         state=state)
+
+    def __call__(self, data: SceneData, camera: Camera, state: FrameState):
+        """(image f32[H,W,3], new FrameState), as render_frame returns
+        them."""
+        with torch.no_grad():
+            self.copy_in(data=data, camera=camera, state=state)
+            image = self.run().clone()
+            new = tree_map(torch.clone, self.state)
+        return image, new
+
+    def _warmup(self):
+        """One frame on the buffers (the state buffers keep this call's
+        input)."""
+        return render_frame(self.spec, self.probes, self.vol, self.width,
+                            self.height, self.data, self.camera, self.state,
+                            screen_cfg=self.screen_cfg,
+                            probe_cfg=self.probe_cfg)
+
+    def _body(self):
+        """One frame on the buffers, its state written back into them."""
+        image, new = self._warmup()
+        for buf, x in zip(tree_leaves(self.state), tree_leaves(new)):
+            buf.copy_(x)
+        return image
 
 
 def compiled_frame(spec: SceneSpec, probes: ProbeSettings,
@@ -358,7 +390,7 @@ def compiled_frame(spec: SceneSpec, probes: ProbeSettings,
     kernel_scene); the generic route's plain marches wait on the device
     at every step and run eagerly."""
     key = (spec, probes, vol, width, height, screen_cfg, probe_cfg,
-           _shapes(data), _shapes(camera), _shapes(state),
+           tree_shapes(data), tree_shapes(camera), tree_shapes(state),
            state.radiance.device)
     frame = _frames.pop(key, None)
     if frame is None:

@@ -10,7 +10,10 @@ Times, each over ITERS calls after a warm-up:
 (b) loss and gradient with respect to the materials only;
 (b2) loss and gradient with respect to every float leaf
     (parallel/spmd.py:make_value_and_grad, no mesh);
-(c) the full train step (make_train_step).
+(c) the full train step as make_train_step gives it: compiled on the
+    kernel route (on a card one CUDA graph replayed; its first call, the
+    capture, is the warm-up);
+(c2) the same step op by op, inside pipeline.eager().
 Each gradient is consumed inside the timed calls (summed and read back),
 so that no part of the backward can be skipped and the timing cannot lie.
 Progress on stderr, one JSON line on stdout.
@@ -25,7 +28,7 @@ import torch
 
 from madarch_tpu_torch import bench
 from madarch_tpu_torch.parallel import spmd
-from madarch_tpu_torch.render.pipeline import render_frame
+from madarch_tpu_torch.render.pipeline import eager, render_frame
 
 ITERS = 3
 
@@ -88,12 +91,17 @@ def main(argv=None):
                                                run["state"], target)
         return float(loss)
 
+    def train_step_eager():
+        with eager():
+            return train_step()
+
     timed = {
         "fwd_diff_cfg_no_grad": lambda: forward(scfg, pcfg),
         "fwd_fused_cfg": lambda: forward(r.screen_cfg, r.probe_cfg),
         "grad_materials": grad_materials,
         "grad_all_floats": grad_all,
         "train_step": train_step,
+        "train_step_eager": train_step_eager,
     }
     ms = {}
     for label, fn in timed.items():

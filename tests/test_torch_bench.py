@@ -239,13 +239,36 @@ def test_geom_probe_main(capsys):
     assert sum(out["split"].values()) == pytest.approx(out["ms"]["full"])
 
 
+def test_train_step_at_times_the_compiled_and_the_eager_step(monkeypatch):
+    """train_step_at on the CPU at 16x16 (the room's small probes in
+    place of the GI scene's): the compiled step (a CompiledStep running
+    the eager step on its buffers) and the eager one, both halves of the
+    split each way, finite losses; the capture's numbers None off a
+    card."""
+    gi = bench.scenes.global_illumination
+    monkeypatch.setattr(
+        bench.scenes, "global_illumination",
+        lambda **kw: gi(probes=ProbeSettings(**bench.ROOM_PROBES), **kw))
+    out = bench.train_step_at(SIZE, torch.device("cpu"), steps=1,
+                              split=True)
+    assert out["compiled"] and out["loss_finite"] and out["size"] == SIZE
+    for key in ("frame_ms", "eager_ms_per_step", "first_step_s", "fwd_ms",
+                "eager_fwd_ms"):
+        assert math.isfinite(out[key]) and out[key] > 0.0, key
+    assert out["bwd_update_ms"] == out["frame_ms"] - out["fwd_ms"]
+    assert out["eager_bwd_update_ms"] \
+        == out["eager_ms_per_step"] - out["eager_fwd_ms"]
+    for key in ("warmup_s", "capture_s", "graph_pool_bytes"):
+        assert out[key] is None, key
+
+
 def test_train_probe_main(capsys):
     out = train_probe.main(["room_reflections", "--size", str(SIZE),
                             "--device", "cpu"])
     assert json.loads(capsys.readouterr().out.splitlines()[-1]) == out
     assert set(out["ms"]) == {"fwd_diff_cfg_no_grad", "fwd_fused_cfg",
                               "grad_materials", "grad_all_floats",
-                              "train_step"}
+                              "train_step", "train_step_eager"}
     assert all(v > 0.0 for v in out["ms"].values())
 
 

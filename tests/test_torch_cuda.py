@@ -7,8 +7,10 @@ layout and in the generic build.
 
 The frame compiled into a CUDA graph (render/pipeline.py:CompiledFrame)
 is held bit for bit to the eager frame on GI, light_shafts and obj_mesh,
-after a mutation too, and a capture that fails must raise (last in the
-file).
+after a mutation too; the train step compiled into one (parallel/spmd.py:
+CompiledStep) is held to eager steps on GI modes 2 and 1 and light_shafts
+(chip_smoke.hold_step); a capture that fails must raise, the step's and
+the frame's (last in the file).
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs where JAX is absent:
@@ -1643,6 +1645,116 @@ def test_an_eager_frame_waits_on_nothing(dev, scene):
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert torch.isfinite(img).all()
+
+
+# ---------------------------------------------------------------------------
+# The compiled train step: forward, backward and update in one CUDA graph
+# ---------------------------------------------------------------------------
+
+# Kernel launches a step: GI mode 2, GI mode 1 (raycast and softshadows
+# inside the step's graph), light_shafts (raycast and visibility).
+STEP_SCENES = {"gi_mode2": {"geometry": 2},
+               "gi_mode1": {"geometry": 2, "raycast": 1, "softshadows": 1},
+               "light_shafts": {"geometry": 2, "raycast": 1,
+                                "visibility": 1}}
+
+
+def _step_scene(name, dev, size=64):
+    """The step's scene at size² with the tiny probes (light_shafts with
+    chip_smoke's small volumetrics) and its train step."""
+    import chip_smoke
+    from madarch_tpu_torch.core.config import VolumetricsSettings
+    from madarch_tpu_torch.parallel import spmd
+    if name == "light_shafts":
+        r = S.light_shafts(width=size, height=size, device=dev, probes=TINY,
+                           volumetrics=VolumetricsSettings(
+                               **chip_smoke.SMALL_VOL))
+    else:
+        r = S.global_illumination(
+            width=size, height=size, device=dev, probes=TINY,
+            screen_cfg=ShadeConfig(indirect_specular_mode=int(name[-1])))
+    step = spmd.make_train_step(r.spec, r.probes, r.volumetrics, size, size,
+                                screen_cfg=r.screen_cfg,
+                                probe_cfg=r.probe_cfg)
+    return r, step, torch.zeros((size, size, 3), device=dev)
+
+
+@pytest.mark.parametrize("scene", list(STEP_SCENES))
+def test_replayed_steps_equal_eager_steps(dev, scene):
+    """Three train steps at 64², one capture and two more replays, each
+    against eager steps on its own inputs.  Under deterministic
+    algorithms every item (loss, state, updated leaves) is bit-equal.  As
+    users run it, each replay is held by chip_smoke.hold_step: the loss,
+    new state and every updated leaf bit-equal but the material table's
+    (index_add's atomics in the backward), those within max(2 × the
+    eager steps' spread, 1e-6) relative norm and never beyond
+    chip_smoke.GRAD_REL_LIMIT.  Every kernel of the step runs from the
+    graph, counted once a replay."""
+    import itertools
+
+    import chip_smoke
+    from madarch_tpu_torch.render import pipeline
+    m = chip_smoke.port_modules()
+    want = {k: STEP_SCENES[scene].get(k, 0) for k in _launches()}
+    for deterministic in (True, False):
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        try:
+            r, step, target = _step_scene(scene, dev)
+            data, state, held = r.scene_data, r.state, []
+            for i in range(3):
+                before = _launches()
+                got = step(data, r.camera, state, target)
+                torch.cuda.synchronize()
+                counted = {k: v - before[k] for k, v in _launches().items()}
+                cs = step.compiled_step
+                assert cs.launches == want
+                # the first call's warm-up is an eager step
+                assert counted == {k: (2 if i == 0 else 1) * v
+                                   for k, v in want.items()}
+                with pipeline.eager():
+                    refs = [step(data, r.camera, state, target)
+                            for _ in range(3)]
+                held.append((got, refs))
+                data, state = got[1], got[2]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        spread = chip_smoke.eager_spread(torch, m, [
+            pair for _, refs in held
+            for pair in itertools.combinations(refs, 2)])
+        for got, refs in held:
+            if deterministic:
+                assert not any(spread.values())
+                assert all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                    chip_smoke.step_items(m, got),
+                    chip_smoke.step_items(m, refs[0])))
+            else:
+                chip_smoke.hold_step(torch, m, scene, got, refs[0], spread)
+        assert cs.graph is not None and cs.pool_bytes > 0
+        assert np.isfinite(float(got[0])) and float(got[0]) > 0.0
+
+
+def test_a_step_broken_by_a_host_sync_raises(dev, monkeypatch):
+    """A host sync inside the step (a screen pass that reads its image
+    back) is legal in the eager warm-up and illegal in the capture: the
+    step raises, every time, and never falls back to an eager step."""
+    from madarch_tpu_torch.parallel import spmd
+    from madarch_tpu_torch.render import pipeline
+    real = pipeline.screen_pass
+
+    def reads_back(*args, **kwargs):
+        img = real(*args, **kwargs)
+        float(img.sum())
+        return img
+
+    monkeypatch.setattr(pipeline, "screen_pass", reads_back)
+    r, step, target = _step_scene("gi_mode2", dev, size=32)
+    captures = spmd.CompiledStep.captures
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            step(r.scene_data, r.camera, r.state, target)
+        assert step.compiled_step is not None
+        assert step.compiled_step.graph is None
+    assert spmd.CompiledStep.captures == captures
 
 
 def test_a_capture_that_fails_raises(dev, monkeypatch):
