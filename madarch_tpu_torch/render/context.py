@@ -13,7 +13,11 @@ The kernels and the plain marches see the scene detached from autograd
 (the JAX package closes its marches over stop-gradient data): their
 outputs are constants, and gradients re-enter only through ``sdf_b_diff``,
 the batched scene distance over the live data (render/raymarch.py:
-attach_hit_gradient, scene_normal)."""
+attach_hit_gradient, scene_normal).
+
+With the recorder of utils/profiling.py on, the kernel route's packing
+(pack_scene, pack_light_positions and the roughness cast) is the device
+interval ``pack``."""
 from __future__ import annotations
 
 import torch
@@ -22,6 +26,7 @@ from madarch_tpu_torch.ops import march as march_ops
 from madarch_tpu_torch.render import raymarch as rm
 from madarch_tpu_torch.scene.scene import (SceneData, SceneSpec, scene_sdf,
                                            tree_map)
+from madarch_tpu_torch.utils import profiling
 
 
 def _chunked(fn, p, want_chunks):
@@ -48,12 +53,13 @@ class SceneCtx:
         self.lpos_vec, self.n_light_slots = None, 0
         self.rough_vec = None
         if march_ops.kernel_scene(spec):
-            self.packed = march_ops.pack_scene(spec, data_sg)
-            self.lpos_vec, self.n_light_slots = \
-                march_ops.pack_light_positions(spec, data_sg)
-            # material roughness: the kernel's mode-2 reflection gate
-            self.rough_vec = data_sg.materials["roughness"].to(
-                torch.float32).contiguous()
+            rough = data_sg.materials["roughness"]
+            with profiling.device_span("pack", rough.device):
+                self.packed = march_ops.pack_scene(spec, data_sg)
+                self.lpos_vec, self.n_light_slots = \
+                    march_ops.pack_light_positions(spec, data_sg)
+                # material roughness: the kernel's mode-2 reflection gate
+                self.rough_vec = rough.to(torch.float32).contiguous()
 
     @property
     def use_kernel(self) -> bool:

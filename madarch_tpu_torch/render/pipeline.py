@@ -13,6 +13,18 @@ the port's counterpart of the JAX package's ``jax.jit(render_frame_impl)``
 with its static arguments: a ``CompiledFrame`` per static key, which on a
 card captures the frame into a CUDA graph once and replays it, and
 ``eager()`` is the counterpart of ``jax.disable_jit()``.
+
+With the recorder of utils/profiling.py on, each pass is a device interval
+(``pass.radiance``, ``pass.irradiance``, ``pass.visibility``,
+``pass.scattering``, ``pass.screen``; each SceneCtx's packing ``pack``
+inside them, render/context.py), and the compiled frame records the host
+spans ``frame.lookup`` (counters ``frame_captures``, ``frame_evictions``),
+``frame.copy_in`` (``copy_in_leaves``, ``copy_in_bytes``),
+``frame.warmup`` and ``frame.capture`` (set-up), ``frame.replay`` and
+``frame.out``, and the device interval ``frame.writeback``.  A frame
+captured while the recorder is on keeps the passes' event pairs as nodes
+of its graph and reports them at each replay; one captured while it is
+off has none and reports no passes.
 """
 from __future__ import annotations
 
@@ -37,6 +49,7 @@ from madarch_tpu_torch.render.context import SceneCtx
 from madarch_tpu_torch.render.shading import pixel_color
 from madarch_tpu_torch.scene.scene import (SceneData, SceneSpec, tree_items,
                                            tree_leaves, tree_map)
+from madarch_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -176,23 +189,30 @@ def render_frame(spec: SceneSpec, probes: ProbeSettings,
     ranks (each rank gets the whole image and state), or None."""
     if screen_cfg is None:
         screen_cfg = screen_shade_config(vol.enabled)
-    radiance = radiance_pass(spec, data, probes, probe_cfg,
-                             state.irradiance, state.radiance, shard)
-    irradiance = probes_mod.integrate_irradiance(probes, radiance)
+    dev = state.irradiance.device
+    with profiling.device_span("pass.radiance", dev):
+        radiance = radiance_pass(spec, data, probes, probe_cfg,
+                                 state.irradiance, state.radiance, shard)
+    with profiling.device_span("pass.irradiance", dev):
+        irradiance = probes_mod.integrate_irradiance(probes, radiance)
 
     scattering = state.scattering
     if vol.enabled:
-        ctx = SceneCtx(spec, data)
-        visibility = vol_mod.visibility_pass(
-            spec, data, vol, ctx, camera.position, camera.orientation,
-            max_steps=screen_cfg.max_march_steps, shard=shard)
-        scattering = vol_mod.scattering_pass(
-            spec, data, vol, ctx, visibility, camera.position,
-            camera.orientation, max_steps=screen_cfg.max_march_steps,
-            shard=shard)
+        with profiling.device_span("pass.visibility", dev):
+            ctx = SceneCtx(spec, data)
+            visibility = vol_mod.visibility_pass(
+                spec, data, vol, ctx, camera.position, camera.orientation,
+                max_steps=screen_cfg.max_march_steps, shard=shard)
+        with profiling.device_span("pass.scattering", dev):
+            scattering = vol_mod.scattering_pass(
+                spec, data, vol, ctx, visibility, camera.position,
+                camera.orientation, max_steps=screen_cfg.max_march_steps,
+                shard=shard)
 
-    image = screen_pass(spec, data, probes, vol, screen_cfg, width, height,
-                        camera, irradiance, radiance, scattering, shard)
+    with profiling.device_span("pass.screen", dev):
+        image = screen_pass(spec, data, probes, vol, screen_cfg, width,
+                            height, camera, irradiance, radiance,
+                            scattering, shard)
     return image, FrameState(radiance=radiance.detach(),
                              irradiance=irradiance.detach(),
                              scattering=scattering.detach())
@@ -261,7 +281,14 @@ class Captured:
     wrapper), ``warmup_s`` and ``capture_s`` (host seconds of the warm-up
     and of the capture) and ``pool_bytes`` (the device memory the graph's
     private pool holds).  ``captures`` counts, per subclass, the bodies
-    captured (on the CPU: set up) in this process."""
+    captured (on the CPU: set up) in this process.
+
+    With the recorder of utils/profiling.py on: spans ``frame.copy_in``
+    (counters ``copy_in_leaves``, ``copy_in_bytes``: every buffer
+    copied), ``frame.warmup``, ``frame.capture`` and ``frame.replay`` (on
+    the CPU the body's run in the replay's place); the device intervals
+    the body records, if the capture ran with the recorder on
+    (``_events``, the graph's event pairs)."""
 
     captures = 0
 
@@ -272,6 +299,7 @@ class Captured:
                 setattr(self, name, tree_map(torch.clone, tree))
         self.graph = None
         self._out = None
+        self._events = []
         self.launches = None
         self.warmup_s = self.capture_s = self.pool_bytes = None
         if device.type != "cuda":
@@ -279,19 +307,28 @@ class Captured:
 
     def copy_in(self, **args):
         """Each argument (input name = tree) into its buffers."""
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("frame.copy_in"):
             for name, src in args.items():
                 for buf, x in zip(tree_leaves(getattr(self, name)),
                                   tree_leaves(src)):
                     buf.copy_(x)
+        if profiling.enabled():
+            bufs = [b for name in args for b in tree_leaves(getattr(self,
+                                                                    name))]
+            profiling.count("copy_in_leaves", len(bufs))
+            profiling.count("copy_in_bytes", sum(b.nbytes for b in bufs))
 
     def run(self):
         """The body's outputs on the buffers: replayed on a card."""
         if self.device.type != "cuda":
-            return self._body()
+            with profiling.span("frame.replay"):
+                return self._body()
         if self.graph is None:
             self._capture()
-        self.graph.replay()
+        profiling.before_replay(self._events)
+        with profiling.span("frame.replay"):
+            self.graph.replay()
+        profiling.after_replay(self._events)
         march_ops.add_launches(self.launches)
         return self._out
 
@@ -300,10 +337,11 @@ class Captured:
         t0 = time.perf_counter()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._warmup()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
+        with profiling.span("frame.warmup"):
+            with torch.cuda.stream(side):
+                self._warmup()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
         self.warmup_s = time.perf_counter() - t0
         before = march_ops.launch_counts()
         graph = torch.cuda.CUDAGraph()
@@ -314,7 +352,9 @@ class Captured:
         gc.disable()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph):
+            with profiling.span("frame.capture"), \
+                    profiling.graph_events() as events, \
+                    torch.cuda.graph(graph):
                 reserved = torch.cuda.memory_reserved(dev)
                 self._out = self._body()
         finally:
@@ -327,6 +367,7 @@ class Captured:
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.launches = {k: after[k] - before[k] for k in after}
+        self._events = events
         self.graph = graph
         type(self).captures += 1
 
@@ -358,8 +399,10 @@ class CompiledFrame(Captured):
         them."""
         with torch.no_grad():
             self.copy_in(data=data, camera=camera, state=state)
-            image = self.run().clone()
-            new = tree_map(torch.clone, self.state)
+            out = self.run()
+            with profiling.span("frame.out"):
+                image = out.clone()
+                new = tree_map(torch.clone, self.state)
         return image, new
 
     def _warmup(self):
@@ -373,8 +416,9 @@ class CompiledFrame(Captured):
     def _body(self):
         """One frame on the buffers, its state written back into them."""
         image, new = self._warmup()
-        for buf, x in zip(tree_leaves(self.state), tree_leaves(new)):
-            buf.copy_(x)
+        with profiling.device_span("frame.writeback", self.device):
+            for buf, x in zip(tree_leaves(self.state), tree_leaves(new)):
+                buf.copy_(x)
         return image
 
 
@@ -389,16 +433,19 @@ def compiled_frame(spec: SceneSpec, probes: ProbeSettings,
     camera, state).  For a scene on the kernel route (ops/march.py:
     kernel_scene); the generic route's plain marches wait on the device
     at every step and run eagerly."""
-    key = (spec, probes, vol, width, height, screen_cfg, probe_cfg,
-           tree_shapes(data), tree_shapes(camera), tree_shapes(state),
-           state.radiance.device)
-    frame = _frames.pop(key, None)
-    if frame is None:
-        frame = CompiledFrame(spec, probes, vol, width, height, data,
-                              camera, state, screen_cfg, probe_cfg)
-        while len(_frames) >= GRAPH_CACHE_SIZE:
-            _frames.popitem(last=False)
-    _frames[key] = frame
+    with profiling.span("frame.lookup"):
+        key = (spec, probes, vol, width, height, screen_cfg, probe_cfg,
+               tree_shapes(data), tree_shapes(camera), tree_shapes(state),
+               state.radiance.device)
+        frame = _frames.pop(key, None)
+        if frame is None:
+            frame = CompiledFrame(spec, probes, vol, width, height, data,
+                                  camera, state, screen_cfg, probe_cfg)
+            profiling.count("frame_captures")
+            while len(_frames) >= GRAPH_CACHE_SIZE:
+                _frames.popitem(last=False)
+                profiling.count("frame_evictions")
+        _frames[key] = frame
     return frame
 
 

@@ -10,6 +10,12 @@ resolution), as the JAX package jits it (render/pipeline.py:
 compiled_frame: on a card a CUDA graph captured once and replayed), and a
 mutation that keeps that key only copies the new snapshot into the
 graph's buffers.
+
+With the recorder of utils/profiling.py on, ``render()`` is the root span
+``render`` (one frame id), around ``render.spec``, ``render.data`` (a
+rebuild of the device snapshot: counters ``data_builds``, ``data_bytes``)
+and ``render.camera`` (a pose upload: ``camera_uploads``), then the
+compiled frame's spans (render/pipeline.py).
 """
 from __future__ import annotations
 
@@ -30,7 +36,9 @@ from madarch_tpu_torch.render.pipeline import (Camera, compiled_frame,
                                                render_frame)
 from madarch_tpu_torch.render.raymarch import scene_normal
 from madarch_tpu_torch.scene.primitives import PrimitiveType
-from madarch_tpu_torch.scene.scene import SceneBuilder, SceneSpec, scene_sdf
+from madarch_tpu_torch.scene.scene import (SceneBuilder, SceneSpec,
+                                           scene_sdf, tree_leaves)
+from madarch_tpu_torch.utils import profiling
 
 
 class Renderer:
@@ -132,8 +140,13 @@ class Renderer:
     @property
     def scene_data(self):
         if self._data is None:
-            self._data = self.builder.device_data(self.device,
-                                                  grid=self._grid)
+            with profiling.span("render.data"):
+                self._data = self.builder.device_data(self.device,
+                                                      grid=self._grid)
+            if profiling.enabled():
+                profiling.count("data_builds")
+                profiling.count("data_bytes", sum(
+                    x.nbytes for x in tree_leaves(self._data)))
         return self._data
 
     def update_partitioning(self, method: str = "gpu_fast"):
@@ -155,10 +168,12 @@ class Renderer:
         key = (np.asarray(self.camera_position, np.float32).tobytes(),
                np.asarray(self.camera_orientation, np.float32).tobytes())
         if self._camera[0] != key:
-            self._camera = (key, Camera(
-                position=to_device(self.camera_position, self.device),
-                orientation=to_device(self.camera_orientation,
-                                      self.device)))
+            with profiling.span("render.camera"):
+                self._camera = (key, Camera(
+                    position=to_device(self.camera_position, self.device),
+                    orientation=to_device(self.camera_orientation,
+                                          self.device)))
+            profiling.count("camera_uploads")
         return self._camera[1]
 
     # -- frame loop --
@@ -168,16 +183,19 @@ class Renderer:
         renderer's device.  No gradient: a differentiable frame goes
         through parallel/spmd.py:make_train_step, as in the JAX
         package."""
-        spec = self.spec
-        args = (spec, self.probes, self.volumetrics, self.width,
-                self.height, self.scene_data, self.camera, self.state)
-        kwargs = dict(screen_cfg=self.screen_cfg, probe_cfg=self.probe_cfg)
-        with torch.no_grad():
-            if kernel_scene(spec) and not eager_active():
-                self.frame = compiled_frame(*args, **kwargs)
-                image, self.state = self.frame(*args[5:])
-            else:
-                image, self.state = render_frame(*args, **kwargs)
+        with profiling.span("render"):
+            with profiling.span("render.spec"):
+                spec = self.spec
+            args = (spec, self.probes, self.volumetrics, self.width,
+                    self.height, self.scene_data, self.camera, self.state)
+            kwargs = dict(screen_cfg=self.screen_cfg,
+                          probe_cfg=self.probe_cfg)
+            with torch.no_grad():
+                if kernel_scene(spec) and not eager_active():
+                    self.frame = compiled_frame(*args, **kwargs)
+                    image, self.state = self.frame(*args[5:])
+                else:
+                    image, self.state = render_frame(*args, **kwargs)
         return image
 
     def converge(self, frames: int = 4):

@@ -1,6 +1,7 @@
 """The port's measuring probes (port of the root tools/ probes), each run as
 ``python -m madarch_tpu_torch.tools.<name>``: perf_probe, geom_probe,
-train_probe, diag_golden.  They run on the CUDA card unless ``--device``
+train_probe, diag_golden, and trace_probe (the port's own recorder over a
+closed loop of frames, and its cost).  They run on the CUDA card unless ``--device``
 names another device.
 
 Not ported, by design: tools/ab_cull.py (it A/Bs the TPU kernels' culling

@@ -7,7 +7,8 @@ layout and in the generic build.
 
 The frame compiled into a CUDA graph (render/pipeline.py:CompiledFrame)
 is held bit for bit to the eager frame on GI, light_shafts and obj_mesh,
-after a mutation too; the train step compiled into one (parallel/spmd.py:
+after a mutation too, and with the port's recorder on to the frame with
+it off; the train step compiled into one (parallel/spmd.py:
 CompiledStep) is held to eager steps on GI modes 2 and 1 and light_shafts
 (chip_smoke.hold_step); a capture that fails must raise, the step's and
 the frame's (last in the file).
@@ -1645,6 +1646,66 @@ def test_an_eager_frame_waits_on_nothing(dev, scene):
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert torch.isfinite(img).all()
+
+
+@pytest.mark.parametrize("scene", COMPILED_SCENES)
+def test_recorded_frames_equal_unrecorded_frames(dev, scene):
+    """The recorder (utils/profiling.py) on and off at 64²: four frames,
+    each waited for, bit-equal, image and state.  On, each replay (the
+    frames after the capture's) reports every pass, the write-back and one ``pack`` a
+    SceneCtx once, each a positive device time, and its replay waits on
+    nothing (sync debug mode "error" raises on a synchronisation).  Off,
+    nothing is recorded; a frame captured off and replayed with the
+    recorder on reports host spans and no device interval."""
+    from madarch_tpu_torch.render import pipeline
+    from madarch_tpu_torch.utils import profiling
+    passes = ["pass.radiance", "pass.irradiance", "pass.screen",
+              "frame.writeback"] + ["pack"] * 2
+    if scene == "light_shafts":
+        passes += ["pass.visibility", "pass.scattering", "pack"]
+    runs, recs = [], []
+    try:
+        for on in (False, True):
+            pipeline.clear_compiled()
+            profiling.drain()
+            (profiling.enable if on else profiling.disable)()
+            r = _compiled_scene(scene, dev)
+            frames = []
+            for _ in range(3):
+                # each waited for, as a viewer's: a replay's intervals are
+                # read at the next one only if done (else dropped)
+                frames.append((r.render(), r.state))
+                torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                frames.append((r.render(), r.state))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            runs.append(frames)
+            recs.append(profiling.drain())
+        profiling.disable()
+        pipeline.clear_compiled()
+        r = _compiled_scene(scene, dev)
+        r.render()
+        profiling.enable()
+        r.render()
+        late = profiling.drain()
+    finally:
+        profiling.disable()
+        profiling.drain()
+        pipeline.clear_compiled()
+    for (img_a, st_a), (img_b, st_b) in zip(*runs, strict=True):
+        assert torch.equal(img_a, img_b) and _same_state(st_a, st_b)
+    assert recs[0] == {"spans": [], "counters": [], "device": []}
+    ids = [s[4] for s in recs[1]["spans"] if s[0] == "render"]
+    assert len(ids) == 4
+    for fid in ids[1:]:
+        got = [(n, ms) for f, n, ms in recs[1]["device"] if f == fid]
+        assert sorted(n for n, _ in got) == sorted(passes)
+        assert all(0.0 < ms < 1e3 for _, ms in got)
+    assert "frame.replay" in [s[0] for s in late["spans"]]
+    assert late["device"] == []
 
 
 # ---------------------------------------------------------------------------
