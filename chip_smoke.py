@@ -9,9 +9,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    and nvcc versions; fails without a CUDA device;
 2. builds the kernels (ops/csrc/march.cu generic and once per layout of
    MARCH_LAYOUTS; geometry.cu once per lane count, with FMA contraction
-   and with COUNT_WORK; one nvcc each, started together) from the
-   checkout and prints ptxas's register and spill lines for the geometry
-   kernel;
+   and with COUNT_WORK; probes.cu; one nvcc each, started together) from
+   the checkout and prints ptxas's register and spill lines for the
+   geometry and the probe-lookup kernels;
 3. holds the geometry kernel against its plain PyTorch version
    (geometry_reference) on the global_illumination scene, on rays of the
    radiance pass (no reflection) and of the 800x800 screen pass
@@ -266,7 +266,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
    bit-equal to eager steps in every item; eager and compiled ms/step in
    turns, the trace's device events a replayed step held to the launches
    the capture recorded, capture seconds and graph pool MiB; prints a
-   compiled JSON line (phases 40-41).
+   compiled JSON line (phases 40-41);
+42. the shade's probe lookups (ops/probe_lookup.py, csrc/probes.cu) on
+   the GI room's 1000x1000 screen pass after 4 frames, 10^6 points: the
+   irradiance kernel held to sample_irradiance's gather (its plain
+   version, PROBE_PLAIN_REL) and matmul (the dense route,
+   PROBE_DENSE_REL), mode 2's radiance kernel held to
+   sample_tile_bilinear at mip 1 and to the dense one-hot lookup; each
+   timed in turns with both beside its bound; a replayed frame's
+   launches (2 irradiance, 1 radiance); the eager frame by the kernel
+   route against the dense route (PROBE_IMAGE_GAP); prints a
+   probe_lookups JSON line.
 
 Renderer.render() runs the compiled frame on the kernel route: a scene's
 first frame runs an eager warm-up and captures the frame into a CUDA
@@ -306,7 +316,8 @@ It prints a train JSON line (phases 25-27), a scenes JSON line (phases
 28-32), a pathtrace JSON line (phases 33-34), an api JSON line (phase 35),
 a geometry_flags JSON line (phase 36), a bench JSON line (phase 37), a
 box_cap JSON line (phase 38), a large_scenes JSON line (phase 39), a
-compiled JSON line (phases 40-41), a kernels JSON line, the card line, then
+compiled JSON line (phases 40-41), a probe_lookups JSON line (phase 42), a
+kernels JSON line, the card line, then
 the last line {"ok": true, "device": {...}}.  Imports no JAX.
 """
 import contextlib
@@ -356,6 +367,7 @@ def port_modules():
     from madarch_tpu_torch.examples import scenes
     from madarch_tpu_torch.ops import build
     from madarch_tpu_torch.ops import march
+    from madarch_tpu_torch.ops import probe_lookup
     from madarch_tpu_torch.parallel import spmd
     from madarch_tpu_torch.render import pipeline
     from madarch_tpu_torch.render import lighting
@@ -386,6 +398,7 @@ def port_modules():
         PROBE_SHADE_CONFIG=PROBE_SHADE_CONFIG, ProbeSettings=ProbeSettings,
         ShadeConfig=ShadeConfig, VolumetricsSettings=VolumetricsSettings,
         length=length, reflect=reflect, S=scenes, build=build, M=march,
+        PL=probe_lookup,
         spmd=spmd, pipeline=pipeline, lighting=lighting, PT=pathtrace,
         checkpoint=checkpoint, SceneBuilder=SceneBuilder,
         tree_leaves=tree_leaves,
@@ -419,12 +432,13 @@ def build_all(m):
     """Builds every library this script launches at once (one nvcc each, in
     parallel): march.cu at each of MARCH_LAYOUTS; geometry.cu at each of
     TIMED_LANES and, at the lane counts the wrapper can choose, with FMA
-    contraction and with COUNT_WORK."""
+    contraction and with COUNT_WORK; probes.cu."""
     M = m.M
     builds = [(f"march.cu {' '.join(M.march_defines(c))}".strip(),
                lambda c=c: M.march_library(c)) for c in MARCH_LAYOUTS]
     builds += [(f"geometry.cu {x} lanes", lambda x=x: M.geometry_library(x))
                for x in TIMED_LANES]
+    builds.append(("probes.cu", m.PL.library))
     for x in M.LANE_CHOICES:
         builds += [
             (f"geometry.cu {x} lanes fmad",
@@ -2441,7 +2455,7 @@ def bench_phase(torch, gi_per_frame):
                 and ms > 0.0):
             fail(f"bench {name}: frame_ms {ms}")
     gi = out["configs"]["global_illumination"]["launches_per_frame"]
-    if gi != gi_per_frame:
+    if {k: gi[k] for k in KERNELS} != gi_per_frame:
         fail(f"bench GI launches per frame {gi}, phase 5's {gi_per_frame}")
     for name, cfg in out["configs"].items():
         traced = cfg["traced_launches_per_frame"]
@@ -3077,7 +3091,7 @@ def compiled_phase(torch, m, dev, card):
             launches = r.frame.launches
             traced = {k: round(sum(n for op, n in events.items()
                                    if m.bench.KERNELS[k] in op), 6)
-                      for k in KERNELS}
+                      for k in launches}
             if traced != {k: float(v) for k, v in launches.items()} \
                     or not launches["geometry"]:
                 fail(f"compiled {label}: the trace counts {traced} kernel "
@@ -3275,7 +3289,7 @@ def compiled_step_phase(torch, m, dev, card):
             firsts[way] = time.perf_counter() - t0
         cs = step.compiled_step
         want = {k: per_step.get(k, 0) for k in KERNELS}
-        if cs is None or cs.launches != want:
+        if cs is None or {k: cs.launches[k] for k in KERNELS} != want:
             fail(f"compiled step {label}: launches a captured step "
                  f"{None if cs is None else cs.launches}, expected {want}")
         data, state = r.scene_data, r.state
@@ -3338,7 +3352,7 @@ def compiled_step_phase(torch, m, dev, card):
         events = m.kernel_events(trace, STEP_PROFILED)
         traced = {k: round(sum(n for op, n in events.items()
                                if m.bench.KERNELS[k] in op), 6)
-                  for k in KERNELS}
+                  for k in cs.launches}
         if traced != {k: float(v) for k, v in cs.launches.items()}:
             fail(f"compiled step {label}: the trace counts {traced} kernel "
                  f"events a replayed step, the capture recorded "
@@ -3383,6 +3397,158 @@ def compiled_step_phase(torch, m, dev, card):
     return out
 
 
+# Phase 42: the shade's probe lookups (ops/probe_lookup.py) at 10^6
+# lookups: the GI room's 1000x1000 screen pass, the benchmark's frame.
+PROBE_SIZE = 1000
+PROBE_FRAMES = 4
+PROBE_TIMED = 20
+# Each kernel against its plain version (sample_irradiance's gather,
+# sample_tile_bilinear at mip 1), and against the dense route, as the
+# largest absolute difference over the largest output: the kernels round
+# like their plain versions but for the sum over the corners; the dense
+# route sums its taps in a matrix product.
+PROBE_PLAIN_REL = 1e-6
+PROBE_DENSE_REL = 1e-5
+# A frame's mean absolute gap of the tonemapped image, kernel route
+# against dense route (benchmark/limits/gi_room.look.json's "image")
+PROBE_IMAGE_GAP = 1e-5
+
+
+def rel_gap(a, b):
+    """The largest absolute difference of a from b over b's largest
+    magnitude."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+@contextlib.contextmanager
+def dense_lookups(m):
+    """Inside the block the shade takes the dense lookups on the card too
+    (render/probes.py:lookup_method answers "matmul"): for a comparison."""
+    P = m.probes
+    keep = P.lookup_method
+    P.lookup_method = lambda n, *inputs: "matmul"
+    try:
+        yield
+    finally:
+        P.lookup_method = keep
+
+
+def probe_phase(torch, m, dev, card):
+    """Phase 42 on the GI room at PROBE_SIZE x PROBE_SIZE after
+    PROBE_FRAMES frames: the screen pass's geometry launch (mode 2's fold)
+    gives 10^6 points' positions, normals, vis8 and reflection picks.  The
+    irradiance kernel held to sample_irradiance's "gather" (its plain
+    version) and "matmul" (the dense route); the radiance kernel held to
+    sample_tile_bilinear at mip 1 and to the dense lookup, and timed also
+    with the mip computed ("mip_kernel", the shade's call); all timed in
+    turns, each kernel beside its bound (bytes over 3.35 TB/s counted on
+    the plain version: each point's inputs and output once, the atlas
+    once).  A compiled frame's
+    launches, and the eager frame's image by both routes.  Returns the
+    numbers."""
+    P, PL = m.probes, m.PL
+    r = m.S.global_illumination(width=PROBE_SIZE, height=PROBE_SIZE,
+                                device=dev)
+    r.converge(frames=PROBE_FRAMES)
+    cam = r.camera
+    o, d = m.camera_rays(m.pixel_grid(r.width, r.height, dev), cam.position,
+                         cam.orientation)
+    o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+    g = m.SceneCtx(r.spec, r.scene_data).geometry(
+        o, d, r.probes, r.screen_cfg, want_reflection=True)
+    pos = (o + g["t"][:, None] * d).contiguous()
+    nrm, vis8, refl = g["normal"], g["vis8"], g["refl"]
+    s, irr, rad = r.probes, r.state.irradiance, r.state.radiance
+    best_pid, best_dir = refl["best_pid"], refl["best_dir"]
+    pid = best_pid.to(torch.int32)
+    n = pos.shape[0]
+    res2 = s.radiance_resolution // 2
+    px, py = s.probe_count
+    mip1 = P.radiance_mip1(s, rad)
+
+    def irradiance(method):
+        return lambda: P.sample_irradiance(s, irr, pos, nrm, vis8=vis8,
+                                           method=method)
+
+    def rad_kernel():
+        return PL.radiance_lookup(s, mip1, best_pid, best_dir)
+
+    def rad_mip_kernel():
+        return PL.radiance_lookup(s, P.radiance_mip1(s, rad), best_pid,
+                                  best_dir)
+
+    def rad_plain():
+        tx, ty = P.probe_id_to_tile(s, pid)
+        return P.sample_tile_bilinear(P.radiance_mip1(s, rad), tx, ty,
+                                      P.dir_to_ray_id(best_dir), res2)
+
+    def rad_dense():
+        vals = P.sample_all_tiles_bilinear(
+            s, P.radiance_mip1(s, rad), P.dir_to_ray_id(best_dir), res2)
+        return P.probe_one_hot_combine(
+            px * py, pid[None],
+            torch.ones((1, n), dtype=torch.float32, device=dev), vals)
+
+    irr_fns = {k: irradiance(k) for k in ("kernel", "gather", "matmul")}
+    rad_fns = {"kernel": rad_kernel, "mip_kernel": rad_mip_kernel,
+               "gather": rad_plain, "matmul": rad_dense}
+    out = {"points": n, "hits": int(g["hit"].sum())}
+    for name, fns, n_bytes in (
+            ("irradiance", irr_fns, n * (3 + 3 + 8 + 3) * 4 + irr.nbytes),
+            ("radiance", rad_fns, n * (1 + 3 + 3) * 4 + mip1.nbytes)):
+        vals = {k: fn() for k, fn in fns.items()}
+        gaps = {k: rel_gap(v, vals["gather"]) for k, v in vals.items()
+                if k != "gather"}
+        gaps["kernel_vs_matmul"] = rel_gap(vals["kernel"], vals["matmul"])
+        finite = all(bool(torch.isfinite(v).all()) for v in vals.values())
+        ms = dict(zip(fns, time_turns(torch, list(fns.values()),
+                                      iters=PROBE_TIMED)))
+        b_ms, b_by = bound(0.0, n_bytes)
+        print(f"probe lookup {name} GI {PROBE_SIZE}x{PROBE_SIZE} ({n} "
+              f"points): " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                       ms.items())
+              + f"; bound {b_ms:.5f} ms ({b_by}, {n_bytes} bytes), "
+              f"{100 * b_ms / ms['kernel']:.1f}% of it; relative gaps "
+              f"{json.dumps(gaps)}; [{card}]")
+        kernels = [k for k in vals if k not in ("gather", "matmul")]
+        if not finite or any(gaps[k] > PROBE_PLAIN_REL for k in kernels) \
+                or gaps["kernel_vs_matmul"] > PROBE_DENSE_REL:
+            fail(f"probe lookup {name}: the kernel against its plain "
+                 f"version or the dense route {gaps}")
+        out[name] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                         bytes=n_bytes, rel_gaps=gaps)
+
+    before = m.M.launch_counts()
+    r.render()
+    torch.cuda.synchronize()
+    after = m.M.launch_counts()
+    per_frame = {k: after[k] - before[k] for k in after}
+    want = {"irradiance_lookup": 2, "radiance_lookup": 1}
+    if any(per_frame[k] != v for k, v in want.items()) \
+            or r.frame.launches["irradiance_lookup"] != 2:
+        fail(f"probe lookups: a replayed GI frame launched {per_frame}, "
+             f"expected {want}")
+    images = []
+    for way in ("kernel", "dense"):
+        with dense_lookups(m) if way == "dense" \
+                else contextlib.nullcontext():
+            images.append(m.pipeline.render_frame(
+                r.spec, r.probes, r.volumetrics, PROBE_SIZE, PROBE_SIZE,
+                r.scene_data, r.camera, r.state, screen_cfg=r.screen_cfg,
+                probe_cfg=r.probe_cfg)[0])
+    gap = (images[0] - images[1]).abs()
+    print(f"probe lookups GI {PROBE_SIZE}x{PROBE_SIZE}: a replayed frame "
+          f"launched {json.dumps(per_frame)}; eager frame, kernel route "
+          f"against dense route: image mean gap {float(gap.mean()):.3e} "
+          f"(limit {PROBE_IMAGE_GAP}), max {float(gap.max()):.3e}")
+    if not float(gap.mean()) <= PROBE_IMAGE_GAP:
+        fail("probe lookups: the kernel route's frame against the dense "
+             "route's")
+    out.update(launches_per_frame=per_frame, image_mean_gap=float(
+        gap.mean()), image_max_gap=float(gap.max()))
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "madarch_tpu_torch")):
         fail("madarch_tpu_torch/ is not beside this script")
@@ -3404,6 +3570,7 @@ def main():
     build_all(m)
     for lanes in TIMED_LANES:
         ptxas_lines(m, "geometry", defines=lanes_def(lanes))
+    ptxas_lines(m, "probes", kernel="probe_")
 
     # ---- 3. geometry kernel vs plain version on the GI scene: seeded
     # subsets, then the passes' full shapes, held and timed
@@ -3793,6 +3960,10 @@ def main():
     # replayed from one CUDA graph, held to eager steps
     compiled_step = compiled_step_phase(torch, m, dev, card)
 
+    # ---- 42. the shade's probe lookups at 10^6 points: each kernel held
+    # to its plain version and the dense route, timed beside its bound
+    probe = probe_phase(torch, m, dev, card)
+
     def lamp_keys(name):
         """The kernel's numbers on the lamp room (phase 32)."""
         k = lamp_k[name]
@@ -3809,6 +3980,7 @@ def main():
     print(json.dumps({"large_scenes": large}))
     print(json.dumps({"compiled": compiled,
                       "compiled_step": compiled_step}))
+    print(json.dumps({"probe_lookups": probe}))
 
     def compiled_keys(name):
         """The kernel's launches a captured 800x800 frame, by scene
@@ -3969,6 +4141,19 @@ def main():
              for name in LARGE_CHECK},
          **lamp_keys("softshadows"), **pt_keys("softshadows"),
          **compiled_keys("softshadows")},
+        *({"name": name, "route": "cuda", "source": src + "probes.cu",
+           "replaces": "none (madarch_tpu/render/probes.py's dense "
+                       "contraction)",
+           "launches_gi_frame": probe["launches_per_frame"][name],
+           "max_rel_err": probe[kind]["rel_gaps"]["kernel"],
+           "ms": probe[kind]["ms"]["kernel"],
+           "plain_ms": probe[kind]["ms"]["gather"],
+           "dense_ms": probe[kind]["ms"]["matmul"],
+           "bound_ms": probe[kind]["bound_ms"],
+           "bound_by": probe[kind]["bound_by"], "library_ms": None,
+           **compiled_keys(name)}
+          for name, kind in (("irradiance_lookup", "irradiance"),
+                             ("radiance_lookup", "radiance"))),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -98,7 +98,9 @@ TRAIN_STEPS = 5
 # the symbol their device events carry in a torch.profiler trace.
 KERNELS = {"geometry": "geometry_kernel", "raycast": "raycast_kernel",
            "visibility": "visibility_kernel",
-           "softshadows": "softshadow_kernel"}
+           "softshadows": "softshadow_kernel",
+           "irradiance_lookup": "probe_irradiance_kernel",
+           "radiance_lookup": "probe_radiance_kernel"}
 # gpu_vs_golden: frames before the comparison, as the goldens were made.
 GOLDEN_FRAMES = {"global_illumination": 4, "simple_scene": 2}
 SCALING_WORLD = 2

@@ -67,7 +67,7 @@ import torch.nn.functional as F
 
 from madarch_tpu_torch.core.constants import cached
 from madarch_tpu_torch.core.vecmath import EPSILON, dot
-from madarch_tpu_torch.ops import build
+from madarch_tpu_torch.ops import build, probe_lookup
 from madarch_tpu_torch.render import raymarch as rm
 from madarch_tpu_torch.render.probes import CORNER_OFFSETS
 from madarch_tpu_torch.scene import primitives as P
@@ -1479,12 +1479,15 @@ def _softshadows(lib, packed, origins, dirs, min_dists, max_dists, k, en, *,
 # A frame captured into a CUDA graph (render/pipeline.py:CompiledFrame)
 # launches nothing while it is captured and takes those calls back out of
 # the count; each replay of the graph launches the captured kernels again
-# and adds them (add_launches).
+# and adds them (add_launches).  The shade's probe lookups
+# (ops/probe_lookup.py) are counted with them.
 geometry.launches = 0
 raycast.launches = 0
 visibility.launches = 0
 softshadows.launches = 0
-KERNEL_WRAPPERS = (geometry, raycast, visibility, softshadows)
+KERNEL_WRAPPERS = (geometry, raycast, visibility, softshadows,
+                   probe_lookup.irradiance_lookup,
+                   probe_lookup.radiance_lookup)
 
 
 def launch_counts():

@@ -1,10 +1,15 @@
 """DDGI irradiance probes: octahedral atlases, sampling, integration
 (port of madarch_tpu/render/probes.py).
 
-Atlases are f32[H, W, 3] tensors.  Atlas sampling is written as dense
-contractions against every probe tile (a bilinear lookup is a [res²] weight
-vector with 4 nonzeros), so a batch of lookups is one [N, res²] × [res², P·3]
-matmul followed by a per-probe one-hot combine.  Float32 throughout.
+Atlases are f32[H, W, 3] tensors.  The shade's lookups take one of two
+routes (``lookup_method``).  On a card, where no gradient has to pass
+through them, a CUDA kernel gathers the taps each point needs
+(ops/probe_lookup.py; ``sample_irradiance(method="kernel")``).  Elsewhere
+(the CPU, the train step's differentiable lookups) atlas sampling is the
+JAX package's dense contraction against every probe tile (a bilinear lookup
+is a [res²] weight vector with 4 nonzeros), so a batch of lookups is one
+[N, res²] × [res², P·3] matmul followed by a per-probe one-hot combine.
+Float32 throughout.
 """
 from __future__ import annotations
 
@@ -17,7 +22,9 @@ from madarch_tpu_torch.core.config import ProbeSettings
 from madarch_tpu_torch.core.constants import cached, constant
 from madarch_tpu_torch.core.vecmath import (absolute, dot, length, mix,
                                             sign_not_zero)
+from madarch_tpu_torch.ops import probe_lookup
 from madarch_tpu_torch.render.raymarch import MAX_STEPS, SURFACE_OFFSET
+from madarch_tpu_torch.utils import profiling
 
 # The 8 probe-cell corners, bit k of the corner index selecting +1 on axis k.
 CORNER_OFFSETS = tuple(((i >> 0) & 1, (i >> 1) & 1, (i >> 2) & 1)
@@ -322,6 +329,20 @@ def corner_visibility(ctx, p, normal, dir_to_probe, probe_dist, *,
     ).reshape(8, n_pts)
 
 
+def lookup_method(n, atlas, *inputs):
+    """The route of a probe lookup of n points over ``atlas`` and its
+    per-point ``inputs`` (None: a constant made inside the lookup):
+    "kernel" (ops/probe_lookup.py) where they lie on a card and no
+    gradient has to pass through the lookup, else "matmul", the dense
+    contraction, differentiable and on either device.  Records n under the
+    counter probe_lookups.kernel or .dense."""
+    kernel = atlas.is_cuda and not (torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in (atlas, *inputs)))
+    profiling.count("probe_lookups.kernel" if kernel
+                    else "probe_lookups.dense", n)
+    return "kernel" if kernel else "matmul"
+
+
 def sample_irradiance(settings: ProbeSettings, irr_atlas, pos, normal, *,
                       vis8=None, ctx=None, enabled=None,
                       max_steps=MAX_STEPS, method="matmul"):
@@ -330,48 +351,60 @@ def sample_irradiance(settings: ProbeSettings, irr_atlas, pos, normal, *,
     visibility; without it the corners' visibility is marched through
     ``ctx`` (corner_visibility) where ``enabled`` (optional bool[N]) holds.
     Returns f32[N,3] irradiance (sqrt-encoded blend, then squared).
-    ``method``: 'matmul' contracts every tile's sample against the corner
-    weights (the render path); 'gather' fetches each corner's tile
-    bilinearly, the reference's texture fetch."""
+    ``method``: 'kernel' runs the CUDA kernel of ops/probe_lookup.py (a
+    card only, no gradient), the shade's route on a card (lookup_method);
+    'matmul' contracts every tile's sample against the corner weights, the
+    shade's route elsewhere; 'gather' fetches each corner's tile
+    bilinearly, the reference's texture fetch and the kernel's plain
+    version.  The lookup (not the visibility marches) is the device
+    interval ``probes``."""
     ir = settings.irradiance_resolution
-    offseted, probe_world, alpha = probe_corners(settings, pos)
-    dir_to_probe, probe_dist = unit(probe_world - pos[None])  # [8,N,3]
+    if vis8 is None or method != "kernel":
+        offseted, probe_world, alpha = probe_corners(settings, pos)
+        dir_to_probe, probe_dist = unit(probe_world - pos[None])  # [8,N,3]
     if vis8 is None:
         vis8 = corner_visibility(ctx, pos, normal, dir_to_probe, probe_dist,
                                  enabled=enabled, max_steps=max_steps)
+    with profiling.device_span("probes", pos.device):
+        if method == "kernel":
+            return probe_lookup.irradiance_lookup(
+                settings, irr_atlas, pos.contiguous(), normal.contiguous(),
+                vis8.contiguous())
 
-    # backface weight: ((dot+1)/2)² + 0.2
-    angle = (dot(dir_to_probe, normal[None]) + 1.0) * 0.5
-    weight = (angle * angle + 0.2) * vis8
+        # backface weight: ((dot+1)/2)² + 0.2
+        angle = (dot(dir_to_probe, normal[None]) + 1.0) * 0.5
+        weight = (angle * angle + 0.2) * vis8
 
-    # crush tiny weights below 0.2: w -> w³ / 0.04
-    crush = 0.2
-    weight = torch.where(weight < crush,
-                         weight * weight * weight / (crush * crush), weight)
+        # crush tiny weights below 0.2: w -> w³ / 0.04
+        crush = 0.2
+        weight = torch.where(weight < crush,
+                             weight * weight * weight / (crush * crush),
+                             weight)
 
-    offsets = constant(CORNER_OFFSETS, pos.device)            # [8,3]
-    tri = mix(1.0 - alpha[None], alpha[None], offsets[:, None])  # [8,N,3]
-    weight = weight * tri[..., 0] * tri[..., 1] * tri[..., 2]
+        offsets = constant(CORNER_OFFSETS, pos.device)            # [8,3]
+        tri = mix(1.0 - alpha[None], alpha[None], offsets[:, None])
+        weight = weight * tri[..., 0] * tri[..., 1] * tri[..., 2]
 
-    pid = grid_position_to_probe_id(settings, offseted)       # [8,N]
-    irr_ray_id = dir_to_ray_id(normal)                        # [N,2]
-    total_w = torch.clamp_min(weight.sum(dim=0), 1e-9)
-    # 1e-12 floor: the atlas starts all-zero
-    if method == "matmul":
-        px, py = settings.probe_count
-        vals_all = sample_all_tiles_bilinear(settings, irr_atlas, irr_ray_id,
-                                             ir)
-        vals_all = torch.sqrt(torch.clamp_min(vals_all, 1e-12))
-        irr = probe_one_hot_combine(px * py, pid, weight, vals_all) \
-            / total_w[..., None]
-    elif method == "gather":
-        n_pts = pos.shape[0]
-        tx, ty = probe_id_to_tile(settings, pid)
-        vals = sample_tile_bilinear(
-            irr_atlas, tx.reshape(-1), ty.reshape(-1),
-            irr_ray_id[None].expand(8, n_pts, 2).reshape(-1, 2), ir)
-        vals = torch.sqrt(torch.clamp_min(vals, 1e-12)).reshape(8, n_pts, 3)
-        irr = (vals * weight[..., None]).sum(dim=0) / total_w[..., None]
-    else:
-        raise ValueError(f"unknown method {method!r}")
-    return irr * irr
+        pid = grid_position_to_probe_id(settings, offseted)       # [8,N]
+        irr_ray_id = dir_to_ray_id(normal)                        # [N,2]
+        total_w = torch.clamp_min(weight.sum(dim=0), 1e-9)
+        # 1e-12 floor: the atlas starts all-zero
+        if method == "matmul":
+            px, py = settings.probe_count
+            vals_all = sample_all_tiles_bilinear(settings, irr_atlas,
+                                                 irr_ray_id, ir)
+            vals_all = torch.sqrt(torch.clamp_min(vals_all, 1e-12))
+            irr = probe_one_hot_combine(px * py, pid, weight, vals_all) \
+                / total_w[..., None]
+        elif method == "gather":
+            n_pts = pos.shape[0]
+            tx, ty = probe_id_to_tile(settings, pid)
+            vals = sample_tile_bilinear(
+                irr_atlas, tx.reshape(-1), ty.reshape(-1),
+                irr_ray_id[None].expand(8, n_pts, 2).reshape(-1, 2), ir)
+            vals = torch.sqrt(torch.clamp_min(vals, 1e-12)).reshape(
+                8, n_pts, 3)
+            irr = (vals * weight[..., None]).sum(dim=0) / total_w[..., None]
+        else:
+            raise ValueError(f"unknown method {method!r}")
+        return irr * irr

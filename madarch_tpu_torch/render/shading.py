@@ -5,10 +5,12 @@ Where the geometry kernel serves the scene (``SceneCtx.fused_available``),
 one launch per ray batch returns hit distance, material, FD normal, AO,
 per-light penumbra factors and the 8 probe-visibility bits (and, for mode
 2, the folded reflection bounce with its best-probe pick); PyTorch then
-does materials, BRDF and the atlas contractions.  Mode 1 marches its
-reflection rays through the raycast kernel and its 8 probe penumbras per
-point through the softshadow kernel; mode 3 shades the reflection hit from
-a second, masked geometry launch without AO.
+does materials and BRDF, and the probe lookups take the kernels of
+ops/probe_lookup.py on a card where no gradient passes through them, the
+dense atlas contractions elsewhere (render/probes.py:lookup_method).
+Mode 1 marches its reflection rays through the raycast kernel and its 8
+probe penumbras per point through the softshadow kernel; mode 3 shades
+the reflection hit from a second, masked geometry launch without AO.
 
 Elsewhere (a scene the kernels do not take, or a light without a vec3
 position) the shade takes the JAX package's unfused branches: a raycast,
@@ -38,6 +40,7 @@ import torch
 from madarch_tpu_torch.core.config import ProbeSettings, ShadeConfig
 from madarch_tpu_torch.core.constants import constant
 from madarch_tpu_torch.core.vecmath import dot, reflect
+from madarch_tpu_torch.ops import probe_lookup
 from madarch_tpu_torch.render import probes as probes_mod
 from madarch_tpu_torch.render.context import SceneCtx
 from madarch_tpu_torch.render.lighting import (direct_lighting,
@@ -51,6 +54,7 @@ from madarch_tpu_torch.scene.scene import (SceneData, SceneSpec,
                                            primitive_material_id,
                                            scene_sdf, scene_sdf_info,
                                            tree_map)
+from madarch_tpu_torch.utils import profiling
 
 
 def make_sdf_b(spec: SceneSpec, data: SceneData, *, stop_grad: bool):
@@ -101,7 +105,9 @@ def shade_hits(spec, data, probe_settings, cfg, ctx, irr_atlas, rad_atlas,
 
     irradiance = probes_mod.sample_irradiance(
         probe_settings, irr_atlas, pos, normal, vis8=vis8, ctx=ctx,
-        enabled=hit, max_steps=cfg.max_march_steps)
+        enabled=hit, max_steps=cfg.max_march_steps,
+        method=probes_mod.lookup_method(pos.shape[0], irr_atlas, pos,
+                                        normal, vis8))
 
     specular_dir = reflect(dirs, normal)
     specular_col = torch.zeros_like(pos)
@@ -186,8 +192,7 @@ def sample_radiance_no_specular(spec, data, probe_settings, cfg, ctx,
         spec_pos = from_ + refl["t"][:, None] * spec_dir
         spec_normal, spec_mid = refl["normal"], refl["mid"]
         shadows = refl["shadows"]
-        pid = refl["best_pid"].to(torch.int32)
-        best_dir = refl["best_dir"]
+        best_pid, best_dir = refl["best_pid"], refl["best_dir"]
     else:
         hit, spec_pos, spec_normal, spec_mid, vis, shadows = \
             _reflection_geometry(spec, data, probe_settings, cfg, ctx,
@@ -199,18 +204,25 @@ def sample_radiance_no_specular(spec, data, probe_settings, cfg, ctx,
         best = torch.argmax(weight, dim=0)
         rows = torch.arange(n_pts, device=pos.device)
         best_dir = probe_to_spec[best, rows]
-        pid = probes_mod.grid_position_to_probe_id(settings,
-                                                   offseted[best, rows])
+        best_pid = probes_mod.grid_position_to_probe_id(
+            settings, offseted[best, rows]).to(torch.float32)
 
-    rad_ray_id = probes_mod.dir_to_ray_id(best_dir)
-    mip1 = probes_mod.radiance_mip1(settings, rad_atlas)
-    px_c, py_c = settings.probe_count
-    vals_all = probes_mod.sample_all_tiles_bilinear(
-        settings, mip1, rad_ray_id, settings.radiance_resolution // 2)
-    radiance = probes_mod.probe_one_hot_combine(
-        px_c * py_c, pid[None],
-        torch.ones((1, n_pts), dtype=torch.float32, device=pos.device),
-        vals_all)
+    with profiling.device_span("probes", pos.device):
+        mip1 = probes_mod.radiance_mip1(settings, rad_atlas)
+        if probes_mod.lookup_method(n_pts, mip1, best_pid,
+                                    best_dir) == "kernel":
+            radiance = probe_lookup.radiance_lookup(
+                settings, mip1, best_pid.contiguous(), best_dir.contiguous())
+        else:
+            rad_ray_id = probes_mod.dir_to_ray_id(best_dir)
+            px_c, py_c = settings.probe_count
+            vals_all = probes_mod.sample_all_tiles_bilinear(
+                settings, mip1, rad_ray_id, settings.radiance_resolution // 2)
+            radiance = probes_mod.probe_one_hot_combine(
+                px_c * py_c, best_pid.to(torch.int32)[None],
+                torch.ones((1, n_pts), dtype=torch.float32,
+                           device=pos.device),
+                vals_all)
 
     if cfg.add_indirect_specular:
         if refl is not None and cfg.differentiable:
@@ -311,7 +323,9 @@ def compute_indirect_specular(spec, data, probe_settings, cfg, ctx,
         max_steps=cfg.max_march_steps)
     irradiance = probes_mod.sample_irradiance(
         probe_settings, irr_atlas, spec_pos, s_normal, vis8=vis, ctx=ctx,
-        enabled=enabled & hit, max_steps=cfg.max_march_steps)
+        enabled=enabled & hit, max_steps=cfg.max_march_steps,
+        method=probes_mod.lookup_method(spec_pos.shape[0], irr_atlas,
+                                        spec_pos, s_normal, vis))
     sec_spec_dir = reflect(spec_dir, s_normal)
     indirect = indirect_lighting(
         irradiance, torch.zeros_like(spec_pos), -spec_dir, s_normal,

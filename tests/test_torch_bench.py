@@ -198,10 +198,16 @@ def test_kernel_ms_reads_each_kernel_from_the_trace():
            "(GeomArgs)": 3.0,
            "void (anonymous namespace)::geometry_kernel<1, false, false>"
            "(GeomArgs)": 1.0,
-           "raycast_kernel(MarchArgs)": 0.5, "elementwise_kernel": 9.0}
+           "raycast_kernel(MarchArgs)": 0.5, "elementwise_kernel": 9.0,
+           "(anonymous namespace)::probe_irradiance_kernel(IrradianceArgs)":
+           0.2,
+           "(anonymous namespace)::probe_radiance_kernel(RadianceArgs)": 0.1}
     got = bench.kernel_ms(ops, {"geometry": 2.0, "raycast": 1.0,
-                                "visibility": 1.0, "softshadows": 0.0})
-    assert got == {"geometry": 2.0, "raycast": 0.5, "visibility": None}
+                                "visibility": 1.0, "softshadows": 0.0,
+                                "irradiance_lookup": 2.0,
+                                "radiance_lookup": 1.0})
+    assert got == {"geometry": 2.0, "raycast": 0.5, "visibility": None,
+                   "irradiance_lookup": 0.1, "radiance_lookup": 0.1}
 
 
 def test_the_bench_raises_without_a_card():

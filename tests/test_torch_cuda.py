@@ -413,11 +413,14 @@ def test_modes_1_and_3_launch_their_kernels(dev):
     """64² frames per mode through Renderer.render(): a frame of mode 1
     launches the geometry kernel twice (radiance, screen), the raycast and
     the softshadow kernel once; mode 3 the geometry kernel three times.
-    The first frame runs the eager warm-up and the replay of its capture:
-    twice a frame's launches."""
+    Both look the irradiance up with the kernel in the radiance pass and
+    the screen pass, mode 3 once more at the reflection hit; neither reads
+    mode 2's radiance tile.  The first frame runs the eager warm-up and the
+    replay of its capture: twice a frame's launches."""
     from madarch_tpu_torch.render import pipeline
     pipeline.clear_compiled()    # an earlier test may have these keys
     want = {1: (2, 1, 1), 3: (3, 0, 0)}
+    lookups = {1: (2, 0), 3: (3, 0)}
     for mode, launches in want.items():
         r = S.global_illumination(
             width=64, height=64, device=dev,
@@ -430,8 +433,9 @@ def test_modes_1_and_3_launch_their_kernels(dev):
             assert tuple(f.launches - b for f, b in zip(fns, before)) \
                 == tuple(frame * n for n in launches)
         assert r.frame.launches == dict(zip(
-            ("geometry", "raycast", "softshadows", "visibility"),
-            launches + (0,)))
+            ("geometry", "raycast", "softshadows", "visibility",
+             "irradiance_lookup", "radiance_lookup"),
+            launches + (0,) + lookups[mode]))
         assert torch.isfinite(img).all()
 
 
@@ -1089,9 +1093,15 @@ def test_train_step_on_the_card_matches_the_cpu(dev, mode):
 # The generic route (bvh_test, obj_mesh baked) and ball_game on the card
 # ---------------------------------------------------------------------------
 
+# The probe-lookup kernels' launches in a mode-2 frame: the irradiance in
+# the radiance and the screen pass, the reflection's radiance tile.
+LOOKUPS_A_FRAME = {"irradiance_lookup": 2, "radiance_lookup": 1}
+
+
 def _launches():
-    return {k: getattr(M, k).launches
-            for k in ("geometry", "raycast", "visibility", "softshadows")}
+    """Every hand-written kernel's launches by wrapper (the march kernels
+    and the probe lookups)."""
+    return M.launch_counts()
 
 
 def _card_and_cpu(make, dev, frames=2, between=None):
@@ -1138,7 +1148,9 @@ TINY = ProbeSettings(radiance_resolution=8, irradiance_resolution=4,
 def test_generic_route_frames_match_the_cpu_without_kernels(dev, scene):
     """bvh_test and obj_mesh's baked torus at 32², two frames on the card
     and on the CPU under the golden gates: the generic route launches no
-    hand-written kernel."""
+    march kernel; its shade looks the probes up with the kernels, the
+    irradiance twice a frame (radiance and screen pass), mode 2's radiance
+    tile once."""
     def make(d):
         if scene == "bvh_test":
             return S.bvh_test(width=32, height=32, probes=TINY, device=d)
@@ -1146,7 +1158,8 @@ def test_generic_route_frames_match_the_cpu_without_kernels(dev, scene):
                           mode="baked", bake_dims=(16, 16, 16), device=d)
 
     per_frame, _ = _card_and_cpu(make, dev)
-    assert all(not any(f.values()) for f in per_frame), per_frame
+    assert per_frame == [dict.fromkeys(M.launch_counts(), 0)
+                         | LOOKUPS_A_FRAME] * 2, per_frame
 
 
 def test_ball_game_matches_the_cpu_and_builds_nothing_new(dev):
@@ -1168,7 +1181,8 @@ def test_ball_game_matches_the_cpu_and_builds_nothing_new(dev):
             r.throw((1.0 + k, 4.0, 1.0), (0.5, 0.0, 1.0))
 
     per_frame, later = _card_and_cpu(make, dev, frames=4, between=between)
-    frame = {"geometry": 2, "raycast": 0, "visibility": 0, "softshadows": 0}
+    frame = {"geometry": 2, "raycast": 0, "visibility": 0, "softshadows": 0,
+             **LOOKUPS_A_FRAME}
     # one capture for every live count (specialize_counts False)
     assert per_frame == [{k: 2 * v for k, v in frame.items()}] \
         + [frame] * 3, per_frame
@@ -1205,7 +1219,7 @@ def test_a_light_without_position_launches_the_march_kernels(dev,
         per_frame, _ = _card_and_cpu(
             lambda d: chip_smoke.lamp_room(np, m, 32, d, probes=TINY), dev)
     assert per_frame == [{"geometry": 0, "raycast": 3, "visibility": 3,
-                          "softshadows": 3}] * 2, per_frame
+                          "softshadows": 3, **LOOKUPS_A_FRAME}] * 2, per_frame
     n_rad = TINY.num_probes * TINY.radiance_resolution ** 2
     sizes = {"R": n_rad, "8R": 8 * n_rad, "S": 32 * 32, "8S": 8 * 32 * 32}
     want = [(c.split()[0], sizes[c.split()[1]])
@@ -1246,7 +1260,8 @@ def test_path_tracers_launch_their_kernels(dev):
         torch.cuda.synchronize()
         got = {k: v - before[k] for k, v in _launches().items()}
         assert got == {"geometry": 0, "raycast": n, "visibility": 0,
-                       "softshadows": n}, (name, got)
+                       "softshadows": n, "irradiance_lookup": 0,
+                       "radiance_lookup": 0}, (name, got)
         assert out.shape == (64 * 64, 3) and bool(torch.isfinite(out).all())
     c = S.global_illumination(width=64, height=64, device="cpu")
     oc, dc = _gi_camera_rays(c, "cpu")
@@ -1652,15 +1667,17 @@ def test_an_eager_frame_waits_on_nothing(dev, scene):
 def test_recorded_frames_equal_unrecorded_frames(dev, scene):
     """The recorder (utils/profiling.py) on and off at 64²: four frames,
     each waited for, bit-equal, image and state.  On, each replay (the
-    frames after the capture's) reports every pass, the write-back and one ``pack`` a
-    SceneCtx once, each a positive device time, and its replay waits on
-    nothing (sync debug mode "error" raises on a synchronisation).  Off,
+    frames after the capture's) reports every pass, the write-back, one
+    ``pack`` a SceneCtx and one ``probes`` a probe lookup, each a positive
+    device time, and its replay waits on nothing (sync debug mode "error"
+    raises on a synchronisation).  Off,
     nothing is recorded; a frame captured off and replayed with the
     recorder on reports host spans and no device interval."""
     from madarch_tpu_torch.render import pipeline
     from madarch_tpu_torch.utils import profiling
     passes = ["pass.radiance", "pass.irradiance", "pass.screen",
-              "frame.writeback"] + ["pack"] * 2
+              "frame.writeback"] + ["pack"] * 2 \
+        + ["probes"] * sum(LOOKUPS_A_FRAME.values())
     if scene == "light_shafts":
         passes += ["pass.visibility", "pass.scattering", "pack"]
     runs, recs = [], []

@@ -11,7 +11,8 @@ same code, so these tests cover the wiring the card's event pairs follow:
   is 1 on a frame after set_light and 0 on an unedited one;
   frame_captures and frame_evictions follow GRAPH_CACHE_SIZE.
 - The pass names appear once a frame and ``pack`` once a kernel-route
-  SceneCtx (GI and, with volumetrics, light_shafts).
+  SceneCtx (GI and, with volumetrics, light_shafts); ``probes`` once a
+  probe lookup, inside its pass.
 - A compiled step records its copy-in and replay under frame ids of its
   own.
 - The card's path for device intervals (before_replay, after_replay,
@@ -49,7 +50,11 @@ HOST_CHILDREN = ("render.spec", "frame.lookup", "frame.copy_in",
 PARENTS = {**{name: ("render",) for name in HOST_CHILDREN
               + ("render.data", "render.camera")},
            **{name: ("frame.replay",) for name in GI_PASSES},
-           "pack": ("pass.radiance", "pass.screen")}
+           "pack": ("pass.radiance", "pass.screen"),
+           "probes": ("pass.radiance", "pass.screen")}
+# the shade's probe lookups a GI frame (mode 2): the irradiance in the
+# radiance and the screen pass, the reflection's radiance tile
+GI_LOOKUPS = 3
 
 
 def gi(size=SIZE):
@@ -142,6 +147,7 @@ def test_spans_nest_with_one_frame_id_a_render(recorder):
         assert names[0] == "render"
         for name in HOST_CHILDREN + GI_PASSES:
             assert names.count(name) == 1, name
+        assert names.count("probes") == GI_LOOKUPS
     for s in spans:
         name, start, end, parent, fid = s
         assert start <= end
