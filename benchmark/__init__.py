@@ -7,9 +7,11 @@ traffic mix) and prints one JSON line: ``python3 benchmark/run.py
 Everything is found by name: a configuration is ``configs/<name>.json``,
 a traffic mix ``traffic/<name>.json`` (read by the one generator in
 ``traffic.py``), a per-layer metric the reader ``metrics/<name>.py``, a
-cell's correctness limits ``limits/<cell>.json``.  ``program.py`` is the
-only module that imports the port; ``reference/`` is the plain reference
-(a frozen copy of the port's plain path), ``check.py`` the comparison that
-decides ``correct``, ``tracing.py`` and ``roofline.py`` the yardstick's
-readers and peaks.
+cell's correctness limits ``limits/<cell>.json``, a configuration's plain
+reference the package its ``reference`` key names (``reference/``, a
+frozen copy of the port's plain path, without one).  ``program.py`` is
+the only module that imports the port; ``check.py`` is the comparison
+that decides ``correct`` and states what it takes from a reference
+package; ``tracing.py`` and ``roofline.py`` are the yardstick's readers
+and peaks.
 """

@@ -1,6 +1,20 @@
 """The comparison that decides ``correct``: what the timed path produced
-against the plain reference (reference/, which imports nothing of the
-port), each number beside its limit.
+against the plain reference, each number beside its limit.
+
+The reference package.  A configuration names its plain reference by its
+``reference`` key: a package directory of the benchmark's folder
+(``reference``, the default, without the key), found under the checkout
+the cell was loaded from.  It imports nothing of the port and nothing of
+the benchmark outside reference packages.  The check takes from it only
+what its entry module (``<package>/entry.py``, cells.reference_package)
+exports; reference/entry.py lists it: a view cell's frame (``leaves``,
+``adopt``, ``frame``), a fit cell's ``train``, the ProbeSettings of
+``config``, the builders of ``examples(module)``, the light types of
+``lights`` and the tally of ``march``.  A new package's entry imports
+the default's and defines again what differs.  The check keeps the rest:
+the chain, the seeded pixels, the bfloat16 control, the tally's
+bookkeeping and the judge.  It imports the package only after the
+window, so that the reference's import counts in no run's set-up.
 
 View cells.  The frame is a function of the scene, the pose and the probe
 feedback state it reads.  The reference builds the scene itself from the
@@ -13,9 +27,14 @@ from the program's state before that frame (the state chains over
 hundreds of frames, which the reference cannot replay in the time of a
 run).  Numbers: ``image``, the mean absolute gap of the tonemapped colour
 over a seeded sample of the frame's pixels; ``image_wrong``, the share of
-those pixels with a channel off by more than WRONG; ``radiance`` and
-``irradiance``, the relative L1 gap of the new probe atlases; each the
-worst over the checked frames.
+those pixels with a channel off by more than WRONG; and under each state
+leaf's name (``radiance`` and ``irradiance``, the probe atlases, and
+``scattering`` where the package's frame leaves one) the relative L1 gap
+of the leaf the frame left; each the worst over the checked frames.  A
+state leaf that the package's ``leaves`` names must have a limit, and a
+leaf of the program's state that it does not name must stay at the
+reference's zero state: either fault raises, so that no state goes
+unchecked.
 
 Fit cells.  The reference follows the program's first three steps from
 its own scene data and zero state, with the same cameras and targets.
@@ -25,10 +44,11 @@ worked out from its update, (p0 − p1) / lr) against the larger of the
 reference leaf's norm and the median leaf's; ``change``, the same of the
 parameters' change after three steps, over the leaves whose reference
 gradient is at least a thousandth of the median leaf's; ``state``, the
-relative L1 gap of the probe atlases after three steps.  It then runs one
-step of the window, drawn from the seed, from the program's parameters
-and state before it: ``window_loss``, ``window_change`` (the step's
-change, as ``change``) and ``window_state`` (the atlases after it).
+worst relative L1 gap of the state leaves (``entry.leaves``) after three
+steps.  It then runs one step of the window, drawn from the seed, from
+the program's parameters and state before it: ``window_loss``,
+``window_change`` (the step's change, as ``change``) and
+``window_state`` (the state leaves after it).
 
 The control puts the reference in the program's place, computed with its
 inputs (scene data, camera, state, target) and every pass's output (the
@@ -42,7 +62,7 @@ import math
 import numpy as np
 import torch
 
-from benchmark.cells import build_scene
+from benchmark.cells import build_scene, reference_package
 
 PIXELS = 32768
 # A sampled pixel is wrong where a channel of its tonemapped colour is off
@@ -64,10 +84,18 @@ def _same(x):
 
 
 def reference_renderer(config, root, device, width=None, height=None):
-    from benchmark.reference.core.config import ProbeSettings
-    from benchmark.reference.examples import scenes
-    return build_scene(scenes, ProbeSettings, config, root, device, width,
-                       height)
+    """The configuration's renderer, built by its reference package."""
+    ref = reference_package(config, root)
+    return build_scene(ref.examples, ref.config.ProbeSettings, config, root,
+                       device, width, height)
+
+
+def state_leaves(state):
+    """{name: tensor} of a state's leaves: its dataclass fields that hold
+    a tensor (a field that holds None is no leaf)."""
+    return {f.name: getattr(state, f.name)
+            for f in dataclasses.fields(state)
+            if torch.is_tensor(getattr(state, f.name))}
 
 
 def rel_l1(a, b):
@@ -107,82 +135,76 @@ class Frame:
 
 
 class ViewReference:
-    """The reference's frames of one configuration on ``device``."""
+    """The reference's frames of one configuration on ``device``, by the
+    configuration's reference package."""
 
     def __init__(self, config, root, device):
-        from benchmark.reference.render import pipeline
+        self.entry = reference_package(config, root)
         self.rr = reference_renderer(config, root, device)
-        if self.rr.volumetrics.enabled:
-            raise NotImplementedError("the check covers scenes without "
-                                      "volumetrics")
-        self.pipeline = pipeline
+        self.leaves = tuple(self.entry.leaves(config))
+        self.zero = state_leaves(self.entry.adopt(self.rr, None))
         self.tally = []
-
-    def state(self, rad, irr):
-        """The FrameState a frame with these new atlases leaves."""
-        return self.pipeline.FrameState(
-            radiance=rad, irradiance=irr,
-            scattering=self.pipeline.initial_state(
-                self.rr.probes, self.rr.volumetrics,
-                self.rr.device).scattering)
 
     def frame(self, pose, edit, state, pixels, control=False,
               count=None):
         """(colour f32[n, 3] of the tonemapped image at the flat pixel
-        indices, new radiance atlas, new irradiance atlas) of a frame from
-        ``state`` (None: the reference's zero state); with ``count`` (the
-        frame's index) the geometry launches' work is appended to
-        ``self.tally`` (the screen launch's counted on the sampled
-        pixels)."""
-        from benchmark.reference.ops import march
-        from benchmark.reference.render import probes as probes_mod
-        from benchmark.reference.render.camera import camera_rays, pixel_grid
-        from benchmark.reference.render.shading import pixel_color
-        from benchmark.reference.scene import lights
-        from benchmark.reference.scene.scene import tree_map
-        rr, P = self.rr, self.pipeline
+        indices, the state left) of a frame from ``state`` (None: the
+        reference's zero state); with ``count`` (the frame's index) the
+        geometry launches' work is appended to ``self.tally`` (the screen
+        launch's counted on the sampled pixels).  Raises where the state
+        left holds other leaves than the package's ``leaves``."""
+        rr = self.rr
         rr.set_camera_position(pose[0])
         rr.set_camera_orientation(pose[1])
         if edit is not None:
             name, index, fields = edit
-            rr.set_light(getattr(lights, name), index, **fields)
-        dev = rr.device
-        if state is None:
-            state = P.initial_state(rr.probes, rr.volumetrics, dev)
-        else:
-            state = P.FrameState(radiance=state.radiance.to(dev),
-                                 irradiance=state.irradiance.to(dev),
-                                 scattering=state.scattering.to(dev))
+            rr.set_light(getattr(self.entry.lights, name), index, **fields)
         q = _bf if control else _same
-        data = tree_map(q, rr.scene_data)
-        cam = rr.camera
-        cam = P.Camera(position=q(cam.position),
-                       orientation=q(cam.orientation))
-        state = tree_map(q, state)
-        march.geometry.tally = [] if count is not None else None
+        geometry = self.entry.march.geometry
+        geometry.tally = [] if count is not None else None
         try:
-            with torch.no_grad():
-                rad = q(P.radiance_pass(rr.spec, data, rr.probes,
-                                        rr.probe_cfg, state.irradiance,
-                                        state.radiance))
-                irr = q(probes_mod.integrate_irradiance(rr.probes, rad))
-                frag = pixel_grid(rr.width, rr.height, dev).reshape(-1, 2)
-                frag = frag[torch.as_tensor(pixels, device=dev)]
-                o, d = camera_rays(frag, cam.position, cam.orientation)
-                c = pixel_color(rr.spec, data, rr.probes, rr.screen_cfg, irr,
-                                rad, o, d)[0]
-                c = torch.clamp_min(c, 0.0)
-                c = q(((c + 1e-8) / (c + 1.0)) ** 0.4545)
+            c, state = self.entry.frame(rr, rr.scene_data, rr.camera,
+                                        state, pixels, q)
             if count is not None:
-                radiance_t, screen_t = march.geometry.tally
+                radiance_t, screen_t = geometry.tally
                 self.tally.append({
                     "k": count,
                     "radiance": dict(radiance_t),
                     "screen": dict(screen_t),
                     "screen_rays": rr.width * rr.height})
         finally:
-            march.geometry.tally = None
-        return c, rad, irr
+            geometry.tally = None
+        left = sorted(state_leaves(state))
+        if left != sorted(self.leaves):
+            raise RuntimeError(f"the reference frame left the state leaves "
+                               f"{left}; its package names "
+                               f"{sorted(self.leaves)}")
+        return c, state
+
+
+def require_limits(leaves, limits):
+    """Raises ValueError where a state leaf of ``leaves`` (a
+    ViewReference's) has no limit in a cell's ``limits``."""
+    unnamed = [leaf for leaf in leaves if leaf not in limits]
+    if unnamed:
+        raise ValueError(f"the state leaves {unnamed} that the reference "
+                         f"package's frame leaves have no limit in the "
+                         f"cell's limits file")
+
+
+def _unchecked(ref, state, dev):
+    """Raises where the program's ``state`` holds a leaf that the
+    reference package does not name and that is not the reference's zero
+    state (a leaf the package would leave unchecked)."""
+    for leaf, x in state_leaves(state).items():
+        if leaf in ref.leaves:
+            continue
+        zero = ref.zero.get(leaf)
+        if zero is None or not torch.equal(x.to(dev), zero):
+            raise ValueError(f"the program's state leaf {leaf!r} moved from "
+                             f"the zero state and the reference package "
+                             f"does not compare it (its leaves: "
+                             f"{list(ref.leaves)})")
 
 
 def view_readings(ref, frames, seed, control=False, count=False):
@@ -191,9 +213,12 @@ def view_readings(ref, frames, seed, control=False, count=False):
     against the reference; with ``count`` the work of the window frames'
     (k >= 0) geometry launches is tallied in ``ref.tally``.  A frame whose
     ``state_in`` is CHAIN reads, on each side, the state that side's frame
-    before it left."""
-    worst = {"image": 0.0, "image_wrong": 0.0, "radiance": 0.0,
-             "irradiance": 0.0}
+    before it left.  Each of the reference's state leaves is compared with
+    the program's (or the control's) leaf of its name; a leaf of the
+    program's state that the reference does not name raises unless it
+    equals the reference's zero state."""
+    worst = {"image": 0.0, "image_wrong": 0.0,
+             **{leaf: 0.0 for leaf in ref.leaves}}
     ref_state = ctl_state = None
     for f in frames:
         if f.pixels is None:
@@ -202,42 +227,41 @@ def view_readings(ref, frames, seed, control=False, count=False):
         else:
             pixels = f.pixels
         chained = isinstance(f.state_in, str) and f.state_in == CHAIN
-        c_ref, rad_ref, irr_ref = ref.frame(
+        c_ref, ref_state = ref.frame(
             f.pose, f.edit, ref_state if chained else f.state_in, pixels,
             count=f.k if count and f.k >= 0 else None)
-        ref_state = ref.state(rad_ref, irr_ref)
+        want = state_leaves(ref_state)
+        dev = c_ref.device
         if control:
-            c, rad, irr = ref.frame(f.pose, f.edit,
-                                    ctl_state if chained else f.state_in,
-                                    pixels, control=True)
-            ctl_state = ref.state(rad, irr)
+            c, ctl_state = ref.frame(f.pose, f.edit,
+                                     ctl_state if chained else f.state_in,
+                                     pixels, control=True)
+            got = state_leaves(ctl_state)
         else:
-            dev = c_ref.device
             if f.pixels is None:
                 c = f.image.reshape(-1, 3)[torch.as_tensor(
                     pixels, device=f.image.device)]
             else:
                 c = f.image
             c = c.to(dev)
-            rad = f.state_out.radiance.to(dev)
-            irr = f.state_out.irradiance.to(dev)
+            _unchecked(ref, f.state_out, dev)
+            got = {leaf: getattr(f.state_out, leaf).to(dev)
+                   for leaf in want}
         gap = (c - c_ref).abs()
-        got = {"image": float(gap.mean()),
-               "image_wrong": float((gap.amax(dim=1) > WRONG).float().mean()),
-               "radiance": rel_l1(rad, rad_ref),
-               "irradiance": rel_l1(irr, irr_ref)}
-        for key, v in got.items():
+        read = {"image": float(gap.mean()),
+                "image_wrong": float((gap.amax(dim=1) > WRONG).float()
+                                     .mean()),
+                **{leaf: rel_l1(got[leaf], want[leaf]) for leaf in want}}
+        for key, v in read.items():
             worst[key] = v if math.isnan(v) else max(worst[key], v)
     return worst
 
 
 def make_targets(config, root, device, traffic):
     """The fit cell's target images f32[H, W, 3], one per view: the
-    reference renders the scene with the seeded perturbation of its
-    materials and light (one radiance pass from the zero state, then the
-    screen pass of each view)."""
-    from benchmark.reference.render import pipeline as P
-    from benchmark.reference.render import probes as probes_mod
+    reference package renders the scene with the seeded perturbation of
+    its materials and light (train.render_targets: one radiance pass from
+    the zero state, then the screen pass of each view)."""
     w, h = traffic.resolution
     rr = reference_renderer(config, root, device, w, h)
     b = rr.builder
@@ -261,31 +285,20 @@ def make_targets(config, root, device, traffic):
                 fields["position"] = store["position"][idx] \
                     + pert["light_position"]
             rr.set_light(ltype, idx, **fields)
-    data, state = rr.scene_data, rr.state
-    targets = []
-    with torch.no_grad():
-        rad = P.radiance_pass(rr.spec, data, rr.probes, rr.probe_cfg,
-                              state.irradiance, state.radiance)
-        irr = probes_mod.integrate_irradiance(rr.probes, rad)
-        for position, orientation in traffic.views:
-            rr.set_camera_position(position)
-            rr.set_camera_orientation(orientation)
-            targets.append(P.screen_pass(
-                rr.spec, data, rr.probes, rr.volumetrics, rr.screen_cfg, w,
-                h, rr.camera, irr, rad, state.scattering).contiguous())
-    return targets
+    return reference_package(config, root).train.render_targets(
+        rr, traffic.views)
 
 
 class FitReference:
     """The reference's train steps of one configuration and fit mix on
     ``device`` (with ``control``, in bfloat16; with ``half_batch``, the
-    planted fault of a loss over the image's first half of rows)."""
+    planted fault of a loss over the image's first half of rows), by the
+    configuration's reference package."""
 
     def __init__(self, config, root, device, traffic, targets,
                  control=False, half_batch=False):
-        from benchmark.reference import train
-        from benchmark.reference.render import pipeline as P
-        from benchmark.reference.scene.scene import tree_map
+        entry = reference_package(config, root)
+        train = entry.train
         w, h = traffic.resolution
         rr = reference_renderer(config, root, device, w, h)
         self.vg = train.make_value_and_grad(
@@ -297,9 +310,11 @@ class FitReference:
             rr.set_camera_position(position)
             rr.set_camera_orientation(orientation)
             c = rr.camera
-            self.cams.append(P.Camera(position=q(c.position),
-                                      orientation=q(c.orientation)))
-        self.rr, self.train, self.tree_map = rr, train, tree_map
+            self.cams.append(dataclasses.replace(
+                c, position=q(c.position), orientation=q(c.orientation)))
+        self.rr, self.train, self.tree_map = rr, train, train.tree_map
+        self.entry = entry
+        self.leaves = tuple(entry.leaves(config))
         self.traffic, self.targets = traffic, targets
         self.device = rr.device
 
@@ -342,14 +357,11 @@ class FitReference:
     def window_step(self, k, floats, state):
         """Step k from the program's float leaves and state before it:
         {"loss", "grad", "floats0", "floats", "state"}."""
-        from benchmark.reference.render import pipeline as P
         q, dev = self.q, self.device
         aux = self.train.split_float_leaves(self.rr.scene_data)[1]
         floats0 = [q(x.to(dev)) for x in floats]
         data = self.train.merge_float_leaves(aux, floats0)
-        state = P.FrameState(radiance=q(state.radiance.to(dev)),
-                             irradiance=q(state.irradiance.to(dev)),
-                             scattering=q(state.scattering.to(dev)))
+        state = self.tree_map(q, self.entry.adopt(self.rr, state))
         loss, grads, data, state = self.step(k, data, state)
         return {"loss": loss, "grad": grads, "floats0": floats0,
                 "floats": self.train.split_float_leaves(data)[0],
@@ -388,19 +400,20 @@ def _keep(grad):
     return [n >= LEAF_RULE * med for n in g_norms]
 
 
-def _state_gap(got, ref):
-    return max(rel_l1(got.radiance.to(ref.radiance.device), ref.radiance),
-               rel_l1(got.irradiance.to(ref.irradiance.device),
-                      ref.irradiance))
+def _state_gap(got, ref, leaves):
+    """The worst relative L1 gap of the named state leaves."""
+    return max(rel_l1(getattr(got, leaf).to(getattr(ref, leaf).device),
+                      getattr(ref, leaf)) for leaf in leaves)
 
 
-def fit_readings(ref, got, lr, ref_w=None, got_w=None):
+def fit_readings(ref, got, lr, ref_w=None, got_w=None, *, leaves):
     """{number: reading} of the first steps ``got`` (the program's, or the
     control's; {"losses", "floats0", "floats1", "floats", "state"})
     against the reference's ``ref`` (FitReference.first_steps'), and of
     the window step ``got_w`` ({"loss", "floats0", "floats", "state"})
-    against ``ref_w`` (FitReference.window_step's) where given.  The
-    first gradient is worked out from each side's update, (p0 − p1) / lr,
+    against ``ref_w`` (FitReference.window_step's) where given; the
+    states on the named ``leaves`` (FitReference.leaves).  The first
+    gradient is worked out from each side's update, (p0 − p1) / lr,
     so that both carry the same rounding."""
     def worked(side):
         return [(p0 - p1) / lr for p0, p1 in
@@ -414,14 +427,15 @@ def fit_readings(ref, got, lr, ref_w=None, got_w=None):
                for a, b in zip(got["losses"], ref["losses"]))
     out = {"loss": loss, "grad": leaf_gap(worked(got), worked(ref)),
            "change": leaf_gap(change(got), change(ref), _keep(ref["grad"])),
-           "state": _state_gap(got["state"], ref["state"])}
+           "state": _state_gap(got["state"], ref["state"], leaves)}
     if ref_w is not None:
         out["window_loss"] = abs(got_w["loss"] - ref_w["loss"]) / max(
             abs(ref_w["loss"]), 1e-30)
         out["window_change"] = leaf_gap(
             [x.to(ref_w["floats0"][0].device) for x in change(got_w)],
             change(ref_w), _keep(ref_w["grad"]))
-        out["window_state"] = _state_gap(got_w["state"], ref_w["state"])
+        out["window_state"] = _state_gap(got_w["state"], ref_w["state"],
+                                         leaves)
     return out
 
 

@@ -211,6 +211,7 @@ def view_run(cell, seed, seconds, trace, device, t_start, control=False):
     torch.backends.cuda.matmul.allow_tf32 = False
     t_check = time.perf_counter()
     ref = check.ViewReference(cell.config, cell.root, device)
+    check.require_limits(ref.leaves, cell.limits)
     readings = check.view_readings(ref, frames, seed, count=trace)
     _sync(device)
     window.check_s = time.perf_counter() - t_check
@@ -284,7 +285,8 @@ def fit_run(cell, seed, seconds, trace, device, t_start, control=False):
     ref = check.FitReference(cell.config, cell.root, device, gen, targets)
     ref_first = ref.first_steps()
     ref_w = ref.window_step(k_check, got_w["floats0"], snap["state0"])
-    readings = check.fit_readings(ref_first, got, gen.lr, ref_w, got_w)
+    readings = check.fit_readings(ref_first, got, gen.lr, ref_w, got_w,
+                                  leaves=ref.leaves)
     _sync(device)
     window.check_s = time.perf_counter() - t_check + t_ref
     controls = None
@@ -296,7 +298,7 @@ def fit_run(cell, seed, seconds, trace, device, t_start, control=False):
             controls[kind] = check.fit_readings(
                 ref_first, side.first_steps(), gen.lr, ref_w,
                 side.window_step(k_check, got_w["floats0"],
-                                 snap["state0"]))
+                                 snap["state0"]), leaves=ref.leaves)
     return window, readings, controls, t_setup, peak, record
 
 

@@ -10,16 +10,22 @@ window drives.  The only module of the benchmark that imports the port.
 """
 from __future__ import annotations
 
+import importlib
+
 import numpy as np
 import torch
 
 from benchmark.cells import build_scene
 
 
+def _examples(module):
+    """The port's ``examples.<module>``."""
+    return importlib.import_module("madarch_tpu_torch.examples." + module)
+
+
 def _renderer(config, root, device, width=None, height=None):
     from madarch_tpu_torch.core.config import ProbeSettings
-    from madarch_tpu_torch.examples import scenes
-    return build_scene(scenes, ProbeSettings, config, root, device, width,
+    return build_scene(_examples, ProbeSettings, config, root, device, width,
                        height)
 
 

@@ -5,13 +5,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from benchmark.reference.core.config import (NO_VOLUMETRICS,
-                                             PartitioningSettings,
-                                             ProbeSettings)
-from benchmark.reference.render.renderer import Renderer
-from benchmark.reference.scene import lights as L
-from benchmark.reference.scene import primitives as P
-from benchmark.reference.scene.scene import SceneSpec
+from ..core.config import NO_VOLUMETRICS, PartitioningSettings, ProbeSettings
+from ..render.renderer import Renderer
+from ..scene import lights as L
+from ..scene import primitives as P
+from ..scene.scene import SceneSpec
 
 
 def _room(r: Renderer, wall_mats):
@@ -57,7 +55,7 @@ def obj_mesh(width=1000, height=1000, obj_path=None,
     partitioning grid (the exact mode).  The grid's candidate lists are
     not built: no march reads them (the geometry launch prunes by its own
     chunk boxes)."""
-    from benchmark.reference.scene.mesh import add_mesh_to_renderer, load_obj
+    from ..scene.mesh import add_mesh_to_renderer, load_obj
 
     mesh = load_obj(obj_path)
     offset = (1.5, 1.0, 1.0)

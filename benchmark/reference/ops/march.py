@@ -43,11 +43,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from benchmark.reference.core.constants import cached
-from benchmark.reference.core.vecmath import EPSILON, dot
-from benchmark.reference.render import raymarch as rm
-from benchmark.reference.render.probes import CORNER_OFFSETS
-from benchmark.reference.scene import primitives as P
+from ..core.constants import cached
+from ..core.vecmath import EPSILON, dot
+from ..render import raymarch as rm
+from ..render.probes import CORNER_OFFSETS
+from ..scene import primitives as P
 
 MAX_AO_STEPS = 8
 BIG = 1e9

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from benchmark.reference.core.vecmath import PI, dot, mix, normalize
+from ..core.vecmath import PI, dot, mix, normalize
 
 
 def fresnel_schlick(cos_theta, f0):

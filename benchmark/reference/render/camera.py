@@ -9,8 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from benchmark.reference.core.constants import cached, constant
-from benchmark.reference.core.vecmath import length
+from ..core.constants import cached, constant
+from ..core.vecmath import length
 
 EYE = (0.0, 0.0, -1.5)
 

@@ -12,10 +12,9 @@ from __future__ import annotations
 
 import torch
 
-from benchmark.reference.ops import march as march_ops
-from benchmark.reference.render import raymarch as rm
-from benchmark.reference.scene.scene import (SceneData, SceneSpec, scene_sdf,
-                                             tree_map)
+from ..ops import march as march_ops
+from ..render import raymarch as rm
+from ..scene.scene import SceneData, SceneSpec, scene_sdf, tree_map
 
 
 class SceneCtx:

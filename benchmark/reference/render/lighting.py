@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from benchmark.reference.core.vecmath import EPSILON, PI, dot
-from benchmark.reference.render.brdf import cook_torrance_coefficients
+from ..core.vecmath import EPSILON, PI, dot
+from ..render.brdf import cook_torrance_coefficients
 
 
 def direct_lighting(spec, data, pos, normal, view_dir, albedo, metallic,

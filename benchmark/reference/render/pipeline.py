@@ -15,14 +15,12 @@ import dataclasses
 
 import torch
 
-from benchmark.reference.core.config import (PROBE_SHADE_CONFIG,
-                                             ProbeSettings, ShadeConfig,
-                                             VolumetricsSettings,
-                                             screen_shade_config)
-from benchmark.reference.render import probes as probes_mod
-from benchmark.reference.render.camera import camera_rays, pixel_grid
-from benchmark.reference.render.shading import pixel_color
-from benchmark.reference.scene.scene import SceneData, SceneSpec
+from ..core.config import (PROBE_SHADE_CONFIG, ProbeSettings, ShadeConfig,
+                           VolumetricsSettings, screen_shade_config)
+from ..render import probes as probes_mod
+from ..render.camera import camera_rays, pixel_grid
+from ..render.shading import pixel_color
+from ..scene.scene import SceneData, SceneSpec
 
 
 @dataclasses.dataclass

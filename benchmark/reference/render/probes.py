@@ -13,10 +13,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from benchmark.reference.core.config import ProbeSettings
-from benchmark.reference.core.constants import cached, constant
-from benchmark.reference.core.vecmath import (absolute, dot, mix,
-                                              sign_not_zero)
+from ..core.config import ProbeSettings
+from ..core.constants import cached, constant
+from ..core.vecmath import absolute, dot, mix, sign_not_zero
 
 # The 8 probe-cell corners, bit k of the corner index selecting +1 on axis k.
 CORNER_OFFSETS = tuple(((i >> 0) & 1, (i >> 1) & 1, (i >> 2) & 1)

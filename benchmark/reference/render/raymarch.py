@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from benchmark.reference.core.vecmath import EPSILON, dot
+from ..core.vecmath import EPSILON, dot
 
 MAX_STEPS = 300
 MIN_STEP_SIZE = 0.05

@@ -1,6 +1,6 @@
 """The engine facade: the scene mutation API and the camera (a frozen
 copy of the port's render/renderer.py without its frame loop and physics
-query: the benchmark's check calls the pipeline's passes itself).
+query: the package's view.py and train.py call the pipeline's passes).
 Volumetrics are on by default, as in the JAX package; the renderer runs on
 the CUDA card unless the caller names another device.
 
@@ -14,13 +14,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from benchmark.reference.core.config import (PROBE_SHADE_CONFIG,
-                                             ProbeSettings, ShadeConfig,
-                                             VolumetricsSettings,
-                                             screen_shade_config)
-from benchmark.reference.core.constants import to_device
-from benchmark.reference.render.pipeline import Camera, initial_state
-from benchmark.reference.scene.scene import SceneBuilder, SceneSpec
+from ..core.config import (PROBE_SHADE_CONFIG, ProbeSettings, ShadeConfig,
+                           VolumetricsSettings, screen_shade_config)
+from ..core.constants import to_device
+from ..render.pipeline import Camera, initial_state
+from ..scene.scene import SceneBuilder, SceneSpec
 
 
 class Renderer:

@@ -21,18 +21,15 @@ from __future__ import annotations
 
 import torch
 
-from benchmark.reference.core.config import ProbeSettings, ShadeConfig
-from benchmark.reference.core.constants import constant
-from benchmark.reference.core.vecmath import reflect
-from benchmark.reference.render import probes as probes_mod
-from benchmark.reference.render.context import SceneCtx
-from benchmark.reference.render.lighting import (direct_lighting,
-                                                 indirect_lighting)
-from benchmark.reference.render.raymarch import (SURFACE_OFFSET,
-                                                 attach_hit_gradient,
-                                                 scene_normal)
-from benchmark.reference.scene.scene import (SceneData, SceneSpec,
-                                             material_lookup)
+from ..core.config import ProbeSettings, ShadeConfig
+from ..core.constants import constant
+from ..core.vecmath import reflect
+from ..render import probes as probes_mod
+from ..render.context import SceneCtx
+from ..render.lighting import direct_lighting, indirect_lighting
+from ..render.raymarch import (SURFACE_OFFSET, attach_hit_gradient,
+                               scene_normal)
+from ..scene.scene import SceneData, SceneSpec, material_lookup
 
 
 def sky_color(dirs):

@@ -12,8 +12,8 @@ from typing import Callable, Optional
 
 import torch
 
-from benchmark.reference.core import vecmath as vm
-from benchmark.reference.scene.primitives import FLOAT, VEC3
+from ..core import vecmath as vm
+from ..scene.primitives import FLOAT, VEC3
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -81,7 +81,7 @@ def add_mesh_to_renderer(renderer, mesh: Mesh, material_id: int,
     """Add every triangle of ``mesh``, moved by ``offset``, as a Triangle
     primitive; ``order="morton"`` (the default) inserts them in Z-order of
     their centroids.  Returns the number of triangles."""
-    from benchmark.reference.scene.primitives import Triangle
+    from ..scene.primitives import Triangle
     off = np.asarray(offset, np.float32)
     tv = mesh.triangle_vertices() + off
     if order == "morton":

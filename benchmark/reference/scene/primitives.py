@@ -31,7 +31,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from benchmark.reference.core import vecmath as vm
+from ..core import vecmath as vm
 
 VEC3 = "vec3"
 FLOAT = "float"

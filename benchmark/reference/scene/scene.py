@@ -17,10 +17,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from benchmark.reference.core.constants import to_device
-from benchmark.reference.scene.lights import LightType
-from benchmark.reference.scene.primitives import (PrimitiveType, kind_dtype,
-                                                  kind_shape)
+from ..core.constants import to_device
+from ..scene.lights import LightType
+from ..scene.primitives import PrimitiveType, kind_dtype, kind_shape
 
 MAX_MATERIALS = 20
 

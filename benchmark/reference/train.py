@@ -2,15 +2,17 @@
 parallel/spmd.py make_value_and_grad and its SGD update, on one
 device): the loss mean((image − target)²) of a differentiable frame, the
 gradient of every float leaf of the scene data, the new feedback state,
-and p − lr·g."""
+and p − lr·g; and ``render_targets``, the fit cell's target images.  A
+fit cell's check calls these, with ``tree_map``."""
 from __future__ import annotations
 
 import dataclasses
 
 import torch
 
-from benchmark.reference.render.pipeline import render_frame
-from benchmark.reference.scene.scene import tree_leaves, tree_map
+from .render import probes as probes_mod
+from .render.pipeline import radiance_pass, render_frame, screen_pass
+from .scene.scene import tree_leaves, tree_map
 
 
 def split_float_leaves(tree):
@@ -60,3 +62,24 @@ def sgd_update(floats, grads, lr):
     """p − lr·g for each float leaf."""
     with torch.no_grad():
         return [p - lr * g for p, g in zip(floats, grads)]
+
+
+def render_targets(rr, views):
+    """The target images f32[H, W, 3] of ``rr``'s scene (its materials and
+    lights as the check set them), one per (position, orientation) of
+    ``views``: one radiance pass from the zero state, then the screen
+    pass of each view."""
+    data, state = rr.scene_data, rr.state
+    targets = []
+    with torch.no_grad():
+        rad = radiance_pass(rr.spec, data, rr.probes, rr.probe_cfg,
+                            state.irradiance, state.radiance)
+        irr = probes_mod.integrate_irradiance(rr.probes, rad)
+        for position, orientation in views:
+            rr.set_camera_position(position)
+            rr.set_camera_orientation(orientation)
+            targets.append(screen_pass(
+                rr.spec, data, rr.probes, rr.volumetrics, rr.screen_cfg,
+                rr.width, rr.height, rr.camera, irr, rad,
+                state.scattering).contiguous())
+    return targets
