@@ -16,8 +16,10 @@ card captures the frame into a CUDA graph once and replays it, and
 
 With the recorder of utils/profiling.py on, each pass is a device interval
 (``pass.radiance``, ``pass.irradiance``, ``pass.visibility``,
-``pass.scattering``, ``pass.screen``; each SceneCtx's packing ``pack``
-inside them, render/context.py), and the compiled frame records the host
+``pass.scattering``, ``pass.screen`` and, inside the screen pass, the
+volumetric composite's ``pass.composite``; each SceneCtx's packing
+``pack`` inside them, render/context.py; the volumetric passes' counters
+in render/volumetrics.py), and the compiled frame records the host
 spans ``frame.lookup`` (counters ``frame_captures``, ``frame_evictions``),
 ``frame.copy_in`` (``copy_in_leaves``, ``copy_in_bytes``),
 ``frame.warmup`` and ``frame.capture`` (set-up), ``frame.replay`` and
@@ -164,10 +166,11 @@ def screen_pass(spec: SceneSpec, data: SceneData, probes: ProbeSettings,
     if cfg.render_volumetrics:
         if blocked:
             hit_pos = _from_blocks(hit_pos, height, width)
-        ray_len = torch.linalg.vector_norm(hit_pos - origins.reshape(-1, 3),
-                                           dim=-1)
-        color = vol_mod.composite(vol, scattering, color, ray_len, width,
-                                  height, spec.max_dist)
+        with profiling.device_span("pass.composite", irr_atlas.device):
+            ray_len = torch.linalg.vector_norm(
+                hit_pos - origins.reshape(-1, 3), dim=-1)
+            color = vol_mod.composite(vol, scattering, color, ray_len,
+                                      width, height, spec.max_dist)
 
     color = torch.clamp_min(color, 0.0)
     # Reinhard + gamma; the 1e-8 matches the reference's finite-derivative

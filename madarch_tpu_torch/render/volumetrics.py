@@ -7,6 +7,12 @@ f32[sy, sx, 4] holding (in-scattered L, ray length).  The froxel-to-light
 rays go through the visibility kernel and the scattering rays through the
 raycast kernel (``SceneCtx.visibility`` / ``SceneCtx.raycast``); the rest
 is tensor math with index maps fixed by the resolutions.
+
+With the recorder of utils/profiling.py on, the passes count their work,
+at the Python call (so at capture in a compiled frame): ``froxel_rays``,
+the rays of each visibility launch, summed over the light slots launched;
+``scattering_rays``, the raycast's rays (sx·sy); ``scattering_taps``, the
+taps of the scattering loop (n_steps).
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from madarch_tpu_torch.core.constants import cached, constant
 from madarch_tpu_torch.core.resample import floor_map, take_static
 from madarch_tpu_torch.core.vecmath import PI, dot
 from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
+from madarch_tpu_torch.utils import profiling
 
 TAU_SCATTERING = 0.1
 
@@ -72,6 +79,7 @@ def visibility_pass(spec, data, vol: VolumetricsSettings, ctx,
                                      ldist.contiguous(),
                                      enabled=live.expand(n).contiguous(),
                                      max_steps=max_steps)
+                profiling.count("froxel_rays", n)
                 l_in = (torch.exp(-ldist * TAU_SCATTERING) * vis)[..., None] \
                     * radiance
                 contrib = l_in * TAU_SCATTERING \
@@ -108,6 +116,7 @@ def scattering_pass(spec, data, vol: VolumetricsSettings, ctx, visibility,
 
     length = ray_length(origins_f, dirs_f) if shard is None \
         else shard.map_rays(ray_length, (origins_f, dirs_f))
+    profiling.count("scattering_rays", n)
 
     # froxel column per scattering texel: (x·vx)//sx, (y·vy)//sy
     vis_up = take_static(visibility, floor_map(sy, vy, offset=0.0), axis=1)
@@ -115,6 +124,7 @@ def scattering_pass(spec, data, vol: VolumetricsSettings, ctx, visibility,
     vis_flat = vis_up.reshape(vz, n, 3)
 
     n_steps = int(max_depth / vol.scattering_step_size)
+    profiling.count("scattering_taps", n_steps)
     step = np.float32(vol.scattering_step_size)
     fs = np.arange(n_steps, dtype=np.float32) * step
     weights = cached(("scattering_weights", n_steps, float(step)), dev,

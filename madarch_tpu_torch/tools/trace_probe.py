@@ -13,7 +13,11 @@ nodes) after SETUP_FRAMES frames; the camera turns 3 degrees a frame and
 each frame is waited for, as a viewer's are.  For each segment: host ms
 a frame inside render() (median) and wall ms a frame; with the recorder
 on, its spans' host ms, its device intervals' ms and its counters, each
-a frame.  One JSON line on stdout.
+a frame.  Then ``frame_counters``: the counters of one eager frame, which
+a compiled frame records only while it is set up (its warm-up and capture
+run the Python; a replay runs none), such as light_shafts'
+``froxel_rays``, ``scattering_rays`` and ``scattering_taps``.  One JSON
+line on stdout.
 """
 from __future__ import annotations
 
@@ -80,6 +84,18 @@ def segment(r, frames, on, k0):
     return out, k
 
 
+def frame_counters(r):
+    """{name: value} of the counters of one eager frame of ``r``."""
+    profiling.drain()
+    profiling.enable()
+    try:
+        with pipeline.eager():
+            r.render()
+    finally:
+        profiling.disable()
+    return per_frame(profiling.drain())["counters"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("config", nargs="?", default="global_illumination",
@@ -98,7 +114,8 @@ def main(argv=None):
             segments.append(seg)
     out = {"config": args.config, "size": args.size,
            "device": torch.cuda.get_device_name(dev)
-           if dev.type == "cuda" else dev.type, "segments": segments}
+           if dev.type == "cuda" else dev.type, "segments": segments,
+           "frame_counters": frame_counters(r)}
     print(json.dumps(out), flush=True)
     return out
 

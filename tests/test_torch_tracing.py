@@ -11,8 +11,12 @@ same code, so these tests cover the wiring the card's event pairs follow:
   is 1 on a frame after set_light and 0 on an unedited one;
   frame_captures and frame_evictions follow GRAPH_CACHE_SIZE.
 - The pass names appear once a frame and ``pack`` once a kernel-route
-  SceneCtx (GI and, with volumetrics, light_shafts); ``probes`` once a
-  probe lookup, inside its pass.
+  SceneCtx (GI and, with volumetrics, light_shafts, whose composite is
+  ``pass.composite`` inside ``pass.screen``); ``probes`` once a probe
+  lookup, inside its pass.
+- light_shafts' counters: ``froxel_rays``, ``scattering_rays`` and
+  ``scattering_taps`` are the volumetric settings' shapes, and frames
+  with the recorder on and off are bit-equal there too.
 - A compiled step records its copy-in and replay under frame ids of its
   own.
 - The card's path for device intervals (before_replay, after_replay,
@@ -27,6 +31,7 @@ from madarch_tpu_torch.examples import scenes as tscenes
 from madarch_tpu_torch.parallel import spmd as tspmd
 from madarch_tpu_torch.render import context as ctx_mod
 from madarch_tpu_torch.render import pipeline as TPL
+from madarch_tpu_torch.render.camera import orientation_from_angles
 from madarch_tpu_torch.scene import lights as TL
 from madarch_tpu_torch.scene.scene import tree_leaves
 from madarch_tpu_torch.utils import profiling
@@ -113,16 +118,19 @@ def test_off_records_nothing():
     TPL.clear_compiled()
 
 
-def test_on_and_off_render_bit_equal_frames(recorder):
+def _on_and_off(make, edit):
+    """Three frames of ``make()`` with the recorder off, then on (the
+    third after ``edit(r)``): both runs' images and states are bit-equal,
+    and the recorder saw the three frames of the second."""
     runs = []
     for on in (False, True):
         (profiling.enable if on else profiling.disable)()
         TPL.clear_compiled()
-        r = gi()
+        r = make()
         frames = []
         for k in range(3):
             if k == 2:
-                r.set_light(TL.SpotLight, 0, direction=(0.0, -1.0, 0.0))
+                edit(r)
             frames.append((r.render(), r.state))
         runs.append(frames)
     assert len(render_ids(profiling.drain())) == 3
@@ -130,6 +138,16 @@ def test_on_and_off_render_bit_equal_frames(recorder):
         assert torch.equal(img_a, img_b)
         assert all(torch.equal(getattr(st_a, f), getattr(st_b, f))
                    for f in FIELDS)
+
+
+def test_on_and_off_render_bit_equal_frames(recorder):
+    _on_and_off(gi, lambda r: r.set_light(TL.SpotLight, 0,
+                                          direction=(0.0, -1.0, 0.0)))
+
+
+def test_on_and_off_render_bit_equal_light_shafts_frames(recorder):
+    _on_and_off(shafts, lambda r: r.set_camera_orientation(
+        orientation_from_angles(0.3, -0.1).numpy()))
 
 
 def test_spans_nest_with_one_frame_id_a_render(recorder):
@@ -197,7 +215,8 @@ def test_a_scene_edit_rebuilds_the_data_once(recorder):
 
 @pytest.mark.parametrize("name,passes", [
     ("gi", GI_PASSES),
-    ("light_shafts", GI_PASSES + ("pass.visibility", "pass.scattering"))])
+    ("light_shafts", GI_PASSES + ("pass.visibility", "pass.scattering",
+                                  "pass.composite"))])
 def test_passes_once_a_frame_and_pack_once_a_scene_ctx(recorder,
                                                        monkeypatch, name,
                                                        passes):
@@ -218,6 +237,29 @@ def test_passes_once_a_frame_and_pack_once_a_scene_ctx(recorder,
         assert names.count(p) == 2, p
     assert all(built)
     assert names.count("pack") == len(built) > 0
+
+
+def test_light_shafts_counts_its_volumetric_work(recorder):
+    """Each light_shafts frame counts the froxel rays of its one live
+    light slot, the scattering map's rays and the scattering loop's taps,
+    and its composite nests in the screen pass."""
+    r = shafts()
+    for _ in range(2):
+        r.render()
+    rec = profiling.drain()
+    vx, vy, vz = SMALL_VOL.visibility_resolution
+    sx, sy = SMALL_VOL.scattering_resolution
+    ids = render_ids(rec)
+    assert len(ids) == 2
+    for fid in ids:
+        assert counter(rec, "froxel_rays", fid) == vx * vy * vz
+        assert counter(rec, "scattering_rays", fid) == sx * sy
+        assert counter(rec, "scattering_taps", fid) == int(
+            SMALL_VOL.max_depth / SMALL_VOL.scattering_step_size) == 8
+    spans = rec["spans"]
+    composites = [s for s in spans if s[0] == "pass.composite"]
+    assert len(composites) == 2
+    assert all(spans[s[3]][0] == "pass.screen" for s in composites)
 
 
 def test_captures_and_evictions_follow_the_cache_size(recorder):
