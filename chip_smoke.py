@@ -276,7 +276,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
    timed in turns with both beside its bound; a replayed frame's
    launches (2 irradiance, 1 radiance); the eager frame by the kernel
    route against the dense route (PROBE_IMAGE_GAP); prints a
-   probe_lookups JSON line.
+   probe_lookups JSON line;
+43. the shade kernel (ops/shade_kernel.py, csrc/shade.cu) on the same
+   10^6 GI screen points (mode 2) and the 36,864 probe rays (mode 0): the
+   kernel held to the plain chain it replaces (shade_hits and
+   pixel_color's tail on the same geometry and lookups, SHADE_PLAIN_REL),
+   the kernel alone, the kernel route (lookups + kernel) and the plain
+   chain timed in turns beside the kernel's bound in bytes; the device
+   operations a replayed frame launches by both routes (torch.profiler);
+   the 1000x1000 images and atlases of GI, light_shafts and the torus by
+   both routes (PROBE_IMAGE_GAP); prints a shade JSON line.
 
 Renderer.render() runs the compiled frame on the kernel route: a scene's
 first frame runs an eager warm-up and captures the frame into a CUDA
@@ -317,7 +326,7 @@ It prints a train JSON line (phases 25-27), a scenes JSON line (phases
 a geometry_flags JSON line (phase 36), a bench JSON line (phase 37), a
 box_cap JSON line (phase 38), a large_scenes JSON line (phase 39), a
 compiled JSON line (phases 40-41), a probe_lookups JSON line (phase 42), a
-kernels JSON line, the card line, then
+shade JSON line (phase 43), a kernels JSON line, the card line, then
 the last line {"ok": true, "device": {...}}.  Imports no JAX.
 """
 import contextlib
@@ -368,6 +377,7 @@ def port_modules():
     from madarch_tpu_torch.ops import build
     from madarch_tpu_torch.ops import march
     from madarch_tpu_torch.ops import probe_lookup
+    from madarch_tpu_torch.ops import shade_kernel
     from madarch_tpu_torch.parallel import spmd
     from madarch_tpu_torch.render import pipeline
     from madarch_tpu_torch.render import lighting
@@ -398,7 +408,7 @@ def port_modules():
         PROBE_SHADE_CONFIG=PROBE_SHADE_CONFIG, ProbeSettings=ProbeSettings,
         ShadeConfig=ShadeConfig, VolumetricsSettings=VolumetricsSettings,
         length=length, reflect=reflect, S=scenes, build=build, M=march,
-        PL=probe_lookup,
+        PL=probe_lookup, SK=shade_kernel,
         spmd=spmd, pipeline=pipeline, lighting=lighting, PT=pathtrace,
         checkpoint=checkpoint, SceneBuilder=SceneBuilder,
         tree_leaves=tree_leaves,
@@ -3549,6 +3559,182 @@ def probe_phase(torch, m, dev, card):
     return out
 
 
+# The shade kernel against its plain chain: the largest gap over the
+# chain's largest magnitude (tests/test_torch_shade_kernel.py:PLAIN_REL).
+SHADE_PLAIN_REL = 1e-6
+
+
+def nan_rel_gap(a, b):
+    """rel_gap with NaN (Cook-Torrance's 0/0 at roughness 0) allowed at the
+    same places only (else inf)."""
+    nan = b.isnan()
+    if not bool((a.isnan() == nan).all()):
+        return math.inf
+    return rel_gap(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
+@contextlib.contextmanager
+def plain_shade(m):
+    """Inside the block pixel_color shades with the plain chain on the
+    card too (render/shading.py:shade_method answers "plain"): for a
+    comparison."""
+    keep = m.shading.shade_method
+    m.shading.shade_method = lambda *args: "plain"
+    try:
+        yield
+    finally:
+        m.shading.shade_method = keep
+
+
+def shade_phase(torch, m, dev, card):
+    """Phase 43 on the GI room at PROBE_SIZE x PROBE_SIZE after
+    PROBE_FRAMES frames: the screen pass's geometry (mode 2's fold) and
+    the probe pass's, with their lookups, shaded by the kernel and by the
+    plain chain (shade_hits, the sky, the hit position), held together;
+    the kernel alone, the kernel route (the probe lookups, then the
+    kernel: what pixel_color runs) and the plain chain timed in turns
+    beside the kernel's bound in bytes (each ray's inputs and outputs
+    once: origin, direction, t, hit, normal, material, AO, a shadow a
+    light slot, the irradiance; mode 2 also the reflection's t, hit,
+    material, normal and shadows and the radiance; colour and hit
+    position).  The device operations of a replayed frame by both routes,
+    and the eager 1000x1000 frames of GI, light_shafts and the torus by
+    both routes.  Returns the numbers."""
+    SH, SK = m.shading, m.SK
+    r = m.S.global_illumination(width=PROBE_SIZE, height=PROBE_SIZE,
+                                device=dev)
+    r.converge(frames=PROBE_FRAMES)
+    cam = r.camera
+    o, d = m.camera_rays(m.pixel_grid(r.width, r.height, dev), cam.position,
+                         cam.orientation)
+    rr = r.probes.radiance_resolution
+    rays = {
+        "screen": (r.screen_cfg, o.reshape(-1, 3).contiguous(),
+                   d.reshape(-1, 3).contiguous()),
+        "probe": (r.probe_cfg,
+                  m.probes.probe_world_positions(r.probes, dev).repeat(
+                      rr * rr, 1).contiguous(),
+                  m.probes.texel_directions(rr, dev).repeat_interleave(
+                      r.probes.num_probes, dim=0).contiguous())}
+    irr_atlas, rad_atlas = r.state.irradiance, r.state.radiance
+    out = {}
+    for label, (cfg, ro, rd) in rays.items():
+        ctx = m.SceneCtx(r.spec, r.scene_data)
+        mode2 = cfg.indirect_specular_mode == 2
+        g = ctx.geometry(ro, rd, r.probes, cfg, want_reflection=mode2)
+        n = ro.shape[0]
+        pos = ro + g["t"][:, None] * rd
+        irr = m.probes.sample_irradiance(r.probes, irr_atlas, pos,
+                                         g["normal"], vis8=g["vis8"],
+                                         method="kernel")
+        rad = SH.mode2_radiance(r.probes, rad_atlas, g["refl"]["best_pid"],
+                                g["refl"]["best_dir"]) if mode2 else None
+        table = ctx.light_table
+
+        def alone():
+            return SK.shade(table, r.scene_data.materials, ro, rd, g, irr,
+                            rad, mode=cfg.indirect_specular_mode,
+                            direct_specular=cfg.direct_specular,
+                            add_indirect_specular=cfg.add_indirect_specular,
+                            max_dist=r.spec.max_dist,
+                            surface_offset=m.SURFACE_OFFSET)
+
+        def route():
+            return SH._shade_kernel(r.spec, r.scene_data, r.probes, cfg, ctx,
+                                    irr_atlas, rad_atlas, ro, rd, g)
+
+        def plain():
+            p = ro + g["t"][:, None] * rd
+            hit = g["hit"]
+            lit = SH.shade_hits(r.spec, r.scene_data, r.probes, cfg, ctx,
+                                irr_atlas, rad_atlas, p, g["normal"], rd,
+                                hit, g)
+            return (torch.where(hit[..., None], lit, SH.sky_color(rd)),
+                    torch.where(hit[..., None], p,
+                                ro + r.spec.max_dist * rd))
+
+        fns = {"kernel": alone, "kernel_route": route, "plain": plain}
+        with torch.no_grad():
+            vals = {k: fn() for k, fn in fns.items()}
+            torch.cuda.synchronize()
+            gaps = {f"{k}_{part}": nan_rel_gap(vals[k][i], vals["plain"][i])
+                    for k in ("kernel", "kernel_route")
+                    for i, part in enumerate(("color", "hit_pos"))}
+            ms = dict(zip(fns, time_turns(torch, list(fns.values()),
+                                          iters=PROBE_TIMED)))
+        n_lights = table.shape[0]
+        per_ray = (3 + 3 + 1 + 3 + 1 + 1 + n_lights + 3) * 4 + 1 \
+            + 2 * 3 * 4
+        if mode2:
+            per_ray += (1 + 1 + 3 + n_lights + 3) * 4 + 1
+        n_bytes = n * per_ray + table.nbytes + sum(
+            x.nbytes for x in r.scene_data.materials.values())
+        b_ms, b_by = bound(0.0, n_bytes)
+        print(f"shade kernel GI {PROBE_SIZE}x{PROBE_SIZE} {label} ({n} rays, "
+              f"{int(g['hit'].sum())} hits, {n_lights} light slots): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+              + f"; bound {b_ms:.5f} ms ({b_by}, {n_bytes} bytes), "
+              f"{100 * b_ms / ms['kernel']:.1f}% of it; relative gaps "
+              f"{json.dumps(gaps)}; [{card}]")
+        if any(not v <= SHADE_PLAIN_REL for v in gaps.values()):
+            fail(f"shade kernel {label}: the kernel against the plain "
+                 f"chain {gaps}")
+        out[label] = dict(rays=n, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                          bytes=n_bytes, rel_gaps=gaps)
+
+    # the device operations of a replayed frame by both routes
+    ops = {}
+    for way in ("kernel", "plain"):
+        m.pipeline.clear_compiled()
+        with plain_shade(m) if way == "plain" else contextlib.nullcontext():
+            r.render()
+            torch.cuda.synchronize()
+            launches = dict(r.frame.launches)
+            prof, _ = m.trace_calls(r.render, 3)
+            events = m.kernel_events(prof, 3)
+        ops[way] = {"device_ops_per_frame": sum(events.values()),
+                    "shade_launches": launches["shade"]}
+    m.pipeline.clear_compiled()
+    if ops["kernel"]["shade_launches"] != 2 \
+            or ops["plain"]["shade_launches"] != 0:
+        fail(f"shade kernel: a captured GI frame launched {ops}")
+    print(f"shade kernel GI {PROBE_SIZE}x{PROBE_SIZE}: a replayed frame's "
+          f"device operations {json.dumps(ops)}")
+
+    # the 1000x1000 images of three scenes by both routes, eager
+    images = {}
+    for name in ("global_illumination", "light_shafts", "obj_mesh"):
+        kw = dict(width=PROBE_SIZE, height=PROBE_SIZE, device=dev)
+        s = m.S.obj_mesh(obj_path=m.S.TORUS_OBJ, **kw) \
+            if name == "obj_mesh" else getattr(m.S, name)(**kw)
+        s.converge(frames=PROBE_FRAMES)
+        frames = []
+        for way in ("kernel", "plain"):
+            with plain_shade(m) if way == "plain" \
+                    else contextlib.nullcontext(), torch.no_grad():
+                frames.append(m.pipeline.render_frame(
+                    s.spec, s.probes, s.volumetrics, PROBE_SIZE, PROBE_SIZE,
+                    s.scene_data, s.camera, s.state, screen_cfg=s.screen_cfg,
+                    probe_cfg=s.probe_cfg))
+        (img_k, st_k), (img_p, st_p) = frames
+        gap = (img_k - img_p).abs()
+        images[name] = {
+            "image_mean_gap": float(gap.mean()),
+            "image_max_gap": float(gap.max()),
+            "radiance_rel_gap": nan_rel_gap(st_k.radiance, st_p.radiance),
+            "irradiance_rel_gap": nan_rel_gap(st_k.irradiance,
+                                              st_p.irradiance)}
+        print(f"shade kernel {name} {PROBE_SIZE}x{PROBE_SIZE}: eager frame, "
+              f"kernel route against plain route {json.dumps(images[name])}"
+              f" (image mean limit {PROBE_IMAGE_GAP})")
+        if not images[name]["image_mean_gap"] <= PROBE_IMAGE_GAP \
+                or not math.isfinite(images[name]["image_max_gap"]):
+            fail(f"shade kernel: {name}'s frame by the kernel route against "
+                 f"the plain route")
+    out.update(frame_ops=ops, images=images)
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "madarch_tpu_torch")):
         fail("madarch_tpu_torch/ is not beside this script")
@@ -3964,6 +4150,10 @@ def main():
     # to its plain version and the dense route, timed beside its bound
     probe = probe_phase(torch, m, dev, card)
 
+    # ---- 43. the shade kernel at 10^6 GI points against the plain chain
+    # it replaces, timed beside its bound; frames by both routes
+    shade = shade_phase(torch, m, dev, card)
+
     def lamp_keys(name):
         """The kernel's numbers on the lamp room (phase 32)."""
         k = lamp_k[name]
@@ -3981,6 +4171,7 @@ def main():
     print(json.dumps({"compiled": compiled,
                       "compiled_step": compiled_step}))
     print(json.dumps({"probe_lookups": probe}))
+    print(json.dumps({"shade": shade}))
 
     def compiled_keys(name):
         """The kernel's launches a captured 800x800 frame, by scene
@@ -4154,6 +4345,20 @@ def main():
            **compiled_keys(name)}
           for name, kind in (("irradiance_lookup", "irradiance"),
                              ("radiance_lookup", "radiance"))),
+        {"name": "shade", "route": "cuda", "source": src + "shade.cu",
+         "replaces": "none (madarch_tpu/render/shading.py's XLA chain)",
+         "launches_gi_frame": shade["frame_ops"]["kernel"]["shade_launches"],
+         "max_rel_err": max(shade[k]["rel_gaps"]["kernel_color"]
+                            for k in ("screen", "probe")),
+         "ms": shade["screen"]["ms"]["kernel"],
+         "plain_ms": shade["screen"]["ms"]["plain"],
+         "route_ms": shade["screen"]["ms"]["kernel_route"],
+         "bound_ms": shade["screen"]["bound_ms"],
+         "bound_by": shade["screen"]["bound_by"], "library_ms": None,
+         "ms_probe": shade["probe"]["ms"]["kernel"],
+         "plain_ms_probe": shade["probe"]["ms"]["plain"],
+         "bound_ms_probe": shade["probe"]["bound_ms"],
+         **compiled_keys("shade")},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

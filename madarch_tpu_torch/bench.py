@@ -100,7 +100,8 @@ KERNELS = {"geometry": "geometry_kernel", "raycast": "raycast_kernel",
            "visibility": "visibility_kernel",
            "softshadows": "softshadow_kernel",
            "irradiance_lookup": "probe_irradiance_kernel",
-           "radiance_lookup": "probe_radiance_kernel"}
+           "radiance_lookup": "probe_radiance_kernel",
+           "shade": "shade_kernel"}
 # gpu_vs_golden: frames before the comparison, as the goldens were made.
 GOLDEN_FRAMES = {"global_illumination": 4, "simple_scene": 2}
 SCALING_WORLD = 2

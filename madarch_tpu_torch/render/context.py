@@ -16,13 +16,17 @@ the batched scene distance over the live data (render/raymarch.py:
 attach_hit_gradient, scene_normal).
 
 With the recorder of utils/profiling.py on, the kernel route's packing
-(pack_scene, pack_light_positions and the roughness cast) is the device
+(pack_scene, pack_light_positions and the roughness cast; the shade
+kernel's light table, when a pass first asks for it) is the device
 interval ``pack``."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from madarch_tpu_torch.ops import march as march_ops
+from madarch_tpu_torch.ops import shade_kernel
 from madarch_tpu_torch.render import raymarch as rm
 from madarch_tpu_torch.scene.scene import (SceneData, SceneSpec, scene_sdf,
                                            tree_map)
@@ -45,6 +49,7 @@ class SceneCtx:
         self.max_dist = spec.max_dist
         self.sdf_b_diff = lambda p: scene_sdf(spec, data, p)
         data_sg = tree_map(torch.Tensor.detach, data)
+        self.data_sg = data_sg
         n_slots = sum(n for _, _, n, _ in spec.prim_bounds())
         chunky = n_slots > march_ops.CHUNK_SLOT_THRESHOLD
         self.sdf_b = lambda p: _chunked(
@@ -60,6 +65,14 @@ class SceneCtx:
                     march_ops.pack_light_positions(spec, data_sg)
                 # material roughness: the kernel's mode-2 reflection gate
                 self.rough_vec = rough.to(torch.float32).contiguous()
+
+    @functools.cached_property
+    def light_table(self):
+        """The shade kernel's light table (ops/shade_kernel.py:pack_lights)
+        of the scene detached, packed on first use."""
+        dev = self.data_sg.materials["albedo"].device
+        with profiling.device_span("pack", dev):
+            return shade_kernel.pack_lights(self.spec, self.data_sg)
 
     @property
     def use_kernel(self) -> bool:

@@ -201,13 +201,15 @@ def test_kernel_ms_reads_each_kernel_from_the_trace():
            "raycast_kernel(MarchArgs)": 0.5, "elementwise_kernel": 9.0,
            "(anonymous namespace)::probe_irradiance_kernel(IrradianceArgs)":
            0.2,
-           "(anonymous namespace)::probe_radiance_kernel(RadianceArgs)": 0.1}
+           "(anonymous namespace)::probe_radiance_kernel(RadianceArgs)": 0.1,
+           "(anonymous namespace)::shade_kernel(ShadeArgs)": 0.3}
     got = bench.kernel_ms(ops, {"geometry": 2.0, "raycast": 1.0,
                                 "visibility": 1.0, "softshadows": 0.0,
                                 "irradiance_lookup": 2.0,
-                                "radiance_lookup": 1.0})
+                                "radiance_lookup": 1.0, "shade": 2.0})
     assert got == {"geometry": 2.0, "raycast": 0.5, "visibility": None,
-                   "irradiance_lookup": 0.1, "radiance_lookup": 0.1}
+                   "irradiance_lookup": 0.1, "radiance_lookup": 0.1,
+                   "shade": 0.15}
 
 
 def test_the_bench_raises_without_a_card():

@@ -415,8 +415,10 @@ def test_modes_1_and_3_launch_their_kernels(dev):
     the softshadow kernel once; mode 3 the geometry kernel three times.
     Both look the irradiance up with the kernel in the radiance pass and
     the screen pass, mode 3 once more at the reflection hit; neither reads
-    mode 2's radiance tile.  The first frame runs the eager warm-up and the
-    replay of its capture: twice a frame's launches."""
+    mode 2's radiance tile.  Their radiance pass (mode 0) shades with the
+    shade kernel, their screen pass with the plain chain.  The first frame
+    runs the eager warm-up and the replay of its capture: twice a frame's
+    launches."""
     from madarch_tpu_torch.render import pipeline
     pipeline.clear_compiled()    # an earlier test may have these keys
     want = {1: (2, 1, 1), 3: (3, 0, 0)}
@@ -434,8 +436,8 @@ def test_modes_1_and_3_launch_their_kernels(dev):
                 == tuple(frame * n for n in launches)
         assert r.frame.launches == dict(zip(
             ("geometry", "raycast", "softshadows", "visibility",
-             "irradiance_lookup", "radiance_lookup"),
-            launches + (0,) + lookups[mode]))
+             "irradiance_lookup", "radiance_lookup", "shade"),
+            launches + (0,) + lookups[mode] + (1,)))
         assert torch.isfinite(img).all()
 
 
@@ -1182,7 +1184,7 @@ def test_ball_game_matches_the_cpu_and_builds_nothing_new(dev):
 
     per_frame, later = _card_and_cpu(make, dev, frames=4, between=between)
     frame = {"geometry": 2, "raycast": 0, "visibility": 0, "softshadows": 0,
-             **LOOKUPS_A_FRAME}
+             "shade": 2, **LOOKUPS_A_FRAME}
     # one capture for every live count (specialize_counts False)
     assert per_frame == [{k: 2 * v for k, v in frame.items()}] \
         + [frame] * 3, per_frame
@@ -1219,7 +1221,8 @@ def test_a_light_without_position_launches_the_march_kernels(dev,
         per_frame, _ = _card_and_cpu(
             lambda d: chip_smoke.lamp_room(np, m, 32, d, probes=TINY), dev)
     assert per_frame == [{"geometry": 0, "raycast": 3, "visibility": 3,
-                          "softshadows": 3, **LOOKUPS_A_FRAME}] * 2, per_frame
+                          "softshadows": 3, "shade": 0,
+                          **LOOKUPS_A_FRAME}] * 2, per_frame
     n_rad = TINY.num_probes * TINY.radiance_resolution ** 2
     sizes = {"R": n_rad, "8R": 8 * n_rad, "S": 32 * 32, "8S": 8 * 32 * 32}
     want = [(c.split()[0], sizes[c.split()[1]])
@@ -1261,7 +1264,7 @@ def test_path_tracers_launch_their_kernels(dev):
         got = {k: v - before[k] for k, v in _launches().items()}
         assert got == {"geometry": 0, "raycast": n, "visibility": 0,
                        "softshadows": n, "irradiance_lookup": 0,
-                       "radiance_lookup": 0}, (name, got)
+                       "radiance_lookup": 0, "shade": 0}, (name, got)
         assert out.shape == (64 * 64, 3) and bool(torch.isfinite(out).all())
     c = S.global_illumination(width=64, height=64, device="cpu")
     oc, dc = _gi_camera_rays(c, "cpu")
@@ -1668,18 +1671,20 @@ def test_recorded_frames_equal_unrecorded_frames(dev, scene):
     """The recorder (utils/profiling.py) on and off at 64²: four frames,
     each waited for, bit-equal, image and state.  On, each replay (the
     frames after the capture's) reports every pass, the write-back, one
-    ``pack`` a SceneCtx and one ``probes`` a probe lookup, each a positive
-    device time, and its replay waits on nothing (sync debug mode "error"
+    ``pack`` a SceneCtx and one more a pass for the shade kernel's light
+    table, one ``shade`` a pass and one ``probes`` a probe lookup, each a
+    positive device time, and its replay waits on nothing (sync debug mode "error"
     raises on a synchronisation).  Off,
     nothing is recorded; a frame captured off and replayed with the
     recorder on reports host spans and no device interval."""
     from madarch_tpu_torch.render import pipeline
     from madarch_tpu_torch.utils import profiling
     passes = ["pass.radiance", "pass.irradiance", "pass.screen",
-              "frame.writeback"] + ["pack"] * 2 \
+              "frame.writeback"] + ["pack"] * 4 + ["shade"] * 2 \
         + ["probes"] * sum(LOOKUPS_A_FRAME.values())
     if scene == "light_shafts":
-        passes += ["pass.visibility", "pass.scattering", "pack"]
+        passes += ["pass.visibility", "pass.scattering", "pass.composite",
+                   "pack"]
     runs, recs = [], []
     try:
         for on in (False, True):
