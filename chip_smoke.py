@@ -8,8 +8,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
 1. toolchain: the card's name and power limit (nvidia-smi), torch, CUDA
    and nvcc versions; fails without a CUDA device;
 2. builds the kernels (ops/csrc/march.cu generic and once per layout of
-   MARCH_LAYOUTS; geometry.cu once per lane count, with FMA contraction
-   and with COUNT_WORK; probes.cu; one nvcc each, started together) from
+   MARCH_LAYOUTS; geometry.cu once per lane count and with COUNT_WORK;
+   probes.cu; one nvcc each, started together) from
    the checkout and prints ptxas's register and spill lines for the
    geometry and the probe-lookup kernels;
 3. holds the geometry kernel against its plain PyTorch version
@@ -99,10 +99,6 @@ Phases, each printed on its own lines; any failure exits non-zero:
    (every super-chunk box opened, so it tests every chunk box in slot
    order) to the two-level kernel and times it between two runs of that.
 
-24. the geometry kernel built with FMA contraction on (-fmad=true, which
-   no path launches), at the six full shapes (GI, simple_scene and
-   obj_mesh, radiance and screen) and the lane count the wrapper chooses
-   there: held to the shipped build and timed against it in turns;
 25. the train step's loss gradient (parallel/spmd.py:make_value_and_grad:
    the frame rendered differentiable, the kernels under stop gradient)
    on the card and on the CPU from the same scene data and atlases, per
@@ -290,7 +286,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
 Renderer.render() runs the compiled frame on the kernel route: a scene's
 first frame runs an eager warm-up and captures the frame into a CUDA
 graph, later frames replay it, and each replay adds the captured launches
-to the wrappers' counts (ops/march.py:add_launches).  So the timed and
+to the wrappers' counts (ops/launch.py:add_launches).  So the timed and
 counted frames of phases 5, 10, 17, 23, 31 and 39 are replays; a phase
 that records the wrappers' inputs during a frame (32) renders it inside
 pipeline.eager(), and one that patches the packing (38) drops the
@@ -375,6 +371,7 @@ def port_modules():
     from madarch_tpu_torch.examples import large_scenes
     from madarch_tpu_torch.examples import scenes
     from madarch_tpu_torch.ops import build
+    from madarch_tpu_torch.ops import launch
     from madarch_tpu_torch.ops import march
     from madarch_tpu_torch.ops import probe_lookup
     from madarch_tpu_torch.ops import shade_kernel
@@ -408,7 +405,7 @@ def port_modules():
         PROBE_SHADE_CONFIG=PROBE_SHADE_CONFIG, ProbeSettings=ProbeSettings,
         ShadeConfig=ShadeConfig, VolumetricsSettings=VolumetricsSettings,
         length=length, reflect=reflect, S=scenes, build=build, M=march,
-        PL=probe_lookup, SK=shade_kernel,
+        launch=launch, PL=probe_lookup, SK=shade_kernel,
         spmd=spmd, pipeline=pipeline, lighting=lighting, PT=pathtrace,
         checkpoint=checkpoint, SceneBuilder=SceneBuilder,
         tree_leaves=tree_leaves,
@@ -441,20 +438,17 @@ def toolchain(torch, m):
 def build_all(m):
     """Builds every library this script launches at once (one nvcc each, in
     parallel): march.cu at each of MARCH_LAYOUTS; geometry.cu at each of
-    TIMED_LANES and, at the lane counts the wrapper can choose, with FMA
-    contraction and with COUNT_WORK; probes.cu."""
+    TIMED_LANES and, at the lane counts the wrapper can choose, with
+    COUNT_WORK; probes.cu."""
     M = m.M
     builds = [(f"march.cu {' '.join(M.march_defines(c))}".strip(),
                lambda c=c: M.march_library(c)) for c in MARCH_LAYOUTS]
     builds += [(f"geometry.cu {x} lanes", lambda x=x: M.geometry_library(x))
                for x in TIMED_LANES]
-    builds.append(("probes.cu", m.PL.library))
-    for x in M.LANE_CHOICES:
-        builds += [
-            (f"geometry.cu {x} lanes fmad",
-             lambda x=x: M.geometry_library(x, fmad=True)),
-            (f"geometry.cu {x} lanes COUNT_WORK",
-             lambda x=x: M.geometry_library(x, count_work=True))]
+    builds.append(("probes.cu", lambda: m.launch.library("probes")))
+    builds += [(f"geometry.cu {x} lanes COUNT_WORK",
+                lambda x=x: M.geometry_library(x, count_work=True))
+               for x in M.LANE_CHOICES]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda b: b[1](), builds))
@@ -806,15 +800,18 @@ def time_builds(torch, m, run, label, n, b_ms, card, cands, packed):
 
 
 KERNELS = ("geometry", "raycast", "visibility", "softshadows")
+# The launch counts (ops/launch.py) at the last reset_launches.
+_launch_base = {}
 
 
 def reset_launches(m):
-    for name in KERNELS:
-        getattr(m.M, name).launches = 0
+    _launch_base.update(m.M.launch_counts())
 
 
 def launch_counts(m):
-    return {name: getattr(m.M, name).launches for name in KERNELS}
+    """The march kernels' launches since the last reset_launches."""
+    now = m.M.launch_counts()
+    return {name: now[name] - _launch_base.get(name, 0) for name in KERNELS}
 
 
 def hold_golden(m, img, goldens, name, label):
@@ -1037,7 +1034,7 @@ def geometry_passes(torch, m, r, label, card):
             f"bound {b_ms:.5f} ms", card)
         geo[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
                          bound_ms=b_ms, bound_by=b_by, lanes=chosen,
-                         ms_by_lanes=by_lanes, launch=launch)
+                         ms_by_lanes=by_lanes)
     return geo, max_err
 
 
@@ -1273,7 +1270,7 @@ def mesh_phases(torch, m, dev, card):
         out[name] = dict(ms=min(k_full), sub_ms=min(k1, k2),
                          plain_ms=min(p1, p2), bound_ms=b_ms, bound_by=b_by,
                          unculled_bound_ms=u_ms, lanes=chosen,
-                         ms_by_lanes=by_lanes, launch=launch,
+                         ms_by_lanes=by_lanes,
                          plain_evals=tri_evals // n_tri,
                          pruned_box_tests=pruned["aabb"],
                          pruned_triangles=pruned["triangles"])
@@ -1350,7 +1347,7 @@ def gradient_phase(torch, m, dev, card):
         loss_d, grads_d, _ = value_and_grad(*to_device(m, dev, *args),
                                             target.to(dev))
         torch.cuda.synchronize()
-        launches = {name: getattr(m.M, name).launches for name in KERNELS}
+        launches = launch_counts(m)
         want = {name: per_step.get(name, 0) for name in KERNELS}
         names = [path for path, leaf in m.tree_items(r.scene_data)
                  if leaf.is_floating_point()]
@@ -3627,8 +3624,9 @@ def shade_phase(torch, m, dev, card):
         irr = m.probes.sample_irradiance(r.probes, irr_atlas, pos,
                                          g["normal"], vis8=g["vis8"],
                                          method="kernel")
-        rad = SH.mode2_radiance(r.probes, rad_atlas, g["refl"]["best_pid"],
-                                g["refl"]["best_dir"]) if mode2 else None
+        rad = m.probes.mode2_radiance(
+            r.probes, rad_atlas, g["refl"]["best_pid"],
+            g["refl"]["best_dir"]) if mode2 else None
         table = ctx.light_table
 
         def alone():
@@ -4043,37 +4041,11 @@ def main():
     rc_err = max(rc_err, rc_mesh)
     vis_err = max(vis_err, vis_mesh)
     sh_err = max(sh_err, sh_mesh)
-
-    # ---- 24. the geometry kernel with FMA contraction on, at the six full
-    # shapes and the lane count the wrapper chooses there: held to the
-    # shipped build (which the phases above held to the plain version) and
-    # timed against it in turns
+    # the geometry kernel's six full shapes, for the kernels line
     shapes = {f"{scene} {name}": g[name]
               for scene, g in (("GI", geo), ("simple_scene", geo_ss),
                                ("obj_mesh", mesh))
               for name in ("radiance", "screen")}
-    ab = {}
-    for label, g in shapes.items():
-        lanes = g["lanes"]
-        base_lib = M.geometry_library(lanes)
-        lib = M.geometry_library(lanes, fmad=True)
-        base, other = g["launch"](base_lib), g["launch"](lib)
-        torch.cuda.synchronize()
-        shares, errs = compare(torch, other, base)
-        del base, other
-        t_base, t_other = time_turns(
-            torch, [lambda: g["launch"](base_lib), lambda: g["launch"](lib)])
-        ok = max(shares.values()) <= DISCRETE_MAX_FRAC and max(
-            errs.values()) <= CONT_ATOL
-        print(f"variant {label}, fmad, {lanes} lanes: {t_other:.3f} ms "
-              f"against {t_base:.3f} ms; discrete mismatch "
-              f"{max(shares.values()):.3e}, max abs err "
-              f"{max(errs.values()):.3e}, "
-              f"{'within' if ok else 'BEYOND'} the limits; [{card}]")
-        ab[f"{label}, fmad, {lanes} lanes"] = dict(
-            ms=t_other, base_ms=t_base, within_limits=ok,
-            discrete=max(shares.values()), max_abs_err=max(errs.values()))
-    print(json.dumps({"kernel_variants": ab}))
 
     # ---- 25. gradients: card against CPU, per float leaf
     grads = gradient_phase(torch, m, dev, card)

@@ -94,8 +94,8 @@ SIZE = 800
 PROFILED_FRAMES = 3
 TRAIN_SIZES = (256, 512)
 TRAIN_STEPS = 5
-# The hand-written kernels: the wrapper whose .launches counts them and
-# the symbol their device events carry in a torch.profiler trace.
+# The hand-written kernels: the wrapper whose launches ops/launch.py counts
+# and the symbol their device events carry in a torch.profiler trace.
 KERNELS = {"geometry": "geometry_kernel", "raycast": "raycast_kernel",
            "visibility": "visibility_kernel",
            "softshadows": "softshadow_kernel",

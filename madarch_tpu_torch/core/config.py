@@ -1,5 +1,7 @@
 """Static configuration dataclasses (the port's own copy of what it needs
-from madarch_tpu/core/config.py: same names, fields and defaults).
+from madarch_tpu/core/config.py: same names, fields and defaults), and the
+probe grid's corner offsets, which the probe lookups and the geometry
+kernel's plain version share.
 
 Frozen and hashable, as in the JAX package, so a settings object can key a
 cache; the port reads them as plain Python values.
@@ -38,6 +40,11 @@ class ProbeSettings:
         px, py = self.probe_count
         r = self.irradiance_resolution
         return (py * r, px * r, 3)
+
+
+# The 8 probe-cell corners, bit k of the corner index selecting +1 on axis k.
+CORNER_OFFSETS = tuple(((i >> 0) & 1, (i >> 1) & 1, (i >> 2) & 1)
+                       for i in range(8))
 
 
 @dataclasses.dataclass(frozen=True)

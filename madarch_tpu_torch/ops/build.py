@@ -23,9 +23,12 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
-# sm_90a: Hopper with its architecture-specific features.
+# sm_90a: Hopper with its architecture-specific features.  FMA contraction
+# is off, so each kernel rounds operation for operation like its plain
+# PyTorch version (a*b+c as two roundings).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+              "-fmad=false")
 
 
 def nvcc_path():
@@ -36,12 +39,9 @@ def nvcc_path():
                         "bin", "nvcc")
 
 
-def _flags(defines, fmad):
-    """nvcc's flags for a build with the macros ``defines``.  Without
-    ``fmad``, FMA contraction is off, so each kernel rounds operation for
-    operation like its plain PyTorch version (a*b+c as two roundings)."""
-    return (*NVCC_FLAGS, f"-fmad={'true' if fmad else 'false'}",
-            *(f"-D{d}" for d in defines))
+def _flags(defines):
+    """nvcc's flags for a build with the macros ``defines``."""
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
 
 
 def _digest(src_path, flags):
@@ -56,26 +56,26 @@ def _digest(src_path, flags):
     return h.hexdigest()[:16]
 
 
-def library_path(name, defines=(), fmad=False):
+def library_path(name, defines=()):
     src = os.path.join(CSRC, name + ".cu")
     out_dir = os.path.join(
-        BUILD_DIR, f"{name}-{_digest(src, _flags(defines, fmad))}")
+        BUILD_DIR, f"{name}-{_digest(src, _flags(defines))}")
     return src, out_dir, os.path.join(out_dir, f"lib{name}.so")
 
 
 @functools.cache
-def load(name, defines=(), fmad=False):
+def load(name, defines=()):
     """The ctypes handle of csrc/<name>.cu built with the macros
     ``defines`` (a tuple of NAME or NAME=VALUE), compiled first if needed.
     Raises RuntimeError with nvcc's output when the build fails."""
-    src, out_dir, lib = library_path(name, defines, fmad)
+    src, out_dir, lib = library_path(name, defines)
     if not os.path.exists(lib):
         os.makedirs(out_dir, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
         start = time.perf_counter()
         proc = subprocess.run(
-            [nvcc_path(), *_flags(defines, fmad), "-o", tmp, src],
+            [nvcc_path(), *_flags(defines), "-o", tmp, src],
             capture_output=True, text=True)
         with open(os.path.join(out_dir, "build.log"), "w") as f:
             f.write(proc.stdout + proc.stderr)
@@ -99,10 +99,10 @@ load.build_s = 0.0
 _builds_lock = threading.Lock()
 
 
-def build_log(name, defines=(), fmad=False):
+def build_log(name, defines=()):
     """nvcc's output from that build of csrc/<name>.cu ('' if not built
     here)."""
-    _, out_dir, _ = library_path(name, defines, fmad)
+    _, out_dir, _ = library_path(name, defines)
     path = os.path.join(out_dir, "build.log")
     if not os.path.exists(path):
         return ""

@@ -65,11 +65,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from madarch_tpu_torch.core.config import CORNER_OFFSETS
 from madarch_tpu_torch.core.constants import cached
 from madarch_tpu_torch.core.vecmath import EPSILON, dot
-from madarch_tpu_torch.ops import build, probe_lookup, shade_kernel
+from madarch_tpu_torch.ops import launch
+# the registry's counts, read here by benchmark/program.py
+from madarch_tpu_torch.ops.launch import (add_launches,  # noqa: F401
+                                          launch_counts)
 from madarch_tpu_torch.render import raymarch as rm
-from madarch_tpu_torch.render.probes import CORNER_OFFSETS
 from madarch_tpu_torch.scene import primitives as P
 
 MAX_AO_STEPS = 8
@@ -972,23 +975,12 @@ class _GeomArgs(ctypes.Structure):
     ]
 
 
-def geometry_library(lanes=1, count_work=False, fmad=False):
+def geometry_library(lanes=1, count_work=False):
     """The geometry kernel's library built for ``lanes`` lanes per ray;
-    ``count_work`` (the kernel sums its own work) and ``fmad`` (FMA
-    contraction on) select measurement builds that no path of the package
-    launches."""
-    defines = (f"LANES={lanes}",) + (("COUNT_WORK",) if count_work else ())
-    lib = build.load("geometry", defines, fmad)
-    lib.madarch_geometry.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                     ctypes.c_void_p]
-    lib.madarch_geometry.restype = ctypes.c_int
-    return _with_optin_query(lib)
-
-
-def _with_optin_query(lib):
-    lib.madarch_smem_optin.argtypes = [ctypes.c_int]
-    lib.madarch_smem_optin.restype = ctypes.c_int
-    return lib
+    ``count_work`` (the kernel sums its own work) selects a measurement
+    build that no path of the package launches."""
+    return launch.library("geometry", (f"LANES={lanes}",) + (
+        ("COUNT_WORK",) if count_work else ()))
 
 
 def _stop_gradient(*xs):
@@ -998,34 +990,26 @@ def _stop_gradient(*xs):
                  for x in xs)
 
 
-def _check(name, x, device, dtype, shape):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _check_scene(packed, dev):
-    _check("packed.rows", packed.rows, dev, torch.float32,
-           (sum(packed.counts) + packed.counts[2], 4))
-    _check("packed.info", packed.info, dev, torch.int32,
-           (packed.n_slots + packed.n_chunks * CHUNK, 2))
-    _check("packed.chunks", packed.chunks, dev, torch.float32,
-           (packed.n_chunks, TRI_ROWS, CHUNK, 4))
-    _check("packed.aabbs", packed.aabbs, dev, torch.float32,
-           (1 + packed.n_supers + packed.n_chunks if packed.n_chunks else 0,
-            8))
-    _check("packed.cap_boxes", packed.cap_boxes, dev, torch.float32,
-           (packed.cap_boxes.shape[0], 6))
+def _check_scene(packed, dev, inputs=()):
+    """launch.check of a launch's ``inputs`` and the packed scene's tables
+    on ``dev``, then of the tables' alignment."""
+    f32 = torch.float32
+    n_boxes = 1 + packed.n_supers + packed.n_chunks if packed.n_chunks else 0
+    launch.check([
+        *inputs,
+        ("packed.rows", packed.rows, f32,
+         (sum(packed.counts) + packed.counts[2], 4)),
+        ("packed.info", packed.info, torch.int32,
+         (packed.n_slots + packed.n_chunks * CHUNK, 2)),
+        ("packed.chunks", packed.chunks, f32,
+         (packed.n_chunks, TRI_ROWS, CHUNK, 4)),
+        ("packed.aabbs", packed.aabbs, f32, (n_boxes, 8)),
+        ("packed.cap_boxes", packed.cap_boxes, f32,
+         (packed.cap_boxes.shape[0], 6))], dev)
     # the kernels read these tables as float4 and int2
     for name, align in (("rows", 16), ("chunks", 16), ("aabbs", 16),
                         ("info", 8)):
@@ -1160,15 +1144,15 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
         origins, dirs, enabled, lpos, mat_rough_vec)
     dev = origins.device
     n = origins.shape[0]
-    _check("origins", origins, dev, torch.float32, (n, 3))
-    _check("dirs", dirs, dev, torch.float32, (n, 3))
+    f32 = torch.float32
+    inputs = [("origins", origins, f32, (n, 3)), ("dirs", dirs, f32, (n, 3)),
+              ("lpos", lpos, f32, (3 * n_lights,))]
     if enabled is not None:
-        _check("enabled", enabled, dev, torch.bool, (n,))
-    _check_scene(packed, dev)
-    _check("lpos", lpos, dev, torch.float32, (3 * n_lights,))
+        inputs.append(("enabled", enabled, torch.bool, (n,)))
     if mat_rough_vec is not None:
-        _check("mat_rough_vec", mat_rough_vec, dev, torch.float32,
-               (mat_rough_vec.shape[0],))
+        inputs.append(("mat_rough_vec", mat_rough_vec, f32,
+                       (mat_rough_vec.shape[0],)))
+    _check_scene(packed, dev, inputs)
     if not 0 <= ao_steps <= MAX_AO_STEPS:
         raise ValueError(f"ao_steps must be in [0, {MAX_AO_STEPS}]")
     _check_placement(placement)
@@ -1187,7 +1171,7 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
     if dev.type != "cuda":
         raise ValueError(f"geometry runs on cpu or cuda, not {dev}")
     if work is not None:
-        _check("work", work, dev, torch.int64, (3,))
+        launch.check([("work", work, torch.int64, (3,))], dev)
     if library is None:
         library = geometry_library(geometry_lanes(packed, n))
     return _launch(library, work, placement, packed, lpos, n_lights,
@@ -1247,13 +1231,8 @@ def _launch(lib, work, placement, packed, lpos, n_lights, origins, dirs,
         r_vis8=_ptr(r_out.get("vis8")),
         best_pid=_ptr(r_out.get("best_pid")),
         best_dir=_ptr(r_out.get("best_dir")))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.madarch_geometry(ctypes.addressof(args), int(refl),
-                                   stream)
-    if err != 0:
-        raise RuntimeError(f"geometry kernel launch failed: cudaError {err}")
-    geometry.launches += 1
+    launch.run(lib.madarch_geometry, args, dev, int(refl))
+    launch.record("geometry")
 
     out["hit"] = out["hit"] > 0.5
     out["refl"] = None
@@ -1293,12 +1272,7 @@ def march_library(counts=None):
     generic, or with ``counts`` (spheres, planes, boxes: a march_layout)
     the build for that scene layout, whose slot loops unroll whole
     (csrc/scene.cuh)."""
-    lib = build.load("march", march_defines(counts))
-    for fn in (lib.madarch_raycast, lib.madarch_visibility,
-               lib.madarch_softshadows):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return _with_optin_query(lib)
+    return launch.library("march", march_defines(counts))
 
 
 # A scene without triangles whose typed runs fill at most this many float4
@@ -1320,18 +1294,21 @@ def march_layout(packed):
     return tuple(packed.counts)
 
 
-def _check_rays(packed, origins, dirs, enabled, placement=None):
+def _check_rays(packed, origins, dirs, enabled, placement=None, dists=()):
     """Checks the arguments the raycast, visibility and softshadow wrappers
-    share and returns the enable mask as a bool[N] tensor."""
+    share and one's f32[N] ``dists``, (name, tensor) pairs, and returns
+    the enable mask as a bool[N] tensor."""
     dev = origins.device
     n = origins.shape[0]
-    _check("origins", origins, dev, torch.float32, (n, 3))
-    _check("dirs", dirs, dev, torch.float32, (n, 3))
-    _check_scene(packed, dev)
+    inputs = [("origins", origins, torch.float32, (n, 3)),
+              ("dirs", dirs, torch.float32, (n, 3)),
+              *((name, x, torch.float32, (n,)) for name, x in dists)]
+    if enabled is not None:
+        inputs.append(("enabled", enabled, torch.bool, (n,)))
+    _check_scene(packed, dev, inputs)
     _check_placement(placement)
     if enabled is None:
         return torch.ones(n, dtype=torch.bool, device=dev)
-    _check("enabled", enabled, dev, torch.bool, (n,))
     return enabled
 
 
@@ -1346,11 +1323,7 @@ def _launch_march(lib, kernel, placement, packed, origins, dirs, enabled,
     args = _MarchArgs(scene=scene, origins=_ptr(origins), dirs=_ptr(dirs),
                       enabled=_ptr(enabled), n=origins.shape[0],
                       omega=omega, one_minus_omega=1.0 - omega, **fields)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ctypes.addressof(args), stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
+    launch.run(fn, args, dev)
 
 
 def raycast(packed, origins, dirs, max_dist, *, eps=EPSILON, max_steps=300,
@@ -1376,7 +1349,7 @@ def raycast(packed, origins, dirs, max_dist, *, eps=EPSILON, max_steps=300,
         raise ValueError(f"raycast runs on cpu or cuda, not {dev}")
     t, hit = _raycast(march_library(march_layout(packed)), packed, origins,
                       dirs, max_dist, en, placement=placement, **kwargs)
-    raycast.launches += 1
+    launch.record("raycast")
     return t, hit, origins + t[:, None] * dirs
 
 
@@ -1407,9 +1380,8 @@ def visibility(packed, origins, dirs, max_dists, *, eps=EPSILON,
     if not box_cap:
         packed = without_box_cap(packed)
     dev = origins.device
-    n = origins.shape[0]
-    en = _check_rays(packed, origins, dirs, enabled, placement)
-    _check("max_dists", max_dists, dev, torch.float32, (n,))
+    en = _check_rays(packed, origins, dirs, enabled, placement,
+                     [("max_dists", max_dists)])
     kwargs = dict(eps=eps, max_steps=max_steps, omega=omega)
     if dev.type == "cpu":
         return visibility_reference(packed, origins, dirs, max_dists,
@@ -1418,7 +1390,7 @@ def visibility(packed, origins, dirs, max_dists, *, eps=EPSILON,
         raise ValueError(f"visibility runs on cpu or cuda, not {dev}")
     vis = _visibility(march_library(march_layout(packed)), packed, origins,
                       dirs, max_dists, en, placement=placement, **kwargs)
-    visibility.launches += 1
+    launch.record("visibility")
     return vis
 
 
@@ -1444,10 +1416,8 @@ def softshadows(packed, origins, dirs, min_dists, max_dists, k, *,
     origins, dirs, min_dists, max_dists, enabled = _stop_gradient(
         origins, dirs, min_dists, max_dists, enabled)
     dev = origins.device
-    n = origins.shape[0]
-    en = _check_rays(packed, origins, dirs, enabled, placement)
-    _check("min_dists", min_dists, dev, torch.float32, (n,))
-    _check("max_dists", max_dists, dev, torch.float32, (n,))
+    en = _check_rays(packed, origins, dirs, enabled, placement,
+                     [("min_dists", min_dists), ("max_dists", max_dists)])
     kwargs = dict(eps=eps, max_steps=max_steps)
     if dev.type == "cpu":
         return softshadows_reference(packed, origins, dirs, min_dists,
@@ -1457,7 +1427,7 @@ def softshadows(packed, origins, dirs, min_dists, max_dists, k, *,
     res = _softshadows(march_library(march_layout(packed)), packed, origins,
                        dirs, min_dists, max_dists, k, en,
                        placement=placement, **kwargs)
-    softshadows.launches += 1
+    launch.record("softshadows")
     return res
 
 
@@ -1472,31 +1442,3 @@ def _softshadows(lib, packed, origins, dirs, min_dists, max_dists, k, en, *,
                   max_dist=VIS_CAP, cap=VIS_CAP, omega=1.0, k=k,
                   vis=_ptr(res), eps=eps, max_steps=max_steps)
     return res
-
-
-# Kernel launches since the count was last reset (the CPU path does not
-# count): lets a run show that its main path went through the kernels.
-# A frame captured into a CUDA graph (render/pipeline.py:CompiledFrame)
-# launches nothing while it is captured and takes those calls back out of
-# the count; each replay of the graph launches the captured kernels again
-# and adds them (add_launches).  The shade's probe lookups
-# (ops/probe_lookup.py) and the shade kernel (ops/shade_kernel.py) are
-# counted with them.
-geometry.launches = 0
-raycast.launches = 0
-visibility.launches = 0
-softshadows.launches = 0
-KERNEL_WRAPPERS = (geometry, raycast, visibility, softshadows,
-                   probe_lookup.irradiance_lookup,
-                   probe_lookup.radiance_lookup, shade_kernel.shade)
-
-
-def launch_counts():
-    """{wrapper name: its launch count}."""
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
-
-
-def add_launches(counts):
-    """Adds {wrapper name: launches} to the wrappers' counts."""
-    for fn in KERNEL_WRAPPERS:
-        fn.launches += counts.get(fn.__name__, 0)

@@ -5,24 +5,23 @@ notes are there).
 corner visibilities: the 8-corner trilinear, backface- and
 visibility-weighted blend of the irradiance atlas, one thread a point.
 ``radiance_lookup`` is specular mode 2's read of one probe tile of the
-radiance atlas's mip 1 (render/shading.py:sample_radiance_no_specular).
-Their plain versions are ``sample_irradiance(method="gather")`` and
-``sample_tile_bilinear``; the shade takes the kernels on a card where no
-gradient has to pass through the lookup (render/probes.py:lookup_method),
-and the dense contraction elsewhere.
+radiance atlas's mip 1 (render/probes.py:mode2_radiance).  Their plain
+versions are ``sample_irradiance(method="gather")`` and
+``sample_tile_bilinear``; render/probes.py takes the kernels on a card
+where no gradient has to pass through the lookup (``lookup_method``), and
+the dense contraction elsewhere.
 
 The wrappers run on a card only: a tensor on another device, of another
-dtype or shape, not contiguous, or one that requires grad (a ctypes launch
-would drop its gradient silently) raises; nothing falls back.
+dtype or shape, not contiguous, or one that requires grad raises
+(ops/launch.py:check); nothing falls back.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from madarch_tpu_torch.ops import build
+from madarch_tpu_torch.ops import launch
 
 
 class _IrradianceArgs(ctypes.Structure):
@@ -51,44 +50,10 @@ class _RadianceArgs(ctypes.Structure):
     ]
 
 
-@functools.cache
-def library():
-    """csrc/probes.cu built (on first use) and loaded."""
-    lib = build.load("probes")
-    for fn in (lib.madarch_irradiance_lookup, lib.madarch_radiance_lookup):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _check(name, x, device, shape):
-    if x.device.type != "cuda" or x.device != device:
-        raise ValueError(f"{name} is on {x.device}: the probe lookup "
-                         f"kernels take tensors on one card ({device})")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected float32")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if x.requires_grad:
-        raise ValueError(f"{name} requires grad: the kernel would drop its "
-                         f"gradient (take the dense lookup)")
-
-
 def _tap_bounds(res):
     """sample_tile_bilinear's clamp of the tile coordinates, half a texel
     from the border."""
     return 0.5 / res, 1.0 - 0.5 / res
-
-
-def _launch(fn, args, dev):
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ctypes.addressof(args), stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
 
 
 def irradiance_lookup(settings, atlas, pos, normal, vis8):
@@ -99,10 +64,11 @@ def irradiance_lookup(settings, atlas, pos, normal, vis8):
     n = pos.shape[0]
     res = settings.irradiance_resolution
     px, py = settings.probe_count
-    _check("pos", pos, dev, (n, 3))
-    _check("normal", normal, dev, (n, 3))
-    _check("vis8", vis8, dev, (8, n))
-    _check("atlas", atlas, dev, (py * res, px * res, 3))
+    f32 = torch.float32
+    launch.check([("pos", pos, f32, (n, 3)), ("normal", normal, f32, (n, 3)),
+                  ("vis8", vis8, f32, (8, n)),
+                  ("atlas", atlas, f32, (py * res, px * res, 3))], dev,
+                 card=True)
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     sx, sy, sz = settings.grid_spacing
     dx, dy, dz = settings.grid_dimensions
@@ -111,8 +77,8 @@ def irradiance_lookup(settings, atlas, pos, normal, vis8):
         pos=pos.data_ptr(), normal=normal.data_ptr(), vis8=vis8.data_ptr(),
         atlas=atlas.data_ptr(), out=out.data_ptr(), n=n, spx=sx, spy=sy,
         spz=sz, dimx=dx, dimy=dy, dimz=dz, tiles_x=px, res=res, lo=lo, hi=hi)
-    _launch(library().madarch_irradiance_lookup, args, dev)
-    irradiance_lookup.launches += 1
+    launch.run(launch.library("probes").madarch_irradiance_lookup, args, dev)
+    launch.record("irradiance_lookup")
     return out
 
 
@@ -126,22 +92,17 @@ def radiance_lookup(settings, mip1, best_pid, best_dir):
     n = best_pid.shape[0]
     res = settings.radiance_resolution // 2
     px, py = settings.probe_count
-    _check("best_pid", best_pid, dev, (n,))
-    _check("best_dir", best_dir, dev, (n, 3))
-    _check("mip1", mip1, dev, (py * res, px * res, 3))
+    f32 = torch.float32
+    launch.check([("best_pid", best_pid, f32, (n,)),
+                  ("best_dir", best_dir, f32, (n, 3)),
+                  ("mip1", mip1, f32, (py * res, px * res, 3))], dev,
+                 card=True)
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     lo, hi = _tap_bounds(res)
     args = _RadianceArgs(
         best_pid=best_pid.data_ptr(), best_dir=best_dir.data_ptr(),
         atlas=mip1.data_ptr(), out=out.data_ptr(), n=n, tiles_x=px,
         n_tiles=px * py, res=res, lo=lo, hi=hi)
-    _launch(library().madarch_radiance_lookup, args, dev)
-    radiance_lookup.launches += 1
+    launch.run(launch.library("probes").madarch_radiance_lookup, args, dev)
+    launch.record("radiance_lookup")
     return out
-
-
-# Kernel launches since the count was last reset, counted as the march
-# wrappers' are (ops/march.py:add_launches: a frame captured into a CUDA
-# graph takes its capture's calls back out and adds them at each replay).
-irradiance_lookup.launches = 0
-radiance_lookup.launches = 0

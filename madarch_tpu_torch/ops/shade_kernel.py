@@ -7,7 +7,7 @@ lights: the material, every light slot's direct term, mode 2's highlight at
 the folded reflection hit, the indirect term, AO, the sky and the hit
 position, one thread a ray.  Its plain version is that chain itself
 (``shade_hits`` and the end of ``pixel_color``); the shade takes the kernel
-where ``shading.shade_method`` says so, and the chain elsewhere.
+where render/shading.py:shade_method says so, and the chain elsewhere.
 
 ``pack_lights`` packs the light table the kernel reads: LIGHT_FLOATS floats
 a slot in ``spec.light_bounds()`` order (the geometry kernel's shadow
@@ -15,19 +15,18 @@ order), built on the device from the scene data, so a frame captured into
 a CUDA graph packs it from its input buffers.
 
 The wrapper runs on a card only: a tensor of another dtype or shape, not
-contiguous, one that requires grad (a ctypes launch would drop its gradient
-silently) or one on another device raises; nothing falls back.
+contiguous, one that requires grad or one on another device raises
+(ops/launch.py:check); nothing falls back.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from madarch_tpu_torch.core.vecmath import EPSILON, PI
-from madarch_tpu_torch.ops import build
+from madarch_tpu_torch.ops import launch
 from madarch_tpu_torch.scene.lights import PointLight, SpotLight
 
 # Floats a light slot takes in the table: type, live, position (3), colour
@@ -51,15 +50,6 @@ class _ShadeArgs(ctypes.Structure):
         *((name, ctypes.c_float) for name in (
             "max_dist", "surf_off", "ndotl_min", "pi", "inv_pi")),
     ]
-
-
-@functools.cache
-def library():
-    """csrc/shade.cu built (on first use) and loaded."""
-    lib = build.load("shade")
-    lib.madarch_shade.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.madarch_shade.restype = ctypes.c_int
-    return lib
 
 
 def kernel_lights(spec) -> bool:
@@ -98,25 +88,6 @@ def pack_lights(spec, data):
         return torch.zeros((0, LIGHT_FLOATS), dtype=torch.float32,
                            device=dev)
     return torch.cat(rows).contiguous()
-
-
-def _check_form(name, x, dtype, shape):
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if x.requires_grad:
-        raise ValueError(f"{name} requires grad: the kernel would drop its "
-                         f"gradient (take the plain shade)")
-
-
-def _check_device(name, x, device):
-    if x.device.type != "cuda" or x.device != device:
-        raise ValueError(f"{name} is on {x.device}: the shade kernel takes "
-                         f"tensors on one card ({device})")
 
 
 # PyTorch divides a card's tensor by a Python number as a product with the
@@ -167,10 +138,7 @@ def shade(lights, materials, origins, dirs, geom, irradiance, radiance=None,
                              "(geom['refl']) and the radiance lookup")
         inputs += geometry_inputs("r_", geom["refl"]) + [
             ("radiance", radiance, f32, (n, 3))]
-    for name, x, dtype, shape in inputs:
-        _check_form(name, x, dtype, shape)
-    for name, x, _, _ in inputs:
-        _check_device(name, x, dev)
+    launch.check(inputs, dev, card=True)
     if m == 0:
         raise ValueError("the scene has no material")
 
@@ -183,16 +151,6 @@ def shade(lights, materials, origins, dirs, geom, irradiance, radiance=None,
         direct_specular=int(direct_specular),
         add_indirect_specular=int(add_indirect_specular), max_dist=max_dist,
         surf_off=surface_offset, ndotl_min=EPSILON, pi=_PI, inv_pi=_INV_PI)
-    fn = library().madarch_shade
-    with torch.cuda.device(dev):
-        err = fn(ctypes.addressof(args),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"madarch_shade launch failed: cudaError {err}")
-    shade.launches += 1
+    launch.run(launch.library("shade").madarch_shade, args, dev)
+    launch.record("shade")
     return color, hit_pos
-
-
-# Kernel launches since the count was last reset, counted with the march
-# wrappers' (ops/march.py:KERNEL_WRAPPERS).
-shade.launches = 0

@@ -43,7 +43,7 @@ from madarch_tpu_torch.core.config import (PROBE_SHADE_CONFIG,
                                            ProbeSettings, ShadeConfig,
                                            VolumetricsSettings,
                                            screen_shade_config)
-from madarch_tpu_torch.ops import march as march_ops
+from madarch_tpu_torch.ops import launch
 from madarch_tpu_torch.render import probes as probes_mod
 from madarch_tpu_torch.render import volumetrics as vol_mod
 from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
@@ -332,7 +332,7 @@ class Captured:
         with profiling.span("frame.replay"):
             self.graph.replay()
         profiling.after_replay(self._events)
-        march_ops.add_launches(self.launches)
+        launch.add_launches(self.launches)
         return self._out
 
     def _capture(self):
@@ -346,7 +346,7 @@ class Captured:
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
         self.warmup_s = time.perf_counter() - t0
-        before = march_ops.launch_counts()
+        before = launch.launch_counts()
         graph = torch.cuda.CUDAGraph()
         # A graph the cyclic garbage collector destroys while this one is
         # captured invalidates the capture: collect first, then hold it off
@@ -364,9 +364,8 @@ class Captured:
             if collecting:
                 gc.enable()
             # the capture launched nothing
-            after = march_ops.launch_counts()
-            march_ops.add_launches({k: before[k] - after[k]
-                                    for k in after})
+            after = launch.launch_counts()
+            launch.add_launches({k: before[k] - after[k] for k in after})
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.launches = {k: after[k] - before[k] for k in after}

@@ -1,15 +1,15 @@
 """DDGI irradiance probes: octahedral atlases, sampling, integration
 (port of madarch_tpu/render/probes.py).
 
-Atlases are f32[H, W, 3] tensors.  The shade's lookups take one of two
+Atlases are f32[H, W, 3] tensors.  The shade's two lookups,
+``sample_irradiance`` and mode 2's ``mode2_radiance``, each take one of two
 routes (``lookup_method``).  On a card, where no gradient has to pass
 through them, a CUDA kernel gathers the taps each point needs
-(ops/probe_lookup.py; ``sample_irradiance(method="kernel")``).  Elsewhere
-(the CPU, the train step's differentiable lookups) atlas sampling is the
-JAX package's dense contraction against every probe tile (a bilinear lookup
-is a [res²] weight vector with 4 nonzeros), so a batch of lookups is one
-[N, res²] × [res², P·3] matmul followed by a per-probe one-hot combine.
-Float32 throughout.
+(ops/probe_lookup.py).  Elsewhere (the CPU, the train step's
+differentiable lookups) atlas sampling is the JAX package's dense
+contraction against every probe tile (a bilinear lookup is a [res²] weight
+vector with 4 nonzeros), so a batch of lookups is one [N, res²] × [res²,
+P·3] matmul followed by a per-probe one-hot combine.  Float32 throughout.
 """
 from __future__ import annotations
 
@@ -18,17 +18,13 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from madarch_tpu_torch.core.config import ProbeSettings
+from madarch_tpu_torch.core.config import CORNER_OFFSETS, ProbeSettings
 from madarch_tpu_torch.core.constants import cached, constant
 from madarch_tpu_torch.core.vecmath import (absolute, dot, length, mix,
                                             sign_not_zero)
-from madarch_tpu_torch.ops import probe_lookup
+from madarch_tpu_torch.ops import launch, probe_lookup
 from madarch_tpu_torch.render.raymarch import MAX_STEPS, SURFACE_OFFSET
 from madarch_tpu_torch.utils import profiling
-
-# The 8 probe-cell corners, bit k of the corner index selecting +1 on axis k.
-CORNER_OFFSETS = tuple(((i >> 0) & 1, (i >> 1) & 1, (i >> 2) & 1)
-                       for i in range(8))
 
 
 # ---------------------------------------------------------------------------
@@ -332,12 +328,11 @@ def corner_visibility(ctx, p, normal, dir_to_probe, probe_dist, *,
 def lookup_method(n, atlas, *inputs):
     """The route of a probe lookup of n points over ``atlas`` and its
     per-point ``inputs`` (None: a constant made inside the lookup):
-    "kernel" (ops/probe_lookup.py) where they lie on a card and no
-    gradient has to pass through the lookup, else "matmul", the dense
-    contraction, differentiable and on either device.  Records n under the
-    counter probe_lookups.kernel or .dense."""
-    kernel = atlas.is_cuda and not (torch.is_grad_enabled() and any(
-        x is not None and x.requires_grad for x in (atlas, *inputs)))
+    "kernel" (ops/probe_lookup.py) where ops/launch.py:takes them (they
+    lie on a card and no gradient has to pass through the lookup), else
+    "matmul", the dense contraction, differentiable and on either device.
+    Records n under the counter probe_lookups.kernel or .dense."""
+    kernel = launch.takes(atlas, *inputs)
     profiling.count("probe_lookups.kernel" if kernel
                     else "probe_lookups.dense", n)
     return "kernel" if kernel else "matmul"
@@ -345,19 +340,20 @@ def lookup_method(n, atlas, *inputs):
 
 def sample_irradiance(settings: ProbeSettings, irr_atlas, pos, normal, *,
                       vis8=None, ctx=None, enabled=None,
-                      max_steps=MAX_STEPS, method="matmul"):
+                      max_steps=MAX_STEPS, method=None):
     """8-corner trilinear, backface- and visibility-weighted probe lookup.
     pos/normal f32[N,3]; ``vis8`` f32[8,N] is the geometry kernel's probe
     visibility; without it the corners' visibility is marched through
     ``ctx`` (corner_visibility) where ``enabled`` (optional bool[N]) holds.
     Returns f32[N,3] irradiance (sqrt-encoded blend, then squared).
-    ``method``: 'kernel' runs the CUDA kernel of ops/probe_lookup.py (a
-    card only, no gradient), the shade's route on a card (lookup_method);
-    'matmul' contracts every tile's sample against the corner weights, the
-    shade's route elsewhere; 'gather' fetches each corner's tile
-    bilinearly, the reference's texture fetch and the kernel's plain
-    version.  The lookup (not the visibility marches) is the device
-    interval ``probes``."""
+    ``method``: None takes lookup_method's route; 'kernel' runs the CUDA
+    kernel of ops/probe_lookup.py (a card only, no gradient); 'matmul'
+    contracts every tile's sample against the corner weights; 'gather'
+    fetches each corner's tile bilinearly, the reference's texture fetch
+    and the kernel's plain version.  The lookup (not the visibility
+    marches) is the device interval ``probes``."""
+    if method is None:
+        method = lookup_method(pos.shape[0], irr_atlas, pos, normal, vis8)
     ir = settings.irradiance_resolution
     if vis8 is None or method != "kernel":
         offseted, probe_world, alpha = probe_corners(settings, pos)
@@ -408,3 +404,25 @@ def sample_irradiance(settings: ProbeSettings, irr_atlas, pos, normal, *,
         else:
             raise ValueError(f"unknown method {method!r}")
         return irr * irr
+
+
+def mode2_radiance(settings, rad_atlas, best_pid, best_dir):
+    """Specular mode 2's radiance f32[N,3]: the tile ``best_pid`` (f32[N])
+    of the radiance atlas's mip 1 read at dir_to_ray_id(best_dir), by the
+    kernel of ops/probe_lookup.py or the dense one-hot (lookup_method), in
+    the device interval ``probes``."""
+    n_pts = best_pid.shape[0]
+    with profiling.device_span("probes", best_pid.device):
+        mip1 = radiance_mip1(settings, rad_atlas)
+        if lookup_method(n_pts, mip1, best_pid, best_dir) == "kernel":
+            return probe_lookup.radiance_lookup(
+                settings, mip1, best_pid.contiguous(), best_dir.contiguous())
+        px_c, py_c = settings.probe_count
+        vals_all = sample_all_tiles_bilinear(
+            settings, mip1, dir_to_ray_id(best_dir),
+            settings.radiance_resolution // 2)
+        return probe_one_hot_combine(
+            px_c * py_c, best_pid.to(torch.int32)[None],
+            torch.ones((1, n_pts), dtype=torch.float32,
+                       device=best_pid.device),
+            vals_all)

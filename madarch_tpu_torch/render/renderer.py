@@ -131,11 +131,11 @@ class Renderer:
 
     @property
     def compiled(self) -> bool:
-        """Whether render() runs the compiled frame: the kernel route,
-        decided by the spec's types alone (ops/march.py:kernel_scene) and
-        left only inside pipeline.eager().  The generic route, whose plain
-        marches wait on the device at every step, renders eagerly."""
-        return kernel_scene(self.spec)
+        """Whether render() runs the compiled frame: on the kernel route,
+        decided by the spec's types alone (ops/march.py:kernel_scene),
+        outside pipeline.eager().  The generic route, whose plain marches
+        wait on the device at every step, renders eagerly."""
+        return kernel_scene(self.spec) and not eager_active()
 
     @property
     def scene_data(self):
@@ -191,7 +191,7 @@ class Renderer:
             kwargs = dict(screen_cfg=self.screen_cfg,
                           probe_cfg=self.probe_cfg)
             with torch.no_grad():
-                if kernel_scene(spec) and not eager_active():
+                if self.compiled:
                     self.frame = compiled_frame(*args, **kwargs)
                     image, self.state = self.frame(*args[5:])
                 else:

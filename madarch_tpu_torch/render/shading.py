@@ -5,13 +5,11 @@ Where the geometry kernel serves the scene (``SceneCtx.fused_available``),
 one launch per ray batch returns hit distance, material, FD normal, AO,
 per-light penumbra factors and the 8 probe-visibility bits (and, for mode
 2, the folded reflection bounce with its best-probe pick); PyTorch then
-does materials and BRDF, and the probe lookups take the kernels of
-ops/probe_lookup.py on a card where no gradient passes through them, the
-dense atlas contractions elsewhere (render/probes.py:lookup_method).  On a
-card where no gradient passes, in specular modes 0 and 2 with point and
-spot lights, the shade after the lookups is one launch of the shade
-kernel (ops/shade_kernel.py; ``shade_method`` picks the route), whose
-plain version is the chain below.
+does materials and BRDF, and the probe lookups (render/probes.py) pick
+their own routes.  On a card where no gradient passes, in specular modes 0
+and 2 with point and spot lights, the shade after the lookups is one
+launch of the shade kernel (ops/shade_kernel.py; ``shade_method`` picks
+the route), whose plain version is the chain below.
 Mode 1 marches its reflection rays through the raycast kernel and its 8
 probe penumbras per point through the softshadow kernel; mode 3 shades
 the reflection hit from a second, masked geometry launch without AO.
@@ -44,7 +42,7 @@ import torch
 from madarch_tpu_torch.core.config import ProbeSettings, ShadeConfig
 from madarch_tpu_torch.core.constants import constant
 from madarch_tpu_torch.core.vecmath import dot, reflect
-from madarch_tpu_torch.ops import probe_lookup, shade_kernel
+from madarch_tpu_torch.ops import launch, shade_kernel
 from madarch_tpu_torch.render import probes as probes_mod
 from madarch_tpu_torch.render.context import SceneCtx
 from madarch_tpu_torch.render.lighting import (direct_lighting,
@@ -109,9 +107,7 @@ def shade_hits(spec, data, probe_settings, cfg, ctx, irr_atlas, rad_atlas,
 
     irradiance = probes_mod.sample_irradiance(
         probe_settings, irr_atlas, pos, normal, vis8=vis8, ctx=ctx,
-        enabled=hit, max_steps=cfg.max_march_steps,
-        method=probes_mod.lookup_method(pos.shape[0], irr_atlas, pos,
-                                        normal, vis8))
+        enabled=hit, max_steps=cfg.max_march_steps)
 
     specular_dir = reflect(dirs, normal)
     specular_col = torch.zeros_like(pos)
@@ -176,29 +172,6 @@ def _reflection_geometry(spec, data, probe_settings, cfg, ctx, from_,
     return hit, spec_pos, s_normal, s_mid, vis, None
 
 
-def mode2_radiance(settings, rad_atlas, best_pid, best_dir):
-    """Specular mode 2's radiance f32[N,3]: the tile ``best_pid`` of the
-    radiance atlas's mip 1 read at dir_to_ray_id(best_dir), by the kernel
-    of ops/probe_lookup.py or the dense one-hot (lookup_method), in the
-    device interval ``probes``."""
-    n_pts = best_pid.shape[0]
-    with profiling.device_span("probes", best_pid.device):
-        mip1 = probes_mod.radiance_mip1(settings, rad_atlas)
-        if probes_mod.lookup_method(n_pts, mip1, best_pid,
-                                    best_dir) == "kernel":
-            return probe_lookup.radiance_lookup(
-                settings, mip1, best_pid.contiguous(), best_dir.contiguous())
-        rad_ray_id = probes_mod.dir_to_ray_id(best_dir)
-        px_c, py_c = settings.probe_count
-        vals_all = probes_mod.sample_all_tiles_bilinear(
-            settings, mip1, rad_ray_id, settings.radiance_resolution // 2)
-        return probes_mod.probe_one_hot_combine(
-            px_c * py_c, best_pid.to(torch.int32)[None],
-            torch.ones((1, n_pts), dtype=torch.float32,
-                       device=best_pid.device),
-            vals_all)
-
-
 def sample_radiance_no_specular(spec, data, probe_settings, cfg, ctx,
                                 rad_atlas, pos, normal, spec_dir, *, enabled,
                                 refl=None):
@@ -234,7 +207,8 @@ def sample_radiance_no_specular(spec, data, probe_settings, cfg, ctx,
         best_pid = probes_mod.grid_position_to_probe_id(
             settings, offseted[best, rows]).to(torch.float32)
 
-    radiance = mode2_radiance(settings, rad_atlas, best_pid, best_dir)
+    radiance = probes_mod.mode2_radiance(settings, rad_atlas, best_pid,
+                                         best_dir)
 
     if cfg.add_indirect_specular:
         if refl is not None and cfg.differentiable:
@@ -335,9 +309,7 @@ def compute_indirect_specular(spec, data, probe_settings, cfg, ctx,
         max_steps=cfg.max_march_steps)
     irradiance = probes_mod.sample_irradiance(
         probe_settings, irr_atlas, spec_pos, s_normal, vis8=vis, ctx=ctx,
-        enabled=enabled & hit, max_steps=cfg.max_march_steps,
-        method=probes_mod.lookup_method(spec_pos.shape[0], irr_atlas,
-                                        spec_pos, s_normal, vis))
+        enabled=enabled & hit, max_steps=cfg.max_march_steps)
     sec_spec_dir = reflect(spec_dir, s_normal)
     indirect = indirect_lighting(
         irradiance, torch.zeros_like(spec_pos), -spec_dir, s_normal,
@@ -351,20 +323,20 @@ def shade_method(spec, data, cfg, geom, origins, dirs, irr_atlas,
     """The route of pixel_color's shade of the rays origins/dirs after
     their geometry ``geom`` (the geometry kernel's outputs, or None):
     "kernel" (ops/shade_kernel.py) where the geometry kernel served them,
-    they lie on a card, no gradient has to pass (no input, material or
-    light requires grad while grad is enabled, and ``cfg`` is not
-    differentiable: its normals are the autodiff ones), the specular mode
+    ops/launch.py:takes them (they lie on a card, and no input, material
+    or light requires grad while grad is enabled), ``cfg`` is not
+    differentiable (its normals are the autodiff ones), the specular mode
     is 0 or 2 and every light type is the built-in point or spot light;
     else "plain", the chain of shade_hits, differentiable and on either
     device.  Records the rays under the counter shade.kernel or
     shade.plain."""
-    leaves = (origins, dirs, irr_atlas, rad_atlas,
-              *tree_leaves(data.materials), *tree_leaves(data.lights))
-    kernel = (geom is not None and origins.is_cuda and not cfg.differentiable
+    kernel = (geom is not None
+              and launch.takes(origins, dirs, irr_atlas, rad_atlas,
+                               *tree_leaves(data.materials),
+                               *tree_leaves(data.lights))
+              and not cfg.differentiable
               and cfg.indirect_specular_mode in (0, 2)
-              and shade_kernel.kernel_lights(spec)
-              and not (torch.is_grad_enabled()
-                       and any(x.requires_grad for x in leaves)))
+              and shade_kernel.kernel_lights(spec))
     profiling.count("shade.kernel" if kernel else "shade.plain",
                     origins.shape[0])
     return "kernel" if kernel else "plain"
@@ -377,15 +349,13 @@ def _shade_kernel(spec, data, probe_settings, cfg, ctx, irr_atlas, rad_atlas,
     is the device interval ``shade``."""
     pos = origins + geom["t"][:, None] * dirs
     normal, vis8 = geom["normal"], geom["vis8"]
-    irradiance = probes_mod.sample_irradiance(
-        probe_settings, irr_atlas, pos, normal, vis8=vis8,
-        method=probes_mod.lookup_method(pos.shape[0], irr_atlas, pos, normal,
-                                        vis8))
+    irradiance = probes_mod.sample_irradiance(probe_settings, irr_atlas, pos,
+                                              normal, vis8=vis8)
     radiance = None
     if cfg.indirect_specular_mode == 2:
         refl = geom["refl"]
-        radiance = mode2_radiance(probe_settings, rad_atlas,
-                                  refl["best_pid"], refl["best_dir"])
+        radiance = probes_mod.mode2_radiance(
+            probe_settings, rad_atlas, refl["best_pid"], refl["best_dir"])
     with profiling.device_span("shade", origins.device):
         return shade_kernel.shade(
             ctx.light_table, data.materials, origins.contiguous(),

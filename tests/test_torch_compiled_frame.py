@@ -258,7 +258,7 @@ def test_eager_keeps_a_kernel_scene_eager_and_render_has_no_gradient():
     r = scene("simple_scene")
     captures = TPL.CompiledFrame.captures
     with TPL.eager():
-        assert TPL.eager_active()
+        assert TPL.eager_active() and not r.compiled
         img = r.render()
     assert not TPL.eager_active()
     assert r.frame is None and TPL.CompiledFrame.captures == captures

@@ -131,11 +131,11 @@ def _both(spec, data, o, d, refl, ao_steps, grid, lanes=None, enabled=None,
               surface_offset=SURFACE_OFFSET, ao_steps=ao_steps,
               mat_rough_vec=data.materials["roughness"] if refl else None,
               enabled=enabled, **flags)
-    before = M.geometry.launches
+    before = M.launch_counts()["geometry"]
     k = M.geometry(packed, lpos, n_lights, o, d, spec.max_dist,
                    library=lanes and M.geometry_library(lanes), **kw)
     torch.cuda.synchronize()
-    assert M.geometry.launches == before + 1
+    assert M.launch_counts()["geometry"] == before + 1
     r = M.geometry_reference(packed, lpos, n_lights, o, d, spec.max_dist,
                              **kw)
     return k, r
@@ -217,10 +217,10 @@ def _light_shafts_rays(dev, n=8192):
 
 
 def _check_raycast(packed, o, d, max_dist, en):
-    before = M.raycast.launches
+    before = M.launch_counts()["raycast"]
     kt, khit, kpos = M.raycast(packed, o, d, max_dist, enabled=en)
     torch.cuda.synchronize()
-    assert M.raycast.launches == before + 1
+    assert M.launch_counts()["raycast"] == before + 1
     rt, rhit, rpos = M.raycast_reference(packed, o, d, max_dist, enabled=en)
     assert torch.equal(khit, rhit)
     torch.testing.assert_close(kt, rt, rtol=1e-5, atol=1e-5)
@@ -229,10 +229,10 @@ def _check_raycast(packed, o, d, max_dist, en):
 
 
 def _check_visibility(packed, o, d, mx, en):
-    before = M.visibility.launches
+    before = M.launch_counts()["visibility"]
     kv = M.visibility(packed, o, d, mx, enabled=en)
     torch.cuda.synchronize()
-    assert M.visibility.launches == before + 1
+    assert M.launch_counts()["visibility"] == before + 1
     rv = M.visibility_reference(packed, o, d, mx, enabled=en)
     assert torch.equal(kv, rv)
     return rv
@@ -307,12 +307,12 @@ def _reflection_rays(r, dev, n=4096):
 
 
 def _check_softshadows(packed, rays, k):
-    before = M.softshadows.launches
+    before = M.launch_counts()["softshadows"]
     args = (packed, rays["origins"], rays["dirs"], rays["min_dists"],
             rays["max_dists"], k)
     ks = M.softshadows(*args, enabled=rays["enabled"])
     torch.cuda.synchronize()
-    assert M.softshadows.launches == before + 1
+    assert M.launch_counts()["softshadows"] == before + 1
     rs = M.softshadows_reference(*args, enabled=rays["enabled"])
     assert torch.equal(ks == 0, rs == 0)
     torch.testing.assert_close(ks, rs, rtol=0, atol=1e-5)
@@ -398,10 +398,10 @@ def test_masked_geometry_matches_plain_on_gi_reflections(dev):
     kw = dict(probe_spacing=r.probes.grid_spacing,
               probe_dims=r.probes.grid_dimensions,
               surface_offset=SURFACE_OFFSET, ao_steps=0, enabled=en)
-    before = M.geometry.launches
+    before = M.launch_counts()["geometry"]
     k = M.geometry(packed, lpos, n_lights, ro, rd, r.spec.max_dist, **kw)
     torch.cuda.synchronize()
-    assert M.geometry.launches == before + 1
+    assert M.launch_counts()["geometry"] == before + 1
     ref = M.geometry_reference(packed, lpos, n_lights, ro, rd,
                                r.spec.max_dist, **kw)
     _assert_match(k, ref)
@@ -427,12 +427,13 @@ def test_modes_1_and_3_launch_their_kernels(dev):
         r = S.global_illumination(
             width=64, height=64, device=dev,
             screen_cfg=ShadeConfig(indirect_specular_mode=mode))
-        fns = (M.geometry, M.raycast, M.softshadows)
+        names = ("geometry", "raycast", "softshadows")
         for frame in (2, 1):
-            before = [f.launches for f in fns]
+            before = M.launch_counts()
             img = r.render()
             torch.cuda.synchronize()
-            assert tuple(f.launches - b for f, b in zip(fns, before)) \
+            after = M.launch_counts()
+            assert tuple(after[k] - before[k] for k in names) \
                 == tuple(frame * n for n in launches)
         assert r.frame.launches == dict(zip(
             ("geometry", "raycast", "softshadows", "visibility",
@@ -570,10 +571,10 @@ def test_obj_mesh_frame_launches_the_kernel(dev):
     pipeline.clear_compiled()    # an earlier test may have this key
     r = S.obj_mesh(width=64, height=64, obj_path=S.TORUS_OBJ, device=dev)
     for frame in (2, 1):
-        before = M.geometry.launches
+        before = M.launch_counts()["geometry"]
         img = r.render()
         torch.cuda.synchronize()
-        assert M.geometry.launches - before == 2 * frame
+        assert M.launch_counts()["geometry"] - before == 2 * frame
     assert torch.isfinite(img).all() and img.var() > 0
 
 
@@ -881,11 +882,11 @@ def test_march_kernels_match_plain_in_each_build(dev, scene, n):
     80-triangle fan's generic build with chunk-pruned triangles) and, on
     the room, in the generic build; only the wrappers' launches count."""
     rays = _march_rays(scene, dev, n)
-    before = (M.raycast.launches, M.visibility.launches,
-              M.softshadows.launches)
+    before = (M.launch_counts()["raycast"], M.launch_counts()["visibility"],
+              M.launch_counts()["softshadows"])
     got = [_march_all(*rays)]
-    assert (M.raycast.launches, M.visibility.launches,
-            M.softshadows.launches) == (before[0] + 1, before[1] + 1,
+    assert (M.launch_counts()["raycast"], M.launch_counts()["visibility"],
+            M.launch_counts()["softshadows"]) == (before[0] + 1, before[1] + 1,
                                         before[2] + 2)
     if scene == "gi":
         assert M.march_layout(rays[0]) == (1, 6, 1)
@@ -1001,9 +1002,9 @@ def test_visibility_matches_plain_on_grazing_rays(dev, scene, n):
         assert bool((~en).any()) and bool((en & (mx <= 0.0)).any())
     got = []
     if scene != "padded":
-        before = M.visibility.launches
+        before = M.launch_counts()["visibility"]
         got.append(M.visibility(packed, o, d, mx, enabled=en))
-        assert M.visibility.launches == before + 1
+        assert M.launch_counts()["visibility"] == before + 1
     layout = (4, 8, 4) if scene == "padded" else None
     got.append(M._visibility(M.march_library(layout), packed, o, d, mx, en))
     torch.cuda.synchronize()
@@ -1074,10 +1075,10 @@ def test_train_step_on_the_card_matches_the_cpu(dev, mode):
     loss_c, grads_c, _ = value_and_grad(r.scene_data, r.camera, r.state,
                                         target)
     on_card = chip_smoke.to_device(m, dev, r.scene_data, r.camera, r.state)
-    before = M.geometry.launches
+    before = M.launch_counts()["geometry"]
     loss_d, grads_d, _ = value_and_grad(*on_card, target.to(dev))
     torch.cuda.synchronize()
-    assert M.geometry.launches - before == (3 if mode == 3 else 2)
+    assert M.launch_counts()["geometry"] - before == (3 if mode == 3 else 2)
     np.testing.assert_allclose(float(loss_d), float(loss_c), rtol=1e-5)
     for gd, gc in zip(grads_d, grads_c):
         assert bool(torch.isfinite(gd).all())
@@ -1464,9 +1465,9 @@ def test_every_placement_is_bit_equal_to_the_staged_launch(dev, scene,
     spec, data, probes, o, d = _placement_scene(scene, dev)
     staged = _launch_all(spec, data, probes, o, d, "staged", lanes)
     for placement in ("optin", "global"):
-        before = M.geometry.launches
+        before = M.launch_counts()["geometry"]
         got = _launch_all(spec, data, probes, o, d, placement, lanes)
-        assert M.geometry.launches == before + 1
+        assert M.launch_counts()["geometry"] == before + 1
         for name in staged:
             for a, b in zip(_flat(got[name]), _flat(staged[name]),
                             strict=True):

@@ -567,11 +567,11 @@ def test_geometry_on_cpu_runs_the_plain_version_uncounted():
     o, d = (torch.as_tensor(x) for x in _gi_rays("screen"))
     kw = dict(probe_spacing=GRID["spacing"], probe_dims=GRID["dims"],
               surface_offset=trm.SURFACE_OFFSET, ao_steps=3)
-    before = TM.geometry.launches
+    before = TM.launch_counts()["geometry"]
     a = TM.geometry(packed, lpos, n_lights, o[:32], d[:32], 20.0, **kw)
     b = TM.geometry_reference(packed, lpos, n_lights, o[:32], d[:32], 20.0,
                               **kw)
-    assert TM.geometry.launches == before
+    assert TM.launch_counts()["geometry"] == before
     for k in ("t", "hit", "idx", "mid", "normal", "ao", "shadows", "vis8"):
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
     with pytest.raises(TypeError):
@@ -726,7 +726,7 @@ def test_raycast_and_visibility_on_cpu_run_the_plain_versions_uncounted():
     en = torch.as_tensor(np.random.RandomState(52).rand(64) > 0.3)
     mx = torch.as_tensor(np.random.RandomState(53).uniform(
         -1.0, 12.0, 64).astype(np.float32))
-    before = (TM.raycast.launches, TM.visibility.launches)
+    before = TM.launch_counts()
     for a, b in zip(TM.raycast(packed, o, d, 10.0, enabled=en),
                     TM.raycast_reference(packed, o, d, 10.0, enabled=en)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
@@ -734,7 +734,7 @@ def test_raycast_and_visibility_on_cpu_run_the_plain_versions_uncounted():
         TM.visibility(packed, o, d, mx, enabled=en),
         TM.visibility_reference(packed, o, d, mx, enabled=en), rtol=0,
         atol=0)
-    assert (TM.raycast.launches, TM.visibility.launches) == before
+    assert TM.launch_counts() == before
     with pytest.raises(TypeError):
         TM.raycast(packed, o, d, 10.0, enabled=en.float())
     with pytest.raises(ValueError):

@@ -276,9 +276,9 @@ def test_visibility_on_the_cpu_is_the_plain_version(max_steps):
     d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
     mx = torch.as_tensor(rng.uniform(-1.0, 20.0, 64).astype(np.float32))
     en = torch.as_tensor(rng.rand(64) > 0.2)
-    before = TM.visibility.launches
+    before = TM.launch_counts()["visibility"]
     got = TM.visibility(packed, o, d, mx, enabled=en, max_steps=max_steps)
-    assert TM.visibility.launches == before
+    assert TM.launch_counts()["visibility"] == before
     torch.testing.assert_close(
         got, TM.visibility_reference(packed, o, d, mx, enabled=en,
                                      max_steps=max_steps), rtol=0, atol=0)

@@ -63,7 +63,8 @@ def lookups(rec, route):
 
 
 def probe_launches():
-    return (PL.irradiance_lookup.launches, PL.radiance_lookup.launches)
+    counts = M.launch_counts()
+    return (counts["irradiance_lookup"], counts["radiance_lookup"])
 
 
 # ---------------------------------------------------------------------------
@@ -147,10 +148,10 @@ def _irradiance_cases(settings, atlas, pos, normal, vis8):
 
 
 def _hold_irradiance(settings, atlas, pos, normal, vis8):
-    before = PL.irradiance_lookup.launches
+    before = M.launch_counts()["irradiance_lookup"]
     got = _irradiance_cases(settings, atlas, pos, normal, vis8)
     torch.cuda.synchronize()
-    assert PL.irradiance_lookup.launches == before + 1
+    assert M.launch_counts()["irradiance_lookup"] == before + 1
     assert bool(torch.isfinite(got["kernel"]).all())
     assert rel_gap(got["kernel"], got["gather"]) <= PLAIN_REL
     assert rel_gap(got["kernel"], got["matmul"]) <= DENSE_REL
@@ -266,10 +267,10 @@ def test_radiance_kernel_against_the_mip1_lookups(dev, seed):
     best_dir = _unit(g, n, dev)
     best_dir[2:8] = torch.cat([torch.eye(3), -torch.eye(3)]).to(dev)
     best_pid = pid.to(torch.float32)
-    before = PL.radiance_lookup.launches
+    before = M.launch_counts()["radiance_lookup"]
     got = PL.radiance_lookup(s, mip1, best_pid, best_dir)
     torch.cuda.synchronize()
-    assert PL.radiance_lookup.launches == before + 1
+    assert M.launch_counts()["radiance_lookup"] == before + 1
     ray_id = PR.dir_to_ray_id(best_dir)
     dense = PR.probe_one_hot_combine(
         px * py, pid[None], torch.ones((1, n), device=dev),

@@ -321,10 +321,10 @@ def plain_shade(r, cfg, o, d, geom, irr_atlas, rad_atlas):
 
 def kernel_shade(r, cfg, o, d, geom, irr_atlas, rad_atlas):
     ctx = SceneCtx(r.spec, r.scene_data)
-    before = SK.shade.launches
+    before = M.launch_counts()["shade"]
     out = SH._shade_kernel(r.spec, r.scene_data, r.probes, cfg, ctx,
                            irr_atlas, rad_atlas, o, d, geom)
-    assert SK.shade.launches == before + 1
+    assert M.launch_counts()["shade"] == before + 1
     return out
 
 
@@ -528,20 +528,21 @@ def test_a_card_shade_whose_position_requires_grad_is_plain(dev):
     gradient arrives; the same rays without grad take the kernel."""
     r = S.global_illumination(width=16, height=16, probes=TINY, device=dev)
     o, d = screen_rays(r, dev)
-    before = SK.shade.launches
+    before = M.launch_counts()["shade"]
     og = o.clone().requires_grad_(True)
     (color, _, _), rec = recorded(lambda: SH.pixel_color(
         r.spec, r.scene_data, r.probes, r.screen_cfg, r.state.irradiance,
         r.state.radiance, og, d))
     color.sum().backward()
-    assert counted(rec, "shade.plain") == 256 and SK.shade.launches == before
+    assert counted(rec, "shade.plain") == 256
+    assert M.launch_counts()["shade"] == before
     assert float(og.grad.abs().max()) > 0
     with torch.no_grad():
         (_, _, _), rec = recorded(lambda: SH.pixel_color(
             r.spec, r.scene_data, r.probes, r.screen_cfg,
             r.state.irradiance, r.state.radiance, o, d))
     assert counted(rec, "shade.kernel") == 256
-    assert SK.shade.launches == before + 1
+    assert M.launch_counts()["shade"] == before + 1
 
 
 @pytest.mark.cuda
@@ -549,11 +550,11 @@ def test_the_card_wrapper_refuses_another_device_and_launches_nothing(dev):
     """A CPU irradiance beside card tensors raises before the launch."""
     r, o, d, g = _gi_geometry(dev, size=16)
     ctx = SceneCtx(r.spec, r.scene_data)
-    before = SK.shade.launches
+    before = M.launch_counts()["shade"]
     n = o.shape[0]
     with pytest.raises(ValueError, match="cpu"):
         SK.shade(ctx.light_table, r.scene_data.materials, o, d, g,
                  torch.zeros((n, 3)), torch.zeros((n, 3), device=dev),
                  mode=2, direct_specular=True, add_indirect_specular=True,
                  max_dist=r.spec.max_dist, surface_offset=0.01)
-    assert SK.shade.launches == before
+    assert M.launch_counts()["shade"] == before

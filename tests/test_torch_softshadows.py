@@ -199,14 +199,14 @@ def test_softshadows_on_cpu_runs_the_plain_version_uncounted(dynamic):
     _, _, packed = dynamic
     rays = {k: torch.as_tensor(v)
             for k, v in _random_rays(75, 64, 0.5, 12.0).items()}
-    before = TM.softshadows.launches
+    before = TM.launch_counts()["softshadows"]
     args = (packed, rays["origins"], rays["dirs"], rays["min_dists"],
             rays["max_dists"], 0.5)
     torch.testing.assert_close(
         TM.softshadows(*args, enabled=rays["enabled"]),
         TM.softshadows_reference(*args, enabled=rays["enabled"]),
         rtol=0, atol=0)
-    assert TM.softshadows.launches == before
+    assert TM.launch_counts()["softshadows"] == before
     with pytest.raises(TypeError):
         TM.softshadows(*args, enabled=rays["enabled"].float())
     with pytest.raises(ValueError):
