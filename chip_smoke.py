@@ -281,7 +281,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
    chain timed in turns beside the kernel's bound in bytes; the device
    operations a replayed frame launches by both routes (torch.profiler);
    the 1000x1000 images and atlases of GI, light_shafts and the torus by
-   both routes (PROBE_IMAGE_GAP); prints a shade JSON line.
+   both routes (PROBE_IMAGE_GAP); prints a shade JSON line;
+44. the volumetric kernels (ops/volumetrics_kernel.py,
+   csrc/volumetrics.cu) on light_shafts at 1000x1000 with upstream's
+   volumetrics after 4 frames: the visibility pass (its froxel
+   in-scatter), the scattering pass (its integral) and the composite,
+   each by the kernel route and by the plain ops, held bit for bit
+   (VOL_PLAIN_REL) and timed in turns beside the kernel alone on the
+   pass's inputs and its bound in bytes; a replayed frame's device
+   operations and busy ms by both routes, each kernel launched once (the
+   in-scatter once a light slot); prints a volumetrics JSON line.
 
 Renderer.render() runs the compiled frame on the kernel route: a scene's
 first frame runs an eager warm-up and captures the frame into a CUDA
@@ -322,7 +331,8 @@ It prints a train JSON line (phases 25-27), a scenes JSON line (phases
 a geometry_flags JSON line (phase 36), a bench JSON line (phase 37), a
 box_cap JSON line (phase 38), a large_scenes JSON line (phase 39), a
 compiled JSON line (phases 40-41), a probe_lookups JSON line (phase 42), a
-shade JSON line (phase 43), a kernels JSON line, the card line, then
+shade JSON line (phase 43), a volumetrics JSON line (phase 44), a kernels
+JSON line, the card line, then
 the last line {"ok": true, "device": {...}}.  Imports no JAX.
 """
 import contextlib
@@ -375,6 +385,7 @@ def port_modules():
     from madarch_tpu_torch.ops import march
     from madarch_tpu_torch.ops import probe_lookup
     from madarch_tpu_torch.ops import shade_kernel
+    from madarch_tpu_torch.ops import volumetrics_kernel
     from madarch_tpu_torch.parallel import spmd
     from madarch_tpu_torch.render import pipeline
     from madarch_tpu_torch.render import lighting
@@ -406,6 +417,7 @@ def port_modules():
         ShadeConfig=ShadeConfig, VolumetricsSettings=VolumetricsSettings,
         length=length, reflect=reflect, S=scenes, build=build, M=march,
         launch=launch, PL=probe_lookup, SK=shade_kernel,
+        VK=volumetrics_kernel,
         spmd=spmd, pipeline=pipeline, lighting=lighting, PT=pathtrace,
         checkpoint=checkpoint, SceneBuilder=SceneBuilder,
         tree_leaves=tree_leaves,
@@ -445,7 +457,8 @@ def build_all(m):
                lambda c=c: M.march_library(c)) for c in MARCH_LAYOUTS]
     builds += [(f"geometry.cu {x} lanes", lambda x=x: M.geometry_library(x))
                for x in TIMED_LANES]
-    builds.append(("probes.cu", lambda: m.launch.library("probes")))
+    builds += [(f"{name}.cu", lambda name=name: m.launch.library(name))
+               for name in ("probes", "volumetrics")]
     builds += [(f"geometry.cu {x} lanes COUNT_WORK",
                 lambda x=x: M.geometry_library(x, count_work=True))
                for x in M.LANE_CHOICES]
@@ -881,8 +894,10 @@ def profile_frames(m, r, label, card, frames=3, averaged=False):
 
 
 def ls_rays(torch, m, r):
-    """light_shafts' scattering rays (o, d) and the froxel-to-light rays
-    (pts, ldir, ldist) of its one light, built as the passes build them."""
+    """light_shafts' scattering rays (o, d), the froxel-to-light rays
+    (pts, ldir, ldist) of its one light, and its radiance at the froxels
+    and their camera rays' directions (radiance, dirs), built as the
+    passes build them."""
     vol = r.volumetrics
     cam = r.camera
     dev = r.device
@@ -899,9 +914,11 @@ def ls_rays(torch, m, r):
     if n != 1:
         fail(f"light_shafts has {n} live lights, expected 1")
     params = {k: v[0] for k, v in r.scene_data.lights[ltype.name].items()}
-    _, ldir, ldist = ltype.sample(params, pts, torch.zeros_like(pts))
+    radiance, ldir, ldist = ltype.sample(params, pts, torch.zeros_like(pts))
+    dirs = fd[None].expand(vz, vy, vx, 3).reshape(-1, 3)
     return ((o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()),
-            (pts.contiguous(), ldir.contiguous(), ldist.contiguous()))
+            (pts.contiguous(), ldir.contiguous(), ldist.contiguous()),
+            (radiance, dirs))
 
 
 def pass_split(torch, m, r, frames):
@@ -3733,6 +3750,163 @@ def shade_phase(torch, m, dev, card):
     return out
 
 
+# The volumetric kernels against the plain ops they replace: bit for bit
+# (tests/test_torch_volumetrics_kernel.py), the largest gap over the plain
+# output's largest magnitude.
+VOL_PLAIN_REL = 0.0
+
+
+@contextlib.contextmanager
+def plain_volumetrics(m):
+    """Inside the block the volumetric passes take the plain ops on the
+    card too (render/volumetrics.py:method answers "plain"): for a
+    comparison."""
+    keep = m.vol.method
+    m.vol.method = lambda *args: "plain"
+    try:
+        yield
+    finally:
+        m.vol.method = keep
+
+
+def volumetrics_phase(torch, np, m, dev, card):
+    """Phase 44 on light_shafts at PROBE_SIZE x PROBE_SIZE with upstream's
+    volumetrics (100^3 froxels, a 250^2 map) after PROBE_FRAMES frames:
+    each of the three passes by the kernel route and by the plain ops,
+    held bit for bit, and timed in turns beside the kernel alone on the
+    pass's inputs and its bound in bytes (each input read once, each
+    output written once): the froxel in-scatter (ldist, vis, radiance,
+    ldir, the ray's direction and the running sum in, the sum out: 68 B a
+    froxel), the scattering integral (t and hit in, 16 B out a texel; the
+    froxel grid and the weights once), the composite (colour and length
+    in, colour out: 28 B a pixel; the map and the index maps once).  The
+    device operations, busy ms and heaviest ops of a replayed frame by
+    both routes.  Returns the numbers."""
+    V, VK = m.vol, m.VK
+    r = m.S.light_shafts(width=PROBE_SIZE, height=PROBE_SIZE, device=dev)
+    r.converge(frames=PROBE_FRAMES)
+    vol, spec, data, cam = r.volumetrics, r.spec, r.scene_data, r.camera
+    ctx = m.SceneCtx(spec, data)
+    max_steps = r.screen_cfg.max_march_steps
+
+    def visibility():
+        return V.visibility_pass(spec, data, vol, ctx, cam.position,
+                                 cam.orientation, max_steps=max_steps)
+
+    with torch.no_grad():
+        grid = visibility()
+
+    def scattering():
+        return V.scattering_pass(spec, data, vol, ctx, grid, cam.position,
+                                 cam.orientation, max_steps=max_steps)
+
+    # the screen pass's inputs to the composite
+    with torch.no_grad():
+        scat = scattering()
+        o, d = m.camera_rays(m.pixel_grid(r.width, r.height, dev),
+                             cam.position, cam.orientation)
+        o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+        color, _, hit_pos = m.shading.pixel_color(
+            spec, data, r.probes, r.screen_cfg, r.state.irradiance,
+            r.state.radiance, o, d)
+        ray_len = torch.linalg.vector_norm(hit_pos - o, dim=-1)
+
+    def composite():
+        return V.composite(vol, scat, color, ray_len, r.width, r.height,
+                           spec.max_dist)
+
+    # each kernel alone on its pass's inputs
+    (so, sd), (pts, ldir, ldist), (radiance, dirs) = ls_rays(torch, m, r)
+    n_frox, n_slots = pts.shape[0], ctx.n_light_slots
+    vis = ctx.visibility(pts, ldir, ldist, max_steps=max_steps)
+    acc = torch.zeros_like(pts)
+    sx, sy = vol.scattering_resolution
+    t, hit, _ = ctx.raycast(so, sd, vol.max_depth, max_steps=max_steps)
+    n_steps = int(vol.max_depth / vol.scattering_step_size)
+    fs = np.arange(n_steps, dtype=np.float32) \
+        * np.float32(vol.scattering_step_size)
+    weights = torch.exp(torch.as_tensor(
+        -fs * np.float32(V.TAU_SCATTERING)).to(dev))
+    ix = torch.as_tensor(V._center_map(r.width, sx), dtype=torch.int32,
+                         device=dev)
+    iy = torch.as_tensor(V._center_map(r.height, sy), dtype=torch.int32,
+                         device=dev)
+    n_pix = r.width * r.height
+    alone = {
+        "inscatter": lambda: VK.froxel_inscatter(
+            acc, ldist, vis, radiance, ldir, dirs, tau=V.TAU_SCATTERING),
+        "scatter_integral": lambda: VK.scatter_integral(
+            t, hit, grid, weights, scattering_resolution=(sx, sy),
+            max_depth=vol.max_depth, step=vol.scattering_step_size,
+            visibility_step=vol.visibility_step_size),
+        "composite": lambda: VK.fog_composite(
+            scat, color, ray_len, ix, iy, max_dist=spec.max_dist,
+            tau=V.TAU_SCATTERING)}
+    passes = {"inscatter": (visibility, n_frox * 68 * n_slots),
+              "scatter_integral": (scattering,
+                                   sx * sy * (4 + 1 + 16) + grid.nbytes
+                                   + weights.nbytes),
+              "composite": (composite, n_pix * 28 + scat.nbytes
+                            + ix.nbytes + iy.nbytes)}
+    out = {}
+    for name, (fn, n_bytes) in passes.items():
+        with torch.no_grad():
+            got = fn()
+            with plain_volumetrics(m):
+                want = fn()
+            torch.cuda.synchronize()
+            bit_equal = torch.equal(got.view(torch.int32),
+                                    want.view(torch.int32))
+            gap = rel_gap(got, want)
+
+            def plain_fn(fn=fn):
+                with plain_volumetrics(m):
+                    return fn()
+            ms = dict(zip(("kernel_route", "plain", "kernel"), time_turns(
+                torch, [fn, plain_fn, alone[name]], iters=PROBE_TIMED)))
+        b_ms, b_by = bound(0.0, n_bytes)
+        print(f"volumetrics {name} light_shafts {PROBE_SIZE}x{PROBE_SIZE} "
+              f"(the pass by both routes, and the kernel alone): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+              + f"; bound {b_ms:.5f} ms ({b_by}, {n_bytes} bytes), "
+              f"{100 * b_ms / ms['kernel']:.1f}% of it; bit-equal "
+              f"{bit_equal}, relative gap {gap:.3g}; [{card}]")
+        if not gap <= VOL_PLAIN_REL:
+            fail(f"volumetrics {name}: the kernel route against the plain "
+                 f"ops, relative gap {gap}")
+        out[name] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+                         bit_equal=bit_equal, rel_gap=gap)
+
+    # a replayed frame's device operations and busy ms by both routes
+    frame = {}
+    for way in ("kernel", "plain"):
+        m.pipeline.clear_compiled()
+        with plain_volumetrics(m) if way == "plain" \
+                else contextlib.nullcontext():
+            r.render()
+            torch.cuda.synchronize()
+            launches = {k: r.frame.launches[k] for k in (
+                "scatter_integral", "fog_composite", "froxel_inscatter")}
+            prof, _ = m.trace_calls(r.render, 3)
+            events = m.kernel_events(prof, 3)
+            ops = m.kernel_ops(prof, 3)
+        top = sorted(ops.items(), key=lambda kv: -kv[1])[:12]
+        frame[way] = {"device_ops_per_frame": sum(events.values()),
+                      "busy_ms_per_frame": sum(ops.values()),
+                      "launches": launches,
+                      "top_ms_per_frame": [[op[:90], ms] for op, ms in top]}
+    m.pipeline.clear_compiled()
+    if frame["kernel"]["launches"] != {"scatter_integral": 1,
+                                       "fog_composite": 1,
+                                       "froxel_inscatter": n_slots} \
+            or any(frame["plain"]["launches"].values()):
+        fail(f"volumetrics: a captured light_shafts frame launched {frame}")
+    print(f"volumetrics light_shafts {PROBE_SIZE}x{PROBE_SIZE}: a replayed "
+          f"frame by both routes {json.dumps(frame)}; [{card}]")
+    out.update(frame=frame)
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "madarch_tpu_torch")):
         fail("madarch_tpu_torch/ is not beside this script")
@@ -3755,6 +3929,7 @@ def main():
     for lanes in TIMED_LANES:
         ptxas_lines(m, "geometry", defines=lanes_def(lanes))
     ptxas_lines(m, "probes", kernel="probe_")
+    ptxas_lines(m, "volumetrics", kernel=("scatter_", "fog_", "froxel_"))
 
     # ---- 3. geometry kernel vs plain version on the GI scene: seeded
     # subsets, then the passes' full shapes, held and timed
@@ -3783,7 +3958,7 @@ def main():
     lctx = m.SceneCtx(ls.spec, ls.scene_data)
     vol = ls.volumetrics
     max_steps = ls.screen_cfg.max_march_steps
-    (so, sd), (fp, fdir, fdist) = ls_rays(torch, m, ls)
+    (so, sd), (fp, fdir, fdist), _ = ls_rays(torch, m, ls)
     n_scat, n_frox = so.shape[0], fp.shape[0]
     if (n_scat, n_frox) != (62_500, 1_000_000):
         fail(f"light_shafts rays: {n_scat} scattering, {n_frox} froxel")
@@ -4126,6 +4301,10 @@ def main():
     # it replaces, timed beside its bound; frames by both routes
     shade = shade_phase(torch, m, dev, card)
 
+    # ---- 44. the volumetric kernels at light_shafts' 1000x1000 against
+    # the plain ops, timed beside their bounds; a frame's device operations
+    volumetrics = volumetrics_phase(torch, np, m, dev, card)
+
     def lamp_keys(name):
         """The kernel's numbers on the lamp room (phase 32)."""
         k = lamp_k[name]
@@ -4144,6 +4323,7 @@ def main():
                       "compiled_step": compiled_step}))
     print(json.dumps({"probe_lookups": probe}))
     print(json.dumps({"shade": shade}))
+    print(json.dumps({"volumetrics": volumetrics}))
 
     def compiled_keys(name):
         """The kernel's launches a captured 800x800 frame, by scene

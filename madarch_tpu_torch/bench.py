@@ -101,7 +101,10 @@ KERNELS = {"geometry": "geometry_kernel", "raycast": "raycast_kernel",
            "softshadows": "softshadow_kernel",
            "irradiance_lookup": "probe_irradiance_kernel",
            "radiance_lookup": "probe_radiance_kernel",
-           "shade": "shade_kernel"}
+           "shade": "shade_kernel",
+           "scatter_integral": "scatter_integral_kernel",
+           "fog_composite": "fog_composite_kernel",
+           "froxel_inscatter": "froxel_inscatter_kernel"}
 # gpu_vs_golden: frames before the comparison, as the goldens were made.
 GOLDEN_FRAMES = {"global_illumination": 4, "simple_scene": 2}
 SCALING_WORLD = 2

@@ -1,10 +1,11 @@
 """The one seam between the port and its hand-written CUDA kernels
 (ops/csrc/*.cu, built and loaded by ops/build.py).
 
-A kernel wrapper (ops/march.py, ops/probe_lookup.py, ops/shade_kernel.py)
-loads its library with ``library``, holds its inputs to what the kernel
-reads with ``check``, fills its argument struct, launches it with ``run``
-and counts the launch with ``record``; no wrapper imports another.
+A kernel wrapper (ops/march.py, ops/probe_lookup.py, ops/shade_kernel.py,
+ops/volumetrics_kernel.py) loads its library with ``library``, holds its
+inputs to what the kernel reads with ``check``, fills its argument struct,
+launches it with ``run`` and counts the launch with ``record``; no wrapper
+imports another.
 ``takes`` answers, for every route of render/ that may call a wrapper,
 whether a kernel may take its tensors.
 """
@@ -32,10 +33,14 @@ ENTRY_POINTS = {
     "probes": {"madarch_irradiance_lookup": _LAUNCH,
                "madarch_radiance_lookup": _LAUNCH},
     "shade": {"madarch_shade": _LAUNCH},
+    "volumetrics": {"madarch_scatter_integral": _LAUNCH,
+                    "madarch_fog_composite": _LAUNCH,
+                    "madarch_froxel_inscatter": _LAUNCH},
 }
 # The wrappers whose launches are counted, by name.
 KERNELS = ("geometry", "raycast", "visibility", "softshadows",
-           "irradiance_lookup", "radiance_lookup", "shade")
+           "irradiance_lookup", "radiance_lookup", "shade", "scatter_integral",
+           "fog_composite", "froxel_inscatter")
 
 
 @functools.cache

@@ -6,13 +6,20 @@ The froxel grid is f32[vz, vy, vx, 3]; the scattering map is
 f32[sy, sx, 4] holding (in-scattered L, ray length).  The froxel-to-light
 rays go through the visibility kernel and the scattering rays through the
 raycast kernel (``SceneCtx.visibility`` / ``SceneCtx.raycast``); the rest
-is tensor math with index maps fixed by the resolutions.
+is tensor math with index maps fixed by the resolutions.  That math has
+two routes, chosen in each pass by ``method``: the kernels of
+ops/volumetrics_kernel.py (the froxel in-scatter after each visibility
+launch, the scattering integral, the composite) where ops/launch.py:takes
+the pass's tensors (on a card, no gradient to pass), else the PyTorch ops
+below, differentiable and on either device.
 
 With the recorder of utils/profiling.py on, the passes count their work,
 at the Python call (so at capture in a compiled frame): ``froxel_rays``,
 the rays of each visibility launch, summed over the light slots launched;
 ``scattering_rays``, the raycast's rays (sx·sy); ``scattering_taps``, the
-taps of the scattering loop (n_steps).
+taps of the scattering loop (n_steps); ``volumetrics.kernel`` and
+``volumetrics.plain``, the elements each route took (a pass's froxels,
+texels or pixels).
 """
 from __future__ import annotations
 
@@ -23,7 +30,10 @@ from madarch_tpu_torch.core.config import VolumetricsSettings
 from madarch_tpu_torch.core.constants import cached, constant
 from madarch_tpu_torch.core.resample import floor_map, take_static
 from madarch_tpu_torch.core.vecmath import PI, dot
+from madarch_tpu_torch.ops import launch
+from madarch_tpu_torch.ops import volumetrics_kernel as kernels
 from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
+from madarch_tpu_torch.scene.scene import tree_leaves
 from madarch_tpu_torch.utils import profiling
 
 TAU_SCATTERING = 0.1
@@ -41,6 +51,18 @@ def henyey_greenstein_phase(in_dir, out_dir):
 def rayleigh_phase(in_dir, out_dir):
     cos_angle = dot(in_dir, out_dir)
     return 3.0 * (1.0 + cos_angle * cos_angle) / (16.0 * PI)
+
+
+def method(n, x, *inputs):
+    """The route of a volumetric pass's tensor math over its n elements
+    (froxels, texels or pixels), given its tensors ``x`` and ``inputs``:
+    "kernel" (ops/volumetrics_kernel.py) where ops/launch.py:takes them
+    (they lie on a card and no gradient has to pass), else "plain".
+    Records n under the counter volumetrics.kernel or volumetrics.plain."""
+    kernel = launch.takes(x, *inputs)
+    profiling.count("volumetrics.kernel" if kernel else "volumetrics.plain",
+                    n)
+    return "kernel" if kernel else "plain"
 
 
 def visibility_pass(spec, data, vol: VolumetricsSettings, ctx,
@@ -61,6 +83,8 @@ def visibility_pass(spec, data, vol: VolumetricsSettings, ctx,
     pts = origins[None] + dirs[None] * depths[:, None, None, None]
     pts_f = pts.reshape(-1, 3).contiguous()
     dirs_f = dirs[None].expand(vz, vy, vx, 3).reshape(-1, 3)
+    kernel = method(pts_f.shape[0], pts_f, dirs_f,
+                    *tree_leaves(data.lights)) == "kernel"
 
     def froxel_light(pts_f, dirs_f):
         n = pts_f.shape[0]
@@ -80,6 +104,13 @@ def visibility_pass(spec, data, vol: VolumetricsSettings, ctx,
                                      enabled=live.expand(n).contiguous(),
                                      max_steps=max_steps)
                 profiling.count("froxel_rays", n)
+                if kernel:
+                    result = kernels.froxel_inscatter(
+                        result, ldist.contiguous(), vis,
+                        radiance.expand(n, 3).contiguous(),
+                        ldir.contiguous(), dirs_f, None if static else live,
+                        tau=TAU_SCATTERING)
+                    continue
                 l_in = (torch.exp(-ldist * TAU_SCATTERING) * vis)[..., None] \
                     * radiance
                 contrib = l_in * TAU_SCATTERING \
@@ -114,14 +145,16 @@ def scattering_pass(spec, data, vol: VolumetricsSettings, ctx, visibility,
         t, hit, _ = ctx.raycast(o, d, max_depth, max_steps=max_steps)
         return torch.clamp_max(torch.where(hit, t, max_depth), max_depth)
 
-    length = ray_length(origins_f, dirs_f) if shard is None \
-        else shard.map_rays(ray_length, (origins_f, dirs_f))
+    kernel = method(n, visibility) == "kernel"
+    hit = None
+    if kernel and shard is None:
+        # the kernel takes the raycast's t and hit, and makes the length
+        length, hit, _ = ctx.raycast(origins_f, dirs_f, max_depth,
+                                     max_steps=max_steps)
+    else:
+        length = ray_length(origins_f, dirs_f) if shard is None \
+            else shard.map_rays(ray_length, (origins_f, dirs_f))
     profiling.count("scattering_rays", n)
-
-    # froxel column per scattering texel: (x·vx)//sx, (y·vy)//sy
-    vis_up = take_static(visibility, floor_map(sy, vy, offset=0.0), axis=1)
-    vis_up = take_static(vis_up, floor_map(sx, vx, offset=0.0), axis=2)
-    vis_flat = vis_up.reshape(vz, n, 3)
 
     n_steps = int(max_depth / vol.scattering_step_size)
     profiling.count("scattering_taps", n_steps)
@@ -130,6 +163,17 @@ def scattering_pass(spec, data, vol: VolumetricsSettings, ctx, visibility,
     weights = cached(("scattering_weights", n_steps, float(step)), dev,
                      lambda: torch.exp(torch.as_tensor(
                          -fs * np.float32(TAU_SCATTERING)).to(dev)))
+    if kernel:
+        return kernels.scatter_integral(
+            length, hit, visibility, weights,
+            scattering_resolution=(sx, sy), max_depth=max_depth,
+            step=vol.scattering_step_size,
+            visibility_step=vol.visibility_step_size)
+
+    # froxel column per scattering texel: (x·vx)//sx, (y·vy)//sy
+    vis_up = take_static(visibility, floor_map(sy, vy, offset=0.0), axis=1)
+    vis_up = take_static(vis_up, floor_map(sx, vx, offset=0.0), axis=2)
+    vis_flat = vis_up.reshape(vz, n, 3)
     acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     for i in range(n_steps):
         f = fs[i]
@@ -162,6 +206,16 @@ def composite(vol: VolumetricsSettings, scattering, color, ray_len, width,
     sx, sy = vol.scattering_resolution
     ix = _center_map(width, sx)
     iy = _center_map(height, sy)
+    if method(ray_len.shape[0], color, scattering, ray_len) == "kernel":
+        dev = color.device
+        return kernels.fog_composite(
+            scattering.contiguous(), color.contiguous(),
+            ray_len.contiguous(),
+            cached(("center_map", width, sx), dev,
+                   lambda: ix.astype(np.int32)),
+            cached(("center_map", height, sy), dev,
+                   lambda: iy.astype(np.int32)),
+            max_dist=max_dist, tau=TAU_SCATTERING)
     closest = torch.full(ray_len.shape, max_dist, dtype=torch.float32,
                          device=ray_len.device)
     fog = torch.zeros_like(color)

@@ -16,8 +16,8 @@ on, its spans' host ms, its device intervals' ms and its counters, each
 a frame.  Then ``frame_counters``: the counters of one eager frame, which
 a compiled frame records only while it is set up (its warm-up and capture
 run the Python; a replay runs none), such as light_shafts'
-``froxel_rays``, ``scattering_rays`` and ``scattering_taps``.  One JSON
-line on stdout.
+``froxel_rays``, ``scattering_rays``, ``scattering_taps`` and
+``volumetrics.kernel`` / ``volumetrics.plain``.  One JSON line on stdout.
 """
 from __future__ import annotations
 

@@ -202,14 +202,22 @@ def test_kernel_ms_reads_each_kernel_from_the_trace():
            "(anonymous namespace)::probe_irradiance_kernel(IrradianceArgs)":
            0.2,
            "(anonymous namespace)::probe_radiance_kernel(RadianceArgs)": 0.1,
-           "(anonymous namespace)::shade_kernel(ShadeArgs)": 0.3}
+           "(anonymous namespace)::shade_kernel(ShadeArgs)": 0.3,
+           "(anonymous namespace)::scatter_integral_kernel(ScatterArgs)":
+           0.02,
+           "(anonymous namespace)::froxel_inscatter_kernel(InscatterArgs)":
+           0.08}
     got = bench.kernel_ms(ops, {"geometry": 2.0, "raycast": 1.0,
                                 "visibility": 1.0, "softshadows": 0.0,
                                 "irradiance_lookup": 2.0,
-                                "radiance_lookup": 1.0, "shade": 2.0})
+                                "radiance_lookup": 1.0, "shade": 2.0,
+                                "scatter_integral": 1.0,
+                                "fog_composite": 0.0,
+                                "froxel_inscatter": 2.0})
     assert got == {"geometry": 2.0, "raycast": 0.5, "visibility": None,
                    "irradiance_lookup": 0.1, "radiance_lookup": 0.1,
-                   "shade": 0.15}
+                   "shade": 0.15, "scatter_integral": 0.02,
+                   "froxel_inscatter": 0.04}
 
 
 def test_the_bench_raises_without_a_card():

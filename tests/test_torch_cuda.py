@@ -438,7 +438,8 @@ def test_modes_1_and_3_launch_their_kernels(dev):
         assert r.frame.launches == dict(zip(
             ("geometry", "raycast", "softshadows", "visibility",
              "irradiance_lookup", "radiance_lookup", "shade"),
-            launches + (0,) + lookups[mode] + (1,)))
+            launches + (0,) + lookups[mode] + (1,))) \
+            | NO_VOLUMETRIC_LAUNCHES
         assert torch.isfinite(img).all()
 
 
@@ -1099,6 +1100,10 @@ def test_train_step_on_the_card_matches_the_cpu(dev, mode):
 # The probe-lookup kernels' launches in a mode-2 frame: the irradiance in
 # the radiance and the screen pass, the reflection's radiance tile.
 LOOKUPS_A_FRAME = {"irradiance_lookup": 2, "radiance_lookup": 1}
+# The volumetric kernels' launches in a frame of a scene without
+# volumetrics, or outside the frame pipeline.
+NO_VOLUMETRIC_LAUNCHES = {"scatter_integral": 0, "fog_composite": 0,
+                          "froxel_inscatter": 0}
 
 
 def _launches():
@@ -1185,7 +1190,7 @@ def test_ball_game_matches_the_cpu_and_builds_nothing_new(dev):
 
     per_frame, later = _card_and_cpu(make, dev, frames=4, between=between)
     frame = {"geometry": 2, "raycast": 0, "visibility": 0, "softshadows": 0,
-             "shade": 2, **LOOKUPS_A_FRAME}
+             "shade": 2, **LOOKUPS_A_FRAME, **NO_VOLUMETRIC_LAUNCHES}
     # one capture for every live count (specialize_counts False)
     assert per_frame == [{k: 2 * v for k, v in frame.items()}] \
         + [frame] * 3, per_frame
@@ -1223,7 +1228,8 @@ def test_a_light_without_position_launches_the_march_kernels(dev,
             lambda d: chip_smoke.lamp_room(np, m, 32, d, probes=TINY), dev)
     assert per_frame == [{"geometry": 0, "raycast": 3, "visibility": 3,
                           "softshadows": 3, "shade": 0,
-                          **LOOKUPS_A_FRAME}] * 2, per_frame
+                          **LOOKUPS_A_FRAME, **NO_VOLUMETRIC_LAUNCHES}] * 2, \
+        per_frame
     n_rad = TINY.num_probes * TINY.radiance_resolution ** 2
     sizes = {"R": n_rad, "8R": 8 * n_rad, "S": 32 * 32, "8S": 8 * 32 * 32}
     want = [(c.split()[0], sizes[c.split()[1]])
@@ -1265,7 +1271,8 @@ def test_path_tracers_launch_their_kernels(dev):
         got = {k: v - before[k] for k, v in _launches().items()}
         assert got == {"geometry": 0, "raycast": n, "visibility": 0,
                        "softshadows": n, "irradiance_lookup": 0,
-                       "radiance_lookup": 0, "shade": 0}, (name, got)
+                       "radiance_lookup": 0, "shade": 0,
+                       **NO_VOLUMETRIC_LAUNCHES}, (name, got)
         assert out.shape == (64 * 64, 3) and bool(torch.isfinite(out).all())
     c = S.global_illumination(width=64, height=64, device="cpu")
     oc, dc = _gi_camera_rays(c, "cpu")
