@@ -74,6 +74,7 @@ from madarch_tpu_torch.ops.launch import (add_launches,  # noqa: F401
                                           launch_counts)
 from madarch_tpu_torch.render import raymarch as rm
 from madarch_tpu_torch.scene import primitives as P
+from madarch_tpu_torch.utils import profiling
 
 MAX_AO_STEPS = 8
 # The most dynamic shared memory a block gets without an opt-in.  A launch
@@ -243,6 +244,12 @@ class PackedScene:
     @property
     def n_slots(self):
         return sum(self.counts)
+
+    @property
+    def n_chunk_slots(self):
+        """The slots of the chunked types, inert chunk padding left out."""
+        return sum(n for ptype, _, n, _ in self.entries
+                   if self.chunked(ptype))
 
     @property
     def n_supers(self):
@@ -1134,7 +1141,9 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
     ``placement_for``'s placement; ``placement`` (one of PLACEMENTS)
     forces one, ``library`` (a ``geometry_library`` build) overrides the
     lanes and ``work`` (i64[3] on the device) receives a COUNT_WORK
-    build's counts: all three are for measurements.
+    build's counts: all three are for measurements.  A launch at the 8
+    lanes that ``geometry_lanes`` chose records its rays under the
+    recorder's counter ``geometry.lanes8_rays`` (utils/profiling.py).
 
     Every output is a constant to autograd: the wrapper detaches its
     inputs, on either device (a ctypes launch would ignore autograd
@@ -1173,7 +1182,10 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
     if work is not None:
         launch.check([("work", work, torch.int64, (3,))], dev)
     if library is None:
-        library = geometry_library(geometry_lanes(packed, n))
+        lanes = geometry_lanes(packed, n)
+        if lanes == 8:
+            profiling.count("geometry.lanes8_rays", n)
+        library = geometry_library(lanes)
     return _launch(library, work, placement, packed, lpos, n_lights,
                    origins, dirs, max_dist, **kwargs)
 

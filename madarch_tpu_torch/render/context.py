@@ -18,7 +18,8 @@ attach_hit_gradient, scene_normal).
 With the recorder of utils/profiling.py on, the kernel route's packing
 (pack_scene, pack_light_positions and the roughness cast; the shade
 kernel's light table, when a pass first asks for it) is the device
-interval ``pack``."""
+interval ``pack``, and each geometry pass counts its rays and slot
+evaluations (``SceneCtx.geometry``)."""
 from __future__ import annotations
 
 import functools
@@ -95,10 +96,23 @@ class SceneCtx:
         reflection launch of specular mode 3 does; ``want_shadows`` and
         ``want_vis`` False skip the primary hit's penumbra and
         probe-visibility marches (ones), as a measurement that attributes
-        the kernel's time does.  Only where ``fused_available``."""
+        the kernel's time does.  Only where ``fused_available``.
+
+        Records, on either device, the pass's rays (``geometry.rays``) and
+        its slot evaluations a march step: rays × the slots of the typed
+        runs (``geometry.slot_rays.typed``) and rays × the chunked types'
+        slots (``geometry.slot_rays.chunked``), every slot the launch
+        evaluates (the live slots, where the counts are static)."""
         if not self.fused_available:
             raise ValueError("the geometry kernel does not take this scene "
                              "(SceneCtx.fused_available is false)")
+        if profiling.enabled():
+            n = origins.shape[0]
+            profiling.count("geometry.rays", n)
+            profiling.count("geometry.slot_rays.typed",
+                            n * self.packed.n_slots)
+            profiling.count("geometry.slot_rays.chunked",
+                            n * self.packed.n_chunk_slots)
         return march_ops.geometry(
             self.packed, self.lpos_vec, self.n_light_slots, origins, dirs,
             self.max_dist, probe_spacing=probes.grid_spacing,

@@ -17,7 +17,9 @@ a frame.  Then ``frame_counters``: the counters of one eager frame, which
 a compiled frame records only while it is set up (its warm-up and capture
 run the Python; a replay runs none), such as light_shafts'
 ``froxel_rays``, ``scattering_rays``, ``scattering_taps`` and
-``volumetrics.kernel`` / ``volumetrics.plain``.  One JSON line on stdout.
+``volumetrics.kernel`` / ``volumetrics.plain``.  Then ``geometry``: that
+frame's GEOMETRY_COUNTERS, 0 where none was recorded (the CPU launches
+no 8-lane group).  One JSON line on stdout.
 """
 from __future__ import annotations
 
@@ -35,6 +37,10 @@ from madarch_tpu_torch.utils import profiling
 
 SETUP_FRAMES = 3
 YAW_STEP = np.deg2rad(3.0)
+# the geometry passes' counters (render/context.py:SceneCtx.geometry,
+# ops/march.py:geometry)
+GEOMETRY_COUNTERS = ("geometry.rays", "geometry.slot_rays.typed",
+                     "geometry.slot_rays.chunked", "geometry.lanes8_rays")
 
 
 def per_frame(rec):
@@ -112,10 +118,13 @@ def main(argv=None):
         for on in ((False, True) if turn % 2 == 0 else (True, False)):
             seg, k = segment(r, args.frames, on, k)
             segments.append(seg)
+    counters = frame_counters(r)
     out = {"config": args.config, "size": args.size,
            "device": torch.cuda.get_device_name(dev)
            if dev.type == "cuda" else dev.type, "segments": segments,
-           "frame_counters": frame_counters(r)}
+           "frame_counters": counters,
+           "geometry": {name: counters.get(name, 0)
+                        for name in GEOMETRY_COUNTERS}}
     print(json.dumps(out), flush=True)
     return out
 

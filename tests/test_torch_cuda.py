@@ -11,7 +11,8 @@ after a mutation too, and with the port's recorder on to the frame with
 it off; the train step compiled into one (parallel/spmd.py:
 CompiledStep) is held to eager steps on GI modes 2 and 1 and light_shafts
 (chip_smoke.hold_step); a capture that fails must raise, the step's and
-the frame's (last in the file).
+the frame's.  Last, the recorder's ``geometry.lanes8_rays`` follows the
+geometry launches' lane choice at 1000².
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs where JAX is absent:
@@ -1872,3 +1873,35 @@ def test_a_capture_that_fails_raises(dev, monkeypatch):
         assert pipeline.CompiledFrame.captures == captures
     finally:
         pipeline.clear_compiled()
+
+
+@pytest.mark.parametrize("scene,lanes8", [("simple_scene", "all"),
+                                          ("global_illumination",
+                                           "radiance")])
+def test_geometry_lanes8_rays_follow_the_lane_choice(dev, scene, lanes8):
+    """One eager 1000² frame with the recorder on: simple_scene's 40 slots
+    put both geometry launches at 8 lanes a ray (every ray counted under
+    ``geometry.lanes8_rays``); GI's 8 slots put only the radiance pass's
+    36,864 rays there, its 10⁶ screen rays at 1 lane."""
+    from madarch_tpu_torch.render import pipeline
+    from madarch_tpu_torch.utils import profiling
+    r = getattr(S, scene)(1000, 1000, device=dev)
+    pipeline.clear_compiled()
+    profiling.drain()
+    profiling.enable()
+    try:
+        with pipeline.eager():
+            r.render()
+        torch.cuda.synchronize()
+    finally:
+        profiling.disable()
+    rec = profiling.drain()
+
+    def total(name):
+        return sum(v for _, n, v in rec["counters"] if n == name)
+
+    radiance = r.probes.num_probes * r.probes.radiance_resolution ** 2
+    assert radiance == 36 * 32 * 32
+    assert total("geometry.rays") == radiance + 1000 * 1000
+    assert total("geometry.lanes8_rays") == (
+        total("geometry.rays") if lanes8 == "all" else radiance)

@@ -17,6 +17,11 @@ same code, so these tests cover the wiring the card's event pairs follow:
 - light_shafts' counters: ``froxel_rays``, ``scattering_rays`` and
   ``scattering_taps`` are the volumetric settings' shapes, and frames
   with the recorder on and off are bit-equal there too.
+- The geometry passes' counters: ``geometry.rays`` is the radiance and
+  screen rays of an eager frame, ``geometry.slot_rays.typed`` and
+  ``.chunked`` that times the slots of simple_scene (40, 0), GI (8, 0)
+  and the torus (0, 968).  ``geometry.lanes8_rays`` is counted only by a
+  card's launch (tests/test_torch_cuda.py).
 - A compiled step records its copy-in and replay under frame ids of its
   own.
 - The card's path for device intervals (before_replay, after_replay,
@@ -262,6 +267,32 @@ def test_light_shafts_counts_its_volumetric_work(recorder):
     assert all(spans[s[3]][0] == "pass.screen" for s in composites)
 
 
+# slots a ray of each scene's geometry passes: (typed runs, chunked)
+GEOMETRY_SLOTS = {"simple_scene": (40, 0), "global_illumination": (8, 0),
+                  "obj_mesh": (0, 968)}
+
+
+@pytest.mark.parametrize("name", sorted(GEOMETRY_SLOTS))
+def test_geometry_passes_count_rays_and_slot_evaluations(recorder, name):
+    """One eager 16x16 frame counts the radiance pass's and the screen's
+    rays, and rays × the slots of the typed runs and of the chunked
+    types: simple_scene's 40 live slots typed, GI's 8, the torus's 968
+    triangles chunked.  The CPU launches no 8-lane group."""
+    kwargs = {"obj_path": tscenes.TORUS_OBJ} if name == "obj_mesh" else {}
+    r = getattr(tscenes, name)(width=16, height=16, probes=PROBES,
+                               device="cpu", **kwargs)
+    with TPL.eager():
+        r.render()
+    rec = profiling.drain()
+    (fid,) = render_ids(rec)
+    rays = r.probes.num_probes * r.probes.radiance_resolution ** 2 + 16 * 16
+    typed, chunked = GEOMETRY_SLOTS[name]
+    assert counter(rec, "geometry.rays", fid) == rays
+    assert counter(rec, "geometry.slot_rays.typed", fid) == typed * rays
+    assert counter(rec, "geometry.slot_rays.chunked", fid) == chunked * rays
+    assert counter(rec, "geometry.lanes8_rays", fid) == 0
+
+
 def test_captures_and_evictions_follow_the_cache_size(recorder):
     r = gi(16)
     sizes = [(16 + 2 * i, 16) for i in range(TPL.GRAPH_CACHE_SIZE + 2)]
@@ -362,4 +393,11 @@ def test_trace_probe_turns_the_recorder_off_and_on():
                 assert seg["span_ms"][name] > 0, name
             assert "frame_captures" not in seg["counters"]
             assert seg["counters"]["camera_uploads"] == 1
+    # the geometry passes' counters of one eager frame: GI's 8 typed slots
+    geometry = out["geometry"]
+    assert geometry["geometry.rays"] > 32 * 32
+    assert geometry["geometry.slot_rays.typed"] == 8 * geometry[
+        "geometry.rays"]
+    assert geometry["geometry.slot_rays.chunked"] == 0
+    assert geometry["geometry.lanes8_rays"] == 0
     TPL.clear_compiled()
