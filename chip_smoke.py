@@ -215,6 +215,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
    march uncapped) softshadows held on the screen subset, raycast and
    visibility timed capped and uncapped on all 640,000 screen rays;
    geom_probe's split and the bench's obj_mesh row capped and uncapped;
+   on the torus at 1000x1000, the bounces whose classification the
+   geometry kernel skipped (a COUNT_WORK launch of each pass) against
+   those its outputs say could not hit, idx -1 and mid 0 on them, and
+   the folded screen launch and its misses alone timed beside the
+   kernel's before the skip;
    the GI, light_shafts, simple_scene and obj_mesh 800x800 images
    bit-equal with the cap on and off (only obj_mesh packs a cap); prints
    a box_cap JSON line;
@@ -512,11 +517,7 @@ def gi_rays(torch, m, r, dev):
     o_rad = m.probes.probe_world_positions(r.probes, dev).repeat(rr * rr, 1)
     d_rad = m.probes.texel_directions(rr, dev).repeat_interleave(
         r.probes.num_probes, dim=0)
-    cam = r.camera
-    o_scr, d_scr = m.camera_rays(m.pixel_grid(r.width, r.height, dev),
-                                 cam.position, cam.orientation)
-    o_scr = m.pipeline._to_blocks(o_scr.reshape(-1, 3), r.height, r.width)
-    d_scr = m.pipeline._to_blocks(d_scr.reshape(-1, 3), r.height, r.width)
+    o_scr, d_scr = m.bench.screen_rays(r)
     g = torch.Generator().manual_seed(SEED)
 
     def subset(o, d):
@@ -530,12 +531,17 @@ def gi_rays(torch, m, r, dev):
 
 def compare(torch, k, ref):
     """Kernel outputs k vs plain outputs ref: (max discrete mismatch
-    share, max abs error of the continuous outputs on agreeing rays)."""
+    share, max abs error of the continuous outputs on agreeing rays).
+    A material id is held on its bounce's hits; off them the kernel's is
+    the plain version's where it classified the bounce, else 0
+    (ops/march.py:geometry), and one that is neither counts against it."""
     refl = ref["refl"] is not None
+    hits = {"mid": ref["hit"]}
     discrete = [("hit", k["hit"], ref["hit"]), ("idx", k["idx"], ref["idx"]),
                 ("mid", k["mid"], ref["mid"])]
     if refl:
         kr, rr = k["refl"], ref["refl"]
+        hits["r_mid"] = rr["hit"]
         discrete += [("r_hit", kr["hit"], rr["hit"]),
                      ("r_mid", kr["mid"], rr["mid"]),
                      ("best_pid", kr["best_pid"], rr["best_pid"])]
@@ -543,6 +549,8 @@ def compare(torch, k, ref):
     shares = {}
     for name, a, b in discrete:
         same = a == b
+        if name in hits:
+            same |= ~hits[name] & (a == 0)
         shares[name] = 1.0 - same.float().mean().item()
         agree &= same
     hit = agree & ref["hit"]
@@ -1269,9 +1277,9 @@ def mesh_phases(torch, m, dev, card):
         # here only) beside the plain version's count of what exact pruning
         # needs on the same rays
         for lanes in M.LANE_CHOICES:
-            done = torch.zeros(3, dtype=torch.int64, device=dev)
+            done = torch.zeros(M.WORK_COUNTS, dtype=torch.int64, device=dev)
             launch(M.geometry_library(lanes, count_work=True), work=done)
-            evals, tests, tris = done.tolist()
+            evals, tests, tris, _ = done.tolist()
             plain_evals = tri_evals // n_tri
             print(f"work obj_mesh {name}, {lanes} lanes: the kernel made "
                   f"{evals} scene evaluations, {tests} box tests "
@@ -2556,6 +2564,91 @@ def hold_cap_off(torch, label, on, off, max_dist):
     return n_capped
 
 
+# The geometry kernel classifies only a bounce that can hit (csrc/
+# geometry.cu:bounce): on the torus at the cell's size, the bounces it
+# skipped by its own count, the convention on them, and the folded screen
+# launch and its misses alone (the primary launch, no fold) timed.  Beside
+# them the same launches of the kernel that classified every bounce
+# (tools/tree_outputs.py on the tree before the skip, in turns with this
+# one in one call; NVIDIA H100 80GB HBM3, 700.00 W), ms.
+SKIP_SIZE = 1000
+SKIP_BEFORE_MS = {"folded": 11.348, "misses": 2.970}
+
+
+def skipped_bounces(torch, k, rough, max_dist, enabled=None):
+    """Bool masks of the bounces of geometry outputs ``k`` that the kernel
+    does not classify: the primary's (disabled or at max_dist) and, with
+    the fold, the reflection's (no primary hit, the roughness gate shut,
+    or at max_dist)."""
+    en = torch.ones_like(k["hit"]) if enabled is None else enabled
+    masks = [~en | (k["t"] >= max_dist)]
+    if k["refl"] is not None:
+        r_en = k["hit"] & (rough[k["mid"].clamp(0, rough.shape[0] - 1)]
+                           < 0.75)
+        masks.append(~r_en | (k["refl"]["t"] >= max_dist))
+    return masks
+
+
+def skip_block(torch, m, dev, card):
+    """The classification skip on the torus at SKIP_SIZE² (phase 38)."""
+    M = m.M
+    r = m.bench.make_config("obj_mesh", SKIP_SIZE, dev)
+    ctx = m.SceneCtx(r.spec, r.scene_data)
+    packed, max_dist = ctx.packed, ctx.max_dist
+    _, _, rad, scr = gi_rays(torch, m, r, dev)
+
+    def run(rays, cfg, refl, **kw):
+        return M.geometry(packed, ctx.lpos_vec, ctx.n_light_slots, rays[0],
+                          rays[1], max_dist,
+                          probe_spacing=r.probes.grid_spacing,
+                          probe_dims=r.probes.grid_dimensions,
+                          surface_offset=m.SURFACE_OFFSET,
+                          ao_steps=cfg.ambient_occlusion_steps,
+                          max_steps=cfg.max_march_steps,
+                          mat_rough_vec=ctx.rough_vec if refl else None,
+                          refl_shadows=cfg.add_indirect_specular, **kw)
+
+    out = {}
+    for name, cfg, refl, rays in (
+            ("radiance", m.PROBE_SHADE_CONFIG, False, rad),
+            ("screen", r.screen_cfg, True, scr)):
+        n = rays[0].shape[0]
+        k = run(rays, cfg, refl)
+        masks = skipped_bounces(torch, k, ctx.rough_vec, max_dist)
+        ok = bool(((k["idx"] == -1) & (k["mid"] == 0))[masks[0]].all())
+        if refl:
+            ok &= bool((k["refl"]["mid"] == 0)[masks[1]].all())
+        done = torch.zeros(M.WORK_COUNTS, dtype=torch.int64, device=dev)
+        run(rays, cfg, refl, work=done, library=M.geometry_library(
+            M.geometry_lanes(packed, n), count_work=True))
+        skipped = int(done[3])
+        expect = sum(int(x.sum()) for x in masks)
+        bounces = n * len(masks)
+        print(f"skip torus {name} {SKIP_SIZE}x{SKIP_SIZE} ({n} rays, "
+              f"{bounces} bounces): the kernel skipped {skipped} "
+              f"classifications ({skipped / bounces:.2%}), its outputs "
+              f"say {expect}; idx -1 and mid 0 on them: "
+              f"{'yes' if ok else 'NO'}")
+        if skipped != expect or not ok:
+            fail(f"skip torus {name}: {skipped} skipped by the count, "
+                 f"{expect} by the outputs, convention held: {ok}")
+        out[name] = dict(rays=n, bounces=bounces, skipped=skipped,
+                         share=skipped / bounces)
+    hit = run(scr, r.screen_cfg, True)["hit"]
+    misses = tuple(x[~hit].contiguous() for x in scr)
+    ms = time_turns(torch, [lambda: run(scr, r.screen_cfg, True),
+                            lambda: run(misses, r.screen_cfg, False)],
+                    iters=3)
+    before = SKIP_BEFORE_MS
+    print(f"time skip torus {SKIP_SIZE}x{SKIP_SIZE}: folded screen launch "
+          f"{ms[0]:.3f} ms (before the skip {before['folded']}), its "
+          f"{misses[0].shape[0]} misses alone {ms[1]:.3f} ms (before "
+          f"{before['misses']}); [{card}]")
+    out.update(folded_ms=ms[0], misses_ms=ms[1], misses=misses[0].shape[0],
+               before_ms=before)
+    return out
+
+
 def box_cap_phase(torch, m, dev, card):
     """Phase 38.  Returns ({its numbers}, {kernel: the largest
     kernel-vs-plain difference of its holds})."""
@@ -2704,6 +2797,8 @@ def box_cap_phase(torch, m, dev, card):
     out["bench obj_mesh"] = {tag: [{k: x[k] for k in (
         "frame_ms", "device_busy_ms", "profiled_wall_ms", "idle_share",
         "kernel_ms_per_launch")} for x in rr] for tag, rr in rows.items()}
+
+    out["skip"] = skip_block(torch, m, dev, card)
 
     # the images: bit-equal with the cap on and off
     for name in CAP_IMAGES:

@@ -30,7 +30,13 @@
 // A ray that hits nothing pays none of the hit's fixed work: its normal is
 // the reversed ray direction and its AO 1 (the plain version defines the
 // same), so the four normal and the AO evaluations run on hits only.  The
-// hit's index and material id are classified on every ray.  On a scene
+// hit's index and material id are classified only on a bounce that can
+// hit: one that is enabled and whose march ended short of max_dist.  Any
+// other bounce (a capped miss, a disabled or gated-off reflection) reports
+// index -1 and material 0 without evaluating the scene at its end point,
+// where pruning would open most chunks; the plain version classifies every
+// bounce, and the two differ only in the material of a non-hit, which no
+// consumer reads.  On a scene
 // whose every type has a global box (obj_mesh's triangles) the primary,
 // reflection and probe-visibility marches end at the ray's exit from the
 // grown boxes (scene.cuh:box_cap, the TPU kernel's _ray_box_cap), a ray
@@ -50,7 +56,7 @@
 //
 // Built with COUNT_WORK, which no path of the package does, the kernel sums
 // the scene evaluations, box tests and chunk-slot evaluations of the
-// launch.
+// launch, and the bounces whose classification it skipped.
 //
 // Built with -fmad=false so each float operation rounds like the plain
 // PyTorch version (ops/march.py:geometry_reference), which composes the
@@ -235,8 +241,9 @@ __device__ void vis_block(const Scene& sc, const Group<G>& g, const March& m,
   }
 }
 
-// One bounce from (o, d): the march, the classification of its end point,
-// and on a hit the FD normal; on a miss the normal is -d.
+// One bounce from (o, d): the march, the classification of its end point
+// where the bounce can hit, and on a hit the FD normal; on a miss the
+// normal is -d.
 template <int G, class L>
 __device__ void bounce(const Scene& sc, const Group<G>& g, const March& m,
                        const GeomArgs& a, float ox, float oy, float oz,
@@ -248,8 +255,19 @@ __device__ void bounce(const Scene& sc, const Group<G>& g, const March& m,
   *px = ox + *t * dx;
   *py = oy + *t * dy;
   *pz = oz + *t * dz;
-  const float d_end = scene_info<G, L>(sc, g, *px, *py, *pz, idx, mid);
-  *hit = en && d_end < a.eps && *t < a.max_dist;
+  // A hit needs en and t < max_dist whatever the end point's distance, so
+  // a bounce without them is no hit and is not classified: index -1 and
+  // material 0, scene_info's answer where nothing lies under max_dist.
+  // Every lane of the group holds the ray's en and t alike, so the group
+  // takes one branch and scene_info's shuffles name all its lanes.
+  *hit = false;
+  *idx = -1;
+  *mid = 0;
+  if (en && *t < a.max_dist) {
+    *hit = scene_info<G, L>(sc, g, *px, *py, *pz, idx, mid) < a.eps;
+  } else if (g.lane == 0) {
+    count_work(sc, 3, 1);
+  }
   *nx = -dx;
   *ny = -dy;
   *nz = -dz;
@@ -286,7 +304,7 @@ __global__ void geometry_kernel(const GeomArgs a) {
   const Group<G> g;
   const bool writer = g.lane == 0;
 #ifdef COUNT_WORK
-  unsigned long long work[3] = {0, 0, 0};
+  unsigned long long work[4] = {0, 0, 0, 0};
   sc.work = work;
 #endif
 
@@ -392,7 +410,7 @@ __global__ void geometry_kernel(const GeomArgs a) {
   }
 
 #ifdef COUNT_WORK
-  for (int k = 0; k < 3; ++k) {
+  for (int k = 0; k < 4; ++k) {
     if (work[k]) atomicAdd(a.scene.work + k, work[k]);
   }
 #endif

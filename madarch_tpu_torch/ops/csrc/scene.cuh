@@ -160,8 +160,9 @@ struct SceneArgs {
   const float* cap_boxes;  // [n_cap_boxes][6]
   int n_cap_boxes;
   int placement;        // PLACE_STAGED, PLACE_OPTIN or PLACE_GLOBAL
-  // scene evaluations, box tests and chunk-slot evaluations, summed over
-  // the launch by geometry.cu built with COUNT_WORK; else unused
+  // scene evaluations, box tests, chunk-slot evaluations and bounces not
+  // classified, summed over the launch by geometry.cu built with
+  // COUNT_WORK; else unused
   unsigned long long* work;
 };
 
@@ -180,7 +181,8 @@ struct Scene {
   const float* cap_boxes;
   int n_cap_boxes;
 #ifdef COUNT_WORK
-  // this thread's scene evaluations, box tests and chunk-slot evaluations
+  // this thread's scene evaluations, box tests, chunk-slot evaluations and
+  // bounces not classified
   unsigned long long* work;
 #endif
 };

@@ -982,6 +982,11 @@ class _GeomArgs(ctypes.Structure):
     ]
 
 
+# The sums of a COUNT_WORK launch, in order: scene evaluations, box tests,
+# chunk-slot evaluations, bounces not classified (csrc/geometry.cu).
+WORK_COUNTS = 4
+
+
 def geometry_library(lanes=1, count_work=False):
     """The geometry kernel's library built for ``lanes`` lanes per ray;
     ``count_work`` (the kernel sums its own work) selects a measurement
@@ -1137,12 +1142,20 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
     miss's t is max_dist or more.  ``box_cap`` False drops the cap, for a
     measurement.
 
+    The kernel classifies only a bounce that can hit: one enabled (the
+    primary by ``enabled``, the reflection by a primary hit and the
+    roughness gate) whose march ended short of max_dist.  On any other
+    bounce it gives idx -1 and mid (or the reflection's mid) 0.  The plain
+    version classifies every bounce, so on a non-hit its mid is the nearest
+    slot's; no consumer reads mid off a hit.
+
     On the card the launch uses ``geometry_lanes`` lanes per ray and
     ``placement_for``'s placement; ``placement`` (one of PLACEMENTS)
     forces one, ``library`` (a ``geometry_library`` build) overrides the
-    lanes and ``work`` (i64[3] on the device) receives a COUNT_WORK
-    build's counts: all three are for measurements.  A launch at the 8
-    lanes that ``geometry_lanes`` chose records its rays under the
+    lanes and ``work`` (i64[4] on the device) receives a COUNT_WORK
+    build's counts (scene evaluations, box tests, chunk-slot evaluations,
+    bounces not classified): all three are for measurements.  A launch at
+    the 8 lanes that ``geometry_lanes`` chose records its rays under the
     recorder's counter ``geometry.lanes8_rays`` (utils/profiling.py).
 
     Every output is a constant to autograd: the wrapper detaches its
@@ -1180,7 +1193,7 @@ def geometry(packed, lpos, n_lights, origins, dirs, max_dist, *,
     if dev.type != "cuda":
         raise ValueError(f"geometry runs on cpu or cuda, not {dev}")
     if work is not None:
-        launch.check([("work", work, torch.int64, (3,))], dev)
+        launch.check([("work", work, torch.int64, (WORK_COUNTS,))], dev)
     if library is None:
         lanes = geometry_lanes(packed, n)
         if lanes == 8:

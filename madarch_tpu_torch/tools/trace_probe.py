@@ -19,7 +19,12 @@ run the Python; a replay runs none), such as light_shafts'
 ``froxel_rays``, ``scattering_rays``, ``scattering_taps`` and
 ``volumetrics.kernel`` / ``volumetrics.plain``.  Then ``geometry``: that
 frame's GEOMETRY_COUNTERS, 0 where none was recorded (the CPU launches
-no 8-lane group).  One JSON line on stdout.
+no 8-lane group), and its bounces (each geometry call's rays, twice where
+the reflection is folded) with the share of them the kernel did not
+classify (it classifies only a bounce that can hit), counted by a
+COUNT_WORK launch of each of the frame's geometry calls on its own
+inputs; on the CPU, which has no such build, ``skipped_bounces`` and
+``skipped_share`` are None.  One JSON line on stdout.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from madarch_tpu_torch import bench
+from madarch_tpu_torch.ops import march as march_ops
 from madarch_tpu_torch.render import pipeline
 from madarch_tpu_torch.utils import profiling
 
@@ -91,15 +97,48 @@ def segment(r, frames, on, k0):
 
 
 def frame_counters(r):
-    """{name: value} of the counters of one eager frame of ``r``."""
+    """({name: value} of the counters of one eager frame of ``r``, the
+    (args, kwargs) of each geometry call that frame made)."""
+    calls = []
+    launch = march_ops.geometry
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return launch(*args, **kwargs)
+
     profiling.drain()
     profiling.enable()
+    march_ops.geometry = record
     try:
         with pipeline.eager():
             r.render()
     finally:
+        march_ops.geometry = launch
         profiling.disable()
-    return per_frame(profiling.drain())["counters"]
+    return per_frame(profiling.drain())["counters"], calls
+
+
+def skipped_bounces(calls, device):
+    """{"bounces", "skipped_bounces", "skipped_share"} over the geometry
+    ``calls``: each launched again by the COUNT_WORK build of the lanes the
+    wrapper chose, whose fourth sum counts the bounces not classified; the
+    skip counts are None off a card."""
+    bounces = sum(args[3].shape[0] * (1 if kw.get("mat_rough_vec") is None
+                                      else 2) for args, kw in calls)
+    skipped = None
+    if device.type == "cuda":
+        skipped = 0
+        for args, kw in calls:
+            work = torch.zeros(march_ops.WORK_COUNTS, dtype=torch.int64,
+                               device=device)
+            lanes = march_ops.geometry_lanes(args[0], args[3].shape[0])
+            march_ops.geometry(*args, **kw, work=work,
+                               library=march_ops.geometry_library(
+                                   lanes, count_work=True))
+            skipped += int(work[3])
+    return {"bounces": bounces, "skipped_bounces": skipped,
+            "skipped_share": None if skipped is None or not bounces
+            else skipped / bounces}
 
 
 def main(argv=None):
@@ -118,13 +157,14 @@ def main(argv=None):
         for on in ((False, True) if turn % 2 == 0 else (True, False)):
             seg, k = segment(r, args.frames, on, k)
             segments.append(seg)
-    counters = frame_counters(r)
+    counters, calls = frame_counters(r)
     out = {"config": args.config, "size": args.size,
            "device": torch.cuda.get_device_name(dev)
            if dev.type == "cuda" else dev.type, "segments": segments,
            "frame_counters": counters,
            "geometry": {name: counters.get(name, 0)
-                        for name in GEOMETRY_COUNTERS}}
+                        for name in GEOMETRY_COUNTERS}
+           | skipped_bounces(calls, dev)}
     print(json.dumps(out), flush=True)
     return out
 

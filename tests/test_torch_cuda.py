@@ -91,10 +91,21 @@ def _dynamic_scene(dev):
     return spec, b.device_data(dev)
 
 
-def _assert_match(k, r):
-    for key in ("hit", "idx", "mid"):
+def _assert_match(k, r, spec, data, enabled=None):
+    """The kernel's outputs k against the plain version's r over scene
+    (spec, data).  A material id is held on its bounce's hits, where
+    ops/march.py:geometry defines it (the primary's as the reflection's);
+    on every bounce that could not hit (disabled, its march at max_dist;
+    a reflection also without a primary hit or behind the roughness gate)
+    the kernel, which does not classify it, gives idx -1 and mid 0."""
+    for key in ("hit", "idx"):
         assert torch.equal(k[key], r[key]), key
     hit = r["hit"]
+    assert torch.equal(k["mid"][hit], r["mid"][hit])
+    live = torch.ones_like(hit) if enabled is None else enabled
+    skip = ~live | (k["t"] >= spec.max_dist)
+    assert bool((k["idx"][skip] == -1).all())
+    assert bool((k["mid"][skip] == 0).all())
     torch.testing.assert_close(k["t"], r["t"], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(k["normal"][hit], r["normal"][hit],
                                rtol=0, atol=1e-4)
@@ -109,6 +120,9 @@ def _assert_match(k, r):
     kr, rr = k["refl"], r["refl"]
     rhit = rr["hit"]
     assert torch.equal(kr["hit"], rhit)
+    rough = data.materials["roughness"]
+    r_live = hit & (rough[k["mid"].clamp(0, rough.shape[0] - 1)] < 0.75)
+    assert bool((kr["mid"][~r_live | (kr["t"] >= spec.max_dist)] == 0).all())
     for key in ("mid", "best_pid"):
         assert torch.equal(kr[key][rhit], rr[key][rhit]), key
     torch.testing.assert_close(kr["t"], rr["t"], rtol=1e-5, atol=1e-5)
@@ -150,7 +164,7 @@ def test_kernel_matches_plain_version_on_gi(dev, variant):
     k, ref = _both(r.spec, r.scene_data, o, d, refl, 3 if refl else 0,
                    r.probes)
     assert ref["hit"].float().mean() > 0.5
-    _assert_match(k, ref)
+    _assert_match(k, ref, r.spec, r.scene_data)
 
 
 def test_kernel_matches_plain_version_with_dead_slots(dev):
@@ -165,7 +179,7 @@ def test_kernel_matches_plain_version_with_dead_slots(dev):
     assert (~M.slot_live(packed)).sum() == 10
     k, ref = _both(spec, data, o, d, True, 3, ProbeSettings())
     assert k["shadows"].shape == (2, 4096)
-    _assert_match(k, ref)
+    _assert_match(k, ref, spec, data)
 
 
 def test_kernel_skips_reflection_shadows(dev):
@@ -184,7 +198,7 @@ def test_kernel_skips_reflection_shadows(dev):
     ref = M.geometry_reference(packed, lpos, n_lights, o, d,
                                r.spec.max_dist, **kw)
     assert (k["refl"]["shadows"] == 1).all()
-    _assert_match(k, ref)
+    _assert_match(k, ref, r.spec, r.scene_data)
 
 
 # ---------------------------------------------------------------------------
@@ -405,7 +419,7 @@ def test_masked_geometry_matches_plain_on_gi_reflections(dev):
     assert M.launch_counts()["geometry"] == before + 1
     ref = M.geometry_reference(packed, lpos, n_lights, ro, rd,
                                r.spec.max_dist, **kw)
-    _assert_match(k, ref)
+    _assert_match(k, ref, r.spec, r.scene_data, en)
     assert (k["t"][~en] == 0).all() and not k["hit"][~en].any()
     assert (k["ao"] == 1).all() and ref["hit"].float().mean() > 0.5
 
@@ -490,7 +504,7 @@ def test_geometry_matches_plain_on_the_mesh(dev, refl):
     assert packed.chunks.numel() * 4 > 48 * 1024 and packed.n_chunks == 121
     k, ref = _both(spec, data, o, d, refl, 3 if refl else 0, r.probes)
     assert ref["hit"].float().mean() > 0.5
-    _assert_match(k, ref)
+    _assert_match(k, ref, spec, data)
 
 
 @pytest.mark.parametrize("flags", [
@@ -514,7 +528,7 @@ def test_kernel_matches_plain_with_marches_off(dev, case, flags):
         o, d = _mesh_rays(r, dev)
     ao = 3 if refl else 0
     k, ref = _both(spec, data, o, d, refl, ao, r.probes, **flags)
-    _assert_match(k, ref)
+    _assert_match(k, ref, spec, data)
     on = _both(spec, data, o, d, refl, ao, r.probes)[0]
     for key, want in (("shadows", "want_shadows"), ("vis8", "want_vis")):
         if not flags.get(want, True):
@@ -538,7 +552,7 @@ def test_geometry_matches_plain_with_dead_triangle_slots(dev):
     assert int((packed.chunk_live == 0).sum()) == 300
     k, ref = _both(spec, data, o, d, True, 3, r.probes)
     assert ref["hit"].float().mean() > 0.3
-    _assert_match(k, ref)
+    _assert_match(k, ref, spec, data)
 
 
 def test_march_kernels_match_plain_on_the_mesh(dev):
@@ -603,7 +617,7 @@ def test_box_cap_geometry_matches_plain_on_camera_rays(dev, lanes, masked):
     assert packed.cap_margin == M.FAR_MARGIN
     k, ref = _both(spec, data, o, d, True, 3, r.probes, lanes=lanes,
                    enabled=en)
-    _assert_match(k, ref)
+    _assert_match(k, ref, spec, data, en)
     hit = k["hit"]
     assert 0 < int(hit.sum()) < hit.numel() // 2
     live = torch.ones_like(hit) if en is None else en
@@ -619,7 +633,7 @@ def test_box_cap_geometry_matches_plain_on_camera_rays(dev, lanes, masked):
                        **kw)
     _assert_match(k_off, M.geometry_reference(
         M.without_box_cap(packed), lpos, n_lights, o, d, spec.max_dist,
-        **kw))
+        **kw), spec, data, en)
     assert torch.equal(k_off["hit"], hit)
     assert torch.equal(k_off["t"][hit], k["t"][hit])
     assert bool((k_off["t"][live & ~hit] > spec.max_dist).all())
@@ -668,7 +682,7 @@ def test_box_cap_without_triangles_matches_plain(dev, lanes, counts):
     grid = ProbeSettings(grid_dimensions=(3, 3, 4),
                          grid_spacing=(2.0, 3.0, 3.0))
     k, ref = _both(spec, data, o, d, True, 3, grid, lanes=lanes)
-    _assert_match(k, ref)
+    _assert_match(k, ref, spec, data)
     hit = k["hit"]
     assert 0 < int(hit.sum()) < hit.numel()
     assert bool((k["t"][~hit] == spec.max_dist).any())
@@ -716,7 +730,7 @@ def test_each_lane_count_matches_plain_on_gi(dev, lanes, variant):
     k, ref = _both(r.spec, r.scene_data, o, d, refl, 3 if refl else 0,
                    r.probes, lanes)
     assert ref["hit"].float().mean() > 0.5
-    _assert_match(k, ref)
+    _assert_match(k, ref, r.spec, r.scene_data)
 
 
 @pytest.mark.parametrize("lanes", M.LANE_CHOICES)
@@ -727,7 +741,7 @@ def test_each_lane_count_matches_plain_on_simple_scene(dev, lanes):
     o, d = _gi_rays(r, dev, "screen", n=4099)
     k, ref = _both(r.spec, r.scene_data, o, d, True, 3, r.probes, lanes)
     assert ref["hit"].float().mean() > 0.5
-    _assert_match(k, ref)
+    _assert_match(k, ref, r.spec, r.scene_data)
 
 
 @pytest.mark.parametrize("lanes", M.LANE_CHOICES)
@@ -740,7 +754,7 @@ def test_each_lane_count_matches_plain_with_dead_slots(dev, lanes):
     d = torch.randn(4099, 3, generator=g)
     d = (d / d.norm(dim=1, keepdim=True)).to(dev)
     k, ref = _both(spec, data, o.to(dev), d, True, 3, ProbeSettings(), lanes)
-    _assert_match(k, ref)
+    _assert_match(k, ref, spec, data)
 
 
 @pytest.mark.parametrize("lanes", M.LANE_CHOICES)
@@ -751,7 +765,7 @@ def test_each_lane_count_matches_plain_on_the_mesh(dev, lanes, n_live):
     o, d = _mesh_rays(r, dev, n=4099, seed=53)
     k, ref = _both(spec, data, o, d, True, 3, r.probes, lanes)
     assert ref["hit"].float().mean() > 0.3
-    _assert_match(k, ref)
+    _assert_match(k, ref, spec, data)
 
 
 @pytest.mark.parametrize("lanes", M.LANE_CHOICES)
@@ -775,7 +789,7 @@ def test_each_lane_count_matches_plain_on_a_masked_launch(dev, lanes, scene):
         & (torch.rand(4099, generator=g) > 0.1).to(dev)
     assert en.any() and not en.all()
     k, ref = _both(spec, data, o, d, False, 0, r.probes, lanes, enabled=en)
-    _assert_match(k, ref)
+    _assert_match(k, ref, spec, data, en)
     assert (k["t"][~en] == 0).all() and not k["hit"][~en].any()
     assert ref["hit"].any()
 
@@ -1544,7 +1558,7 @@ def test_large_scenes_match_plain(dev, scene):
             k = M.geometry(packed, lpos, n_lights, o, d, spec.max_dist,
                            library=M.geometry_library(lanes), **kw)
             torch.cuda.synchronize()
-            _assert_match(k, ref)
+            _assert_match(k, ref, spec, data, enabled)
     mn = (torch.rand(o.shape[0], generator=g) * 0.5).to(dev)
     mx = (torch.rand(o.shape[0], generator=g) * 20.0).to(dev)
     got = _march_all(packed, spec.max_dist, o, d, en, mn, mx)

@@ -21,6 +21,7 @@ dead slot); 64x64 compiled frames by both routes.  A relative gap is the
 largest absolute difference over the largest magnitude of the reference;
 NaN (Cook-Torrance's 0/0 at roughness 0) must sit at the same places.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -39,7 +40,7 @@ from madarch_tpu_torch.render import shading as SH
 from madarch_tpu_torch.render.camera import camera_rays, pixel_grid
 from madarch_tpu_torch.render.context import SceneCtx
 from madarch_tpu_torch.scene import lights as L
-from madarch_tpu_torch.scene.scene import SceneSpec, tree_map
+from madarch_tpu_torch.scene.scene import SceneSpec, tree_leaves, tree_map
 from madarch_tpu_torch.utils import profiling
 
 PLAIN_REL = 1e-6
@@ -48,6 +49,9 @@ PLAIN_REL = 1e-6
 IMAGE_GAP = 1e-5
 SMALL = ProbeSettings(radiance_resolution=4, irradiance_resolution=2)
 TINY = ProbeSettings(radiance_resolution=8, irradiance_resolution=4)
+# march steps of the GI room's passes where its rays have to end without a
+# hit: the room is closed by planes
+ROOM_STEPS = 6
 
 
 @pytest.fixture
@@ -520,6 +524,59 @@ def test_compiled_frames_by_both_routes(dev, scene, monkeypatch):
     assert rel_gap(ref_state.radiance, plain_state.radiance) <= PLAIN_REL
     assert float(img.var()) > 0.0
     pipeline.clear_compiled()
+
+
+def _scrambled(g, n_mats, moved):
+    """Geometry outputs g with each bounce's material id moved, off its
+    hits, to another of the n_mats ids (``moved`` gets how many were)."""
+    def move(mid, hit):
+        out = torch.where(hit, mid, (mid + 1) % n_mats)
+        moved.append(int((out != mid).sum()))
+        return out.contiguous()
+
+    g = dict(g, mid=move(g["mid"], g["hit"]))
+    if g["refl"] is not None:
+        g["refl"] = dict(g["refl"], mid=move(g["refl"]["mid"],
+                                             g["refl"]["hit"]))
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["global_illumination", "obj_mesh"])
+def test_frames_ignore_the_material_of_non_hits(dev, scene, monkeypatch):
+    """The geometry kernel gives material 0 on a bounce it does not
+    classify (ops/march.py:geometry): an eager 64x64 frame of the kernel
+    route whose every geometry launch has its non-hits' mid and r_mid
+    moved to other ids is bit-equal to the frame as launched, image and
+    state.  The torus's rays mostly miss; the GI room's march only
+    ROOM_STEPS steps, so that some of its rays end without a hit."""
+    r = _scene(scene, dev, size=64)
+    r.converge(frames=2)
+    cfgs = dict(screen_cfg=r.screen_cfg, probe_cfg=r.probe_cfg)
+    if scene == "global_illumination":
+        cfgs = {k: dataclasses.replace(c, max_march_steps=ROOM_STEPS)
+                for k, c in cfgs.items()}
+
+    def frame():
+        with torch.no_grad():
+            return pipeline.render_frame(
+                r.spec, r.probes, r.volumetrics, r.width, r.height,
+                r.scene_data, r.camera, r.state, **cfgs)
+
+    before = M.launch_counts()["shade"]
+    img, state = frame()
+    assert M.launch_counts()["shade"] == before + 2
+    geometry, moved = SceneCtx.geometry, []
+    n_mats = r.scene_data.materials["roughness"].shape[0]
+    assert n_mats >= 2
+    monkeypatch.setattr(SceneCtx, "geometry", lambda *a, **kw: _scrambled(
+        geometry(*a, **kw), n_mats, moved))
+    img2, state2 = frame()
+    torch.cuda.synchronize()
+    assert len(moved) == 3 and all(moved)
+    assert torch.equal(img, img2)
+    for a, b in zip(tree_leaves(state), tree_leaves(state2)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -400,4 +400,9 @@ def test_trace_probe_turns_the_recorder_off_and_on():
         "geometry.rays"]
     assert geometry["geometry.slot_rays.chunked"] == 0
     assert geometry["geometry.lanes8_rays"] == 0
+    # its bounces: every ray's primary and the screen pass's reflections;
+    # the CPU has no COUNT_WORK build to count the skipped ones
+    assert geometry["bounces"] == geometry["geometry.rays"] + 32 * 32
+    assert geometry["skipped_bounces"] is None
+    assert geometry["skipped_share"] is None
     TPL.clear_compiled()
